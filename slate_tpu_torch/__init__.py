@@ -1,0 +1,31 @@
+"""slate_tpu_torch — the PyTorch/CUDA port of the JAX package.
+
+Tiled matrices in the same 2-D block-cyclic layout as ``slate_tpu``, and
+the Cholesky solve path (``potrf`` → ``potrs`` → ``posv``) on one
+device. Its tile ops run hand-written CUDA kernels for Hopper (sm_90a)
+on the card, built with ``nvcc`` at first use (``csrc/``), and their
+plain PyTorch versions on the CPU.
+
+Entry points run on the CUDA card unless the caller asks for the CPU:
+``Grid(1, 1)`` means ``torch.device("cuda")`` and raises without one;
+``Grid(1, 1, device="cpu")`` runs on the CPU.
+
+This package imports torch, numpy and the standard library only, never
+JAX or ``slate_tpu``.
+"""
+
+from .types import Op, Uplo, Diag, Side, Norm, Option, get_option
+from .errors import SlateError, InfoError, slate_error_if, raise_if_info
+from .grid import Grid
+from .matrix import (
+    BaseTiledMatrix, Matrix, HermitianMatrix, TriangularMatrix,
+    transpose, conj_transpose, cdiv, bc_from_tiles, bc_to_tiles,
+    dense_to_tiles, tiles_to_dense,
+)
+from .robust.guards import finite_guard, info_merge, zero_nonfinite
+from .internal import kernels
+from .ops.blas import gemm, trsm
+from .linalg.potrf import potrf, potrs, posv
+from .simplified import (multiply, chol_factor, chol_solve,
+                         chol_solve_using_factor)
+from .interop import from_reference, to_reference

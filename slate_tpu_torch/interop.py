@@ -1,0 +1,47 @@
+"""Carry a matrix across from the JAX package and back.
+
+A matrix of either package is its storage ``data[p, q, mtl, ntl, nb, nb]``
+plus plain fields, laid out the same way in both. These functions take
+and give the fields as a numpy array and plain strings, so this package
+never touches a JAX object; the storage is kept bit for bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .errors import slate_error_if
+from .grid import Grid
+from .matrix import BaseTiledMatrix, HermitianMatrix, Matrix, TriangularMatrix
+from .types import Diag, Op, Uplo
+
+_KINDS = {cls.__name__: cls
+          for cls in (Matrix, HermitianMatrix, TriangularMatrix)}
+
+
+def from_reference(data: np.ndarray, *, kind: str, m: int, n: int, nb: int,
+                   op: str = "NoTrans", uplo: str = "General",
+                   diag: str = "NonUnit", device=None) -> BaseTiledMatrix:
+    """Build the port's matrix from a JAX matrix's fields: ``data`` is
+    ``np.asarray(A.data)``, ``kind`` its class name, ``op``/``uplo``/
+    ``diag`` the enum member names (``A.op.name`` …). ``device`` is as
+    for :class:`Grid`."""
+    slate_error_if(kind not in _KINDS, f"from_reference: unknown kind {kind!r}"
+                   f"; expected one of {sorted(_KINDS)}")
+    data = np.asarray(data)
+    slate_error_if(data.ndim != 6 or data.shape[4:] != (nb, nb),
+                   f"from_reference: storage must be [p, q, mtl, ntl, nb, "
+                   f"nb], got {data.shape}")
+    grid = Grid(data.shape[0], data.shape[1], device=device)
+    t = torch.from_numpy(np.array(data, order="C")).to(grid.device)
+    return _KINDS[kind](data=t, m=m, n=n, nb=nb, grid=grid, op=Op[op],
+                        uplo=Uplo[uplo], diag=Diag[diag])
+
+
+def to_reference(M: BaseTiledMatrix) -> dict:
+    """The fields of :func:`from_reference` for ``M``: ``data`` as a numpy
+    array on the host, the rest as plain ints and strings."""
+    return {"data": M.data.detach().cpu().numpy(), "kind": type(M).__name__,
+            "m": M.m, "n": M.n, "nb": M.nb, "op": M.op.name,
+            "uplo": M.uplo.name, "diag": M.diag.name}

@@ -1,0 +1,148 @@
+"""Cholesky: potrf / potrs / posv on one device (reference src/potrf.cc,
+src/potrs.cc, src/posv.cc; counterpart of ``slate_tpu/linalg/potrf.py``).
+
+The factorization is the right-looking blocked loop over the block
+columns of the dense matrix: symmetrise and factor the diagonal tile,
+solve the panel below it, subtract the panel's product from the lower
+triangle of the trailing matrix. The port runs eagerly and updates the
+dense copy in place (panel write-back and trailing update), so the peak
+is the matrix, its dense copy and one panel.
+
+Numerical failure (not positive definite) is reported through ``info``,
+the 1-based index of the first failing block column (0 = success), a
+0-dim int32 tensor on the matrix's device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..errors import slate_error_if
+from ..internal.precision import resolve_tier, trailing_matmul
+from ..internal.tile_kernels import (_factor_dtype, tile_potrf,
+                                     tile_trsm_right_lower_t)
+from ..matrix import (HermitianMatrix, Matrix, TriangularMatrix,
+                      bc_from_tiles, cdiv, conj_transpose, dense_to_tiles,
+                      tiles_to_dense)
+from ..ops.blas import trsm
+from ..robust.guards import finite_guard
+from ..types import Diag, Side, Uplo
+
+
+def potrf(A: HermitianMatrix, opts=None):
+    """Cholesky factor A = L·Lᴴ (lower) or Uᴴ·U (upper).
+
+    Returns ``(L, info)``: a TriangularMatrix sharing A's geometry and
+    an int32 scalar tensor (0 ⇒ success, else 1-based index of the first
+    non-positive-definite block column). A is not modified.
+    """
+    slate_error_if(A.m != A.n, "potrf needs a square matrix")
+    slate_error_if(A.grid.size != 1,
+                   "potrf: multi-device grids are not ported yet")
+    slate_error_if(A.dtype.is_complex,
+                   "potrf: complex dtypes are not ported yet")
+    if A.uplo == Uplo.Upper:
+        # Factor the mirrored lower problem; return the upper view.
+        Alow = HermitianMatrix(data=_conj_transpose_data(A), m=A.m, n=A.n,
+                               nb=A.nb, grid=A.grid, uplo=Uplo.Lower)
+        L, info = potrf(Alow, opts)
+        U = TriangularMatrix(data=_conj_transpose_data(L), m=A.m, n=A.n,
+                             nb=A.nb, grid=A.grid, uplo=Uplo.Upper,
+                             diag=Diag.NonUnit)
+        return U, info
+    tier = resolve_tier(opts)
+    # On one device the port always takes the dense loop: the JAX
+    # package caps it at 64 block columns only because it unrolls the
+    # loop at trace time; an eager loop has no trace to grow.
+    data, info = _potrf_dense_1dev(A, tier)
+    L = TriangularMatrix(data=data, m=A.m, n=A.n, nb=A.nb, grid=A.grid,
+                         uplo=Uplo.Lower, diag=Diag.NonUnit)
+    return L, info
+
+
+def _conj_transpose_data(A):
+    """Conj-transposed storage of a square matrix, via the canonical
+    materialize path."""
+    G = Matrix(data=A.data, m=A.m, n=A.n, nb=A.nb, grid=A.grid)
+    return conj_transpose(G).materialize().data
+
+
+def _syrk_update_inplace(a, r0, nsub, v, cutoff=2048):
+    """a[r0:r0+nsub, r0:r0+nsub] −= v·vᵀ in place, touching (mostly) only
+    the lower-triangular blocks: recursive 2×2 split — the diagonal
+    halves recurse, the off-diagonal quarter is one rectangular product.
+    Saves ~45% of the flops a full square product would spend on the
+    (junk-by-contract) upper half."""
+    if nsub <= cutoff:
+        a[r0:r0 + nsub, r0:r0 + nsub].addmm_(v, v.mT, alpha=-1)
+        return
+    h = nsub // 2
+    _syrk_update_inplace(a, r0, h, v[:h], cutoff)
+    a[r0 + h:r0 + nsub, r0:r0 + h].addmm_(v[h:], v[:h].mT, alpha=-1)
+    _syrk_update_inplace(a, r0 + h, nsub - h, v[h:], cutoff)
+
+
+def _potrf_dense_loop(a, nb, n, Mp, tier):
+    """Blocked Cholesky in place on a dense [Mp, ≥Mp] tensor (rows ≥ n
+    padded with an identity diagonal by the caller); returns ``info``."""
+    nt = cdiv(n, nb)
+    info = torch.zeros((), dtype=torch.int32, device=a.device)
+    fd = _factor_dtype(a.dtype)
+    for k in range(nt):
+        r0 = k * nb
+        akk = a[r0:r0 + nb, r0:r0 + nb]
+        # the upper half of a Hermitian tile is junk: mirror the lower
+        akk = akk.tril() + akk.tril(-1).mT
+        lkk, info = finite_guard(tile_potrf(akk), info, k + 1, diag=True)
+        a[r0:r0 + nb, r0:r0 + nb] = lkk.tril()
+        if r0 + nb < Mp:
+            pan = tile_trsm_right_lower_t(
+                lkk.to(fd), a[r0 + nb:, r0:r0 + nb].to(fd)).to(a.dtype)
+            pan, info = finite_guard(pan, info, k + 1)
+            a[r0 + nb:, r0:r0 + nb] = pan          # panel write-back
+            with trailing_matmul(tier):
+                _syrk_update_inplace(a, r0 + nb, Mp - r0 - nb, pan)
+    return info
+
+
+def _potrf_dense_1dev(A, tier):
+    """Single-device path: blocked Cholesky of the dense (padded)
+    matrix, then back to tiles."""
+    nb = A.nb
+    n = A.n
+    nt = cdiv(n, nb)
+    mtl, ntl = A.mtl, A.ntl
+    Mp = mtl * nb
+    a = tiles_to_dense(A.data[0, 0], Mp, ntl * nb)   # a new tensor
+    if Mp > n:  # identity on the padded diagonal (cf. tile_diag_pad_identity)
+        pad = torch.arange(n, min(Mp, ntl * nb), device=a.device)
+        a[pad, pad] = 1.0
+    info = _potrf_dense_loop(a, nb, n, Mp, tier)
+    if min(Mp, ntl * nb) > nt * nb:
+        # tiles past the last real block column stay zero; in-tile
+        # diagonal padding of block nt-1 keeps its identity, matching
+        # tile_diag_pad_identity
+        pad = torch.arange(nt * nb, min(Mp, ntl * nb), device=a.device)
+        a[pad, pad] = 0.0
+    tiles = dense_to_tiles(a, nb, mtl, ntl)
+    return bc_from_tiles(tiles, 1, 1), info
+
+
+def potrs(L: TriangularMatrix, B: Matrix, opts=None) -> Matrix:
+    """Solve A·X = B given the Cholesky factor (reference src/potrs.cc):
+    L·Y = B then Lᴴ·X = Y (lower), or Uᴴ·Y = B then U·X = Y (upper)."""
+    slate_error_if(L.dtype.is_complex,
+                   "potrs: complex dtypes are not ported yet")
+    if L.uplo == Uplo.Upper:
+        Y = trsm(Side.Left, 1.0, conj_transpose(L), B, opts)
+        return trsm(Side.Left, 1.0, L, Y, opts)
+    Y = trsm(Side.Left, 1.0, L, B, opts)
+    return trsm(Side.Left, 1.0, conj_transpose(L), Y, opts)
+
+
+def posv(A: HermitianMatrix, B: Matrix, opts=None):
+    """Solve A·X = B by Cholesky (reference src/posv.cc).
+    Returns (X, L, info)."""
+    L, info = potrf(A, opts)
+    X = potrs(L, B, opts)
+    return X, L, info

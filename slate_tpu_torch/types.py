@@ -1,0 +1,111 @@
+"""Enums and options (reference include/slate/enums.hh, types.hh).
+
+The per-call ``opts`` dict is the analog of SLATE's
+``Options = std::map<Option, OptionValue>`` (types.hh:61). The keys are
+kept whole so that option-compatible call sites keep working; this
+slice of the port reads only ``Option.TrailingPrecision``.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Any, Mapping
+
+
+class Op(enum.Enum):
+    """Transposition flag (BLAS op; reference blaspp Op)."""
+    NoTrans = "n"
+    Trans = "t"
+    ConjTrans = "c"
+
+
+class Uplo(enum.Enum):
+    Lower = "l"
+    Upper = "u"
+    General = "g"
+
+
+class Diag(enum.Enum):
+    NonUnit = "n"
+    Unit = "u"
+
+
+class Side(enum.Enum):
+    Left = "l"
+    Right = "r"
+
+
+class Norm(enum.Enum):
+    """Matrix norm kind (reference lapackpp Norm; src/norm.cc)."""
+    One = "1"
+    Two = "2"
+    Inf = "i"
+    Fro = "f"
+    Max = "m"
+
+
+class Option(enum.Enum):
+    """Option keys (reference enums.hh:69-101)."""
+    ChunkSize = enum.auto()
+    Lookahead = enum.auto()
+    BlockSize = enum.auto()
+    InnerBlocking = enum.auto()
+    MaxPanelThreads = enum.auto()
+    Tolerance = enum.auto()
+    Target = enum.auto()
+    TileReleaseStrategy = enum.auto()
+    HoldLocalWorkspace = enum.auto()
+    Depth = enum.auto()
+    MaxIterations = enum.auto()
+    UseFallbackSolver = enum.auto()
+    PivotThreshold = enum.auto()
+    PrintVerbose = enum.auto()
+    PrintEdgeItems = enum.auto()
+    PrintWidth = enum.auto()
+    PrintPrecision = enum.auto()
+    MethodCholQR = enum.auto()
+    MethodEig = enum.auto()
+    MethodGels = enum.auto()
+    MethodGemm = enum.auto()
+    MethodHemm = enum.auto()
+    MethodLU = enum.auto()
+    MethodTrsm = enum.auto()
+    MethodSVD = enum.auto()
+    EigBand = enum.auto()
+    # precision tier for the O(n³) trailing updates
+    # (internal/precision.py); panels and triangular solves always run
+    # at full FP32 whatever this says
+    TrailingPrecision = enum.auto()
+    PipelineDepth = enum.auto()
+    Abft = enum.auto()
+
+
+Options = Mapping[Option, Any]
+
+
+_DEFAULTS = {
+    Option.Lookahead: 1,
+    Option.BlockSize: 256,
+    Option.InnerBlocking: 16,
+    Option.MaxPanelThreads: 1,
+    Option.Tolerance: None,
+    Option.MaxIterations: 30,
+    Option.UseFallbackSolver: True,
+    Option.PivotThreshold: 1.0,
+    Option.PrintVerbose: 4,
+    Option.PrintEdgeItems: 16,
+    Option.PrintWidth: 10,
+    Option.PrintPrecision: 4,
+    Option.TrailingPrecision: "bf16_6x",
+    Option.PipelineDepth: 0,
+    Option.Abft: False,
+}
+
+
+def get_option(opts: Options | None, key: Option, default: Any = None) -> Any:
+    """Typed option getter (reference types.hh:166-200)."""
+    if opts is not None and key in opts:
+        return opts[key]
+    if default is not None:
+        return default
+    return _DEFAULTS.get(key)
