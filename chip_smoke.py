@@ -13,24 +13,48 @@
    kernel's time, the plain version's time, the ``torch.linalg`` call's
    time (CUDA events, median of 7 runs after a warm-up) and the least
    time the card could take (FP32 operations or bytes).
+2b. The LU panel kernels (K4 ``panel_plu``, K5 ``panel_fold`` /
+   ``panel_unfold``) against their plain versions on the card: K4 on a
+   folded [8, 1024, 2048] panel at blocks 0 and 7 with 3000 rows already
+   inactive, flat at h=7424 and h=384, and through
+   ``plu_subpanel(fold=True)`` at h=16384 (pivots, mask and ``info``
+   equal, values within atol 1e-4); K5 bitwise against
+   ``permute().contiguous()``. Times as in 2; the library call is
+   ``torch.linalg.lu_factor`` on the [h, 128] subpanel for K4 and the
+   ``permute().contiguous()`` copy for K5.
 3. The main path: ``posv`` at f32, n=16384, nb=1024 on ``Grid(1, 1)``
    with A = G·Gᵀ/n + I (built with the port's ``gemm``) and 8
    right-hand sides; checks ``info == 0``, the residual bound, and that
    each kernel was launched on this path; prints ``potrf``/``posv``
    times, the peak memory of ``posv``, and where one ``posv``'s device
    time goes under ``torch.profiler``.
+3b. The LU main path: ``gesv`` at f32, n=16384, nb=1024, 8 right-hand
+   sides, on a seeded Gaussian A (the pivoting-by-index fast path with
+   the folded panel layout); checks ``info == 0``, the residual and
+   ‖P·A − L·U‖ bounds, max|L| ≤ 1 + 1e-5 and the exact launch counts;
+   prints ``getrf``/``gesv`` times, the peak memory of ``gesv`` and its
+   ``torch.profiler`` breakdown.
+3c. The flat branch: ``gesv`` at n=8448, nb=256 (every panel window
+   height is 256 mod 1024), the same checks and its launch counts.
+3d. The subpanel entry ``plu_panel(fold=True)`` at h=16384, the path of
+   the folded subpanel kernel and its two transposes.
 4. Failure report: a non-SPD matrix whose leading 256×256 block is not
    positive definite gives ``info == 2`` on the card and on the CPU;
-   a small SPD solve agrees between the two.
+   a small SPD solve agrees between the two. LU at n=2048, nb=1024 with
+   SLATE_LU_FAST=1 on the card and on the CPU: equal ipiv, LU within
+   10·n·2⁻²⁴·max|LU|; a matrix with a zero column gives the same ``info``
+   (1) on both.
 
-Any failure raises and the script exits non-zero. Without a CUDA card
-it exits with code 2 before doing anything. The last line is
-``{"ok": true, "device": {...}}``.
+Each path of 3–3d runs with the launch counts set to 0 just before it
+and read just after. Any failure raises and the script exits non-zero.
+Without a CUDA card it exits with code 2 before doing anything. The last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -40,18 +64,37 @@ import numpy as np
 import torch
 
 N, NB, NRHS = 16384, 1024, 8
+FLAT_N, FLAT_NB = 8448, 256   # every LU panel window height ≡ 256 mod 1024
 TOL = 1e-5                # kernel vs plain: relative Frobenius error, FP32
+LU_ATOL = 1e-4            # K4 vs plain: values (pivots, mask, info equal)
 FP32_PEAK = 67e12         # H100 SXM, non-tensor FP32 FLOP/s (data sheet)
 HBM_RATE = 3.35e12        # H100 SXM, bytes/s (data sheet)
 REPS = 7
+# Device cycles of the sleep queued before each timed run (about 25 ms at
+# the H100's 1.98 GHz boost clock): the host queues the timed launches
+# while the device sleeps, so the events time the device's work and not
+# the host's launch overhead (tens of µs a call from Python).
+SLEEP_CYCLES = 50_000_000
 
+# kernel -> (source, TPU function it replaces, path whose launches count)
+_PLU = "slate_tpu_torch/csrc/panel_plu.cu"
+_TR = "slate_tpu_torch/csrc/panel_transpose.cu"
+_JPP = "slate_tpu/internal/panel_plu.py"
 KERNELS = {
     "potrf_tile": ("slate_tpu_torch/csrc/potrf_tile.cu",
-                   "slate_tpu/internal/pallas_kernels.py:428"),
+                   "slate_tpu/internal/pallas_kernels.py:428", "posv"),
     "trsm_right_lower_t": ("slate_tpu_torch/csrc/trsm_lower.cu",
-                           "slate_tpu/internal/pallas_kernels.py:613"),
+                           "slate_tpu/internal/pallas_kernels.py:613", "posv"),
     "trsm_left_lower": ("slate_tpu_torch/csrc/trsm_lower.cu",
-                        "slate_tpu/internal/pallas_kernels.py:594"),
+                        "slate_tpu/internal/pallas_kernels.py:594", "posv"),
+    "plu_call": (_PLU, f"{_JPP}:505", "gesv_flat"),
+    "plu_call_folded": (_PLU, f"{_JPP}:483", "plu_panel"),
+    "plu_call_folded_block": (_PLU, f"{_JPP}:432", "gesv"),
+    "transpose_tiled": (_TR, f"{_JPP}:321", "gesv_flat"),
+    "transpose_fold": (_TR, f"{_JPP}:363", "plu_panel"),
+    "fold_panel": (_TR, f"{_JPP}:381", "gesv"),
+    "unfold_panel": (_TR, f"{_JPP}:401", "gesv"),
+    "unfold_transpose": (_TR, f"{_JPP}:419", "plu_panel"),
 }
 
 
@@ -59,13 +102,23 @@ def say(*a):
     print(*a, flush=True)
 
 
-def time_ms(fn) -> float:
+def time_ms(fn, setup=None) -> float:
+    """Median device time of REPS runs after a warm-up, each queued
+    behind a device sleep; ``setup`` (restoring an input that ``fn``
+    updates in place) runs before each, untimed. A call that the host
+    cannot queue within the sleep, or that synchronises, is timed with
+    its host work."""
+    if setup:
+        setup()
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(REPS):
+        if setup:
+            setup()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         s.record()
         fn()
         e.record()
@@ -255,14 +308,272 @@ def phase_main_path():
     assert tuple(x.shape) == (N, NRHS) and bool(torch.isfinite(x).all())
     assert r <= limit, f"residual {r} above {limit}"
     nt = N // NB
-    expect = {"potrf_tile": nt, "trsm_right_lower_t": nt - 1,
-              "trsm_left_lower": nt}
+    expect = {**dict.fromkeys(K.LAUNCHES, 0), "potrf_tile": nt,
+              "trsm_right_lower_t": nt - 1, "trsm_left_lower": nt}
     assert launches == expect, f"launches {launches}, expected {expect}"
-    phase_breakdown(st, A, B)
+    phase_breakdown("posv", lambda: st.posv(A, B))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the LU slice
+# ---------------------------------------------------------------------------
+
+def plu_bound(h, act):
+    """K4's least time for one 128-column block: flops of this mask (a
+    multiplier and a rank-1 row update per active row and column) and
+    bytes (block and mask read once, written once)."""
+    a0 = int((act > 0).sum())
+    flops = sum(max(a0 - j - 1, 0) * (1 + 2 * (127 - j)) for j in range(128))
+    return bound(flops, (2 * h * 128 + 2 * h) * 4 + 128 * 4)
+
+
+def check_plu(label, buf, act, blk, name):
+    """K4 on copies of (buf, act) against its plain version: equal
+    pivots, mask and info, values within LU_ATOL; returns the max
+    absolute difference."""
+    from slate_tpu_torch.internal import kernels as K
+    kb, ka = buf.clone(), act.clone()
+    piv, info = K.panel_plu(kb, ka, blk, name=name)
+    piv_p, info_p = K.panel_plu_plain(buf, act, blk)   # in place on the inputs
+    torch.cuda.synchronize()
+    mx = float((kb - buf).abs().max())
+    ok = (torch.equal(piv, piv_p) and torch.equal(ka, act)
+          and int(info) == int(info_p) and mx <= LU_ATOL)
+    say(f"  panel_plu {label}: pivots/mask/info equal "
+        f"{torch.equal(piv, piv_p)}/{torch.equal(ka, act)}/"
+        f"{int(info) == int(info_p)} (info {int(info)}), max_abs_err "
+        f"{mx:.3e} (tol {LU_ATOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"panel_plu {label} disagrees with its plain "
+                             "version")
+    return mx
+
+
+def time_plu(buf, act, blk, name):
+    """Kernel, plain and lu_factor times of one block factorization; the
+    inputs are restored before each run, untimed."""
+    from slate_tpu_torch.internal import kernels as K
+    S, nb, L = buf.shape
+    wb, wa = buf.clone(), act.clone()
+
+    def restore():
+        wb.copy_(buf)
+        wa.copy_(act)
+    sub = K.panel_unfold_plain(buf[:, blk * 128:(blk + 1) * 128, :])
+    # the library call runs in cuSOLVER: PyTorch's default picks MAGMA's
+    # batched routine for this single tall matrix and prints a warning at
+    # every call
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        library_ms = time_ms(lambda: torch.linalg.lu_factor(sub))
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+    return dict(ms=time_ms(lambda: K.panel_plu(wb, wa, blk, name=name),
+                           restore),
+                plain_ms=time_ms(lambda: K.panel_plu_plain(wb, wa, blk),
+                                 restore),
+                library_ms=library_ms, bound=plu_bound(S * L, act))
+
+
+def check_transpose(name, fn, plain, x):
+    out = fn(x)
+    ref = plain(x)
+    torch.cuda.synchronize()
+    ok = out.shape == ref.shape and torch.equal(out, ref)
+    say(f"  {name} {tuple(x.shape)} -> {tuple(out.shape)}: bitwise "
+        f"{'equal ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with permute().contiguous()")
+    return dict(max_abs_err=0.0, ms=time_ms(lambda: fn(x)),
+                plain_ms=time_ms(lambda: plain(x)),
+                library_ms=time_ms(lambda: plain_copy(x, out).contiguous()),
+                bound=bound(0, 2 * x.numel() * 4))
+
+
+def plain_copy(x, out):
+    """The library call K5 is held to: one permute().contiguous() copy
+    of x into out's layout."""
+    if x.dim() == 2:
+        S = out.shape[0]
+        return x.reshape(S, x.shape[0] // S, x.shape[1]).permute(0, 2, 1)
+    return x.permute(0, 2, 1).reshape(out.shape)
+
+
+def phase_lu_kernels():
+    from slate_tpu_torch.internal import kernels as K
+    from slate_tpu_torch.internal import panel_plu as pp
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = {}
+    say("LU panel kernel checks (kernel vs plain on the card):")
+    # K4, folded: blocks 0 and 7 of one [8, 1024, 2048] panel
+    h = N
+    buf = torch.randn(8, NB, h // 8, generator=gen, device="cuda")
+    act = torch.ones(h, device="cuda")
+    act[torch.randperm(h, generator=gen, device="cuda")[:3000]] = 0.0
+    t = time_plu(buf, act, 0, "plu_call_folded_block")
+    mx = check_plu("folded [8,1024,2048] block 0", buf, act, 0,
+                   "plu_call_folded_block")
+    mx = max(mx, check_plu("folded [8,1024,2048] block 7", buf, act, 7,
+                           "plu_call_folded_block"))
+    rows["plu_call_folded_block"] = dict(max_abs_err=mx, **t)
+    del buf
+    # K4, flat: [1, 128, h]
+    for hf in (7424, 384):
+        fb = torch.randn(1, 128, hf, generator=gen, device="cuda")
+        fa = torch.ones(hf, device="cuda")
+        fa[torch.randperm(hf, generator=gen, device="cuda")[:hf // 7]] = 0.0
+        if hf == 7424:
+            t = time_plu(fb, fa, 0, "plu_call")
+        mxf = check_plu(f"flat h={hf}", fb, fa, 0, "plu_call")
+        if hf == 7424:
+            rows["plu_call"] = dict(max_abs_err=mxf, **t)
+        else:
+            rows["plu_call"]["max_abs_err"] = max(
+                rows["plu_call"]["max_abs_err"], mxf)
+    # B11/B8/B14 through plu_subpanel(fold=True) at h=16384, against the
+    # same three steps in their plain versions
+    sub = torch.randn(h, 128, generator=gen, device="cuda")
+    act = torch.ones(h, device="cuda")
+    act[torch.randperm(h, generator=gen, device="cuda")[:1000]] = 0.0
+    out, piv, act_k, info = pp.plu_subpanel(sub, act, fold=True)
+    pF = K.panel_fold_plain(sub, 8)
+    act_p = act.clone()
+    piv_p, info_p = K.panel_plu_plain(pF, act_p, 0)
+    out_p = K.panel_unfold_plain(pF)
+    torch.cuda.synchronize()
+    mx = float((out - out_p).abs().max())
+    ok = (torch.equal(piv, piv_p) and torch.equal(act_k, act_p)
+          and int(info) == int(info_p) and mx <= LU_ATOL)
+    say(f"  plu_subpanel(fold=True) h={h}: pivots, mask, info and values "
+        f"(max_abs_err {mx:.3e}, tol {LU_ATOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("plu_subpanel(fold=True) disagrees with the "
+                             "plain versions")
+    pF = pp.transpose_fold(sub)
+    rows["plu_call_folded"] = dict(max_abs_err=mx,
+                                   **time_plu(pF, act, 0, "plu_call_folded"))
+    # K5, bitwise
+    a = torch.randn(N + 64, N, generator=gen, device="cuda")
+    win = a[64:, :NB]                      # a strided column window
+    rows["fold_panel"] = check_transpose(
+        "fold_panel", pp.fold_panel, lambda x: K.panel_fold_plain(x, 8), win)
+    pcf = pp.fold_panel(win)
+    rows["unfold_panel"] = check_transpose(
+        "unfold_panel", pp.unfold_panel, K.panel_unfold_plain, pcf)
+    del a, win, pcf
+    rows["transpose_tiled"] = check_transpose(
+        "transpose_tiled", pp.transpose_tiled,
+        lambda x: K.panel_fold_plain(x, 1)[0],
+        torch.randn(FLAT_N, 128, generator=gen, device="cuda"))
+    rows["transpose_fold"] = check_transpose(
+        "transpose_fold", pp.transpose_fold,
+        lambda x: K.panel_fold_plain(x, 8), sub)
+    rows["unfold_transpose"] = check_transpose(
+        "unfold_transpose", pp.unfold_transpose, K.panel_unfold_plain,
+        pp.transpose_fold(sub))
+    for name, r in rows.items():
+        say(f"  {name}: kernel_ms {r['ms']:.4f}, plain_ms "
+            f"{r['plain_ms']:.4f}, library_ms {r['library_ms']:.4f}, "
+            f"bound_ms {r['bound'][0]:.4f} ({r['bound'][1]})")
+    return rows
+
+
+def check_lu(a, LU, piv, X, b, label):
+    """info-independent checks of one LU solve on the card: residual,
+    ‖P·A − L·U‖ / (n‖A‖) and max|L|."""
+    from slate_tpu_torch import runtime
+    n = a.shape[0]
+    lu = LU.to_dense()
+    x = X.to_dense()
+    perm = torch.from_numpy(runtime.resolve_pivots(piv.cpu().numpy(), n)
+                            ).to(a.device)
+    l = torch.tril(lu, -1)
+    l.diagonal().fill_(1.0)
+    with _f32():
+        r = float(torch.linalg.norm(a @ x - b)
+                  / (torch.linalg.norm(a) * torch.linalg.norm(x)))
+        f = float(torch.linalg.norm(a[perm] - l @ torch.triu(lu))
+                  / (n * torch.linalg.norm(a)))
+    lmax = float(l.abs().max())
+    limit = 10 * n * 2.0 ** -24
+    say(f"  {label}: residual {r:.3e} (bound {limit:.3e}), |PA-LU|/(n|A|) "
+        f"{f:.3e} (bound 1e-5), max|L| {lmax:.6f} (bound 1+1e-5)")
+    assert bool(torch.isfinite(x).all()) and tuple(x.shape) == tuple(b.shape)
+    assert r <= limit, f"{label}: residual {r} above {limit}"
+    assert f <= 1e-5, f"{label}: |PA-LU| {f} above 1e-5"
+    assert lmax <= 1.0 + 1e-5, f"{label}: max|L| {lmax}"
+
+
+def run_gesv(n, nb, seed, expect_nonzero, label, breakdown=False):
+    """One LU solve path on the card: gesv on a seeded Gaussian A with
+    the launch counts set to 0 just before and read just after."""
+    import slate_tpu_torch as st
+    from slate_tpu_torch.internal import kernels as K
+    grid = st.Grid(1, 1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn(n, n, generator=gen, device="cuda")
+    b = torch.randn(n, NRHS, generator=gen, device="cuda")
+    A = st.Matrix.from_dense(a, nb=nb, grid=grid)
+    B = st.Matrix.from_dense(b, nb=nb, grid=grid)
+    st.gesv(A, B)                      # warm-up: cuSOLVER/cuBLAS handles
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    X, LU, piv, info = st.gesv(A, B)
+    torch.cuda.synchronize()
+    gesv_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(K.LAUNCHES)
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    t0 = time.perf_counter()
+    st.getrf(A)
+    torch.cuda.synchronize()
+    getrf_ms = (time.perf_counter() - t0) * 1e3
+    info = int(info)
+    say(f"{label}: gesv f32 n={n} nb={nb} nrhs={NRHS} Grid(1,1): info "
+        f"{info}")
+    say(f"  getrf_ms {getrf_ms:.3f} ({2 * n ** 3 / 3 / getrf_ms / 1e6:.1f} "
+        f"GFLOP/s at 2n^3/3), gesv_ms {gesv_ms:.3f}, gesv peak device "
+        f"memory above its inputs {peak_gib:.3f} GiB")
+    say(f"  kernels: {json.dumps(launches)}")
+    assert info == 0, f"gesv info {info}"
+    check_lu(a, LU, piv, X, b, label)
+    expect = {**dict.fromkeys(K.LAUNCHES, 0), **expect_nonzero}
+    assert launches == expect, f"launches {launches}, expected {expect}"
+    if breakdown:
+        phase_breakdown("gesv", lambda: st.gesv(A, B))
+    return launches
+
+
+def phase_plu_panel():
+    """3d: the subpanel entry at h=16384 with the folded layout."""
+    from slate_tpu_torch.internal import kernels as K
+    from slate_tpu_torch.internal import panel_plu as pp
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    sub = torch.randn(N, 128, generator=gen, device="cuda")
+    act = torch.ones(N, device="cuda")
+    K.reset_launches()
+    out, piv, act2, info = pp.plu_panel(sub, act, fold=True)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    say(f"plu_panel(fold=True) h={N}: info {int(info)}, kernels "
+        f"{json.dumps(launches)}")
+    expect = {**dict.fromkeys(K.LAUNCHES, 0), "transpose_fold": 1,
+              "plu_call_folded": 1, "unfold_transpose": 1}
+    assert launches == expect, f"launches {launches}, expected {expect}"
+    assert int(info) == 0 and int((act2 > 0).sum()) == N - 128
+    assert int(torch.unique(piv).numel()) == 128
     return launches
 
 
 def _category(name: str) -> str:
+    if "plu_block" in name:
+        return "panel LU kernel (K4)"
+    if "panel_transpose" in name:
+        return "panel transposes (K5)"
     if any(k in name for k in ("chol_diag", "panel", "trailing")):
         return "potrf_tile kernel"
     if "trsm_lower" in name:
@@ -270,18 +581,20 @@ def _category(name: str) -> str:
     if "gemm" in name or "xmma" in name or "cutlass" in name:
         return "cuBLAS gemm (trailing update, trsm update)"
     if "trsm" in name:
-        return "cuBLAS trsm (potrs back solve)"
-    return "copies and elementwise (layout, guards, padding)"
+        return "cuBLAS trsm (back solve, U-row solves)"
+    if "sort" in name.lower():
+        return "sort (LU compaction)"
+    return "copies and elementwise (layout, guards, padding, gathers)"
 
 
-def phase_breakdown(st, A, B):
-    """Where the device time of one posv goes: kernel time by category
+def phase_breakdown(label, fn):
+    """Where the device time of one call goes: kernel time by category
     from torch.profiler, and the device's busy share of the wall time."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        st.posv(A, B)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     cats: dict[str, float] = {}
@@ -293,7 +606,7 @@ def phase_breakdown(st, A, B):
     if not busy:
         say("breakdown: the profiler saw no device time: not measured")
         return
-    say(f"breakdown of one posv under torch.profiler: wall_ms "
+    say(f"breakdown of one {label} under torch.profiler: wall_ms "
         f"{wall_us / 1e3:.3f}, device busy_ms {busy / 1e3:.3f} "
         f"(busy share {busy / wall_us:.3f})")
     for c, us in sorted(cats.items(), key=lambda kv: -kv[1]):
@@ -328,20 +641,82 @@ def phase_failure_report():
     assert infos == {"cuda": 2, "cpu": 2}, infos
 
 
+def phase_lu_failure_report():
+    """LU on the card against the CPU at n=2048, nb=1024 with the fast
+    path forced on both (n is below the auto gate): equal ipiv, LU within
+    10·n·2⁻²⁴·max|LU| (the panel kernel is bitwise equal to its plain
+    version, but cuBLAS and the CPU's BLAS sum the updates in other
+    orders, and an f32 LU's distance from the exact factors grows like
+    n·ε·max|U| on either side); and a zero column gives the same info,
+    1, on both."""
+    import slate_tpu_torch as st
+    n, nb = 2048, 1024
+    rng = np.random.default_rng(9)
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    os.environ["SLATE_LU_FAST"] = "1"
+    try:
+        res = {}
+        for dev in ("cuda", "cpu"):
+            LU, piv, info = st.getrf(st.Matrix.from_dense(
+                a, nb=nb, grid=st.Grid(1, 1, device=dev)))
+            res[dev] = (LU.to_dense().cpu(), piv.cpu(), int(info))
+        diff = float((res["cuda"][0] - res["cpu"][0]).abs().max())
+        limit = 10 * n * 2.0 ** -24 * float(res["cpu"][0].abs().max())
+        same = torch.equal(res["cuda"][1], res["cpu"][1])
+        say(f"small getrf n={n} nb={nb} (SLATE_LU_FAST=1): card vs CPU ipiv "
+            f"equal {same}, info {res['cuda'][2]}/{res['cpu'][2]}, LU "
+            f"max_abs_diff {diff:.3e} (bound 10*n*2^-24*max|LU| = "
+            f"{limit:.3e})")
+        assert same and res["cuda"][2] == res["cpu"][2] == 0
+        assert diff <= limit
+        z = a.copy()
+        z[:, 77] = 0.0
+        infos = {dev: int(st.getrf(st.Matrix.from_dense(
+            z, nb=nb, grid=st.Grid(1, 1, device=dev)))[2])
+            for dev in ("cuda", "cpu")}
+    finally:
+        del os.environ["SLATE_LU_FAST"]
+    say(f"LU failure report (zero column): info card {infos['cuda']}, CPU "
+        f"{infos['cpu']}")
+    assert infos == {"cuda": 1, "cpu": 1}, infos
+
+
+def timed(label, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import slate_tpu_torch  # noqa: F401 — fails outside a checkout
-    smi = phase_toolchain()
-    rows = phase_kernels()
-    launches = phase_main_path()
-    phase_failure_report()
+    os.environ.pop("SLATE_LU_FAST", None)
+    os.environ.pop("SLATE_LU_FOLD", None)
+    smi = timed("1 toolchain", phase_toolchain)
+    rows = timed("2 kernels", phase_kernels)
+    rows.update(timed("2b LU kernels", phase_lu_kernels))
+    counts = {"posv": timed("3 posv", phase_main_path)}
+    nt = N // NB
+    counts["gesv"] = timed(
+        "3b gesv", run_gesv, N, NB, 3,
+        {"plu_call_folded_block": nt * NB // 128, "fold_panel": nt,
+         "unfold_panel": nt, "trsm_left_lower": nt}, "LU main path", True)
+    ft = FLAT_N // FLAT_NB
+    counts["gesv_flat"] = timed(
+        "3c gesv flat", run_gesv, FLAT_N, FLAT_NB, 5,
+        {"plu_call": ft * FLAT_NB // 128, "transpose_tiled": 2 * ft * FLAT_NB
+         // 128, "trsm_left_lower": ft}, "LU flat branch")
+    counts["plu_panel"] = timed("3d plu_panel", phase_plu_panel)
+    timed("4 failure report", phase_failure_report)
+    timed("4b LU failure report", phase_lu_failure_report)
     out = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces, path) in KERNELS.items():
         r = rows[name]
         out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": launches[name],
+                    "replaces": replaces, "launches": counts[path][name],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                     "bound_by": r["bound"][1],

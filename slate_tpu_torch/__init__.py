@@ -1,10 +1,11 @@
 """slate_tpu_torch — the PyTorch/CUDA port of the JAX package.
 
-Tiled matrices in the same 2-D block-cyclic layout as ``slate_tpu``, and
-the Cholesky solve path (``potrf`` → ``potrs`` → ``posv``) on one
-device. Its tile ops run hand-written CUDA kernels for Hopper (sm_90a)
-on the card, built with ``nvcc`` at first use (``csrc/``), and their
-plain PyTorch versions on the CPU.
+Tiled matrices in the same 2-D block-cyclic layout as ``slate_tpu``, the
+Cholesky solve path (``potrf`` → ``potrs`` → ``posv``) and the LU solve
+path with partial pivoting (``getrf`` → ``getrs`` → ``gesv``) on one
+device. Its tile and panel ops run hand-written CUDA kernels for Hopper
+(sm_90a) on the card, built with ``nvcc`` at first use (``csrc/``), and
+their plain PyTorch versions on the CPU.
 
 Entry points run on the CUDA card unless the caller asks for the CPU:
 ``Grid(1, 1)`` means ``torch.device("cuda")`` and raises without one;
@@ -14,7 +15,7 @@ This package imports torch, numpy and the standard library only, never
 JAX or ``slate_tpu``.
 """
 
-from .types import Op, Uplo, Diag, Side, Norm, Option, get_option
+from .types import Op, Uplo, Diag, Side, Norm, Option, MethodLU, get_option
 from .errors import SlateError, InfoError, slate_error_if, raise_if_info
 from .grid import Grid
 from .matrix import (
@@ -26,6 +27,10 @@ from .robust.guards import finite_guard, info_merge, zero_nonfinite
 from .internal import kernels
 from .ops.blas import gemm, trsm
 from .linalg.potrf import potrf, potrs, posv
+from .linalg.getrf import (getrf, getrs, gesv, PivotOrder,
+                           pivot_order_to_ipiv)
 from .simplified import (multiply, chol_factor, chol_solve,
-                         chol_solve_using_factor)
-from .interop import from_reference, to_reference
+                         chol_solve_using_factor, lu_factor, lu_solve,
+                         lu_solve_using_factor)
+from .interop import (from_reference, to_reference, pivots_from_reference,
+                      pivots_to_reference)

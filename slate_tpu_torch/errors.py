@@ -28,6 +28,8 @@ _INFO_MESSAGES = {
     "potrf": "the leading minor ending at block column {info} is not "
              "positive definite; the factorization could not be "
              "completed",
+    "getrf": "U is exactly singular ({info} zero pivot(s)); a solve "
+             "would divide by zero",
 }
 
 

@@ -1,14 +1,14 @@
-"""Hand-written CUDA kernels of the tile layer, their plain versions and
-their capability table — the counterpart of
-``slate_tpu/internal/pallas_kernels.py``.
+"""Hand-written CUDA kernels, their plain versions and their capability
+table — the counterpart of ``slate_tpu/internal/pallas_kernels.py`` and
+of the Pallas calls of ``slate_tpu/internal/panel_plu.py``.
 
 Each kernel has three parts here:
 
-* a wrapper (``potrf_tile``, ``trsm_right_lower_t``, ``trsm_left_lower``)
-  that launches the kernel of ``csrc/`` for a CUDA tensor and counts the
-  launch in :data:`LAUNCHES`, runs the plain version for a CPU tensor,
-  and raises for anything else. There is no fallback from a failed build
-  or launch;
+* a wrapper (``potrf_tile``, ``trsm_right_lower_t``, ``trsm_left_lower``,
+  ``panel_plu``, ``panel_fold``, ``panel_unfold``) that launches the
+  kernel of ``csrc/`` for a CUDA tensor and counts the launch in
+  :data:`LAUNCHES`, runs the plain version for a CPU tensor, and raises
+  for anything else. There is no fallback from a failed build or launch;
 * a plain PyTorch version (``*_plain``) that repeats the kernel's blocked
   algorithm with torch ops. The CPU runs it, and on the card it is what
   the kernel is checked against;
@@ -18,7 +18,9 @@ Each kernel has three parts here:
 The dispatch sites in :mod:`.tile_kernels` consult :data:`CAPABILITY`
 (platform → kernel → dtype → (nb_min, nb_max, nb_multiple), modelled on
 ``pallas_kernels.py:75-114``); what it does not admit goes to the
-``torch.linalg`` op, as the JAX package sends it to XLA.
+``torch.linalg`` op, as the JAX package sends it to XLA. For the two
+panel kernels the range is that of the panel height h (the JAX
+package's ``H_MAX``); the LU kernel's block width is always :data:`W`.
 """
 
 from __future__ import annotations
@@ -34,22 +36,42 @@ from .precision import full_f32_matmul
 # versions block the same way.
 BS = 64
 
+# Block width of the panel LU kernel (W in csrc/panel_plu.cu and in
+# slate_tpu/internal/panel_plu.py).
+W = 128
+# Fewest rows one CTA of the panel LU kernel holds (MIN_ROWS in
+# csrc/panel_plu.cu); it bounds the grid, hence the scratch, by h / 32.
+_PLU_MIN_ROWS = 32
+
 _SPAN = (1, 1024, 1)
+_PANEL_SPAN = (1, 16384, 1)
 _CAPS_CUDA = {
     "potrf_tile": {"float32": _SPAN},
     "trsm_right_lower_t": {"float32": _SPAN},
     "trsm_left_lower": {"float32": _SPAN},
+    "panel_plu": {"float32": _PANEL_SPAN},
+    "panel_transpose": {"float32": _PANEL_SPAN},
 }
 _CAPS_CPU = {
     "potrf_tile": {"float32": _SPAN, "float64": _SPAN},
     "trsm_right_lower_t": {"float32": _SPAN, "float64": _SPAN},
     "trsm_left_lower": {"float32": _SPAN, "float64": _SPAN},
+    "panel_plu": {"float32": _PANEL_SPAN, "float64": _PANEL_SPAN},
+    "panel_transpose": {"float32": _PANEL_SPAN, "float64": _PANEL_SPAN},
 }
 CAPABILITY = {"cuda": _CAPS_CUDA, "cpu": _CAPS_CPU}
 
+# The panel kernels count their launches under the name of the Pallas
+# function each call stands for (slate_tpu/internal/panel_plu.py), so
+# each TPU kernel shows its own count.
+PLU_NAMES = ("plu_call", "plu_call_folded", "plu_call_folded_block")
+TRANSPOSE_NAMES = ("transpose_tiled", "transpose_fold", "fold_panel",
+                   "unfold_panel", "unfold_transpose")
+
 # Launches of each kernel on the card since the last reset. A wrapper
 # adds one where it launches its kernel, and nowhere else.
-LAUNCHES = {"potrf_tile": 0, "trsm_right_lower_t": 0, "trsm_left_lower": 0}
+LAUNCHES = {"potrf_tile": 0, "trsm_right_lower_t": 0, "trsm_left_lower": 0,
+            **{k: 0 for k in PLU_NAMES + TRANSPOSE_NAMES}}
 
 
 def reset_launches() -> None:
@@ -76,10 +98,14 @@ def supported(kernel: str, dtype: torch.dtype, nb: int,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "slate_potrf_tile_f32": ("potrf_tile", (_P, _I, _P, _P)),
     "slate_trsm_right_lower_t_f32": ("trsm_lower", (_P, _P, _I, _I, _I, _P)),
     "slate_trsm_left_lower_f32": ("trsm_lower", (_P, _P, _I, _I, _I, _P)),
+    "slate_plu_block_f32": ("panel_plu", (_P,) * 7 + (_I,) * 5 + (_P,)),
+    "slate_panel_transpose_f32": ("panel_transpose",
+                                  (_P, _P, _I, _I, _I) + (_L,) * 4 + (_P,)),
 }
 _FNS: dict = {}
 
@@ -273,3 +299,177 @@ def trsm_left_lower_plain(l: torch.Tensor, b: torch.Tensor,
     """Plain PyTorch version of :func:`trsm_left_lower`: the right solve
     on the transpose, as the kernel is."""
     return trsm_right_lower_t_plain(l, b.mT, unit).mT.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# K4: pivoting-by-index LU of one 128-column block of a panel
+# ---------------------------------------------------------------------------
+
+def _check_panel(kernel: str, name: str, h: int, *ts: torch.Tensor) -> None:
+    for t in ts:
+        slate_error_if(t.device != ts[0].device or t.dtype != torch.float32
+                       or not t.is_contiguous(),
+                       f"{name}: the kernel takes contiguous float32 tensors "
+                       f"on one CUDA device, got {t.dtype} {tuple(t.shape)} "
+                       f"on {t.device}")
+    slate_error_if(not supported(kernel, ts[0].dtype, h, ts[0].device),
+                   f"{name}: height {h} is outside the capability table")
+
+
+def panel_plu(buf: torch.Tensor, act: torch.Tensor, blk: int, *,
+              name: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Factor columns ``blk·W … blk·W+W−1`` of the segmented column-major
+    panel ``buf [S, nb, L]`` (row r at ``(r // L, :, r % L)``, h = S·L)
+    in place, pivoting by index against the activity mask ``act`` (S·L
+    values, 1 = row may still pivot), which is updated in place too: the
+    two are the panel and mask the caller goes on with, so no copy is
+    made. Returns ``(piv [W] int32, info)``: ``piv[j]`` is the global row
+    of the pivot of column j (h where a NaN left the column without one),
+    ``info`` the 0-dim int32 count of zero pivots. ``name`` is the Pallas
+    function the call stands for (:data:`PLU_NAMES`), under which the
+    launch is counted.
+
+    Replaces ``_plu_kernel`` / ``_plu_kernel_folded``
+    (panel_plu.py:88-314) behind ``_plu_call`` (:505, S = 1),
+    ``_plu_call_folded`` (:483) and ``plu_call_folded_block`` (:432),
+    S = 8. Bound on an H100: latency — 128 dependent column steps, each a
+    reduction over all h rows; the bytes (2·h·W·4) and flops (h·W²) are
+    a few µs of work. Design (csrc/panel_plu.cu): one cooperative launch,
+    one CTA per SM holding its share of the rows in shared memory for
+    the whole call; per column one grid barrier, after which every CTA
+    reduces the published candidates in the same order and updates its
+    own rows. Rows inactive on entry are never written.
+    """
+    slate_error_if(name not in PLU_NAMES, f"panel_plu: unknown name {name!r}")
+    S, nb, L = buf.shape
+    h = S * L
+    slate_error_if(nb % W != 0 or not 0 <= blk < nb // W or act.numel() != h,
+                   f"{name}: panel {tuple(buf.shape)}, block {blk}, mask "
+                   f"{tuple(act.shape)} do not fit a [S, nb, L] panel of "
+                   f"{W}-column blocks")
+    if not _route(name, buf):
+        return panel_plu_plain(buf, act, blk)
+    _check_panel("panel_plu", name, h, buf, act)
+    dev = buf.device
+    maxc = -(-h // _PLU_MIN_ROWS)
+    cand_s = torch.empty(2 * maxc, dtype=torch.float32, device=dev)
+    cand_r = torch.empty(2 * maxc, dtype=torch.int32, device=dev)
+    cand_row = torch.empty(2 * maxc * W, dtype=torch.float32, device=dev)
+    piv = torch.empty(W, dtype=torch.int32, device=dev)
+    info = torch.empty(1, dtype=torch.int32, device=dev)
+    _launch("slate_plu_block_f32", dev, *(_P(t.data_ptr()) for t in (
+        buf, act, piv, info, cand_s, cand_r, cand_row)), maxc, S, nb, L, blk)
+    LAUNCHES[name] += 1
+    return piv, info[0]
+
+
+def panel_plu_plain(buf: torch.Tensor, act: torch.Tensor,
+                    blk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`panel_plu`, in place on ``buf``
+    and ``act`` the same way: the kernel's eager column loop on an
+    [h, W] copy of the block, with the same rounding (reciprocal, then
+    product, then difference, one rounding each), so on the same inputs
+    it gives the kernel's bits."""
+    S, nb, L = buf.shape
+    h = S * L
+    cols = slice(blk * W, (blk + 1) * W)
+    x = buf.new_empty((h, W))                              # a copy
+    x.view(S, L, W).copy_(buf[:, cols, :].permute(0, 2, 1))
+    a = act.view(h)
+    nan = torch.tensor(float("nan"), dtype=buf.dtype, device=buf.device)
+    piv = torch.empty(W, dtype=torch.int64, device=buf.device)
+    info = torch.zeros((), dtype=torch.int32, device=buf.device)
+    for j in range(W):
+        col = x[:, j]
+        score = torch.where(a > 0, col.abs(), -1.0)
+        # max is NaN if any score is; then score >= mx holds nowhere and
+        # the column selects no row (piv = h), as in the JAX kernel
+        hit = score >= score.max()
+        none = ~hit.any()
+        r = torch.where(none, h, hit.int().argmax())    # first: lowest row
+        rc = r.clamp(max=h - 1)
+        u = torch.where(none, nan, x[rc])
+        pv = u[j]
+        info += (pv == 0).int()
+        rsafe = torch.where(pv == 0, 1.0, 1.0 / pv)
+        a[rc] = torch.where(none, a[rc], 0.0)
+        piv[j] = r
+        live = a > 0
+        lv = torch.where(live, col * rsafe, col)
+        x[:, j] = lv
+        rest = x[:, j + 1:]
+        x[:, j + 1:] = torch.where(live[:, None],
+                                   rest - lv[:, None] * u[None, j + 1:], rest)
+    # rows inactive on entry were never changed in x: writing the whole
+    # block back leaves their bits as they were
+    buf[:, cols, :] = x.reshape(S, L, W).permute(0, 2, 1)
+    return piv.int(), info
+
+
+# ---------------------------------------------------------------------------
+# K5: segmented panel transpose
+# ---------------------------------------------------------------------------
+
+def panel_fold(x: torch.Tensor, S: int, *, name: str) -> torch.Tensor:
+    """[h, w] → segmented column-major [S, w, h/S] with
+    ``out[s, c, l] = x[s·(h/S) + l, c]``; a new tensor. ``x`` may be a
+    strided window of a larger matrix (unit column stride), which the
+    kernel reads in place. ``name`` is the Pallas function the call
+    stands for (:data:`TRANSPOSE_NAMES`).
+
+    Replaces ``transpose_tiled`` (panel_plu.py:321, S = 1),
+    ``transpose_fold`` (:363) and ``fold_panel`` (:381), S = 8. Bound on
+    an H100: bytes, one read and one write of the panel. Design
+    (csrc/panel_transpose.cu): a 32×32 tile per CTA through shared
+    memory padded to 33 columns; both global sides coalesce.
+    """
+    slate_error_if(name not in TRANSPOSE_NAMES,
+                   f"panel_fold: unknown name {name!r}")
+    h, w = x.shape
+    slate_error_if(h % S != 0, f"{name}: height {h} is not a multiple of "
+                   f"{S} segments")
+    if not _route(name, x):
+        return panel_fold_plain(x, S)
+    slate_error_if(x.dtype != torch.float32 or x.stride(1) != 1,
+                   f"{name}: the kernel takes float32 rows of unit column "
+                   f"stride, got {x.dtype} with strides {x.stride()}")
+    slate_error_if(not supported("panel_transpose", x.dtype, h, x.device),
+                   f"{name}: height {h} is outside the capability table")
+    L = h // S
+    out = torch.empty((S, w, L), dtype=x.dtype, device=x.device)
+    _launch("slate_panel_transpose_f32", x.device, _P(x.data_ptr()),
+            _P(out.data_ptr()), S, L, w, x.stride(0), L * x.stride(0), L,
+            w * L)
+    LAUNCHES[name] += 1
+    return out
+
+
+def panel_unfold(xf: torch.Tensor, *, name: str) -> torch.Tensor:
+    """Segmented [S, w, L] → [S·L, w], the inverse of :func:`panel_fold`;
+    a new tensor. Replaces ``unfold_panel`` (panel_plu.py:401) and
+    ``unfold_transpose`` (:419), and ``transpose_tiled`` on the way back
+    (S = 1); the same kernel as :func:`panel_fold` with the roles of rows
+    and columns swapped."""
+    slate_error_if(name not in TRANSPOSE_NAMES,
+                   f"panel_unfold: unknown name {name!r}")
+    S, w, L = xf.shape
+    if not _route(name, xf):
+        return panel_unfold_plain(xf)
+    _check_panel("panel_transpose", name, S * L, xf)
+    out = torch.empty((S * L, w), dtype=xf.dtype, device=xf.device)
+    _launch("slate_panel_transpose_f32", xf.device, _P(xf.data_ptr()),
+            _P(out.data_ptr()), S, w, L, L, w * L, w, L * w)
+    LAUNCHES[name] += 1
+    return out
+
+
+def panel_fold_plain(x: torch.Tensor, S: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`panel_fold`."""
+    h, w = x.shape
+    return x.reshape(S, h // S, w).permute(0, 2, 1).contiguous()
+
+
+def panel_unfold_plain(xf: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`panel_unfold`."""
+    S, w, L = xf.shape
+    return xf.permute(0, 2, 1).reshape(S * L, w).contiguous()

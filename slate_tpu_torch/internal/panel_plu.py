@@ -1,0 +1,133 @@
+"""The LU fast path's subpanel engine: pivoting by index, no row movement
+(counterpart of ``slate_tpu/internal/panel_plu.py``).
+
+A subpanel of W = 128 columns is factored with an activity mask instead
+of row swaps: the pivot of each column is the active row of largest
+magnitude (lowest index on ties), it leaves the mask, and the rows that
+stay active take their multipliers and the rank-1 update in place. The
+driver (``linalg/getrf.py``) applies the permutation once per group of
+panels. The kernels are the port's own (``internal/kernels.py``):
+``panel_plu`` (K4) and the segmented transposes ``panel_fold`` /
+``panel_unfold`` (K5).
+
+The thin wrappers below carry the names of the JAX package's Pallas
+functions, one for each, so every TPU kernel keeps its own launch count.
+The port keeps the JAX package's layouts: a flat subpanel is held
+transposed, [W, h], and a folded one as [8, W, h/8], row r at
+(r // (h/8), :, r % (h/8)). Both are column-major panels, which is also
+what the card's kernel wants: each column sweep is a coalesced read.
+Unlike the JAX functions, the LU wrappers update the panel and the mask
+in place and return only ``(piv, info)``.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from ..errors import SlateError, slate_error_if
+from . import kernels as K
+
+W = K.W           # subpanel width
+IB = 8            # the JAX kernel's strip width; the port's kernel updates
+                  # eagerly and has no strips, kept for the shape contract
+H_MAX = 16384     # tallest subpanel one kernel call takes
+
+
+def _fold_enabled() -> bool:
+    """SLATE_LU_FOLD, read at call time (``0`` turns the folded layout
+    off)."""
+    return os.environ.get("SLATE_LU_FOLD", "1") != "0"
+
+
+# ---------------------------------------------------------------------------
+# the layout kernels (B10–B14)
+# ---------------------------------------------------------------------------
+
+def transpose_tiled(x: torch.Tensor) -> torch.Tensor:
+    """[m, k] → [k, m] (B10, panel_plu.py:321)."""
+    return K.panel_fold(x, 1, name="transpose_tiled")[0]
+
+
+def transpose_fold(x: torch.Tensor) -> torch.Tensor:
+    """[h, W] → folded [8, W, h/8], ``out[s, w, l] = x[s·(h/8)+l, w]``
+    (B11, panel_plu.py:363)."""
+    return K.panel_fold(x, 8, name="transpose_fold")
+
+
+def fold_panel(x: torch.Tensor) -> torch.Tensor:
+    """[hw, nb] panel → folded [8, nb, hw/8] (B12, panel_plu.py:381);
+    ``x`` may be a column window of the dense matrix."""
+    return K.panel_fold(x, 8, name="fold_panel")
+
+
+def unfold_panel(xf: torch.Tensor) -> torch.Tensor:
+    """Folded [8, nb, L] → [8·L, nb], the inverse of :func:`fold_panel`
+    (B13, panel_plu.py:401)."""
+    return K.panel_unfold(xf, name="unfold_panel")
+
+
+def unfold_transpose(xf: torch.Tensor) -> torch.Tensor:
+    """Folded [8, W, L] → [8·L, W], the inverse of :func:`transpose_fold`
+    (B14, panel_plu.py:419)."""
+    return K.panel_unfold(xf, name="unfold_transpose")
+
+
+# ---------------------------------------------------------------------------
+# the subpanel LU (B7–B9), in place on the panel and the mask
+# ---------------------------------------------------------------------------
+
+def plu_call_folded_block(pcf: torch.Tensor, act_f: torch.Tensor,
+                          sidx: int):
+    """Factor W-column block ``sidx`` of a folded panel [8, nb, L] in
+    place; ``act_f`` [8, L] is updated in place. Returns
+    ``(piv [W] int32, info)`` (B9, panel_plu.py:432)."""
+    return K.panel_plu(pcf, act_f, sidx, name="plu_call_folded_block")
+
+
+def _plu_call_folded(pF: torch.Tensor, act_f: torch.Tensor):
+    """The folded [8, W, L] subpanel in place (B8, panel_plu.py:483)."""
+    return K.panel_plu(pF, act_f, 0, name="plu_call_folded")
+
+
+def _plu_call(pT: torch.Tensor, act: torch.Tensor):
+    """The transposed [W, h] subpanel in place (B7, panel_plu.py:505)."""
+    return K.panel_plu(pT[None], act, 0, name="plu_call")
+
+
+def plu_subpanel(sub: torch.Tensor, act: torch.Tensor, fold=None):
+    """Pivoted LU of one [h, W] subpanel, h ≤ H_MAX, h % 8 == 0, by
+    index. ``act`` [h] is the activity mask. Returns new tensors
+    ``(sub_factored, piv [W] int32, act_new, info)``; neither input is
+    changed. Pivot rows keep their U row in place, active rows hold
+    multipliers, inactive rows are untouched.
+
+    ``fold`` (default: SLATE_LU_FOLD) takes the folded layout when
+    h % 1024 == 0, as the JAX package does (panel_plu.py:530-560)."""
+    h, w = sub.shape
+    slate_error_if(w != W or h > H_MAX or h % 8 != 0,
+                   f"plu_subpanel: [{h}, {w}] subpanel; expected width {W}, "
+                   f"height a multiple of 8 up to {H_MAX}")
+    if fold is None:
+        fold = _fold_enabled()
+    act = act.reshape(h).clone()
+    if h % 1024 == 0 and fold:
+        pF = transpose_fold(sub)
+        piv, info = _plu_call_folded(pF, act.view(8, h // 8))
+        return unfold_transpose(pF), piv, act, info
+    pT = transpose_tiled(sub)
+    piv, info = _plu_call(pT, act)
+    return transpose_tiled(pT), piv, act, info
+
+
+def plu_panel(sub: torch.Tensor, act: torch.Tensor, fold=None):
+    """Pivoted LU of an [h, W] subpanel: one kernel call for h ≤ H_MAX.
+    Taller panels need the CALU tournament over H_MAX-row chunks
+    (panel_plu.py:563-616), which is not ported yet."""
+    if sub.shape[0] > H_MAX:
+        raise SlateError(
+            f"plu_panel: a {sub.shape[0]}-row subpanel is taller than "
+            f"H_MAX = {H_MAX} and needs the CALU tournament of "
+            f"panel_plu.plu_panel, which a later slice of the port adds")
+    return plu_subpanel(sub, act, fold=fold)

@@ -1,9 +1,11 @@
-"""Carry a matrix across from the JAX package and back.
+"""Carry a matrix and LU pivots across from the JAX package and back.
 
 A matrix of either package is its storage ``data[p, q, mtl, ntl, nb, nb]``
 plus plain fields, laid out the same way in both. These functions take
 and give the fields as a numpy array and plain strings, so this package
-never touches a JAX object; the storage is kept bit for bit.
+never touches a JAX object; the storage is kept bit for bit. Pivots
+cross as a numpy int32 ``[kt, nb]`` array, LAPACK ipiv or, wrapped in a
+``PivotOrder`` on either side, an elimination order.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 
 from .errors import slate_error_if
 from .grid import Grid
+from .linalg.getrf import PivotOrder
 from .matrix import BaseTiledMatrix, HermitianMatrix, Matrix, TriangularMatrix
 from .types import Diag, Op, Uplo
 
@@ -45,3 +48,22 @@ def to_reference(M: BaseTiledMatrix) -> dict:
     return {"data": M.data.detach().cpu().numpy(), "kind": type(M).__name__,
             "m": M.m, "n": M.n, "nb": M.nb, "op": M.op.name,
             "uplo": M.uplo.name, "diag": M.diag.name}
+
+
+def pivots_from_reference(piv, *, order: bool = False, device=None):
+    """The port's pivots from a JAX ``getrf``'s ``np.asarray(piv)`` (or
+    ``np.asarray(PivotOrder.order)`` with ``order=True``, which then
+    comes back wrapped in the port's ``PivotOrder``): an int32 ``[kt, nb]``
+    tensor on ``device`` (as for :class:`Grid`)."""
+    piv = np.asarray(piv)
+    slate_error_if(piv.ndim != 2, f"pivots must be [kt, nb], got {piv.shape}")
+    t = torch.from_numpy(piv.astype(np.int32)).to(Grid(1, 1,
+                                                       device=device).device)
+    return PivotOrder(t) if order else t
+
+
+def pivots_to_reference(piv) -> np.ndarray:
+    """The numpy int32 ``[kt, nb]`` array of the port's pivots (ipiv or a
+    ``PivotOrder``), for ``jnp.asarray`` or the JAX ``PivotOrder``."""
+    t = piv.order if isinstance(piv, PivotOrder) else piv
+    return t.detach().cpu().numpy().astype(np.int32)

@@ -1,0 +1,392 @@
+"""LU with partial pivoting on one device: getrf / getrs / gesv (reference
+src/getrf.cc, src/getrs.cc, src/gesv.cc; counterpart of
+``slate_tpu/linalg/getrf.py``).
+
+Two paths, chosen as the JAX package chooses them on one device:
+
+* the **fast path** (:func:`_getrf_fast_core`): pivoting by index with
+  the subpanel kernels of ``internal/panel_plu.py``. Rows never move
+  inside a panel; an activity mask says which rows may still pivot.
+  Every group of ``_FAST_GROUP`` panels ends with one permutation pass
+  that puts the finished rows in elimination order, then one trailing
+  product over the rest of the matrix. Its native pivot output is the
+  elimination order (:class:`PivotOrder`), which ``getrs`` applies as one
+  gather;
+* the **dense path** (:func:`_getrf_dense_1dev`) for every other shape:
+  ``torch.linalg.lu_factor`` on each true-shape panel, the counterpart of
+  ``lax.linalg.lu``, and one row gather per panel.
+
+Both run eagerly and update one dense copy of the matrix in place, so
+the peak is the matrix, its dense copy and one gather temporary. Pivots
+come back as LAPACK ipiv, ``[kt, nb]`` int32 global rows (0-based): at
+panel k, step j, row k·nb+j was swapped with ``piv[k, j]``. ``info`` is
+the 0-dim int32 count of zero pivots (0 ⇒ nonsingular).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import NamedTuple
+
+import torch
+
+from .. import runtime
+from ..errors import slate_error_if
+from ..internal import panel_plu
+from ..internal.precision import (full_f32_matmul, resolve_tier,
+                                  trailing_matmul)
+from ..matrix import (Matrix, TriangularMatrix, bc_from_tiles, bc_to_tiles,
+                      conj_transpose, dense_to_tiles, tiles_to_dense,
+                      transpose)
+from ..ops.blas import trsm
+from ..types import Diag, MethodLU, Op, Side, Uplo
+
+_FAST_W = 128            # subpanel width (= panel_plu.W)
+_FAST_GROUP = 4          # panels per compaction group
+
+
+def getrf(A: Matrix, opts=None):
+    """LU with partial pivoting: P·A = L·U (reference src/getrf.cc).
+
+    Returns ``(LU, piv, info)``: LU holds unit-lower L below the diagonal
+    and U on and above it; ``piv`` is the LAPACK ipiv ``[kt, nb]`` int32
+    tensor; ``info`` the number of zero pivots. A is not modified."""
+    A = A.materialize()
+    slate_error_if(A.dtype.is_complex,
+                   "getrf: complex dtypes are not ported yet")
+    tier = resolve_tier(opts)
+    if _fast_path_mode(A, "partial") is not None:
+        data, order, info = _getrf_fast_core(A, panel_plu._fold_enabled(),
+                                             tier)
+        piv = pivot_order_to_ipiv(order)
+    else:
+        data, piv, info = _getrf_dense_1dev(A, tier)
+    return A._replace(data=data), piv, info
+
+
+def _fast_path_mode(A, piv_mode) -> str | None:
+    """The device type (``"cuda"``, ``"cpu"``) when the pivoting-by-index
+    fast path applies, else None.
+
+    Requirements, as in the JAX package: partial pivoting, f32, square
+    with no padding (m == n == kt·nb), nb a multiple of 128. It turns on
+    by itself on a CUDA card for 8192 ≤ n ≤ 16384. The JAX package goes
+    up to 32768 on a TPU; the port stops at ``panel_plu.H_MAX`` because
+    above it the first groups' panel windows are taller than one
+    subpanel kernel call takes and need the CALU tournament of
+    ``plu_panel``, a later slice. SLATE_LU_FAST=1 forces the path on any
+    device (on the CPU it runs the kernels' plain versions, the
+    counterpart of Pallas interpret mode); =0 turns it off. The JAX
+    package's cap of 64 block columns bounds its trace-time unrolling;
+    an eager loop has none, so the port does not keep it."""
+    flag = os.environ.get("SLATE_LU_FAST", "")
+    if flag == "0":
+        return None
+    kt = min(A.mt, A.nt)
+    exact = (piv_mode == "partial" and A.m == A.n and A.m == kt * A.nb
+             and A.mtl * A.nb == A.m and A.ntl * A.nb == A.n
+             and A.nb % _FAST_W == 0)
+    if not exact or A.dtype != torch.float32:
+        return None
+    dev = A.grid.device.type
+    if flag == "1":
+        return dev
+    return dev if dev == "cuda" and 8192 <= A.n <= panel_plu.H_MAX else None
+
+
+# ---------------------------------------------------------------------------
+# fast path: pivoting by index
+# ---------------------------------------------------------------------------
+
+def _getrf_fast_group_core(a, content, info, g0, gsz, nb, fold, tier):
+    """One compaction group of the pivoting-by-index LU on the dense
+    [n, n] tensor ``a``: ``gsz`` panels factored right-looking within the
+    group, then the permutation of the window's rows into elimination
+    order, then the trailing product for the columns right of the group.
+    ``a``, the row ids ``content`` and ``info`` are updated in place.
+    Returns ``o_g`` [gsz·nb], the original row eliminated at each
+    step."""
+    n = a.shape[0]
+    dev = a.device
+    W = _FAST_W
+    sb = nb // W
+    done = g0 * nb
+    hw = n - done
+    gnb = gsz * nb
+    ge = done + gnb
+    act = torch.ones(hw, dtype=a.dtype, device=dev)
+    upend = torch.zeros((gnb, gnb), dtype=a.dtype, device=dev)
+    ordg = torch.zeros(gnb, dtype=torch.int64, device=dev)
+    folded = fold and hw % 1024 == 0 and hw <= panel_plu.H_MAX
+    Lf = hw // 8
+    for kk in range(gsz):
+        d_lo, d_hi = done + kk * nb, done + (kk + 1) * nb
+        ubuf = torch.zeros((nb, nb), dtype=a.dtype, device=dev)
+        ordp = torch.zeros(nb, dtype=torch.int64, device=dev)
+        if folded:
+            # one fold per panel; each block of the folded buffer is
+            # factored in place, and the mask is updated in place
+            pcf = panel_plu.fold_panel(a[done:, d_lo:d_hi])
+            actf = act.view(8, Lf)
+            for s in range(sb):
+                c0 = s * W
+                piv_l, inf = panel_plu.plu_call_folded_block(pcf, actf, s)
+                info += inf
+                # a column holding a NaN selects no row (piv = hw);
+                # clamped to the last row, such an input runs to its end
+                # with NaN factors and in-range pivots
+                piv_l = piv_l.long().clamp_(max=hw - 1)
+                ordp[c0:c0 + W] = piv_l
+                if nb - (s + 1) * W > 0:
+                    # the pivot rows, columns c0…nb−1, by an index gather
+                    # at (r // Lf, :, r % Lf) (the JAX package uses
+                    # one-hot MXU contractions: a gather on folded axes
+                    # lowers badly on a TPU)
+                    rows = pcf[piv_l // Lf, c0:, piv_l % Lf]
+                    u = torch.linalg.solve_triangular(
+                        rows[:, :W], rows[:, W:], upper=False,
+                        unitriangular=True)
+                    ubuf[c0:c0 + W, c0 + W:] = u
+                    lsubf = torch.where(actf[:, None, :] > 0,
+                                        pcf[:, c0:c0 + W, :], 0.0)
+                    with full_f32_matmul():
+                        pcf[:, c0 + W:, :] -= torch.matmul(u.mT, lsubf)
+            a[done:, d_lo:d_hi] = panel_plu.unfold_panel(pcf)
+        else:
+            pcols = a[done:, d_lo:d_hi]      # a view: updates land in a
+            for s in range(sb):
+                c0 = s * W
+                subf, piv_l, act, inf = panel_plu.plu_panel(
+                    pcols[:, c0:c0 + W], act, fold=fold)
+                pcols[:, c0:c0 + W] = subf
+                info += inf
+                piv_l = piv_l.long().clamp_(max=hw - 1)
+                ordp[c0:c0 + W] = piv_l
+                if nb - (s + 1) * W > 0:
+                    u = torch.linalg.solve_triangular(
+                        subf[piv_l], pcols[piv_l, c0 + W:], upper=False,
+                        unitriangular=True)
+                    ubuf[c0:c0 + W, c0 + W:] = u
+                    lsub = torch.where(act[:, None] > 0, subf, 0.0)
+                    with full_f32_matmul():
+                        pcols[:, c0 + W:] -= lsub @ u
+        ordg[d_lo - done:d_hi - done] = ordp
+        upend[d_lo - done:d_hi - done, d_lo - done:d_hi - done] = ubuf
+        # trailing update of the group's own remaining columns only
+        if d_hi < ge:
+            pcols = a[done:, d_lo:d_hi]
+            un = torch.linalg.solve_triangular(
+                pcols[ordp], a[done:, d_hi:ge][ordp], upper=False,
+                unitriangular=True)
+            lk = torch.where(act[:, None] > 0, pcols, 0.0)
+            with trailing_matmul(tier):
+                a[done:, d_hi:ge].addmm_(lk, un, alpha=-1)
+            upend[d_lo - done:d_hi - done, d_hi - done:] = un
+
+    o_g = content[done:][ordg]
+    # compaction: finished rows to elimination order, then the active
+    # rows in their order. The keys are unique (ranks 0…gnb−1, then
+    # gnb + row), so the sort's stability does not matter.
+    rank = torch.zeros(hw, dtype=torch.int64, device=dev)
+    rank[ordg] = torch.arange(gnb, device=dev)
+    key = torch.where(act > 0, gnb + torch.arange(hw, device=dev), rank)
+    perm = torch.argsort(key)
+    # one full-window gather (the JAX package's form up to n = 24576; the
+    # port's fast path stops at 16384)
+    a[done:] = a[done:].index_select(0, perm)
+    content[done:] = content[done:][perm]
+    i_g = torch.arange(gnb, device=dev)
+    sub_end = (i_g // W + 1) * W
+    colmask = i_g[None, :] >= sub_end[:, None]
+    a[done:ge, done:ge] = torch.where(colmask, upend, a[done:ge, done:ge])
+
+    # cross-group trailing: the group's U block rows by blocked forward
+    # substitution on the compacted pivot rows, then one product
+    if ge < n:
+        ug = []
+        with full_f32_matmul():
+            for kk in range(gsz):
+                r0 = done + kk * nb
+                acc = a[r0:r0 + nb, ge:].clone()
+                for p in range(kk):
+                    c = done + p * nb
+                    acc -= a[r0:r0 + nb, c:c + nb] @ ug[p]
+                ug.append(torch.linalg.solve_triangular(
+                    a[r0:r0 + nb, r0:r0 + nb], acc, upper=False,
+                    unitriangular=True))
+        ugs = torch.cat(ug, dim=0)                       # [gnb, n − ge]
+        with trailing_matmul(tier):
+            a[ge:, ge:].addmm_(a[ge:, done:ge], ugs, alpha=-1)
+        a[done:ge, ge:] = ugs
+    return o_g
+
+
+def _getrf_fast_core(A, fold: bool = True, tier="bf16_6x"):
+    """Pivoting-by-index blocked LU of a square f32 matrix whose size is
+    a whole number of nb-tiles. Returns ``(data, order, info)``:
+    ``order [kt, nb]`` int32 is the original row eliminated at each step
+    (wrap it in :class:`PivotOrder` for ``getrs``)."""
+    nb, n = A.nb, A.n
+    kt = n // nb
+    a = tiles_to_dense(A.data[0, 0], n, n)    # a new tensor, updated in place
+    content = torch.arange(n, device=a.device)
+    info = torch.zeros((), dtype=torch.int32, device=a.device)
+    o_parts = []
+    for g0 in range(0, kt, _FAST_GROUP):
+        gsz = min(_FAST_GROUP, kt - g0)
+        o_parts.append(_getrf_fast_group_core(a, content, info, g0, gsz,
+                                              nb, fold, tier))
+    order = torch.cat(o_parts).reshape(kt, nb).int()
+    tiles = dense_to_tiles(a, nb, A.mtl, A.ntl)
+    return bc_from_tiles(tiles, 1, 1), order, info
+
+
+class PivotOrder(NamedTuple):
+    """Pivots as an elimination order instead of a LAPACK swap list:
+    ``order[k, j]`` is the original row eliminated at step k·nb+j, an
+    int32 tensor. The fast path's native output; :func:`getrs` applies it
+    as one gather. :func:`pivot_order_to_ipiv` converts it."""
+    order: torch.Tensor
+
+
+def pivot_order_to_ipiv(order) -> torch.Tensor:
+    """Elimination order → LAPACK ipiv ``[kt, nb]`` int32 on the order's
+    device (an O(n) host conversion, ``runtime.order_to_ipiv``)."""
+    arr = order.order if isinstance(order, PivotOrder) else order
+    kt, nb = arr.shape
+    ipiv = runtime.order_to_ipiv(arr.cpu().numpy())
+    return torch.from_numpy(ipiv).reshape(kt, nb).to(arr.device)
+
+
+# ---------------------------------------------------------------------------
+# dense path
+# ---------------------------------------------------------------------------
+
+def _getrf_dense_1dev(A, tier):
+    """Blocked LU with partial pivoting on the dense (padded) matrix:
+    each panel is its true [rem, nb] slice, factored by
+    ``torch.linalg.lu_factor``; row swaps are one gather per panel. The
+    JAX package sends panels taller than ``_LU_PANEL_MAX_ROWS`` to a
+    tournament because XLA's single-shot ``lu`` is limited by the TPU's
+    scoped VMEM; ``lu_factor`` has no such limit, so the port has no
+    tournament here."""
+    nb = A.nb
+    m, n = A.m, A.n
+    kt = min(A.mt, A.nt)
+    a = tiles_to_dense(A.data[0, 0], A.mtl * nb, A.ntl * nb)  # a new tensor
+    dev = a.device
+    info = torch.zeros((), dtype=torch.int32, device=dev)
+    pivs = []
+    for k in range(kt):
+        r0 = k * nb
+        w = min(nb, n - r0)              # real panel width
+        h = m - r0                       # real panel height
+        kw = min(h, w)                   # pivots of this panel
+        lu, ipiv, _ = torch.linalg.lu_factor_ex(a[r0:m, r0:r0 + w])
+        a[r0:m, r0:r0 + w] = lu
+        piv_l = ipiv.long() - 1          # LAPACK's 1-based ipiv
+        perm = torch.from_numpy(
+            runtime.resolve_pivots(piv_l.cpu().numpy(), h)).to(dev)
+        if r0 > 0:                       # swap rows of the factored left part
+            a[r0:m, :r0] = a[r0:m, :r0][perm]
+        piv_k = piv_l[:kw] + r0
+        if kw < nb:                      # padded pivot slots self-swap
+            piv_k = torch.cat([piv_k, r0 + torch.arange(kw, nb, device=dev)])
+        pivs.append(piv_k.int())
+        info += (torch.diagonal(lu)[:kw] == 0).sum().int()
+        if r0 + w < n:
+            right = a[r0:m, r0 + w:n][perm]
+            urow = torch.linalg.solve_triangular(
+                lu[:kw, :kw], right[:kw], upper=False, unitriangular=True)
+            a[r0:r0 + kw, r0 + w:n] = urow
+            if r0 + kw < m:
+                with trailing_matmul(tier):
+                    a[r0 + kw:m, r0 + w:n] = right[kw:] - lu[kw:, :kw] @ urow
+    piv = (torch.stack(pivs) if pivs
+           else torch.zeros((0, nb), dtype=torch.int32, device=dev))
+    tiles = dense_to_tiles(a, nb, A.mtl, A.ntl)
+    return bc_from_tiles(tiles, 1, 1), piv, info
+
+
+# ---------------------------------------------------------------------------
+# getrs / gesv
+# ---------------------------------------------------------------------------
+
+def getrs(LU: Matrix, piv, B: Matrix, trans: Op = Op.NoTrans, opts=None):
+    """Solve op(A)·X = B from getrf factors (reference src/getrs.cc):
+    permute B, unit-lower solve, upper solve (NoTrans); the reverse for
+    Aᵀ and Aᴴ. ``piv`` is LAPACK ipiv or a :class:`PivotOrder`."""
+    L = TriangularMatrix(data=LU.data, m=LU.m, n=LU.n, nb=LU.nb,
+                         grid=LU.grid, uplo=Uplo.Lower, diag=Diag.Unit)
+    U = TriangularMatrix(data=LU.data, m=LU.m, n=LU.n, nb=LU.nb,
+                         grid=LU.grid, uplo=Uplo.Upper, diag=Diag.NonUnit)
+    if trans == Op.NoTrans:
+        Bp = _apply_pivots_matrix(B, piv, forward=True)
+        Y = trsm(Side.Left, 1.0, L, Bp, opts)
+        return trsm(Side.Left, 1.0, U, Y, opts)
+    opA = transpose if trans == Op.Trans else conj_transpose
+    Y = trsm(Side.Left, 1.0, opA(U), B, opts)
+    Z = trsm(Side.Left, 1.0, opA(L), Y, opts)
+    return _apply_pivots_matrix(Z, piv, forward=False)
+
+
+def gesv(A: Matrix, B: Matrix, opts=None):
+    """Solve A·X = B by LU with partial pivoting (reference src/gesv.cc).
+    Returns ``(X, LU, piv, info)``."""
+    MethodLU.select_algo(A, opts)
+    Am = A.materialize()
+    if _fast_path_mode(Am, "partial") is not None:
+        # pivoting by index end to end: the solve applies the elimination
+        # order as one gather; the LAPACK ipiv of the return contract is
+        # derived on the host after the solve is queued
+        data, order, info = _getrf_fast_core(
+            Am, panel_plu._fold_enabled(), resolve_tier(opts))
+        LU = Am._replace(data=data)
+        X = getrs(LU, PivotOrder(order), B, Op.NoTrans, opts)
+        return X, LU, pivot_order_to_ipiv(order), info
+    LU, piv, info = getrf(A, opts)
+    X = getrs(LU, piv, B, Op.NoTrans, opts)
+    return X, LU, piv, info
+
+
+# ---------------------------------------------------------------------------
+# pivot application to a whole matrix (reference internal_swap.cc): the
+# swaps are composed into one permutation and applied in one gather
+# ---------------------------------------------------------------------------
+
+def _apply_pivots_matrix(B: Matrix, piv, forward: bool) -> Matrix:
+    B = B.materialize()
+    tiles = bc_to_tiles(B.data)
+    mt_p, nt_p, nb, _ = tiles.shape
+    rows = mt_p * nb
+    if isinstance(piv, PivotOrder):
+        perm = _apply_order(piv.order, rows, forward)
+    else:
+        perm = _sim_perm(piv, rows, forward)
+    dense = tiles_to_dense(tiles, rows, nt_p * nb).index_select(
+        0, perm.to(tiles.device))
+    data = bc_from_tiles(dense_to_tiles(dense, nb, mt_p, nt_p), 1, 1)
+    return B._replace(data=data)
+
+
+def _apply_order(order: torch.Tensor, rows: int, forward: bool):
+    """The permutation of an elimination order: forward
+    ``out[j] = in[order[j]]``, backward its inverse. Rows past the
+    pivoted range (tile padding) map to themselves."""
+    o = order.reshape(-1).long()
+    dev = o.device
+    if o.numel() < rows:
+        o = torch.cat([o, torch.arange(o.numel(), rows, device=dev)])
+    if forward:
+        return o
+    inv = torch.empty(rows, dtype=torch.int64, device=dev)
+    inv[o] = torch.arange(rows, device=dev)
+    return inv
+
+
+def _sim_perm(piv, rows: int, forward: bool) -> torch.Tensor:
+    """Compose a LAPACK swap list into ``out[i] = in[perm[i]]``, on the
+    host."""
+    t = piv if isinstance(piv, torch.Tensor) else torch.as_tensor(piv)
+    perm = runtime.resolve_pivots(t.cpu().numpy(), rows, forward)
+    return torch.from_numpy(perm).to(t.device)

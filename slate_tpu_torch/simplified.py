@@ -1,12 +1,15 @@
 """Simplified verb-named API (reference include/slate/simplified_api.hh):
-multiply → gemm, chol_factor → potrf, chol_solve → posv."""
+multiply → gemm, chol_factor → potrf, chol_solve → posv, lu_factor →
+getrf, lu_solve → gesv."""
 
 from __future__ import annotations
 
 from .errors import raise_if_info, slate_error_if
+from .linalg.getrf import gesv, getrf, getrs
 from .linalg.potrf import posv, potrf, potrs
 from .matrix import HermitianMatrix, TriangularMatrix
 from .ops.blas import gemm
+from .types import Op
 
 
 def multiply(alpha, A, B, beta, C, opts=None):
@@ -31,3 +34,17 @@ def chol_solve(A, B, opts=None):
 
 def chol_solve_using_factor(L, B, opts=None):
     return potrs(L, B, opts)
+
+
+def lu_factor(A, opts=None):
+    return getrf(A, opts)
+
+
+def lu_solve(A, B, opts=None):
+    X, LU, piv, info = gesv(A, B, opts)
+    raise_if_info(info, "getrf")
+    return X
+
+
+def lu_solve_using_factor(LU, piv, B, opts=None):
+    return getrs(LU, piv, B, Op.NoTrans, opts)

@@ -2,14 +2,16 @@
 
 The per-call ``opts`` dict is the analog of SLATE's
 ``Options = std::map<Option, OptionValue>`` (types.hh:61). The keys are
-kept whole so that option-compatible call sites keep working; this
-slice of the port reads only ``Option.TrailingPrecision``.
+kept whole so that option-compatible call sites keep working; the port
+reads ``Option.TrailingPrecision`` and ``Option.MethodLU``.
 """
 
 from __future__ import annotations
 
 import enum
 from typing import Any, Mapping
+
+from .errors import SlateError
 
 
 class Op(enum.Enum):
@@ -109,3 +111,22 @@ def get_option(opts: Options | None, key: Option, default: Any = None) -> Any:
     if default is not None:
         return default
     return _DEFAULTS.get(key)
+
+
+class MethodLU(enum.Enum):
+    Auto = enum.auto()
+    PartialPiv = enum.auto()
+    CALU = enum.auto()      # tournament pivoting (reference getrf_tntpiv.cc)
+    NoPiv = enum.auto()
+
+    @staticmethod
+    def select_algo(A, opts=None) -> "MethodLU":
+        """The LU method ``Option.MethodLU`` asks for (``Auto`` means
+        partial pivoting). ``NoPiv`` raises: ``getrf_nopiv`` and its tile
+        kernel ``lu_nopiv_tile`` come in a later slice of the port."""
+        m = get_option(opts, Option.MethodLU, MethodLU.Auto)
+        if m == MethodLU.NoPiv:
+            raise SlateError(
+                "MethodLU.NoPiv is not ported yet: getrf_nopiv/gesv_nopiv "
+                "and the lu_nopiv_tile kernel come in a later slice")
+        return MethodLU.PartialPiv if m == MethodLU.Auto else m

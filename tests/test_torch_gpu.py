@@ -1,6 +1,6 @@
 """Tests of the port that need a CUDA card: each CUDA kernel against its
-plain PyTorch version, and the Cholesky solve on the card against the
-same solve on the CPU. They skip without a card.
+plain PyTorch version, and the Cholesky and LU solves on the card
+against the same solves on the CPU. They skip without a card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -53,10 +53,11 @@ def test_cuda_kernels_match_plain(cuda, nb):
         assert rel(K.trsm_left_lower(l, bl, unit),
                    K.trsm_left_lower_plain(l, bl, unit)) < TOL
     torch.cuda.synchronize()
-    assert K.LAUNCHES == {"potrf_tile": before["potrf_tile"] + 1,
-                          "trsm_right_lower_t":
-                              before["trsm_right_lower_t"] + 2,
-                          "trsm_left_lower": before["trsm_left_lower"] + 2}
+    after = {k: K.LAUNCHES[k] for k in before}
+    assert after == {**before,
+                     "potrf_tile": before["potrf_tile"] + 1,
+                     "trsm_right_lower_t": before["trsm_right_lower_t"] + 2,
+                     "trsm_left_lower": before["trsm_left_lower"] + 2}
 
 
 def test_cuda_kernel_reports_a_failed_pivot(cuda):
@@ -83,3 +84,96 @@ def test_posv_on_card_matches_cpu(cuda, upper):
         assert int(info) == 0
         xs.append(X.to_dense())
     assert rel(xs[0], xs[1]) < 1e-4
+
+
+def _panel(S, nb, L, seed, device, kill=0.2, zero_col=None):
+    g = torch.Generator().manual_seed(seed)
+    buf = torch.randn(S, nb, L, generator=g)
+    if zero_col is not None:
+        buf[:, zero_col, :] = 0.0
+    act = (torch.rand(S * L, generator=g) >= kill).float()
+    return buf.to(device), act.to(device)
+
+
+@pytest.mark.parametrize("S,nb,L,blocks", [
+    (8, 256, 48, (0, 1)),     # folded, two blocks in a row (h = 384)
+    (1, 128, 200, (0,)),      # flat, h not a multiple of the CTA rows
+    (1, 128, 40, (0,)),       # fewer rows than columns
+    (8, 128, 1024, (0,)),     # h = 8192, one CTA per SM
+])
+def test_panel_plu_kernel_matches_plain(cuda, S, nb, L, blocks):
+    """K4 against its plain version on the card: pivots, mask and info
+    equal; values within atol 1e-4 (both round each product and
+    difference once, so they agree bit for bit in practice)."""
+    buf, act = _panel(S, nb, L, seed=L, device=cuda, zero_col=3)
+    pbuf, pact = buf.clone(), act.clone()
+    before = K.LAUNCHES["plu_call_folded_block"]
+    for blk in blocks:
+        piv, info = K.panel_plu(buf, act, blk, name="plu_call_folded_block")
+        ppiv, pinfo = K.panel_plu_plain(pbuf, pact, blk)
+        torch.cuda.synchronize()
+        assert torch.equal(piv.cpu(), ppiv.cpu())
+        assert torch.equal(act.cpu(), pact.cpu())
+        assert int(info) == int(pinfo)
+        assert float((buf - pbuf).abs().max()) <= 1e-4
+        assert int(info) == (blk == 0)        # the zero column
+    assert K.LAUNCHES["plu_call_folded_block"] == before + len(blocks)
+
+
+def test_panel_plu_kernel_nan_column(cuda):
+    buf, act = _panel(8, 128, 48, seed=2, device=cuda)
+    live = torch.nonzero(act).flatten()
+    r = int(live[5])
+    buf[r // 48, 9, r % 48] = float("nan")
+    pbuf, pact = buf.clone(), act.clone()
+    piv, info = K.panel_plu(buf, act, 0, name="plu_call_folded")
+    ppiv, pinfo = K.panel_plu_plain(pbuf, pact, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(piv.cpu(), ppiv.cpu())
+    assert (piv[9:] == 384).all() and (piv[:9] < 384).all()
+    assert torch.equal(act.cpu(), pact.cpu()) and int(info) == int(pinfo)
+    assert torch.equal(torch.isnan(buf).cpu(), torch.isnan(pbuf).cpu())
+
+
+@pytest.mark.parametrize("S,h,w", [(8, 8 * 37, 50), (1, 130, 77),
+                                   (8, 1024, 256)])
+def test_panel_transpose_kernel_bitwise(cuda, S, h, w):
+    """K5 against permute().contiguous(), on a strided window of a wider
+    matrix and back: bitwise equal."""
+    big = torch.randn(h + 3, w + 40, device=cuda)
+    win = big[3:, 17:17 + w]
+    before = K.LAUNCHES["fold_panel"], K.LAUNCHES["unfold_panel"]
+    f = K.panel_fold(win, S, name="fold_panel")
+    assert torch.equal(f, K.panel_fold_plain(win, S))
+    u = K.panel_unfold(f, name="unfold_panel")
+    assert torch.equal(u, K.panel_unfold_plain(f)) and torch.equal(u, win)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES["fold_panel"], K.LAUNCHES["unfold_panel"]) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_gesv_on_card_matches_cpu(cuda, monkeypatch):
+    """The LU fast path on the card (forced at a small size) against the
+    same path on the CPU: equal pivots and info; LU within
+    10·n·2⁻²⁴·max|LU| (the panel kernel matches its plain version bit
+    for bit, but cuBLAS and the CPU's BLAS sum the updates in other
+    orders, and an f32 LU's distance from the exact factors grows like
+    n·ε·max|U| on either side)."""
+    monkeypatch.setenv("SLATE_LU_FAST", "1")
+    n, nb = 1024, 256
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    b = rng.standard_normal((n, 2)).astype(np.float32)
+    out = []
+    for dev in (cuda, "cpu"):
+        grid = st.Grid(1, 1, device=dev)
+        X, LU, piv, info = st.gesv(st.Matrix.from_dense(a, nb=nb, grid=grid),
+                                   st.Matrix.from_dense(b, nb=nb, grid=grid))
+        out.append((X.to_dense().cpu(), LU.to_dense().cpu(), piv.cpu(),
+                    int(info)))
+    assert torch.equal(out[0][2], out[1][2]) and out[0][3] == out[1][3] == 0
+    assert float((out[0][1] - out[1][1]).abs().max()) \
+        <= 10 * n * 2.0 ** -24 * float(out[1][1].abs().max())
+    x = out[0][0].double().numpy()
+    r = np.linalg.norm(a @ x - b) / (np.linalg.norm(a) * np.linalg.norm(x))
+    assert r <= 10 * n * 2.0 ** -24

@@ -151,5 +151,10 @@ def test_launch_counters_stay_zero_on_cpu():
     K.potrf_tile(a)
     K.trsm_right_lower_t(a, a)
     K.trsm_left_lower(a, a)
-    assert K.LAUNCHES == {"potrf_tile": 0, "trsm_right_lower_t": 0,
-                          "trsm_left_lower": 0}
+    buf = torch.randn(8, 128, 16)
+    K.panel_plu(buf, torch.ones(128), 0, name="plu_call_folded_block")
+    K.panel_unfold(K.panel_fold(a, 8, name="fold_panel"),
+                   name="unfold_panel")
+    assert {"potrf_tile", "trsm_right_lower_t",
+            "trsm_left_lower"} <= set(K.LAUNCHES)
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)

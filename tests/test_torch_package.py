@@ -53,7 +53,8 @@ def test_grid_never_picks_the_cpu_quietly(monkeypatch):
 
 def test_kernel_sources_and_build_key():
     names = [s.name for s in _build._sources()]
-    assert names == ["potrf_tile.cu", "trsm_lower.cu"]
+    assert names == ["panel_plu.cu", "panel_transpose.cu", "potrf_tile.cu",
+                     "trsm_lower.cu"]
     for src in _build._sources():
         text = src.read_text()
         assert "extern \"C\" int slate_" in text
@@ -79,7 +80,11 @@ def test_exports():
                  "gemm", "trsm", "multiply", "chol_factor", "chol_solve",
                  "chol_solve_using_factor", "from_reference", "to_reference",
                  "finite_guard", "info_merge", "zero_nonfinite", "SlateError",
-                 "InfoError", "raise_if_info", "Option", "get_option"):
+                 "InfoError", "raise_if_info", "Option", "get_option",
+                 "getrf", "getrs", "gesv", "PivotOrder", "MethodLU",
+                 "pivot_order_to_ipiv", "lu_factor", "lu_solve",
+                 "lu_solve_using_factor", "pivots_from_reference",
+                 "pivots_to_reference"):
         assert hasattr(pst, name), name
 
 
