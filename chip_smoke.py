@@ -22,6 +22,14 @@
    ``permute().contiguous()``. Times as in 2; the library call is
    ``torch.linalg.lu_factor`` on the [h, 128] subpanel for K4 and the
    ``permute().contiguous()`` copy for K5.
+2c. The QR and unpivoted-LU kernels against their plain versions on the
+   card: K6 ``panel_qr`` at [16384, 128] from d0=0, [13312, 128] from
+   d0=896 (the last subpanel of the last ``geqrf`` panel) and [384, 128]
+   from d0=128, each a column window of a wider matrix (rows above d0
+   bitwise unchanged); K7 ``lu_nopiv_tile`` at [1024, 1024] and
+   [200, 200] (``info`` equal). Times as in 2; the library calls are
+   ``torch.geqrf`` on the same [h, 128] block and
+   ``torch.linalg.lu_factor(pivot=False)`` on the tile.
 3. The main path: ``posv`` at f32, n=16384, nb=1024 on ``Grid(1, 1)``
    with A = G·Gᵀ/n + I (built with the port's ``gemm``) and 8
    right-hand sides; checks ``info == 0``, the residual bound, and that
@@ -38,14 +46,31 @@
    height is 256 mod 1024), the same checks and its launch counts.
 3d. The subpanel entry ``plu_panel(fold=True)`` at h=16384, the path of
    the folded subpanel kernel and its two transposes.
+3e. ``geqrf`` at f32, m=16384, n=4096, nb=1024 on a seeded Gaussian A
+   (the fast path, K6 on every subpanel): ‖A − Q·R‖_F/‖A‖_F and
+   ‖Q₁ᵀQ₁ − I‖_F/n within 10·m·2⁻²⁴ (Q·R and Q₁ formed by ``unmqr``),
+   exact launch counts; ``geqrf_ms``, GFLOP/s at 2mn² − 2n³/3, peak
+   memory and the ``torch.profiler`` breakdown.
+3f. ``gels`` at the same shape with 8 right-hand sides: the Householder
+   route on a consistent B = A·X₀ (‖X − X₀‖/‖X₀‖ ≤ 1e-3) and on a
+   Gaussian B (normal-equations residual within 10·m·2⁻²⁴); the default
+   route, which takes CholQR for m ≥ 2n; the LQ route at m=4096,
+   n=16384; each with its residual, exact launch counts and ``gels_ms``.
+3g. ``gesv_nopiv`` at n=16384, nb=1024, 8 right-hand sides, A = G + n·I:
+   ``info`` 0, residual within 10·n·2⁻²⁴, ‖A − L·U‖/(n·‖A‖) ≤ 1e-5, exact
+   launch counts, ``getrf_nopiv_ms``, ``gesv_nopiv_ms`` and the breakdown.
 4. Failure report: a non-SPD matrix whose leading 256×256 block is not
    positive definite gives ``info == 2`` on the card and on the CPU;
    a small SPD solve agrees between the two. LU at n=2048, nb=1024 with
    SLATE_LU_FAST=1 on the card and on the CPU: equal ipiv, LU within
    10·n·2⁻²⁴·max|LU|; a matrix with a zero column gives the same ``info``
    (1) on both.
+4c. ``geqrf`` and ``gels`` at [1024, 512], nb=128 on the card (K6) and on
+   the CPU (its plain version), the fast path forced: R, the taus and X
+   within 1e-5; a zero pivot under ``gesv_nopiv`` gives ``info`` 1 on
+   both.
 
-Each path of 3–3d runs with the launch counts set to 0 just before it
+Each path of 3–3g runs with the launch counts set to 0 just before it
 and read just after. Any failure raises and the script exits non-zero.
 Without a CUDA card it exits with code 2 before doing anything. The last
 line is ``{"ok": true, "device": {...}}``.
@@ -65,6 +90,7 @@ import torch
 
 N, NB, NRHS = 16384, 1024, 8
 FLAT_N, FLAT_NB = 8448, 256   # every LU panel window height ≡ 256 mod 1024
+QR_M, QR_N = 16384, 4096      # the JAX bench's geqrf shape (bench.py:766-791)
 TOL = 1e-5                # kernel vs plain: relative Frobenius error, FP32
 LU_ATOL = 1e-4            # K4 vs plain: values (pivots, mask, info equal)
 FP32_PEAK = 67e12         # H100 SXM, non-tensor FP32 FLOP/s (data sheet)
@@ -95,6 +121,11 @@ KERNELS = {
     "fold_panel": (_TR, f"{_JPP}:381", "gesv"),
     "unfold_panel": (_TR, f"{_JPP}:401", "gesv"),
     "unfold_transpose": (_TR, f"{_JPP}:419", "plu_panel"),
+    "qr_call": ("slate_tpu_torch/csrc/panel_qr.cu",
+                "slate_tpu/internal/panel_qr.py:173", "geqrf"),
+    "lu_nopiv_tile": ("slate_tpu_torch/csrc/lu_nopiv_tile.cu",
+                      "slate_tpu/internal/pallas_kernels.py:442",
+                      "gesv_nopiv"),
 }
 
 
@@ -570,6 +601,10 @@ def phase_plu_panel():
 
 
 def _category(name: str) -> str:
+    if "qr_subpanel" in name:
+        return "panel QR kernel (K6)"
+    if any(k in name for k in ("lu_diag", "lu_l21", "lu_u12", "lu_trailing")):
+        return "tile LU kernel (K7)"
     if "plu_block" in name:
         return "panel LU kernel (K4)"
     if "panel_transpose" in name:
@@ -681,6 +716,343 @@ def phase_lu_failure_report():
     assert infos == {"cuda": 1, "cpu": 1}, infos
 
 
+# ---------------------------------------------------------------------------
+# the QR and unpivoted-LU slice
+# ---------------------------------------------------------------------------
+
+def qr_bound(hh):
+    """K6's least time for one subpanel of hh rows from its diagonal: the
+    flops of its column loop (per column, the sums vᵀa_k and the rank-1
+    update of the columns right of it) and the bytes (the rows read once
+    and written once, tau written)."""
+    flops = sum(2 * (hh - j - 1) * (128 - j) + 2 * (hh - j) * (127 - j)
+                for j in range(128))
+    return bound(flops, (2 * hh * 128 + 128) * 4)
+
+
+def cusolver(fn):
+    """Run a library call with cuSOLVER as PyTorch's linear-algebra
+    backend (its default may pick MAGMA for a single matrix and warn)."""
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+def check_qr(h, d0, gen, timing):
+    """K6 on a column window of a wider matrix against its plain version:
+    the factored window and tau within TOL, everything outside the window
+    and above d0 bitwise unchanged."""
+    from slate_tpu_torch.internal import kernels as K
+    big = torch.randn(h, 3 * 128, generator=gen, device="cuda")
+    ref = big.clone()
+    win = big[:, 128:256]
+    tau = K.panel_qr(win, d0)
+    sub_p = ref[:, 128:256].clone()
+    tau_p = K.panel_qr_plain(sub_p, d0)
+    torch.cuda.synchronize()
+    err = max(rel_err(win, sub_p), rel_err(tau, tau_p))
+    mx = float((win - sub_p).abs().max())
+    kept = (torch.equal(big[:d0], ref[:d0])
+            and torch.equal(big[:, :128], ref[:, :128])
+            and torch.equal(big[:, 256:], ref[:, 256:]))
+    ok = bool(torch.isfinite(win).all()) and err <= TOL and kept
+    say(f"  panel_qr [{h},128] d0={d0}: rel_err {err:.3e} (tol {TOL:g}), "
+        f"max_abs_err {mx:.3e}, untouched rows and columns equal {kept} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"panel_qr [{h},128] d0={d0} disagrees with "
+                             "its plain version")
+    if not timing:
+        return dict(max_abs_err=mx)
+    work = ref.clone()
+    ww = work[:, 128:256]
+
+    def restore():
+        ww.copy_(ref[:, 128:256])
+    block = ref[d0:, 128:256].contiguous()
+    return dict(max_abs_err=mx,
+                ms=time_ms(lambda: K.panel_qr(ww, d0), restore),
+                plain_ms=time_ms(lambda: K.panel_qr_plain(ww, d0), restore),
+                library_ms=cusolver(lambda: time_ms(
+                    lambda: torch.geqrf(block))),
+                bound=qr_bound(h - d0))
+
+
+def lu_nopiv_library_ms(a):
+    """``torch.linalg.lu_factor(pivot=False)``, the same function, where
+    this PyTorch build has it on the card; None where it raises."""
+    try:
+        return time_ms(lambda: torch.linalg.lu_factor(a, pivot=False))
+    except RuntimeError as e:
+        say(f"  lu_factor(pivot=False) not available: {e}")
+        return None
+
+
+def phase_qr_nopiv_kernels():
+    from slate_tpu_torch.internal import kernels as K
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    say("QR and unpivoted-LU kernel checks (kernel vs plain on the card):")
+    rows["qr_call"] = check_qr(QR_M, 0, gen, True)
+    for h, d0 in ((QR_M - 3 * NB, NB - 128), (384, 128)):
+        mx = check_qr(h, d0, gen, False)["max_abs_err"]
+        rows["qr_call"]["max_abs_err"] = max(rows["qr_call"]["max_abs_err"],
+                                             mx)
+    for nb in (NB, 200):
+        a = torch.randn(nb, nb, generator=gen, device="cuda") \
+            + nb * torch.eye(nb, device="cuda")
+        lu, info = K.lu_nopiv_tile(a)
+        lu_p, info_p = K.lu_nopiv_tile_plain(a)
+        torch.cuda.synchronize()
+        err = rel_err(lu, lu_p)
+        mx = float((lu - lu_p).abs().max())
+        ok = (bool(torch.isfinite(lu).all()) and err <= TOL
+              and int(info) == int(info_p) == 0)
+        say(f"  lu_nopiv_tile nb={nb}: rel_err {err:.3e} (tol {TOL:g}), "
+            f"max_abs_err {mx:.3e}, info {int(info)}/{int(info_p)} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"lu_nopiv_tile nb={nb} disagrees with its "
+                                 "plain version")
+        if nb == NB:
+            rows["lu_nopiv_tile"] = dict(
+                max_abs_err=mx, ms=time_ms(lambda: K.lu_nopiv_tile(a)),
+                plain_ms=time_ms(lambda: K.lu_nopiv_tile_plain(a)),
+                library_ms=lu_nopiv_library_ms(a),
+                bound=bound(2 * nb ** 3 / 3, 2 * nb * nb * 4))
+        else:
+            rows["lu_nopiv_tile"]["max_abs_err"] = max(
+                rows["lu_nopiv_tile"]["max_abs_err"], mx)
+    for name, r in rows.items():
+        lib = r["library_ms"]
+        say(f"  {name}: kernel_ms {r['ms']:.4f}, plain_ms "
+            f"{r['plain_ms']:.4f}, library_ms "
+            f"{'null' if lib is None else f'{lib:.4f}'}, bound_ms "
+            f"{r['bound'][0]:.4f} ({r['bound'][1]})")
+    return rows
+
+
+def start_path():
+    """Reset the peak memory and the launch counts just before a path."""
+    from slate_tpu_torch.internal import kernels as K
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    K.reset_launches()
+    return base, time.perf_counter()
+
+
+def end_path(base, t0, expect_nonzero):
+    """Read the path's time, launch counts and peak memory just after it;
+    the counts must be exactly ``expect_nonzero`` and 0 elsewhere."""
+    from slate_tpu_torch.internal import kernels as K
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(K.LAUNCHES)
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    expect = {**dict.fromkeys(K.LAUNCHES, 0), **expect_nonzero}
+    say(f"  kernels: {json.dumps({k: v for k, v in launches.items() if v})}")
+    assert launches == expect, f"launches {launches}, expected {expect}"
+    return ms, launches, peak_gib
+
+
+def phase_geqrf():
+    """3e: geqrf at the JAX bench's QR shape."""
+    import slate_tpu_torch as st
+    grid = st.Grid(1, 1)
+    m, n = QR_M, QR_N
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    a = torch.randn(m, n, generator=gen, device="cuda")
+    A = st.Matrix.from_dense(a, nb=NB, grid=grid)
+    st.geqrf(A)                        # warm-up: cuBLAS handles
+    base, t0 = start_path()
+    QR, T = st.geqrf(A)
+    ms, launches, peak_gib = end_path(base, t0, {"qr_call": 32})
+    r = torch.triu(QR.to_dense()[:n])
+    R0 = st.Matrix.from_dense(torch.cat([r, r.new_zeros(m - n, n)]), nb=NB,
+                              grid=grid)
+    qr_ = st.unmqr(st.Side.Left, st.Op.NoTrans, QR, T, R0).to_dense()
+    I0 = st.Matrix.from_dense(torch.eye(m, n, device="cuda"), nb=NB,
+                              grid=grid)
+    q1 = st.unmqr(st.Side.Left, st.Op.NoTrans, QR, T, I0).to_dense()
+    with _f32():
+        rec = float(torch.linalg.norm(a - qr_) / torch.linalg.norm(a))
+        orth = float(torch.linalg.norm(q1.T @ q1 - torch.eye(
+            n, device="cuda")) / n)
+    limit = 10 * m * 2.0 ** -24
+    say(f"QR path: geqrf f32 m={m} n={n} nb={NB} Grid(1,1): |A-QR|/|A| "
+        f"{rec:.3e}, |Q1^T Q1 - I|/n {orth:.3e} (bound {limit:.3e} each)")
+    say(f"  geqrf_ms {ms:.3f} ({(2 * m * n * n - 2 * n ** 3 / 3) / ms / 1e6:.1f}"
+        f" GFLOP/s at 2mn^2-2n^3/3), geqrf peak device memory above its "
+        f"inputs {peak_gib:.3f} GiB")
+    assert bool(torch.isfinite(qr_).all()) and T.shape == (n // NB, NB, NB)
+    assert rec <= limit and orth <= limit, (rec, orth)
+    phase_breakdown("geqrf", lambda: st.geqrf(A))
+    return launches
+
+
+def normal_residual(a, x, b):
+    """‖Aᵀ(A·X − B)‖_F / (‖A‖_F·(‖A‖_F·‖X‖_F + ‖B‖_F))."""
+    with _f32():
+        an = torch.linalg.norm(a)
+        return float(torch.linalg.norm(a.T @ (a @ x - b))
+                     / (an * (an * torch.linalg.norm(x)
+                              + torch.linalg.norm(b))))
+
+
+def run_gels(label, A, B, opts, expect_nonzero):
+    import slate_tpu_torch as st
+    st.gels(A, B, opts)                # warm-up
+    base, t0 = start_path()
+    X = st.gels(A, B, opts)
+    ms, _, _ = end_path(base, t0, expect_nonzero)
+    x = X.to_dense()
+    assert bool(torch.isfinite(x).all()) and tuple(x.shape) == (A.n, B.n)
+    say(f"  {label}: gels_ms {ms:.3f}")
+    return x
+
+
+def phase_gels():
+    """3f: the three routes of gels."""
+    import slate_tpu_torch as st
+    grid = st.Grid(1, 1)
+    m, n = QR_M, QR_N
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    a = torch.randn(m, n, generator=gen, device="cuda")
+    A = st.Matrix.from_dense(a, nb=NB, grid=grid)
+    x0 = torch.randn(n, NRHS, generator=gen, device="cuda")
+    with _f32():
+        b0 = a @ x0
+    qr_opts = {st.Option.MethodGels: st.MethodGels.Geqrf}
+    limit = 10 * m * 2.0 ** -24
+    say(f"least squares: gels f32 m={m} n={n} nb={NB} nrhs={NRHS}:")
+    x = run_gels("Householder route, consistent B", A,
+                 st.Matrix.from_dense(b0, nb=NB, grid=grid), qr_opts,
+                 {"qr_call": 32})
+    err = rel_err(x, x0)
+    say(f"    |X - X0|/|X0| {err:.3e} (bound 1e-3)")
+    assert err <= 1e-3
+    b = torch.randn(m, NRHS, generator=gen, device="cuda")
+    B = st.Matrix.from_dense(b, nb=NB, grid=grid)
+    x = run_gels("Householder route, Gaussian B", A, B, qr_opts,
+                 {"qr_call": 32})
+    res = normal_residual(a, x, b)
+    say(f"    |A^T(AX-B)|/(|A|(|A||X|+|B|)) {res:.3e} (bound {limit:.3e})")
+    assert res <= limit
+    assert st.MethodGels.select_algo(A, B) == st.MethodGels.Cholqr
+    x = run_gels("default route (CholQR, m >= 2n), Gaussian B", A, B,
+                 None, {"potrf_tile": n // NB,
+                        "trsm_right_lower_t": n // NB - 1})
+    res = normal_residual(a, x, b)
+    say(f"    |A^T(AX-B)|/(|A|(|A||X|+|B|)) {res:.3e} (bound {limit:.3e})")
+    assert res <= limit
+    del A, a
+    at = torch.randn(n, m, generator=gen, device="cuda")   # m < n: LQ
+    bt = torch.randn(n, NRHS, generator=gen, device="cuda")
+    x = run_gels(f"LQ route (m={n}, n={m}), Gaussian B",
+                 st.Matrix.from_dense(at, nb=NB, grid=grid),
+                 st.Matrix.from_dense(bt, nb=NB, grid=grid), None,
+                 {"qr_call": 32, "trsm_left_lower": n // NB})
+    with _f32():
+        res = float(torch.linalg.norm(at @ x - bt)
+                    / (torch.linalg.norm(at) * torch.linalg.norm(x)
+                       + torch.linalg.norm(bt)))
+    say(f"    |AX-B|/(|A||X|+|B|) {res:.3e} (bound {limit:.3e})")
+    assert res <= limit
+
+
+def phase_gesv_nopiv():
+    """3g: the unpivoted LU solve at the LU bench shape."""
+    import slate_tpu_torch as st
+    grid = st.Grid(1, 1)
+    n = N
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    a = torch.randn(n, n, generator=gen, device="cuda")
+    a.diagonal().add_(float(n))
+    b = torch.randn(n, NRHS, generator=gen, device="cuda")
+    A = st.Matrix.from_dense(a, nb=NB, grid=grid)
+    B = st.Matrix.from_dense(b, nb=NB, grid=grid)
+    st.gesv_nopiv(A, B)                # warm-up
+    base, t0 = start_path()
+    X, LU, info = st.gesv_nopiv(A, B)
+    ms, launches, peak_gib = end_path(
+        base, t0, {"lu_nopiv_tile": n // NB, "trsm_left_lower": n // NB})
+    t1 = time.perf_counter()
+    st.getrf_nopiv(A)
+    torch.cuda.synchronize()
+    getrf_ms = (time.perf_counter() - t1) * 1e3
+    info = int(info)
+    x = X.to_dense()
+    lu = LU.to_dense()
+    l = torch.tril(lu, -1)
+    l.diagonal().fill_(1.0)
+    with _f32():
+        r = float(torch.linalg.norm(a @ x - b)
+                  / (torch.linalg.norm(a) * torch.linalg.norm(x)))
+        f = float(torch.linalg.norm(a - l @ torch.triu(lu))
+                  / (n * torch.linalg.norm(a)))
+    del l, lu
+    limit = 10 * n * 2.0 ** -24
+    say(f"unpivoted LU: gesv_nopiv f32 n={n} nb={NB} nrhs={NRHS} Grid(1,1): "
+        f"info {info}, residual {r:.3e} (bound {limit:.3e}), |A-LU|/(n|A|) "
+        f"{f:.3e} (bound 1e-5)")
+    say(f"  getrf_nopiv_ms {getrf_ms:.3f} ({2 * n ** 3 / 3 / getrf_ms / 1e6:.1f}"
+        f" GFLOP/s at 2n^3/3), gesv_nopiv_ms {ms:.3f}, gesv_nopiv peak "
+        f"device memory above its inputs {peak_gib:.3f} GiB")
+    assert info == 0 and bool(torch.isfinite(x).all())
+    assert r <= limit and f <= 1e-5, (r, f)
+    phase_breakdown("gesv_nopiv", lambda: st.gesv_nopiv(A, B))
+    return launches
+
+
+def phase_qr_nopiv_failure_report():
+    """4c: geqrf and gels on the card against the CPU, the fast path and
+    its kernel forced (K6 on the card, its plain version on the CPU);
+    a zero pivot under gesv_nopiv on both."""
+    import slate_tpu_torch as st
+    m, n, nb = 1024, 512, 128
+    rng = np.random.default_rng(10)
+    a = rng.standard_normal((m, n)).astype(np.float32)
+    b = rng.standard_normal((m, 3)).astype(np.float32)
+    os.environ["SLATE_QR_FAST"] = "1"
+    os.environ["SLATE_QR_PANEL"] = "1"
+    try:
+        res = {}
+        for dev in ("cuda", "cpu"):
+            grid = st.Grid(1, 1, device=dev)
+            A = st.Matrix.from_dense(a, nb=nb, grid=grid)
+            QR, T = st.geqrf(A)
+            X = st.gels(A, st.Matrix.from_dense(b, nb=nb, grid=grid),
+                        {st.Option.MethodGels: st.MethodGels.Geqrf})
+            res[dev] = (torch.triu(QR.to_dense()[:n]).cpu(),
+                        torch.diagonal(T, dim1=1, dim2=2).cpu(),
+                        X.to_dense().cpu())
+    finally:
+        del os.environ["SLATE_QR_FAST"], os.environ["SLATE_QR_PANEL"]
+    errs = [rel_err(res["cuda"][i], res["cpu"][i]) for i in range(3)]
+    say(f"small geqrf/gels m={m} n={n} nb={nb} (SLATE_QR_FAST=1, "
+        f"SLATE_QR_PANEL=1): card vs CPU rel_err R {errs[0]:.3e}, taus "
+        f"{errs[1]:.3e}, X {errs[2]:.3e} (tol {TOL:g})")
+    assert max(errs) <= TOL, errs
+    nz, nbz = 600, 256
+    z = (rng.standard_normal((nz, nz)) + nz * np.eye(nz)).astype(np.float32)
+    z[100, :] = 0.0
+    z[:, 100] = 0.0
+    infos = {}
+    for dev in ("cuda", "cpu"):
+        grid = st.Grid(1, 1, device=dev)
+        _, _, info = st.gesv_nopiv(
+            st.Matrix.from_dense(z, nb=nbz, grid=grid),
+            st.Matrix.from_dense(b[:nz], nb=nbz, grid=grid))
+        infos[dev] = int(info)
+    say(f"unpivoted LU failure report (zero row and column): info card "
+        f"{infos['cuda']}, CPU {infos['cpu']}")
+    assert infos == {"cuda": 1, "cpu": 1}, infos
+
+
 def timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -693,11 +1065,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import slate_tpu_torch  # noqa: F401 — fails outside a checkout
-    os.environ.pop("SLATE_LU_FAST", None)
-    os.environ.pop("SLATE_LU_FOLD", None)
+    for flag in ("SLATE_LU_FAST", "SLATE_LU_FOLD", "SLATE_QR_FAST",
+                 "SLATE_QR_PANEL"):
+        os.environ.pop(flag, None)
     smi = timed("1 toolchain", phase_toolchain)
     rows = timed("2 kernels", phase_kernels)
     rows.update(timed("2b LU kernels", phase_lu_kernels))
+    rows.update(timed("2c QR and unpivoted-LU kernels",
+                      phase_qr_nopiv_kernels))
     counts = {"posv": timed("3 posv", phase_main_path)}
     nt = N // NB
     counts["gesv"] = timed(
@@ -710,8 +1085,13 @@ def main() -> int:
         {"plu_call": ft * FLAT_NB // 128, "transpose_tiled": 2 * ft * FLAT_NB
          // 128, "trsm_left_lower": ft}, "LU flat branch")
     counts["plu_panel"] = timed("3d plu_panel", phase_plu_panel)
+    counts["geqrf"] = timed("3e geqrf", phase_geqrf)
+    timed("3f gels", phase_gels)
+    counts["gesv_nopiv"] = timed("3g gesv_nopiv", phase_gesv_nopiv)
     timed("4 failure report", phase_failure_report)
     timed("4b LU failure report", phase_lu_failure_report)
+    timed("4c QR and unpivoted-LU failure report",
+          phase_qr_nopiv_failure_report)
     out = []
     for name, (source, replaces, path) in KERNELS.items():
         r = rows[name]

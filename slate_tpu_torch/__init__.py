@@ -1,9 +1,11 @@
 """slate_tpu_torch — the PyTorch/CUDA port of the JAX package.
 
 Tiled matrices in the same 2-D block-cyclic layout as ``slate_tpu``, the
-Cholesky solve path (``potrf`` → ``potrs`` → ``posv``) and the LU solve
-path with partial pivoting (``getrf`` → ``getrs`` → ``gesv``) on one
-device. Its tile and panel ops run hand-written CUDA kernels for Hopper
+Cholesky solve path (``potrf`` → ``potrs`` → ``posv``), the LU solve
+with partial pivoting (``getrf`` → ``getrs`` → ``gesv``) and without
+(``getrf_nopiv`` → ``getrs_nopiv`` → ``gesv_nopiv``), and least squares
+through QR (``geqrf`` → ``unmqr`` → ``gels``, with ``gelqf``/``unmlq``
+and ``cholqr``) on one device. Its tile and panel ops run hand-written CUDA kernels for Hopper
 (sm_90a) on the card, built with ``nvcc`` at first use (``csrc/``), and
 their plain PyTorch versions on the CPU.
 
@@ -15,7 +17,8 @@ This package imports torch, numpy and the standard library only, never
 JAX or ``slate_tpu``.
 """
 
-from .types import Op, Uplo, Diag, Side, Norm, Option, MethodLU, get_option
+from .types import (Op, Uplo, Diag, Side, Norm, Option, MethodLU,
+                    MethodGels, get_option)
 from .errors import SlateError, InfoError, slate_error_if, raise_if_info
 from .grid import Grid
 from .matrix import (
@@ -25,12 +28,18 @@ from .matrix import (
 )
 from .robust.guards import finite_guard, info_merge, zero_nonfinite
 from .internal import kernels
-from .ops.blas import gemm, trsm
+from .ops.blas import gemm, herk, syrk, trsm
 from .linalg.potrf import potrf, potrs, posv
 from .linalg.getrf import (getrf, getrs, gesv, PivotOrder,
-                           pivot_order_to_ipiv)
+                           pivot_order_to_ipiv, getrf_nopiv, getrs_nopiv,
+                           gesv_nopiv)
+from .linalg.geqrf import geqrf, unmqr, gelqf, unmlq, cholqr, gels
 from .simplified import (multiply, chol_factor, chol_solve,
                          chol_solve_using_factor, lu_factor, lu_solve,
-                         lu_solve_using_factor)
+                         lu_solve_using_factor, lu_factor_nopiv,
+                         lu_solve_nopiv, lu_solve_using_factor_nopiv,
+                         least_squares_solve, qr_factor, lq_factor,
+                         qr_multiply_by_q, lq_multiply_by_q)
 from .interop import (from_reference, to_reference, pivots_from_reference,
-                      pivots_to_reference)
+                      pivots_to_reference, t_factors_from_reference,
+                      t_factors_to_reference)

@@ -5,7 +5,8 @@ of the Pallas calls of ``slate_tpu/internal/panel_plu.py``.
 Each kernel has three parts here:
 
 * a wrapper (``potrf_tile``, ``trsm_right_lower_t``, ``trsm_left_lower``,
-  ``panel_plu``, ``panel_fold``, ``panel_unfold``) that launches the
+  ``panel_plu``, ``panel_fold``, ``panel_unfold``, ``panel_qr``,
+  ``lu_nopiv_tile``) that launches the
   kernel of ``csrc/`` for a CUDA tensor and counts the launch in
   :data:`LAUNCHES`, runs the plain version for a CPU tensor, and raises
   for anything else. There is no fallback from a failed build or launch;
@@ -18,9 +19,10 @@ Each kernel has three parts here:
 The dispatch sites in :mod:`.tile_kernels` consult :data:`CAPABILITY`
 (platform → kernel → dtype → (nb_min, nb_max, nb_multiple), modelled on
 ``pallas_kernels.py:75-114``); what it does not admit goes to the
-``torch.linalg`` op, as the JAX package sends it to XLA. For the two
+``torch.linalg`` op, as the JAX package sends it to XLA. For the three
 panel kernels the range is that of the panel height h (the JAX
-package's ``H_MAX``); the LU kernel's block width is always :data:`W`.
+package's ``H_MAX``); the LU and QR kernels' block width is always
+:data:`W`.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ W = 128
 # Fewest rows one CTA of the panel LU kernel holds (MIN_ROWS in
 # csrc/panel_plu.cu); it bounds the grid, hence the scratch, by h / 32.
 _PLU_MIN_ROWS = 32
+# The same for the panel QR kernel (MIN_ROWS in csrc/panel_qr.cu).
+_QR_MIN_ROWS = 32
 
 _SPAN = (1, 1024, 1)
 _PANEL_SPAN = (1, 16384, 1)
@@ -51,6 +55,8 @@ _CAPS_CUDA = {
     "trsm_left_lower": {"float32": _SPAN},
     "panel_plu": {"float32": _PANEL_SPAN},
     "panel_transpose": {"float32": _PANEL_SPAN},
+    "panel_qr": {"float32": _PANEL_SPAN},
+    "lu_nopiv_tile": {"float32": _SPAN},
 }
 _CAPS_CPU = {
     "potrf_tile": {"float32": _SPAN, "float64": _SPAN},
@@ -58,6 +64,8 @@ _CAPS_CPU = {
     "trsm_left_lower": {"float32": _SPAN, "float64": _SPAN},
     "panel_plu": {"float32": _PANEL_SPAN, "float64": _PANEL_SPAN},
     "panel_transpose": {"float32": _PANEL_SPAN, "float64": _PANEL_SPAN},
+    "panel_qr": {"float32": _PANEL_SPAN, "float64": _PANEL_SPAN},
+    "lu_nopiv_tile": {"float32": _SPAN, "float64": _SPAN},
 }
 CAPABILITY = {"cuda": _CAPS_CUDA, "cpu": _CAPS_CPU}
 
@@ -69,9 +77,11 @@ TRANSPOSE_NAMES = ("transpose_tiled", "transpose_fold", "fold_panel",
                    "unfold_panel", "unfold_transpose")
 
 # Launches of each kernel on the card since the last reset. A wrapper
-# adds one where it launches its kernel, and nowhere else.
+# adds one where it launches its kernel, and nowhere else. The QR kernel
+# counts under the name of the Pallas function it stands for.
 LAUNCHES = {"potrf_tile": 0, "trsm_right_lower_t": 0, "trsm_left_lower": 0,
-            **{k: 0 for k in PLU_NAMES + TRANSPOSE_NAMES}}
+            **{k: 0 for k in PLU_NAMES + TRANSPOSE_NAMES},
+            "qr_call": 0, "lu_nopiv_tile": 0}
 
 
 def reset_launches() -> None:
@@ -106,6 +116,9 @@ _SIGNATURES = {
     "slate_plu_block_f32": ("panel_plu", (_P,) * 7 + (_I,) * 5 + (_P,)),
     "slate_panel_transpose_f32": ("panel_transpose",
                                   (_P, _P, _I, _I, _I) + (_L,) * 4 + (_P,)),
+    "slate_qr_subpanel_f32": ("panel_qr",
+                              (_P, _L, _I, _I, _P, _P, _P, _I, _P)),
+    "slate_lu_nopiv_tile_f32": ("lu_nopiv_tile", (_P, _I, _P, _P)),
 }
 _FNS: dict = {}
 
@@ -473,3 +486,161 @@ def panel_unfold_plain(xf: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`panel_unfold`."""
     S, w, L = xf.shape
     return xf.permute(0, 2, 1).reshape(S * L, w).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# K6: Householder QR of one 128-column subpanel
+# ---------------------------------------------------------------------------
+
+def panel_qr(sub: torch.Tensor, d0: int) -> torch.Tensor:
+    """Householder QR of the [h, W] subpanel ``sub`` from diagonal row
+    ``d0`` (column j's diagonal is row d0 + j), in place, in LAPACK
+    ``geqrf`` layout: R on and above the diagonal, the reflectors' tails
+    below it (v₀ = 1 implicit). Rows above ``d0`` hold finished R rows
+    and are never read or written. ``sub`` may be a column window of a
+    larger row-major matrix (unit column stride), which the kernel reads
+    and writes in place. Returns ``tau [W]``.
+
+    Replaces ``_qr_kernel`` behind ``_qr_call`` (panel_qr.py:67-173),
+    which holds the subpanel transposed, [W, h], in VMEM. Bound on an
+    H100: latency — 128 dependent columns, each a reduction over all rows
+    below the diagonal; the bytes (2·h·W·4) and flops (~4·h·W²) are a
+    few µs of work. Design (csrc/panel_qr.cu), K4's pattern: one
+    cooperative launch, one CTA per SM holding its band of rows in
+    shared memory for the whole call; per column each CTA publishes its
+    partial sums s_k = Σ a[i, j]·a[i, k] (i below the diagonal, k ≥ j),
+    one grid barrier, then every CTA reduces them in the same order and
+    derives the same α, β, τ and vᵀa_k = a[d, k] + s_k/(α − β), and
+    updates its own rows. Each reflector is applied eagerly, where the
+    JAX kernel batches IB = 8 of them for the MXU; the two agree in exact
+    arithmetic.
+    """
+    h, w = sub.shape
+    slate_error_if(w != W or not 0 <= d0 < h,
+                   f"qr_call: [{h}, {w}] subpanel from row {d0}; expected "
+                   f"width {W} and a diagonal row inside it")
+    if not _route("qr_call", sub):
+        return panel_qr_plain(sub, d0)
+    slate_error_if(sub.dtype != torch.float32 or sub.stride(1) != 1,
+                   f"qr_call: the kernel takes float32 rows of unit column "
+                   f"stride, got {sub.dtype} with strides {sub.stride()}")
+    slate_error_if(not supported("panel_qr", sub.dtype, h, sub.device),
+                   f"qr_call: height {h} is outside the capability table")
+    dev = sub.device
+    maxc = -(-(h - d0) // _QR_MIN_ROWS)
+    part = torch.empty(2 * maxc * W, dtype=torch.float32, device=dev)
+    head = torch.empty(2 * W, dtype=torch.float32, device=dev)
+    tau = torch.empty(W, dtype=torch.float32, device=dev)
+    _launch("slate_qr_subpanel_f32", dev, _P(sub.data_ptr()), sub.stride(0),
+            h, d0, _P(tau.data_ptr()), _P(part.data_ptr()),
+            _P(head.data_ptr()), maxc)
+    LAUNCHES["qr_call"] += 1
+    return tau
+
+
+def panel_qr_plain(sub: torch.Tensor, d0: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`panel_qr`, in place on ``sub`` the
+    same way: the kernel's eager column loop on a copy of the rows from
+    ``d0`` down, with vᵀa_k formed from the same sums. Its sums run in
+    another order than the kernel's grid reduction, so the two agree to
+    rounding, not bit for bit."""
+    x = sub[d0:].clone()                                   # a copy
+    hh = x.shape[0]
+    tau = sub.new_zeros(W)
+    with full_f32_matmul():
+        for j in range(min(W, hh)):
+            s = x[j + 1:, j] @ x[j + 1:, j:]               # s[0] = ‖x‖²
+            alpha, xnorm2 = x[j, j], s[0]
+            trivial = xnorm2 == 0
+            sgn = torch.where(alpha < 0, -1.0, 1.0).to(x.dtype)
+            beta = torch.where(trivial, alpha,
+                               -sgn * torch.sqrt(alpha * alpha + xnorm2))
+            t = torch.where(trivial, 0.0, (beta - alpha) / beta).to(x.dtype)
+            vden = torch.where(trivial, 1.0, alpha - beta).to(x.dtype)
+            tw = t * (x[j, j + 1:] + s[1:] / vden)
+            x[j + 1:, j] /= vden
+            x[j, j] = beta
+            x[j, j + 1:] -= tw
+            x[j + 1:, j + 1:] -= torch.outer(x[j + 1:, j], tw)
+            tau[j] = t
+    sub[d0:] = x
+    return tau
+
+
+# ---------------------------------------------------------------------------
+# K7: unpivoted tile LU
+# ---------------------------------------------------------------------------
+
+def lu_nopiv_tile(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Unpivoted LU of one [nb, nb] tile, compact: unit-lower L strictly
+    below the diagonal, U on and above it; a new tensor. A zero pivot
+    keeps its 0 on the U diagonal and the elimination uses 1 in its
+    place. Returns ``(lu, info)``, ``info`` the 0-dim int32 count of zero
+    diagonal entries of the result.
+
+    Replaces ``lu_nopiv_tile_pallas`` (pallas_kernels.py:442). In the JAX
+    package it sits behind the ``tile`` rung, off by default
+    (tile_kernels.py:71-80, :308-311), as B1 does; the port sends it
+    whatever :data:`CAPABILITY` admits on the card, as it does for
+    :func:`potrf_tile`. Bound on an H100: FP32 operations (2nb³/3 flops)
+    at large nb, but each diagonal block is latency-bound on one CTA.
+    Design (csrc/lu_nopiv_tile.cu), K1's: the tile stays in global memory
+    (4 MB at nb = 1024, resident in L2) and a host loop walks 64-column
+    blocks, four launches each: the diagonal block factored by one CTA
+    in shared memory, with the inverses of its unit L and safe U; then
+    L21 = A21·U11⁻¹, U12 = L11⁻¹·A12 and A22 −= L21·U12 over grids of
+    CTAs. Any nb from 1 to 1024; the ragged last block is masked.
+    """
+    if not _route("lu_nopiv_tile", a):
+        return lu_nopiv_tile_plain(a)
+    nb = a.shape[-1]
+    _check("lu_nopiv_tile", nb, a)
+    slate_error_if(a.shape[0] != nb, "lu_nopiv_tile: square tile expected")
+    out = a.clone(memory_format=torch.contiguous_format)
+    inv = torch.empty(2 * BS * BS, dtype=torch.float32, device=a.device)
+    _launch("slate_lu_nopiv_tile_f32", a.device, _P(out.data_ptr()), nb,
+            _P(inv.data_ptr()))
+    LAUNCHES["lu_nopiv_tile"] += 1
+    return out, (torch.diagonal(out) == 0).sum().int()
+
+
+def _lu_unblocked(d: torch.Tensor) -> torch.Tensor:
+    """Unblocked unpivoted LU of a small block, in place, with the safe
+    pivot (the kernel's ``lu_diag`` loop)."""
+    w = d.shape[0]
+    for j in range(w):
+        p = d[j, j]
+        d[j + 1:, j] /= torch.where(p == 0, 1.0, p).to(d.dtype)
+        d[j + 1:, j + 1:] -= torch.outer(d[j + 1:, j], d[j, j + 1:])
+    return d
+
+
+def _inv_upper_safe(u: torch.Tensor) -> torch.Tensor:
+    """Inverse of a small upper-triangular block whose zero diagonal
+    entries are taken as 1, by back substitution."""
+    w = u.shape[0]
+    d = torch.diagonal(u)
+    d = torch.where(d == 0, 1.0, d).to(u.dtype)
+    eye = torch.eye(w, dtype=u.dtype, device=u.device)
+    x = torch.zeros_like(u)
+    for i in reversed(range(w)):
+        x[i] = (eye[i] - u[i, i + 1:] @ x[i + 1:]) / d[i]
+    return x
+
+
+def lu_nopiv_tile_plain(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`lu_nopiv_tile`: the same 64-column
+    blocked algorithm."""
+    a = a.clone()
+    nb = a.shape[0]
+    with full_f32_matmul():
+        for j0 in range(0, nb, BS):
+            e = min(nb, j0 + BS)
+            d = _lu_unblocked(a[j0:e, j0:e].clone())
+            a[j0:e, j0:e] = d
+            if e < nb:
+                eye = torch.eye(e - j0, dtype=a.dtype, device=a.device)
+                a[e:, j0:e] = a[e:, j0:e] @ _inv_upper_safe(d.triu())
+                a[j0:e, e:] = _inv_lower(d.tril(-1) + eye) @ a[j0:e, e:]
+                a[e:, e:] -= a[e:, j0:e] @ a[j0:e, e:]
+    return a, (torch.diagonal(a) == 0).sum().int()

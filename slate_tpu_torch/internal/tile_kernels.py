@@ -1,5 +1,6 @@
-"""Single-tile dispatch sites (reference include/slate/Tile_blas.hh;
-counterpart of ``slate_tpu/internal/tile_kernels.py:61-133``).
+"""Single-tile and panel dispatch sites (reference
+include/slate/Tile_blas.hh; counterpart of
+``slate_tpu/internal/tile_kernels.py:61-133`` and ``:303-430``).
 
 Each site sends what :data:`kernels.CAPABILITY` admits to the port's own
 kernel (its plain version on the CPU) and everything else to the
@@ -11,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
+from .precision import full_f32_matmul
 
 
 def _factor_dtype(dt: torch.dtype) -> torch.dtype:
@@ -56,3 +58,86 @@ def tile_trsm_right_lower_t(l: torch.Tensor, b: torch.Tensor,
     return torch.linalg.solve_triangular(l.mH if conj else l.mT, b,
                                          upper=True, left=False,
                                          unitriangular=unit)
+
+
+def lu_nopiv_block(a: torch.Tensor, ib: int = 32):
+    """Unpivoted LU of a square [nb, nb] block → ``(lu, info)``, compact
+    unit-L/U; a zero pivot keeps its 0 on the diagonal and the
+    elimination uses 1 in its place; ``info`` counts zero pivots. What
+    :data:`kernels.CAPABILITY` admits goes to the port's kernel K7;
+    anything else takes the ib-strip algorithm of
+    ``tile_kernels.py:312-350`` in torch ops: short column chains on
+    [nb, ib] strips, then a unit-lower solve and one product per strip."""
+    if a.dim() == 2 and kernels.supported("lu_nopiv_tile", a.dtype,
+                                          a.shape[-1], a.device):
+        return kernels.lu_nopiv_tile(a)
+    nb = a.shape[0]
+    a = a.clone()
+    info = torch.zeros((), dtype=torch.int32, device=a.device)
+    ib = min(ib, nb)
+    for j0 in range(0, nb, ib):
+        j_hi = min(j0 + ib, nb)
+        S = a[:, j0:j_hi]                        # a view: updates land in a
+        for jj in range(j_hi - j0):
+            dj = j0 + jj
+            piv = S[dj, jj]
+            info += (piv == 0).int()
+            lcol = S[dj + 1:, jj] / torch.where(piv == 0, 1.0, piv).to(a.dtype)
+            S[dj + 1:, jj + 1:] -= torch.outer(lcol, S[dj, jj + 1:])
+            S[dj + 1:, jj] = lcol
+        if j_hi < nb:
+            u12 = torch.linalg.solve_triangular(
+                S[j0:j_hi], a[j0:j_hi, j_hi:], upper=False, left=True,
+                unitriangular=True)
+            a[j0:j_hi, j_hi:] = u12
+            with full_f32_matmul():
+                a[j_hi:, j_hi:] -= S[j_hi:] @ u12
+    return a, info
+
+
+# ---------------------------------------------------------------------------
+# Householder QR panel (reference internal_geqrf.cc; tile_kernels.py:380-430)
+# ---------------------------------------------------------------------------
+
+def panel_qr_factor(panel: torch.Tensor, start: int, m: int):
+    """Householder QR of the window [start, m) of a full-height panel
+    [M, nb] by ``torch.geqrf``, the counterpart of XLA's ``geqrf``.
+    Returns new tensors ``(panel, taus [nb])``: the window in LAPACK
+    layout, the rows outside it as they were; a window shorter than nb
+    gives the columns past its height τ = 0, as the zero rows of the JAX
+    package's rolled full-height panel do. The JAX package rolls the
+    window to row 0 and masks the rest, to keep one static shape on the
+    TPU; the port slices the window."""
+    fd = _factor_dtype(panel.dtype)
+    nb = panel.shape[1]
+    qr_, taus = torch.geqrf(panel[start:m].to(fd))
+    out = panel.clone()
+    out[start:m] = qr_.to(panel.dtype)
+    full = taus.new_zeros(nb)
+    full[:taus.shape[0]] = taus
+    return out, full.to(panel.dtype)
+
+
+def extract_v(panel: torch.Tensor, start: int, m: int) -> torch.Tensor:
+    """Unit-lower-trapezoid V from a factored panel [M, nb]:
+    V[i, j] = panel[i, j] for start + j < i < m, 1 at i = start + j, 0
+    elsewhere."""
+    M, nb = panel.shape
+    rows = torch.arange(M, device=panel.device)[:, None]
+    diag = start + torch.arange(nb, device=panel.device)[None, :]
+    v = torch.where((rows > diag) & (rows < m), panel, 0.0)
+    return v + (rows == diag)
+
+
+def larft(V: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
+    """Forward compact-WY T with H_0·H_1·… = I − V·T·Vᴴ (LAPACK larft),
+    by the column recurrence on the Gram matrix VᴴV. V: [M, nb] unit
+    lower trapezoid; T: [nb, nb] upper triangular."""
+    nb = taus.shape[0]
+    with full_f32_matmul():
+        G = V.mH @ V
+        T = torch.zeros((nb, nb), dtype=V.dtype, device=V.device)
+        for j in range(nb):
+            T[:j, j] = -taus[j] * (T[:j, :j] @ G[:j, j])
+            T[j, j] = taus[j]
+    return T

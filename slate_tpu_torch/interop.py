@@ -1,11 +1,13 @@
-"""Carry a matrix and LU pivots across from the JAX package and back.
+"""Carry a matrix, LU pivots and QR T factors across from the JAX package
+and back.
 
 A matrix of either package is its storage ``data[p, q, mtl, ntl, nb, nb]``
 plus plain fields, laid out the same way in both. These functions take
 and give the fields as a numpy array and plain strings, so this package
 never touches a JAX object; the storage is kept bit for bit. Pivots
 cross as a numpy int32 ``[kt, nb]`` array, LAPACK ipiv or, wrapped in a
-``PivotOrder`` on either side, an elimination order.
+``PivotOrder`` on either side, an elimination order. The T factors of
+``geqrf``/``gelqf`` cross as a numpy ``[kt, nb, nb]`` array.
 """
 
 from __future__ import annotations
@@ -67,3 +69,19 @@ def pivots_to_reference(piv) -> np.ndarray:
     ``PivotOrder``), for ``jnp.asarray`` or the JAX ``PivotOrder``."""
     t = piv.order if isinstance(piv, PivotOrder) else piv
     return t.detach().cpu().numpy().astype(np.int32)
+
+
+def t_factors_from_reference(T, *, device=None) -> torch.Tensor:
+    """The port's T factors from a JAX ``geqrf``'s ``np.asarray(T)``: a
+    ``[kt, nb, nb]`` tensor on ``device`` (as for :class:`Grid`)."""
+    T = np.asarray(T)
+    slate_error_if(T.ndim != 3 or T.shape[1] != T.shape[2],
+                   f"T factors must be [kt, nb, nb], got {T.shape}")
+    return torch.from_numpy(np.array(T, order="C")).to(
+        Grid(1, 1, device=device).device)
+
+
+def t_factors_to_reference(T: torch.Tensor) -> np.ndarray:
+    """The numpy ``[kt, nb, nb]`` array of the port's T factors, for
+    ``jnp.asarray``."""
+    return T.detach().cpu().numpy()

@@ -1,5 +1,6 @@
-"""LU with partial pivoting on one device: getrf / getrs / gesv (reference
-src/getrf.cc, src/getrs.cc, src/gesv.cc; counterpart of
+"""LU on one device: getrf / getrs / gesv with partial pivoting and
+getrf_nopiv / getrs_nopiv / gesv_nopiv without (reference src/getrf.cc,
+src/getrs.cc, src/gesv.cc, src/getrf_nopiv.cc; counterpart of
 ``slate_tpu/linalg/getrf.py``).
 
 Two paths, chosen as the JAX package chooses them on one device:
@@ -21,6 +22,11 @@ the peak is the matrix, its dense copy and one gather temporary. Pivots
 come back as LAPACK ipiv, ``[kt, nb]`` int32 global rows (0-based): at
 panel k, step j, row k·nb+j was swapped with ``piv[k, j]``. ``info`` is
 the 0-dim int32 count of zero pivots (0 ⇒ nonsingular).
+
+The unpivoted LU (:func:`getrf_nopiv`) is the JAX package's dense
+one-device loop: the tile LU kernel K7 on each diagonal tile
+(``tile_kernels.lu_nopiv_block``), two triangular solves for the block
+column and block row, one trailing product.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from ..internal.precision import (full_f32_matmul, resolve_tier,
 from ..matrix import (Matrix, TriangularMatrix, bc_from_tiles, bc_to_tiles,
                       conj_transpose, dense_to_tiles, tiles_to_dense,
                       transpose)
+from ..internal.tile_kernels import lu_nopiv_block
 from ..ops.blas import trsm
 from ..types import Diag, MethodLU, Op, Side, Uplo
 
@@ -331,9 +338,12 @@ def getrs(LU: Matrix, piv, B: Matrix, trans: Op = Op.NoTrans, opts=None):
 
 
 def gesv(A: Matrix, B: Matrix, opts=None):
-    """Solve A·X = B by LU with partial pivoting (reference src/gesv.cc).
-    Returns ``(X, LU, piv, info)``."""
-    MethodLU.select_algo(A, opts)
+    """Solve A·X = B by LU (reference src/gesv.cc), with partial pivoting
+    unless ``Option.MethodLU`` is ``NoPiv``. Returns
+    ``(X, LU, piv, info)``; ``piv`` is None without pivoting."""
+    if MethodLU.select_algo(A, opts) == MethodLU.NoPiv:
+        X, LU, info = gesv_nopiv(A, B, opts)
+        return X, LU, None, info
     Am = A.materialize()
     if _fast_path_mode(Am, "partial") is not None:
         # pivoting by index end to end: the solve applies the elimination
@@ -347,6 +357,78 @@ def gesv(A: Matrix, B: Matrix, opts=None):
     LU, piv, info = getrf(A, opts)
     X = getrs(LU, piv, B, Op.NoTrans, opts)
     return X, LU, piv, info
+
+
+# ---------------------------------------------------------------------------
+# LU without pivoting
+# ---------------------------------------------------------------------------
+
+def getrf_nopiv(A: Matrix, opts=None):
+    """LU without pivoting: A = L·U (reference src/getrf_nopiv.cc).
+    Returns ``(LU, info)``, ``info`` the number of zero pivots; a zero
+    pivot stays 0 on U's diagonal and the elimination divides by 1 in its
+    place. A is not modified."""
+    A = A.materialize()
+    slate_error_if(A.dtype.is_complex,
+                   "getrf_nopiv: complex dtypes are not ported yet")
+    data, info = _getrf_nopiv_dense_1dev(A, resolve_tier(opts))
+    return A._replace(data=data), info
+
+
+def _getrf_nopiv_dense_1dev(A, tier):
+    """The ``piv_mode="none"`` branch of the JAX package's one-device
+    dense loop (getrf.py:820-850) on the dense (padded) matrix, in place:
+    per diagonal tile ``lu_nopiv_block``, then L21 = A21·U11⁻¹ against
+    the safe U (zero diagonal entries taken as 1), U12 = L11⁻¹·A12 and
+    A22 −= L21·U12. The JAX package sends kt > 64 to its SPMD program;
+    an eager loop has no such cap."""
+    nb, m, n = A.nb, A.m, A.n
+    kt = min(A.mt, A.nt)
+    Mp, Np = A.mtl * nb, A.ntl * nb
+    a = tiles_to_dense(A.data[0, 0], Mp, Np)          # a new tensor
+    # no pivoting: a padded diagonal of ones keeps the padding inert
+    pad = torch.arange(min(m, n), min(kt * nb, Mp, Np), device=a.device)
+    a[pad, pad] = 1.0
+    info = torch.zeros((), dtype=torch.int32, device=a.device)
+    with full_f32_matmul():
+        for k in range(kt):
+            r0, r1 = k * nb, (k + 1) * nb
+            blk, info_k = lu_nopiv_block(a[r0:r1, r0:r1])
+            info += info_k
+            a[r0:r1, r0:r1] = blk
+            if r1 < Mp:
+                d = torch.diagonal(blk)
+                safe_u = blk.triu() + torch.diag((d == 0).to(blk.dtype))
+                a[r1:, r0:r1] = torch.linalg.solve_triangular(
+                    safe_u, a[r1:, r0:r1], upper=True, left=False)
+            if r1 < Np:
+                a[r0:r1, r1:] = torch.linalg.solve_triangular(
+                    blk, a[r0:r1, r1:], upper=False, unitriangular=True)
+                if r1 < Mp:
+                    with trailing_matmul(tier):
+                        a[r1:, r1:].addmm_(a[r1:, r0:r1], a[r0:r1, r1:],
+                                           alpha=-1)
+    # the padding goes back to zero, the storage invariant of the port
+    a[pad, pad] = 0.0
+    tiles = dense_to_tiles(a, nb, A.mtl, A.ntl)
+    return bc_from_tiles(tiles, 1, 1), info
+
+
+def getrs_nopiv(LU: Matrix, B: Matrix, opts=None):
+    """Solve A·X = B from getrf_nopiv factors: unit-lower solve, then
+    upper solve."""
+    L = TriangularMatrix(data=LU.data, m=LU.m, n=LU.n, nb=LU.nb,
+                         grid=LU.grid, uplo=Uplo.Lower, diag=Diag.Unit)
+    U = TriangularMatrix(data=LU.data, m=LU.m, n=LU.n, nb=LU.nb,
+                         grid=LU.grid, uplo=Uplo.Upper, diag=Diag.NonUnit)
+    Y = trsm(Side.Left, 1.0, L, B, opts)
+    return trsm(Side.Left, 1.0, U, Y, opts)
+
+
+def gesv_nopiv(A: Matrix, B: Matrix, opts=None):
+    """Solve A·X = B by LU without pivoting. Returns ``(X, LU, info)``."""
+    LU, info = getrf_nopiv(A, opts)
+    return getrs_nopiv(LU, B, opts), LU, info
 
 
 # ---------------------------------------------------------------------------

@@ -170,6 +170,23 @@ class BaseTiledMatrix:
         si, sj = self.grid.tile_slot(i, j)
         return self.data[r, c, si, sj]
 
+    def sub(self, i1: int, i2: int, j1: int, j2: int) -> "BaseTiledMatrix":
+        """Tile-index submatrix [i1..i2] × [j1..j2] inclusive (reference
+        ``BaseMatrix::sub``), as a copy. Its true size is cut at the
+        parent's; entries past it are zeroed, so the copy keeps the
+        zero padding (the JAX package's ``sub`` copies whole tiles)."""
+        slate_error_if(self.op != Op.NoTrans, "sub() before materialize()")
+        nb = self.nb
+        m = min(self.m - i1 * nb, (i2 - i1 + 1) * nb)
+        n = min(self.n - j1 * nb, (j2 - j1 + 1) * nb)
+        tiles = bc_to_tiles(self.data)[i1:i2 + 1, j1:j2 + 1]
+        g = self.grid
+        mt_p = cdiv(i2 - i1 + 1, g.p) * g.p
+        nt_p = cdiv(j2 - j1 + 1, g.q) * g.q
+        dense = tiles_to_dense(tiles, m, n)
+        data = bc_from_tiles(dense_to_tiles(dense, nb, mt_p, nt_p), g.p, g.q)
+        return dataclasses.replace(self, data=data, m=m, n=n)
+
     def materialize(self) -> "BaseTiledMatrix":
         """Resolve a shallow transpose flag into storage; a triangular or
         Hermitian ``uplo`` flips with it."""

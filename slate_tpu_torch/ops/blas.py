@@ -1,5 +1,5 @@
-"""Level-3 BLAS on a 1×1 grid (reference src/gemm.cc, src/trsm.cc;
-counterpart of ``slate_tpu/ops/blas.py``).
+"""Level-3 BLAS on a 1×1 grid (reference src/gemm.cc, src/herk.cc,
+src/syrk.cc, src/trsm.cc; counterpart of ``slate_tpu/ops/blas.py``).
 
 The routines return the updated output matrix, as the JAX package does:
 ``C = gemm(alpha, A, B, beta, C)``.
@@ -52,6 +52,38 @@ def gemm(alpha, A: Matrix, B: Matrix, beta, C: Matrix,
     with trailing_matmul(tier):
         c = torch.addmm(c, a, b, beta=beta, alpha=alpha)
     data = dense_to_tiles(c, nb, mtl, ntl)[None, None]
+    return C._replace(data=data)
+
+
+# ---------------------------------------------------------------------------
+# herk / syrk
+# ---------------------------------------------------------------------------
+
+def herk(alpha, A: Matrix, beta, C, opts=None):
+    """C = alpha·op(A)·op(A)ᴴ + beta·C, C Hermitian (reference
+    src/herk.cc). Like the JAX package's SUMMA loop on a 1×1 grid, it
+    writes both triangles of C: one product at the tier of
+    ``Option.TrailingPrecision``."""
+    return _rank_k(alpha, A, beta, C, conj=True, opts=opts)
+
+
+def syrk(alpha, A: Matrix, beta, C, opts=None):
+    """C = alpha·op(A)·op(A)ᵀ + beta·C, C symmetric (reference
+    src/syrk.cc); both triangles, as :func:`herk`."""
+    return _rank_k(alpha, A, beta, C, conj=False, opts=opts)
+
+
+def _rank_k(alpha, A, beta, C, conj: bool, opts=None):
+    A = A.materialize()
+    slate_error_if(A.m != C.m or C.m != C.n, "rank-k dims")
+    _check_compat(A, C)
+    tier = resolve_tier(opts)
+    nb = C.nb
+    a = tiles_to_dense(A.data[0, 0], A.mtl * nb, A.ntl * nb)
+    c = tiles_to_dense(C.data[0, 0], C.mtl * nb, C.ntl * nb)
+    with trailing_matmul(tier):
+        c = torch.addmm(c, a, a.mH if conj else a.mT, beta=beta, alpha=alpha)
+    data = dense_to_tiles(c, nb, C.mtl, C.ntl)[None, None]
     return C._replace(data=data)
 
 

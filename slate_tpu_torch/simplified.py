@@ -1,11 +1,14 @@
 """Simplified verb-named API (reference include/slate/simplified_api.hh):
 multiply → gemm, chol_factor → potrf, chol_solve → posv, lu_factor →
-getrf, lu_solve → gesv."""
+getrf, lu_solve → gesv, the unpivoted LU verbs, least_squares_solve →
+gels and the QR/LQ verbs."""
 
 from __future__ import annotations
 
 from .errors import raise_if_info, slate_error_if
-from .linalg.getrf import gesv, getrf, getrs
+from .linalg.geqrf import gelqf, gels, geqrf, unmlq, unmqr
+from .linalg.getrf import (gesv, gesv_nopiv, getrf, getrf_nopiv, getrs,
+                           getrs_nopiv)
 from .linalg.potrf import posv, potrf, potrs
 from .matrix import HermitianMatrix, TriangularMatrix
 from .ops.blas import gemm
@@ -48,3 +51,39 @@ def lu_solve(A, B, opts=None):
 
 def lu_solve_using_factor(LU, piv, B, opts=None):
     return getrs(LU, piv, B, Op.NoTrans, opts)
+
+
+def lu_factor_nopiv(A, opts=None):
+    return getrf_nopiv(A, opts)
+
+
+def lu_solve_nopiv(A, B, opts=None):
+    X, LU, info = gesv_nopiv(A, B, opts)
+    raise_if_info(info, "getrf")
+    return X
+
+
+def lu_solve_using_factor_nopiv(LU, B, opts=None):
+    return getrs_nopiv(LU, B, opts)
+
+
+def least_squares_solve(A, BX, opts=None):
+    return gels(A, BX, opts)
+
+
+def qr_factor(A, opts=None):
+    return geqrf(A, opts)
+
+
+def lq_factor(A, opts=None):
+    return gelqf(A, opts)
+
+
+def qr_multiply_by_q(side, op, QR, T, C, opts=None):
+    """C ← op(Q)·C or C·op(Q) from qr_factor's output (unmqr)."""
+    return unmqr(side, op, QR, T, C, opts)
+
+
+def lq_multiply_by_q(side, op, LQ, T, C, opts=None):
+    """C ← op(Q)·C or C·op(Q) from lq_factor's output (unmlq)."""
+    return unmlq(side, op, LQ, T, C, opts)

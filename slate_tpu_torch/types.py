@@ -3,15 +3,14 @@
 The per-call ``opts`` dict is the analog of SLATE's
 ``Options = std::map<Option, OptionValue>`` (types.hh:61). The keys are
 kept whole so that option-compatible call sites keep working; the port
-reads ``Option.TrailingPrecision`` and ``Option.MethodLU``.
+reads ``Option.TrailingPrecision``, ``Option.MethodLU`` and
+``Option.MethodGels``.
 """
 
 from __future__ import annotations
 
 import enum
 from typing import Any, Mapping
-
-from .errors import SlateError
 
 
 class Op(enum.Enum):
@@ -122,11 +121,22 @@ class MethodLU(enum.Enum):
     @staticmethod
     def select_algo(A, opts=None) -> "MethodLU":
         """The LU method ``Option.MethodLU`` asks for (``Auto`` means
-        partial pivoting). ``NoPiv`` raises: ``getrf_nopiv`` and its tile
-        kernel ``lu_nopiv_tile`` come in a later slice of the port."""
+        partial pivoting)."""
         m = get_option(opts, Option.MethodLU, MethodLU.Auto)
-        if m == MethodLU.NoPiv:
-            raise SlateError(
-                "MethodLU.NoPiv is not ported yet: getrf_nopiv/gesv_nopiv "
-                "and the lu_nopiv_tile kernel come in a later slice")
         return MethodLU.PartialPiv if m == MethodLU.Auto else m
+
+
+class MethodGels(enum.Enum):
+    Auto = enum.auto()
+    Geqrf = enum.auto()
+    Cholqr = enum.auto()
+
+    @staticmethod
+    def select_algo(A, B, opts=None) -> "MethodGels":
+        """The least-squares method ``Option.MethodGels`` asks for;
+        ``Auto`` means CholQR for m ≥ 2n and Householder QR otherwise
+        (reference gels.cc:96-110)."""
+        m = get_option(opts, Option.MethodGels, MethodGels.Auto)
+        if m != MethodGels.Auto:
+            return m
+        return MethodGels.Cholqr if A.m >= 2 * A.n else MethodGels.Geqrf

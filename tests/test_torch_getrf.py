@@ -232,8 +232,13 @@ def test_lu_verbs_and_method(monkeypatch):
     x = pst.lu_solve_using_factor(LU, piv, B).to_dense()
     assert torch.equal(x, pst.lu_solve(A, B).to_dense())
     check_x(x.numpy(), x.numpy(), a, b)
-    with pytest.raises(pst.SlateError, match="NoPiv"):
-        pst.gesv(A, B, {pst.Option.MethodLU: pst.MethodLU.NoPiv})
+    # MethodLU.NoPiv takes gesv_nopiv and returns no pivots
+    X, LU_n, piv_n, info_n = pst.gesv(
+        A, B, {pst.Option.MethodLU: pst.MethodLU.NoPiv})
+    Xn, LUn, infon = pst.gesv_nopiv(A, B)
+    assert piv_n is None and int(info_n) == int(infon)
+    assert torch.equal(X.to_dense(), Xn.to_dense())
+    assert torch.equal(LU_n.data, LUn.data)
     assert pst.MethodLU.select_algo(A) == pst.MethodLU.PartialPiv
     assert pst.MethodLU.select_algo(
         A, {pst.Option.MethodLU: pst.MethodLU.CALU}) == pst.MethodLU.CALU

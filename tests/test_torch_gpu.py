@@ -1,6 +1,6 @@
 """Tests of the port that need a CUDA card: each CUDA kernel against its
-plain PyTorch version, and the Cholesky and LU solves on the card
-against the same solves on the CPU. They skip without a card.
+plain PyTorch version, and the Cholesky, LU and QR paths on the card
+against the same paths on the CPU. They skip without a card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -177,3 +177,87 @@ def test_gesv_on_card_matches_cpu(cuda, monkeypatch):
     x = out[0][0].double().numpy()
     r = np.linalg.norm(a @ x - b) / (np.linalg.norm(a) * np.linalg.norm(x))
     assert r <= 10 * n * 2.0 ** -24
+
+
+@pytest.mark.parametrize("h,d0", [(16384, 0), (13312, 896), (384, 128),
+                                  (200, 72)])
+def test_panel_qr_kernel_matches_plain(cuda, h, d0):
+    """K6 on a column window of a wider matrix against its plain version:
+    R, V and tau within TOL (f32 sums in other orders; either side is
+    ~1e-7 from the f64 factors), rows above d0 and the columns outside
+    the window bitwise unchanged."""
+    gen = torch.Generator(device=cuda).manual_seed(h)
+    big = torch.randn(h, 3 * 128, generator=gen, device=cuda)
+    ref = big.clone()
+    before = K.LAUNCHES["qr_call"]
+    tau = K.panel_qr(big[:, 128:256], d0)
+    sub_p = ref[:, 128:256].clone()
+    tau_p = K.panel_qr_plain(sub_p, d0)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["qr_call"] == before + 1
+    assert rel(big[:, 128:256], sub_p) < TOL and rel(tau, tau_p) < TOL
+    assert torch.equal(big[:d0], ref[:d0])
+    assert torch.equal(big[:, :128], ref[:, :128])
+    assert torch.equal(big[:, 256:], ref[:, 256:])
+
+
+@pytest.mark.parametrize("nb", [1024, 200, 37, 1])
+def test_lu_nopiv_tile_kernel_matches_plain(cuda, nb):
+    gen = torch.Generator(device=cuda).manual_seed(nb)
+    a = torch.randn(nb, nb, generator=gen, device=cuda) \
+        + nb * torch.eye(nb, device=cuda)
+    before = K.LAUNCHES["lu_nopiv_tile"]
+    lu, info = K.lu_nopiv_tile(a)
+    lu_p, info_p = K.lu_nopiv_tile_plain(a)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["lu_nopiv_tile"] == before + 1
+    assert rel(lu, lu_p) < TOL and int(info) == int(info_p) == 0
+
+
+def test_lu_nopiv_tile_kernel_zero_pivot(cuda):
+    """A zero row and column give an exact zero pivot: it stays 0 on the
+    diagonal, the elimination goes on past it, and both versions count
+    it."""
+    a = torch.randn(200, 200, device=cuda) + 200 * torch.eye(200, device=cuda)
+    a[70, :] = 0.0
+    a[:, 70] = 0.0
+    lu, info = K.lu_nopiv_tile(a)
+    lu_p, info_p = K.lu_nopiv_tile_plain(a)
+    torch.cuda.synchronize()
+    assert int(info) == int(info_p) == 1 and float(lu[70, 70]) == 0.0
+    assert bool(torch.isfinite(lu).all()) and rel(lu, lu_p) < TOL
+
+
+def test_geqrf_on_card_matches_cpu(cuda, monkeypatch):
+    """The QR fast path forced at [1024, 512], nb=128: K6 on the card,
+    its plain version on the CPU; R and the taus (T's diagonal) within
+    TOL."""
+    monkeypatch.setenv("SLATE_QR_FAST", "1")
+    monkeypatch.setenv("SLATE_QR_PANEL", "1")
+    a = np.random.default_rng(8).standard_normal((1024, 512)).astype(
+        np.float32)
+    out = []
+    for dev in (cuda, "cpu"):
+        before = K.LAUNCHES["qr_call"]
+        QR, T = st.geqrf(st.Matrix.from_dense(a, nb=128,
+                                              grid=st.Grid(1, 1, device=dev)))
+        out.append((torch.triu(QR.to_dense()).cpu(),
+                    torch.diagonal(T, dim1=1, dim2=2).cpu(),
+                    K.LAUNCHES["qr_call"] - before))
+    assert out[0][2] == 4 and out[1][2] == 0
+    assert rel(out[0][0], out[1][0]) < TOL and rel(out[0][1], out[1][1]) < TOL
+
+
+def test_gesv_nopiv_on_card_matches_cpu(cuda):
+    n, nb = 600, 256
+    rng = np.random.default_rng(6)
+    a = (rng.standard_normal((n, n)) + n * np.eye(n)).astype(np.float32)
+    b = rng.standard_normal((n, 2)).astype(np.float32)
+    xs = []
+    for dev in (cuda, "cpu"):
+        grid = st.Grid(1, 1, device=dev)
+        X, LU, info = st.gesv_nopiv(st.Matrix.from_dense(a, nb=nb, grid=grid),
+                                    st.Matrix.from_dense(b, nb=nb, grid=grid))
+        assert int(info) == 0
+        xs.append(X.to_dense())
+    assert rel(xs[0], xs[1]) < TOL

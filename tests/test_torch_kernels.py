@@ -155,6 +155,8 @@ def test_launch_counters_stay_zero_on_cpu():
     K.panel_plu(buf, torch.ones(128), 0, name="plu_call_folded_block")
     K.panel_unfold(K.panel_fold(a, 8, name="fold_panel"),
                    name="unfold_panel")
-    assert {"potrf_tile", "trsm_right_lower_t",
-            "trsm_left_lower"} <= set(K.LAUNCHES)
+    K.panel_qr(a.clone(), 0)
+    K.lu_nopiv_tile(a)
+    assert {"potrf_tile", "trsm_right_lower_t", "trsm_left_lower",
+            "qr_call", "lu_nopiv_tile"} <= set(K.LAUNCHES)
     assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)

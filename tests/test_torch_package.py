@@ -53,8 +53,8 @@ def test_grid_never_picks_the_cpu_quietly(monkeypatch):
 
 def test_kernel_sources_and_build_key():
     names = [s.name for s in _build._sources()]
-    assert names == ["panel_plu.cu", "panel_transpose.cu", "potrf_tile.cu",
-                     "trsm_lower.cu"]
+    assert names == ["lu_nopiv_tile.cu", "panel_plu.cu", "panel_qr.cu",
+                     "panel_transpose.cu", "potrf_tile.cu", "trsm_lower.cu"]
     for src in _build._sources():
         text = src.read_text()
         assert "extern \"C\" int slate_" in text
@@ -84,7 +84,13 @@ def test_exports():
                  "getrf", "getrs", "gesv", "PivotOrder", "MethodLU",
                  "pivot_order_to_ipiv", "lu_factor", "lu_solve",
                  "lu_solve_using_factor", "pivots_from_reference",
-                 "pivots_to_reference"):
+                 "pivots_to_reference", "getrf_nopiv", "getrs_nopiv",
+                 "gesv_nopiv", "geqrf", "unmqr", "gelqf", "unmlq", "cholqr",
+                 "gels", "herk", "syrk", "MethodGels", "lu_factor_nopiv",
+                 "lu_solve_nopiv", "lu_solve_using_factor_nopiv",
+                 "least_squares_solve", "qr_factor", "lq_factor",
+                 "qr_multiply_by_q", "lq_multiply_by_q",
+                 "t_factors_from_reference", "t_factors_to_reference"):
         assert hasattr(pst, name), name
 
 
