@@ -70,7 +70,37 @@
    within 1e-5; a zero pivot under ``gesv_nopiv`` gives ``info`` 1 on
    both.
 
-Each path of 3–3g runs with the launch counts set to 0 just before it
+The two-stage eigensolver and SVD slice (f32, ``Grid(1, 1)``):
+
+2d. The bulge chasers K8 (``hb2st_vmem``) and K9 (``tb2bd_vmem``) on the
+   card at (n, band) = (8192, 128), (4096, 128) (the shapes of 3h/3j
+   and 3i/3k), (1024, 128) and (600, 32): the kernel's spectrum within
+   10·n·2⁻²⁴·‖A‖₂ of the dense f64 band's and its reflectors rebuilding
+   the band within 10·n·2⁻²⁴; up to n=4096 also against the plain
+   version on the card: sweep 0's reflectors within 1e-4, d and |e|
+   within 5e-2·‖A‖₂, the plain version's spectrum to the same bound. At
+   the two small shapes the plain version also runs in f64 on the card
+   and in f32 on the CPU, and the distances of d and |e| between them
+   are printed. Kernel times (median of 3) at (8192, 128), with waves
+   and time per wave, and at (4096, 128), where the plain version is
+   timed once.
+3h. ``heev`` values at n=8192, nb=128, ``MethodEig.TwoStage``, A = (G + Gᵀ)/2:
+   λ within 10·n·2⁻²⁴·‖A‖₂ of ``eigvalsh`` in f64; ``hb2st_vmem`` 1 and no
+   other kernel; ``heev_vals_ms``, the stage split (he2hb, gather, hb2st,
+   sterf), ``eigvalsh`` in f32 as the yardstick, the breakdown.
+3i. ``heev`` with vectors at n=4096, nb=512 (re-blocked to 128),
+   ``MethodEig.DC``: ‖A·Z − Z·Λ‖_F/‖A‖_F and ‖ZᵀZ − I‖_F/n within
+   10·n·2⁻²⁴; ``heev_ms`` with ``stedc``'s share.
+3j. ``gesvd`` values at 8192×8192, nb=128, ``MethodSVD.TwoStage``: σ within
+   10·n·2⁻²⁴·σ_max of ``svdvals`` in f64; ``tb2bd_vmem`` 1; ``gesvd_vals_ms``,
+   the stage split (ge2tb, gather, tb2bd, bdsqr), the breakdown.
+3k. ``svd`` at 6144×4096, nb=128: ‖A − U·Σ·Vᵀ‖_F/‖A‖_F and the
+   orthogonality of U and V within 10·m·2⁻²⁴; ``tb2bd_vmem`` 1; ``gesvd_ms``.
+4d. A NaN makes the two-stage ``heev`` and ``gesvd`` raise ``SlateError`` on
+   the card; a zero matrix gives zero λ and σ; card against CPU at n=256,
+   nb=32: λ and σ within 10·n·2⁻²⁴ of the largest.
+
+Each path of 3–3k runs with the launch counts set to 0 just before it
 and read just after. Any failure raises and the script exits non-zero.
 Without a CUDA card it exits with code 2 before doing anything. The last
 line is ``{"ok": true, "device": {...}}``.
@@ -91,6 +121,24 @@ import torch
 N, NB, NRHS = 16384, 1024, 8
 FLAT_N, FLAT_NB = 8448, 256   # every LU panel window height ≡ 256 mod 1024
 QR_M, QR_N = 16384, 4096      # the JAX bench's geqrf shape (bench.py:766-791)
+EIG_N, EIG_NB = 8192, 128     # heev2_split_8192 / gesvd2_split_8192 (bench.py:945-1051)
+# K8/K9 checks (n, band): the shapes of 3h/3j and 3i/3k, then two small
+# ones. The plain version, a task-by-task loop of small torch ops, runs up
+# to CHASE_PLAIN_MAX_N: on an H100 machine it takes ~0.8 ms a task for
+# K8's and ~1.3 ms for K9's, on the card or on its host CPU alike, so
+# ~4 minutes each at n=8192. There the kernel is held to the checks that
+# need no plain version: the spectrum and the band rebuilt from its
+# reflectors.
+CHASE_SHAPES = ((EIG_N, EIG_NB), (4096, EIG_NB), (1024, 128), (600, 32))
+CHASE_PLAIN_MAX_N = 4096
+# K8/K9 vs plain: d and |e|, relative to ‖A‖₂. The reduction is backward
+# stable, not forward stable: single entries drift apart along a chain of
+# ~n·T f32 reflections (1.7e-2·‖A‖₂ measured for K9 at (600, 32) while
+# both spectra agreed to 2e-7; the plain version drifts as far from its
+# own f64 result), so this only catches gross faults; the spectra and
+# the band rebuilt from the kernel's reflectors are the tight checks.
+CHASE_DE_TOL = 5e-2
+CHASE_SWEEP0_TOL = 1e-4   # K8/K9 vs plain: sweep 0's V and τ (a short chain)
 TOL = 1e-5                # kernel vs plain: relative Frobenius error, FP32
 LU_ATOL = 1e-4            # K4 vs plain: values (pivots, mask, info equal)
 FP32_PEAK = 67e12         # H100 SXM, non-tensor FP32 FLOP/s (data sheet)
@@ -126,6 +174,11 @@ KERNELS = {
     "lu_nopiv_tile": ("slate_tpu_torch/csrc/lu_nopiv_tile.cu",
                       "slate_tpu/internal/pallas_kernels.py:442",
                       "gesv_nopiv"),
+    "hb2st_vmem": ("slate_tpu_torch/csrc/band_chase.cu",
+                   "slate_tpu/internal/band_wave_vmem.py:492", "heev_vals"),
+    "tb2bd_vmem": ("slate_tpu_torch/csrc/band_chase.cu",
+                   "slate_tpu/internal/band_wave_vmem_bd.py:330",
+                   "gesvd_vals"),
 }
 
 
@@ -133,8 +186,8 @@ def say(*a):
     print(*a, flush=True)
 
 
-def time_ms(fn, setup=None) -> float:
-    """Median device time of REPS runs after a warm-up, each queued
+def time_ms(fn, setup=None, reps=REPS) -> float:
+    """Median device time of ``reps`` runs after a warm-up, each queued
     behind a device sleep; ``setup`` (restoring an input that ``fn``
     updates in place) runs before each, untimed. A call that the host
     cannot queue within the sleep, or that synchronises, is timed with
@@ -144,7 +197,7 @@ def time_ms(fn, setup=None) -> float:
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         if setup:
             setup()
         s = torch.cuda.Event(enable_timing=True)
@@ -603,6 +656,14 @@ def phase_plu_panel():
 def _category(name: str) -> str:
     if "qr_subpanel" in name:
         return "panel QR kernel (K6)"
+    if "hb2st_wave" in name:
+        return "hb2st chase kernel (K8)"
+    if "tb2bd_wave" in name:
+        return "tb2bd chase kernel (K9)"
+    if any(k in name for k in ("geqr", "larf", "orm", "nrm2", "cusolver")):
+        return "cuSOLVER panel QR (geqrf)"
+    if "gemv" in name:
+        return "cuBLAS gemv (larft, small products)"
     if any(k in name for k in ("lu_diag", "lu_l21", "lu_u12", "lu_trailing")):
         return "tile LU kernel (K7)"
     if "plu_block" in name:
@@ -622,12 +683,15 @@ def _category(name: str) -> str:
     return "copies and elementwise (layout, guards, padding, gathers)"
 
 
-def phase_breakdown(label, fn):
+def phase_breakdown(label, fn, cpu=True):
     """Where the device time of one call goes: kernel time by category
-    from torch.profiler, and the device's busy share of the wall time."""
+    from torch.profiler, and the device's busy share of the wall time.
+    ``cpu=False`` traces the device alone: a call of tens of thousands
+    of small torch ops otherwise spends minutes building its host
+    events."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1053,6 +1117,370 @@ def phase_qr_nopiv_failure_report():
     assert infos == {"cuda": 1, "cpu": 1}, infos
 
 
+# ---------------------------------------------------------------------------
+# the two-stage eigensolver and SVD slice
+# ---------------------------------------------------------------------------
+
+def chase_work(n, b, which):
+    """(flops, bytes) of one chase at (n, b): the flops of every task's
+    Householder steps, as this run's shape sets them (a reflector of
+    length L = min(b, n − start); the seed tasks have no B block), and
+    the bytes of the band read once and d, e and the reflector packs
+    written once."""
+    S, T = n - 1, (n - 2) // b + 1
+    s = np.arange(S)[:, None]
+    t = np.arange(T)[None, :]
+    start = s + 1 + t * b
+    L = np.minimum(b, n - start).astype(np.float64)
+    live = start <= n - 1
+    chase = t >= 1
+    if which == "hb2st":
+        # D two-sided 8L²; chase: bulge right-apply 4Lb, left-apply 4L(b−1)
+        f = 8 * L * L + 2 * L + chase * (4 * L * b + 4 * L * (b - 1))
+        packs = 1
+    else:
+        # D right-apply 4L², U-side left-apply 4L(L−1); chase: previous U
+        # left-apply 4bL, V-side right-apply 4(b−1)L
+        f = 4 * L * L + 4 * L * (L - 1) + 4 * L + chase * (
+            4 * b * L + 4 * (b - 1) * L + 2 * L)
+        packs = 2
+    flops = float((f * live).sum())
+    nbytes = 4.0 * ((b + 1) * n + 2 * n - 1 + packs * S * T * (b + 1))
+    return flops, nbytes
+
+
+def dense_band(ab, upper):
+    """The dense f64 matrix of a compact band, on the card."""
+    b, n = ab.shape[0] - 1, ab.shape[1]
+    a = torch.zeros(n, n, dtype=torch.float64, device=ab.device)
+    for d in range(b + 1):
+        j = torch.arange(n - d, device=ab.device)
+        a[j, j + d] = ab[d, :n - d].double()
+        if not upper:
+            a[j + d, j] = ab[d, :n - d].double()
+    return a
+
+
+def spectrum(a, upper):
+    """Eigenvalues (symmetric) or singular values (upper), ascending, of
+    a dense f64 matrix. The singular values come from the eigenvalues of
+    the Gram matrix aᵀa, in f64: an absolute error of at most
+    ~sqrt(n·2⁻⁵²)·‖a‖₂, far inside the f32 bounds they are held to, in
+    far less time than ``svdvals`` at n=8192."""
+    if not upper:
+        return torch.linalg.eigvalsh(a)
+    return torch.linalg.eigvalsh(a.T @ a).clamp_min(0.0).sqrt()
+
+
+def chase_spectrum(d, e, upper):
+    d, e = d.double(), e.double()
+    t = torch.diag(d) + torch.diag(e, 1)
+    return spectrum(t if upper else t + torch.diag(e, -1), upper)
+
+
+def de_gap(x, y) -> float:
+    """Max abs difference of d and |e| between two chase results."""
+    return max(float((x[i].double().cpu().abs()
+                      - y[i].double().cpu().abs()).abs().max())
+               for i in (0, 1))
+
+
+def check_chase(which, n, b, gen):
+    """K8 or K9 on one random band: the kernel's spectrum against the
+    dense f64 band's, and its reflectors rebuilding the band in their
+    packed order (which a task run out of order, or two tasks of a wave
+    that collide, would break); up to n = CHASE_PLAIN_MAX_N also against
+    its plain version on the card: sweep 0's reflectors, d and |e|, the
+    plain version's spectrum. At n ≤ 1024 the plain version also runs in
+    f64 on the card and in f32 on the CPU, to show how far f32 rounding
+    alone moves d and |e|. Returns the band, the max abs difference of d
+    and |e| and the plain version's time (host clock: a host-bound loop
+    of small torch ops); None for both above CHASE_PLAIN_MAX_N."""
+    from slate_tpu_torch.internal import band_bulge as bb
+    from slate_tpu_torch.internal import kernels as K
+    from slate_tpu_torch.linalg.bulge import apply_bulge_reflectors
+    upper = which == "tb2bd"
+    fn = K.tb2bd_chase if upper else K.hb2st_chase
+    plain = bb.tb2bd if upper else bb.hb2st
+    ab = torch.randn(b + 1, n, generator=gen, device="cuda")
+    out = fn(ab)
+    dense = dense_band(ab, upper)
+    want = spectrum(dense, upper)
+    norm2 = float(want.abs().max())
+    limit = 10 * n * 2.0 ** -24
+    eye = torch.eye(n, device="cuda")
+    with _f32():
+        if upper:
+            U2 = apply_bulge_reflectors(out[2], out[3], eye, b)
+            V2 = apply_bulge_reflectors(out[4], out[5], eye, b)
+            rebuilt = U2 @ (torch.diag(out[0]) + torch.diag(out[1], 1)) @ V2.T
+            del U2, V2
+        else:
+            Q = apply_bulge_reflectors(out[2], out[3], eye, b)
+            tri = (torch.diag(out[0]) + torch.diag(out[1], 1)
+                   + torch.diag(out[1], -1))
+            rebuilt = Q @ tri @ Q.T
+            del Q, tri
+    rec = float(torch.linalg.norm(rebuilt.double() - dense)
+                / torch.linalg.norm(dense))
+    del rebuilt, eye
+    spec = float((chase_spectrum(out[0], out[1], upper) - want).abs().max()
+                 ) / norm2
+    ok = (spec <= limit and rec <= limit
+          and bool(torch.isfinite(out[0]).all()))
+    line = (f"  {which} n={n} band={b}: kernel spectrum {spec:.3e}, band "
+            f"rebuilt from the kernel's reflectors {rec:.3e} (bound "
+            f"{limit:.3e} each)")
+    mx = plain_ms = note = None
+    if n <= CHASE_PLAIN_MAX_N:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = plain(ab)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        mx = de_gap(out, ref)
+        sweep0 = max(float((x[0] - y[0]).abs().max())
+                     for x, y in zip(out[2:6 if upper else 4],
+                                     ref[2:6 if upper else 4]))
+        spec_p = float((chase_spectrum(ref[0], ref[1], upper) - want)
+                       .abs().max()) / norm2
+        ok = (ok and mx <= CHASE_DE_TOL * norm2 and spec_p <= limit
+              and sweep0 <= CHASE_SWEEP0_TOL)
+        line += (f"; vs plain: d,|e| max_abs_err {mx:.3e} (tol "
+                 f"{CHASE_DE_TOL:g}*|A|_2 = {CHASE_DE_TOL * norm2:.3e}), "
+                 f"sweep-0 V,tau {sweep0:.3e} (tol {CHASE_SWEEP0_TOL:g}), "
+                 f"plain spectrum {spec_p:.3e}, plain_ms {plain_ms:.1f}")
+        if n <= 1024:
+            r64 = plain(ab.double())
+            rcpu = plain(ab.cpu())
+            note = (f"    f32 rounding: d,|e| distance from the plain version "
+                    f"in f64: kernel {de_gap(out, r64):.3e}, plain "
+                    f"{de_gap(ref, r64):.3e}; plain on the card vs plain on "
+                    f"the CPU (the same code in other summation orders) "
+                    f"{de_gap(ref, rcpu):.3e}")
+    say(f"{line} {'ok' if ok else 'FAIL'}")
+    if note:
+        say(note)
+    if not ok:
+        raise AssertionError(f"{which} n={n} band={b} fails its checks")
+    return ab, mx, plain_ms
+
+
+def phase_chase_kernels():
+    from slate_tpu_torch.internal import kernels as K
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = {}
+    say("bulge-chase kernel checks (on the card):")
+    for which, name in (("hb2st", "hb2st_vmem"), ("tb2bd", "tb2bd_vmem")):
+        fn = K.tb2bd_chase if which == "tb2bd" else K.hb2st_chase
+        res = {(n, b): check_chase(which, n, b, gen) for n, b in CHASE_SHAPES}
+        mx = max(r[1] for r in res.values() if r[1] is not None)
+        # the plain version's time at its largest shape, and the kernel's
+        # there; the kernel's at the shape of 3h/3j
+        n0, b0 = max(k for k, r in res.items() if r[2] is not None)
+        ab0, _, plain_ms = res[n0, b0]
+        ms0 = time_ms(lambda: fn(ab0), reps=3)
+        ab = res[EIG_N, EIG_NB][0]
+        del res, ab0
+        ms = time_ms(lambda: fn(ab), reps=3)
+        S, T = EIG_N - 1, (EIG_N - 2) // EIG_NB + 1
+        waves = 2 * (S - 1) + T
+        flops, nbytes = chase_work(EIG_N, EIG_NB, which)
+        rows[name] = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
+                          library_ms=None, bound=bound(flops, nbytes))
+        say(f"  {name}: kernel_ms {ms:.4f} at n={EIG_N} band={EIG_NB} "
+            f"({waves} waves, {ms / waves * 1e3:.3f} us per wave); at n={n0} "
+            f"band={b0} kernel_ms {ms0:.4f}, plain_ms {plain_ms:.4f}; "
+            f"library_ms null, bound_ms {rows[name]['bound'][0]:.4f} at "
+            f"n={EIG_N} ({rows[name]['bound'][1]}; {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 2 ** 20:.1f} MiB)")
+        del ab
+    return rows
+
+
+def sym_matrix(n, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn(n, n, generator=gen, device="cuda")
+    return (g + g.T) / 2
+
+
+def timed_stages(fn):
+    """Run ``fn(times)``, a two-stage call given a ``times`` dict: its
+    result, the dict and the stage split as text."""
+    times = {}
+    out = fn(times)
+    return out, times, ", ".join(f"{k} {v * 1e3:.3f}"
+                                 for k, v in times.items())
+
+
+def phase_heev_vals():
+    """3h: eigenvalues by the two-stage pipeline at the JAX bench shape."""
+    import slate_tpu_torch as st
+    grid = st.Grid(1, 1)
+    n, nb = EIG_N, EIG_NB
+    a = sym_matrix(n, 13)
+    A = st.HermitianMatrix.from_dense(a, nb=nb, grid=grid)
+    opts = {st.Option.MethodEig: st.MethodEig.TwoStage}
+    st.heev(st.HermitianMatrix.from_dense(a[:512, :512], nb=nb, grid=grid),
+            opts, want_vectors=False)          # warm-up: handles, library
+    base, t0 = start_path()
+    (lam, Z), _, split = timed_stages(lambda t: st.heev(A, opts, False, t))
+    ms, launches, peak_gib = end_path(base, t0, {"hb2st_vmem": 1})
+    t1 = time.perf_counter()
+    ref = torch.linalg.eigvalsh(a.double())
+    ref_s = time.perf_counter() - t1
+    norm2 = float(ref.abs().max())
+    err = float((lam.double() - ref).abs().max()) / norm2
+    limit = 10 * n * 2.0 ** -24
+    yard = time_ms(lambda: torch.linalg.eigvalsh(a), reps=1)
+    say(f"eig path: heev values f32 n={n} nb={nb} TwoStage Grid(1,1): "
+        f"max|lam - lam_ref|/|A|_2 {err:.3e} (bound {limit:.3e}; eigvalsh "
+        f"f64 reference took {ref_s:.1f} s)")
+    say(f"  heev_vals_ms {ms:.3f} (stage clock on), peak device memory "
+        f"above its inputs {peak_gib:.3f} GiB; stage split ms: {split}; "
+        f"torch.linalg.eigvalsh f32 (yardstick, not on the path) "
+        f"{yard:.3f} ms")
+    assert Z is None and tuple(lam.shape) == (n,)
+    assert bool(torch.isfinite(lam).all()) and err <= limit, err
+    phase_breakdown("heev (values)", lambda: st.heev(A, opts, False),
+                    cpu=False)
+    return launches
+
+
+def phase_heev_vectors():
+    """3i: eigenpairs by the two-stage pipeline with divide & conquer."""
+    import slate_tpu_torch as st
+    grid = st.Grid(1, 1)
+    n, nb = 4096, 512
+    a = sym_matrix(n, 14)
+    A = st.HermitianMatrix.from_dense(a, nb=nb, grid=grid)
+    opts = {st.Option.MethodEig: st.MethodEig.DC}
+    base, t0 = start_path()
+    (lam, Z), times, split = timed_stages(lambda t: st.heev(A, opts, times=t))
+    ms, launches, peak_gib = end_path(base, t0, {"hb2st_vmem": 1})
+    z = Z.to_dense()
+    with _f32():
+        res = float(torch.linalg.norm(a @ z - z * lam) / torch.linalg.norm(a))
+        orth = float(torch.linalg.norm(z.T @ z - torch.eye(n, device="cuda"))
+                     / n)
+    limit = 10 * n * 2.0 ** -24
+    say(f"eig path: heev vectors f32 n={n} nb={nb} (re-blocked to "
+        f"{Z.nb}) DC Grid(1,1): |AZ - Z Lambda|/|A| {res:.3e}, "
+        f"|Z^T Z - I|/n {orth:.3e} (bound {limit:.3e} each)")
+    say(f"  heev_ms {ms:.3f} (stage clock on; stedc host share "
+        f"{times['stedc'] * 1e3:.3f} ms of {sum(times.values()) * 1e3:.3f}), "
+        f"peak device memory above its inputs {peak_gib:.3f} GiB; stage "
+        f"split ms: {split}")
+    assert tuple(z.shape) == (n, n) and bool(torch.isfinite(z).all())
+    assert res <= limit and orth <= limit, (res, orth)
+    return launches
+
+
+def phase_gesvd_vals():
+    """3j: singular values by the two-stage pipeline at the bench shape."""
+    import slate_tpu_torch as st
+    grid = st.Grid(1, 1)
+    n, nb = EIG_N, EIG_NB
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    a = torch.randn(n, n, generator=gen, device="cuda")
+    A = st.Matrix.from_dense(a, nb=nb, grid=grid)
+    opts = {st.Option.MethodSVD: st.MethodSVD.TwoStage}
+    st.svd_vals(st.Matrix.from_dense(a[:512, :512], nb=nb, grid=grid), opts)
+    base, t0 = start_path()
+    s, _, split = timed_stages(lambda t: st.gesvd(A, opts, times=t)[0])
+    ms, launches, peak_gib = end_path(base, t0, {"tb2bd_vmem": 1})
+    t1 = time.perf_counter()
+    ref = torch.linalg.svdvals(a.double())
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t1
+    err = float((s.double() - ref).abs().max()) / float(ref[0])
+    limit = 10 * n * 2.0 ** -24
+    say(f"svd path: gesvd values f32 {n}x{n} nb={nb} TwoStage Grid(1,1): "
+        f"max|s - s_ref|/s_max {err:.3e} (bound {limit:.3e}; svdvals f64 "
+        f"reference took {ref_s:.1f} s)")
+    say(f"  gesvd_vals_ms {ms:.3f} (stage clock on), peak device memory "
+        f"above its inputs {peak_gib:.3f} GiB; stage split ms: {split}")
+    assert tuple(s.shape) == (n,) and bool(torch.isfinite(s).all())
+    assert err <= limit, err
+    phase_breakdown("gesvd (values)", lambda: st.svd_vals(A, opts),
+                    cpu=False)
+    return launches
+
+
+def phase_gesvd_vectors():
+    """3k: the SVD with U and Vᵀ of a tall matrix."""
+    import slate_tpu_torch as st
+    grid = st.Grid(1, 1)
+    m, n, nb = 6144, 4096, EIG_NB
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    a = torch.randn(m, n, generator=gen, device="cuda")
+    A = st.Matrix.from_dense(a, nb=nb, grid=grid)
+    base, t0 = start_path()
+    (s, U, VT), _, split = timed_stages(
+        lambda t: st.gesvd(A, {st.Option.MethodSVD: st.MethodSVD.TwoStage},
+                           True, True, t))
+    ms, launches, peak_gib = end_path(base, t0, {"tb2bd_vmem": 1})
+    u, vt = U.to_dense(), VT.to_dense()
+    eye = torch.eye(n, device="cuda")
+    with _f32():
+        rec = float(torch.linalg.norm(a - (u * s) @ vt) / torch.linalg.norm(a))
+        ou = float(torch.linalg.norm(u.T @ u - eye) / n)
+        ov = float(torch.linalg.norm(vt @ vt.T - eye) / n)
+    limit = 10 * m * 2.0 ** -24
+    say(f"svd path: gesvd U, VT f32 {m}x{n} nb={nb} TwoStage Grid(1,1): "
+        f"|A - U S VT|/|A| {rec:.3e}, |U^T U - I|/n {ou:.3e}, "
+        f"|V^T V - I|/n {ov:.3e} (bound {limit:.3e} each)")
+    say(f"  gesvd_ms {ms:.3f} (stage clock on), peak device memory above "
+        f"its inputs {peak_gib:.3f} GiB; stage split ms: {split}")
+    assert tuple(u.shape) == (m, n) and tuple(vt.shape) == (n, n)
+    assert max(rec, ou, ov) <= limit, (rec, ou, ov)
+    return launches
+
+
+def phase_eig_failure_report():
+    """4d: NaN, zero matrix, card against CPU."""
+    import slate_tpu_torch as st
+    n, nb = 256, 32
+    eo = {st.Option.MethodEig: st.MethodEig.TwoStage}
+    so = {st.Option.MethodSVD: st.MethodSVD.TwoStage}
+    rng = np.random.default_rng(17)
+    g = rng.standard_normal((n, n)).astype(np.float32)
+    a = (g + g.T) / 2
+    grid = st.Grid(1, 1)
+    bad = a.copy()
+    bad[40, 7] = bad[7, 40] = np.nan
+    raised = []
+    for fn, M, o in ((st.eig_vals, st.HermitianMatrix, eo),
+                     (st.svd_vals, st.Matrix, so)):
+        try:
+            fn(M.from_dense(bad, nb=nb, grid=grid), o)
+        except st.SlateError as e:
+            raised.append(str(e))
+    say(f"eig/svd failure report: NaN input raises SlateError on the card: "
+        f"{len(raised)} of 2 ({'; '.join(raised)})")
+    assert len(raised) == 2
+    z = np.zeros((n, n), np.float32)
+    lz = st.eig_vals(st.HermitianMatrix.from_dense(z, nb=nb, grid=grid), eo)
+    sz = st.svd_vals(st.Matrix.from_dense(z, nb=nb, grid=grid), so)
+    say(f"  zero matrix: max|lambda| {float(lz.abs().max()):.3e}, "
+        f"max sigma {float(sz.abs().max()):.3e}")
+    assert float(lz.abs().max()) == 0.0 and float(sz.abs().max()) == 0.0
+    vals = {}
+    for dev in ("cuda", "cpu"):
+        gr = st.Grid(1, 1, device=dev)
+        vals[dev] = (st.eig_vals(st.HermitianMatrix.from_dense(a, nb=nb,
+                                                               grid=gr), eo),
+                     st.svd_vals(st.Matrix.from_dense(g, nb=nb, grid=gr), so))
+    limit = 10 * n * 2.0 ** -24
+    el = float((vals["cuda"][0].cpu() - vals["cpu"][0]).abs().max()
+               / vals["cpu"][0].abs().max())
+    es = float((vals["cuda"][1].cpu() - vals["cpu"][1]).abs().max()
+               / vals["cpu"][1].max())
+    say(f"  small heev/gesvd n={n} nb={nb}: card vs CPU max|d lambda|/|A| "
+        f"{el:.3e}, max|d sigma|/s_max {es:.3e} (bound {limit:.3e})")
+    assert el <= limit and es <= limit, (el, es)
+
+
 def timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1073,6 +1501,7 @@ def main() -> int:
     rows.update(timed("2b LU kernels", phase_lu_kernels))
     rows.update(timed("2c QR and unpivoted-LU kernels",
                       phase_qr_nopiv_kernels))
+    rows.update(timed("2d bulge-chase kernels", phase_chase_kernels))
     counts = {"posv": timed("3 posv", phase_main_path)}
     nt = N // NB
     counts["gesv"] = timed(
@@ -1088,10 +1517,15 @@ def main() -> int:
     counts["geqrf"] = timed("3e geqrf", phase_geqrf)
     timed("3f gels", phase_gels)
     counts["gesv_nopiv"] = timed("3g gesv_nopiv", phase_gesv_nopiv)
+    counts["heev_vals"] = timed("3h heev values", phase_heev_vals)
+    timed("3i heev vectors", phase_heev_vectors)
+    counts["gesvd_vals"] = timed("3j gesvd values", phase_gesvd_vals)
+    timed("3k gesvd vectors", phase_gesvd_vectors)
     timed("4 failure report", phase_failure_report)
     timed("4b LU failure report", phase_lu_failure_report)
     timed("4c QR and unpivoted-LU failure report",
           phase_qr_nopiv_failure_report)
+    timed("4d eig/svd failure report", phase_eig_failure_report)
     out = []
     for name, (source, replaces, path) in KERNELS.items():
         r = rows[name]

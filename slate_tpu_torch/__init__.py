@@ -5,8 +5,11 @@ Cholesky solve path (``potrf`` → ``potrs`` → ``posv``), the LU solve
 with partial pivoting (``getrf`` → ``getrs`` → ``gesv``) and without
 (``getrf_nopiv`` → ``getrs_nopiv`` → ``gesv_nopiv``), and least squares
 through QR (``geqrf`` → ``unmqr`` → ``gels``, with ``gelqf``/``unmlq``
-and ``cholqr``) on one device. Its tile and panel ops run hand-written CUDA kernels for Hopper
-(sm_90a) on the card, built with ``nvcc`` at first use (``csrc/``), and
+and ``cholqr``), and the two-stage symmetric eigensolver and SVD
+(``heev`` = ``he2hb`` → ``hb2st`` → ``sterf``/``stedc``, ``gesvd`` =
+``ge2tb`` → ``tb2bd`` → ``bdsqr``, with their back-transforms) on one
+device. Its tile, panel and bulge-chase ops run hand-written CUDA kernels
+for Hopper (sm_90a) on the card, built with ``nvcc`` at first use (``csrc/``), and
 their plain PyTorch versions on the CPU.
 
 Entry points run on the CUDA card unless the caller asks for the CPU:
@@ -18,7 +21,7 @@ JAX or ``slate_tpu``.
 """
 
 from .types import (Op, Uplo, Diag, Side, Norm, Option, MethodLU,
-                    MethodGels, get_option)
+                    MethodGels, MethodEig, MethodSVD, get_option)
 from .errors import SlateError, InfoError, slate_error_if, raise_if_info
 from .grid import Grid
 from .matrix import (
@@ -34,12 +37,19 @@ from .linalg.getrf import (getrf, getrs, gesv, PivotOrder,
                            pivot_order_to_ipiv, getrf_nopiv, getrs_nopiv,
                            gesv_nopiv)
 from .linalg.geqrf import geqrf, unmqr, gelqf, unmlq, cholqr, gels
+from .linalg.eig import heev, sterf, steqr, stedc
+from .linalg.he2hb import he2hb
+from .linalg.ge2tb import ge2tb
+from .linalg.svd import gesvd
 from .simplified import (multiply, chol_factor, chol_solve,
                          chol_solve_using_factor, lu_factor, lu_solve,
                          lu_solve_using_factor, lu_factor_nopiv,
                          lu_solve_nopiv, lu_solve_using_factor_nopiv,
                          least_squares_solve, qr_factor, lq_factor,
-                         qr_multiply_by_q, lq_multiply_by_q)
+                         qr_multiply_by_q, lq_multiply_by_q, eig_vals, eig,
+                         svd_vals, svd)
 from .interop import (from_reference, to_reference, pivots_from_reference,
                       pivots_to_reference, t_factors_from_reference,
-                      t_factors_to_reference)
+                      t_factors_to_reference, band_from_reference,
+                      band_to_reference, reflectors_from_reference,
+                      reflectors_to_reference)

@@ -6,12 +6,13 @@ Each kernel has three parts here:
 
 * a wrapper (``potrf_tile``, ``trsm_right_lower_t``, ``trsm_left_lower``,
   ``panel_plu``, ``panel_fold``, ``panel_unfold``, ``panel_qr``,
-  ``lu_nopiv_tile``) that launches the
+  ``lu_nopiv_tile``, ``hb2st_chase``, ``tb2bd_chase``) that launches the
   kernel of ``csrc/`` for a CUDA tensor and counts the launch in
   :data:`LAUNCHES`, runs the plain version for a CPU tensor, and raises
   for anything else. There is no fallback from a failed build or launch;
-* a plain PyTorch version (``*_plain``) that repeats the kernel's blocked
-  algorithm with torch ops. The CPU runs it, and on the card it is what
+* a plain PyTorch version (``*_plain``; for the two bulge chasers
+  ``band_bulge.hb2st``/``tb2bd``) that repeats the kernel's algorithm
+  with torch ops. The CPU runs it, and on the card it is what
   the kernel is checked against;
 * a source note on the wrapper: the Pallas function it replaces, what
   bounds it on an H100 and what its design does about that.
@@ -22,7 +23,7 @@ The dispatch sites in :mod:`.tile_kernels` consult :data:`CAPABILITY`
 ``torch.linalg`` op, as the JAX package sends it to XLA. For the three
 panel kernels the range is that of the panel height h (the JAX
 package's ``H_MAX``); the LU and QR kernels' block width is always
-:data:`W`.
+:data:`W`. For the two bulge chasers it is the band width.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import ctypes
 import torch
 
 from ..errors import SlateError, slate_error_if
+from . import band_bulge
 from .precision import full_f32_matmul
 
 # Column-block width of the kernels (TS in csrc/common.cuh); the plain
@@ -49,6 +51,10 @@ _QR_MIN_ROWS = 32
 
 _SPAN = (1, 1024, 1)
 _PANEL_SPAN = (1, 16384, 1)
+# band widths of the bulge chasers (BMAX in csrc/band_chase.cu); the
+# plain versions take any band
+_BAND_SPAN = (1, 256, 1)
+_ANY_BAND = (1, 1 << 30, 1)
 _CAPS_CUDA = {
     "potrf_tile": {"float32": _SPAN},
     "trsm_right_lower_t": {"float32": _SPAN},
@@ -57,6 +63,8 @@ _CAPS_CUDA = {
     "panel_transpose": {"float32": _PANEL_SPAN},
     "panel_qr": {"float32": _PANEL_SPAN},
     "lu_nopiv_tile": {"float32": _SPAN},
+    "hb2st_vmem": {"float32": _BAND_SPAN},
+    "tb2bd_vmem": {"float32": _BAND_SPAN},
 }
 _CAPS_CPU = {
     "potrf_tile": {"float32": _SPAN, "float64": _SPAN},
@@ -66,6 +74,8 @@ _CAPS_CPU = {
     "panel_transpose": {"float32": _PANEL_SPAN, "float64": _PANEL_SPAN},
     "panel_qr": {"float32": _PANEL_SPAN, "float64": _PANEL_SPAN},
     "lu_nopiv_tile": {"float32": _SPAN, "float64": _SPAN},
+    "hb2st_vmem": {"float32": _ANY_BAND, "float64": _ANY_BAND},
+    "tb2bd_vmem": {"float32": _ANY_BAND, "float64": _ANY_BAND},
 }
 CAPABILITY = {"cuda": _CAPS_CUDA, "cpu": _CAPS_CPU}
 
@@ -78,10 +88,13 @@ TRANSPOSE_NAMES = ("transpose_tiled", "transpose_fold", "fold_panel",
 
 # Launches of each kernel on the card since the last reset. A wrapper
 # adds one where it launches its kernel, and nowhere else. The QR kernel
-# counts under the name of the Pallas function it stands for.
+# and the two bulge chasers count under the names of the Pallas functions
+# they stand for (``hb2st_vmem``, ``tb2bd_vmem``: one count per chase,
+# whose C entry point runs every wave).
 LAUNCHES = {"potrf_tile": 0, "trsm_right_lower_t": 0, "trsm_left_lower": 0,
             **{k: 0 for k in PLU_NAMES + TRANSPOSE_NAMES},
-            "qr_call": 0, "lu_nopiv_tile": 0}
+            "qr_call": 0, "lu_nopiv_tile": 0, "hb2st_vmem": 0,
+            "tb2bd_vmem": 0}
 
 
 def reset_launches() -> None:
@@ -119,6 +132,8 @@ _SIGNATURES = {
     "slate_qr_subpanel_f32": ("panel_qr",
                               (_P, _L, _I, _I, _P, _P, _P, _I, _P)),
     "slate_lu_nopiv_tile_f32": ("lu_nopiv_tile", (_P, _I, _P, _P)),
+    "slate_hb2st_f32": ("band_chase", (_P, _I, _I, _P, _P, _P, _I, _P)),
+    "slate_tb2bd_f32": ("band_chase", (_P, _I, _I) + (_P,) * 5 + (_I, _P)),
 }
 _FNS: dict = {}
 
@@ -644,3 +659,109 @@ def lu_nopiv_tile_plain(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
                 a[j0:e, e:] = _inv_lower(d.tril(-1) + eye) @ a[j0:e, e:]
                 a[e:, e:] -= a[e:, j0:e] @ a[j0:e, e:]
     return a, (torch.diagonal(a) == 0).sum().int()
+
+
+# ---------------------------------------------------------------------------
+# K8 / K9: bulge chasers (band → tridiagonal, band → bidiagonal)
+# ---------------------------------------------------------------------------
+
+def _trivial_band(name: str, ab: torch.Tensor) -> bool:
+    """Raise for what the chase kernel does not take; True for the
+    trivial case (band < 1 or n < 2), which is the function itself and
+    launches nothing."""
+    slate_error_if(ab.dtype != torch.float32,
+                   f"{name}: the kernel takes float32 bands, got {ab.dtype}; "
+                   "float64 and complex bands run only on the CPU")
+    band, n = ab.shape[0] - 1, ab.shape[1]
+    if band < 1 or n < 2:
+        return True
+    slate_error_if(not supported(name, ab.dtype, band, ab.device),
+                   f"{name}: band {band} is outside the kernel's "
+                   f"{_BAND_SPAN[0]}..{_BAND_SPAN[1]}")
+    return False
+
+
+def _chase_ctas(n: int, b: int) -> int:
+    """Most tasks in one wave: a bound on the chasers' grid size."""
+    return band_bulge.max_chase(n, b) // 2 + 2
+
+
+def _chase_scratch(n: int, b: int, device) -> torch.Tensor:
+    """Global scratch for the task blocks of bands too wide for shared
+    memory (SMEM_BMAX in csrc/band_chase.cu): two [b, b|1] blocks per
+    CTA; one float otherwise."""
+    per = 2 * b * (b | 1) if b > 128 else 0
+    return torch.empty(max(1, per * _chase_ctas(n, b)), dtype=torch.float32,
+                       device=device)
+
+
+def hb2st_chase(ab: torch.Tensor):
+    """Symmetric band (lower storage ``ab[d, j] = A[j+d, j]``) →
+    tridiagonal; the contract of :func:`band_bulge.hb2st`,
+    ``(d, e, V [S, T, b], tau [S, T])``.
+
+    Replaces ``_hb2st_vmem_jit`` (band_wave_vmem.py:492), which keeps the
+    whole ribbon in VMEM across a sequential grid of waves and works on
+    sheared blocks with masked rolls and one-hot MXU moves. What it
+    computes is the twin's task DAG: task (sweep s, chase t) runs in wave
+    2s + t, the tasks of a wave touch disjoint elements, and each needs
+    only the reflector of (s, t − 1) from the wave before. Bound on an
+    H100: latency — ~2n dependent waves of small Householder steps; the
+    flops (~16·b² a task) and the V pack (the one large write) are a few
+    ms at n = 8192, b = 128. Design (csrc/band_chase.cu): the 4b-wide
+    ribbon stays in device memory (17 MB at n = 8192, b = 128, resident
+    in L2); one C entry point launches one grid per wave on the stream,
+    one CTA per task, which stages its b×b blocks (B, D) in shared
+    memory (bands ≤ 128; up to 256 in global scratch), applies the
+    previous reflector, generates its own (the twin's ``larfg``), writes
+    B, its mirror and the two-sided D update back, and stores its
+    reflector in the V pack. Reductions run in a fixed order inside the
+    CTA, so runs repeat bit for bit. A CPU tensor runs the plain
+    version; a band < 1 or n < 2 is the trivial case."""
+    band, n = ab.shape[0] - 1, ab.shape[1]
+    if not _route("hb2st_vmem", ab):
+        return band_bulge.hb2st(ab)
+    if _trivial_band("hb2st_vmem", ab):
+        return band_bulge.hb2st(ab)
+    S, T = n - 1, band_bulge.max_chase(n, band)
+    rib = band_bulge.ribbon(ab.contiguous(), upper=False)
+    V = ab.new_zeros((S, T, band))
+    tau = ab.new_zeros((S, T))
+    scratch = _chase_scratch(n, band, ab.device)
+    _launch("slate_hb2st_f32", ab.device, _P(rib.data_ptr()), n, band,
+            _P(V.data_ptr()), _P(tau.data_ptr()), _P(scratch.data_ptr()),
+            _chase_ctas(n, band))
+    LAUNCHES["hb2st_vmem"] += 1
+    d, e = band_bulge.ribbon_diagonals(rib, n, band, upper=False)
+    return d, e, V, tau
+
+
+def tb2bd_chase(ub: torch.Tensor):
+    """Upper triangular band (``ub[d, j] = A[j, j+d]``) → upper
+    bidiagonal; the contract of :func:`band_bulge.tb2bd`,
+    ``(d, e, Vu, tauu, Vv, tauv, phase0)``.
+
+    Replaces ``_tb2bd_vmem_jit`` (band_wave_vmem_bd.py:330), the SVD twin
+    of the eig chaser. Same bound and design as :func:`hb2st_chase`
+    (csrc/band_chase.cu), with the gebr task body: left-apply the
+    previous U-side reflector to the B block, the V-side reflector from
+    its row 0 applied to the rest of B and to the diagonal block, then
+    the U-side reflector from the diagonal block's column 0. The ribbon
+    holds the upper band alone; only the U-side reflector chains across
+    tasks."""
+    band, n = ub.shape[0] - 1, ub.shape[1]
+    if not _route("tb2bd_vmem", ub):
+        return band_bulge.tb2bd(ub)
+    if _trivial_band("tb2bd_vmem", ub):
+        return band_bulge.tb2bd(ub)
+    S, T = n - 1, band_bulge.max_chase(n, band)
+    rib = band_bulge.ribbon(ub.contiguous(), upper=True)
+    Vu, Vv = ub.new_zeros((S, T, band)), ub.new_zeros((S, T, band))
+    tauu, tauv = ub.new_zeros((S, T)), ub.new_zeros((S, T))
+    scratch = _chase_scratch(n, band, ub.device)
+    _launch("slate_tb2bd_f32", ub.device, _P(rib.data_ptr()), n, band,
+            *(_P(t.data_ptr()) for t in (Vu, tauu, Vv, tauv, scratch)),
+            _chase_ctas(n, band))
+    LAUNCHES["tb2bd_vmem"] += 1
+    d, e = band_bulge.ribbon_diagonals(rib, n, band, upper=True)
+    return d, e, Vu, tauu, Vv, tauv, ub.new_ones(())

@@ -7,7 +7,11 @@ and give the fields as a numpy array and plain strings, so this package
 never touches a JAX object; the storage is kept bit for bit. Pivots
 cross as a numpy int32 ``[kt, nb]`` array, LAPACK ipiv or, wrapped in a
 ``PivotOrder`` on either side, an elimination order. The T factors of
-``geqrf``/``gelqf`` cross as a numpy ``[kt, nb, nb]`` array.
+``geqrf``/``gelqf``/``he2hb``/``ge2tb`` cross as a numpy ``[kt, nb, nb]``
+array. The two-stage eig/SVD's compact bands (``ab``/``ub``
+``[band + 1, n]``) and packed bulge reflectors (``V [S, T, band]``,
+``tau [S, T]``) cross as numpy arrays too, so either package's
+back-transform can run on the other's stage-1 and stage-2 output.
 """
 
 from __future__ import annotations
@@ -85,3 +89,38 @@ def t_factors_to_reference(T: torch.Tensor) -> np.ndarray:
     """The numpy ``[kt, nb, nb]`` array of the port's T factors, for
     ``jnp.asarray``."""
     return T.detach().cpu().numpy()
+
+
+def _tensor(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, order="C")).to(
+        Grid(1, 1, device=device).device)
+
+
+def band_from_reference(ab, *, device=None) -> torch.Tensor:
+    """The port's compact band from a JAX ``he2hb_gather`` or
+    ``ge2tb_gather`` numpy array ``[band + 1, n]``."""
+    ab = np.asarray(ab)
+    slate_error_if(ab.ndim != 2, f"a band must be [band + 1, n], got "
+                   f"{ab.shape}")
+    return _tensor(ab, device)
+
+
+def band_to_reference(ab: torch.Tensor) -> np.ndarray:
+    """The numpy ``[band + 1, n]`` array of the port's compact band."""
+    return ab.detach().cpu().numpy()
+
+
+def reflectors_from_reference(V, tau, *, device=None):
+    """The port's packed bulge reflectors ``(V [S, T, band], tau [S, T])``
+    from a JAX ``hb2st``/``tb2bd`` pack (numpy or device arrays through
+    ``np.asarray``)."""
+    V, tau = np.asarray(V), np.asarray(tau)
+    slate_error_if(V.ndim != 3 or tau.shape != V.shape[:2],
+                   f"packed reflectors must be V [S, T, band] and tau "
+                   f"[S, T], got {V.shape} and {tau.shape}")
+    return _tensor(V, device), _tensor(tau, device)
+
+
+def reflectors_to_reference(V: torch.Tensor, tau: torch.Tensor):
+    """The numpy ``(V, tau)`` of the port's packed bulge reflectors."""
+    return V.detach().cpu().numpy(), tau.detach().cpu().numpy()

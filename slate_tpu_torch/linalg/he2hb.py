@@ -1,0 +1,222 @@
+"""Two-stage symmetric eigensolver on one device: he2hb (full → band),
+its back-transform, the band gather, the hb2st dispatch and the whole
+pipeline (reference src/he2hb.cc, src/unmtr_he2hb.cc, src/hb2st.cc,
+src/unmtr_hb2st.cc, src/heev.cc:104-172; counterpart of
+``slate_tpu/linalg/he2hb.py``).
+
+On a 1×1 grid the JAX package's ``shard_map`` loop collapses to slices
+of one dense copy of the matrix, updated in place. Per block column k:
+
+1. the panel below the diagonal block is factored by ``torch.geqrf``
+   (``panel_qr_factor``, ``extract_v``, as in the JAX package, where it
+   is XLA's ``geqrf``); its T comes from the reflectors' Gram matrix by
+   ``geqrf._blocked_T`` (a few batched products) where the JAX package
+   runs the ``larft`` column recurrence — the same T, without an
+   nb-long loop of small launches per panel;
+2. Y = A₂₂·V with A₂₂ read from its lower triangle only;
+3. X = Y·T, W = X − ½·V·(Tᵀ·(Vᵀ·X));
+4. A₂₂ ← A₂₂ − W·Vᵀ − V·Wᵀ.
+
+Afterwards the storage holds the band with the V blocks below it, plus
+the [kt, nb, nb] T stack. Real dtypes only.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from ..errors import SlateError, slate_error_if
+from ..internal import kernels
+from ..internal.band_wave import preferred_eig_band
+from ..internal.precision import full_f32_matmul, resolve_tier, trailing_matmul
+from ..internal.tile_kernels import extract_v, panel_qr_factor
+from ..matrix import (HermitianMatrix, Matrix, bc_from_tiles, dense_to_tiles,
+                      tiles_to_dense)
+from ..types import MethodEig, Op, Option, Uplo, get_option
+from .bulge import apply_bulge_reflectors, gather_band_lower
+from .geqrf import _blocked_T
+
+
+def panel_t(V: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
+    """The compact-WY T of one panel's reflectors (LAPACK larft's), from
+    their Gram matrix VᵀV."""
+    with full_f32_matmul():
+        return _blocked_T(V.mT @ V, taus, V.shape[1])
+
+
+def _check_real(name: str, A) -> None:
+    slate_error_if(A.dtype.is_complex,
+                   f"{name}: complex two-stage inputs are not ported yet "
+                   f"(got {A.dtype})")
+    slate_error_if(A.grid.size != 1,
+                   f"{name}: multi-device grids are not ported yet")
+
+
+def he2hb(A: HermitianMatrix, opts=None):
+    """Reduce symmetric A (lower storage) to band form A = Q·B·Qᵀ, B of
+    bandwidth nb. Returns ``(Aband, T)``: Aband's storage holds the band
+    and the V blocks below it (the reference's in-place layout), T is
+    [max(nt − 1, 1), nb, nb]. A is not modified."""
+    slate_error_if(A.m != A.n, "he2hb needs square")
+    slate_error_if(A.uplo != Uplo.Lower, "he2hb v1: lower storage")
+    _check_real("he2hb", A)
+    tier = resolve_tier(opts)
+    nb, n = A.nb, A.n
+    M = A.mtl * nb
+    kt = max(A.nt - 1, 0)
+    a = tiles_to_dense(A.data[0, 0], M, A.ntl * nb)     # a new tensor, in place
+    Ts = a.new_zeros((max(kt, 1), nb, nb))
+    for k in range(kt):
+        start = (k + 1) * nb
+        pan, taus = panel_qr_factor(a[:, k * nb:start], start, n)
+        a[:, k * nb:start] = pan
+        V = extract_v(pan, start, n)[start:n]
+        Ts[k] = T = panel_t(V, taus)
+        A22 = a[start:n, start:n]                        # a view of a
+        with trailing_matmul(tier):
+            Y = torch.tril(A22) @ V + torch.tril(A22, -1).mT @ V
+        with full_f32_matmul():
+            X = Y @ T
+            W = X - 0.5 * (V @ (T.mT @ (V.mT @ X)))
+        with trailing_matmul(tier):
+            A22.sub_(W @ V.mT + V @ W.mT)
+    data = bc_from_tiles(dense_to_tiles(a, nb, A.mtl, A.ntl), 1, 1)
+    out = HermitianMatrix(data=data, m=A.m, n=A.n, nb=nb, grid=A.grid,
+                          uplo=Uplo.Lower)
+    return out, Ts
+
+
+def he2hb_gather(Aband: HermitianMatrix) -> torch.Tensor:
+    """The band in lower storage ``band[d, j] = A[j+d, j]``, d = 0..nb
+    (reference he2hbGather), from the 2·nt band tiles on the device."""
+    return gather_band_lower(Aband)
+
+
+def unmtr_he2hb(trans: Op, Aband: HermitianMatrix, T, C: Matrix,
+                opts=None) -> Matrix:
+    """Apply Q from he2hb to C (reference src/unmtr_he2hb.cc): Q·C for
+    NoTrans (panels in reverse order), Qᵀ·C otherwise (forward order).
+    Returns the new C."""
+    notrans = trans == Op.NoTrans
+    nb, n = Aband.nb, Aband.n
+    C = C.materialize()
+    slate_error_if(C.nb != nb or C.m != n,
+                   f"unmtr_he2hb dims: Q is {n}×{n} nb={nb}, C is "
+                   f"{C.m}×{C.n} nb={C.nb}")
+    kt = T.shape[0] if Aband.nt > 1 else 0
+    av = tiles_to_dense(Aband.data[0, 0], Aband.mtl * nb, Aband.ntl * nb)
+    c = tiles_to_dense(C.data[0, 0], C.mtl * nb, C.ntl * nb)  # in place
+    with full_f32_matmul():
+        for k in (range(kt - 1, -1, -1) if notrans else range(kt)):
+            start = (k + 1) * nb
+            V = extract_v(av[:, k * nb:start], start, n)[start:n]
+            Top = T[k] if notrans else T[k].mT
+            cc = c[start:n]                              # a view of c
+            cc.sub_(V @ (Top @ (V.mT @ cc)))
+    return C._replace(data=dense_to_tiles(c, nb, C.mtl, C.ntl)[None, None])
+
+
+def hb2st(band: torch.Tensor):
+    """Symmetric band → tridiagonal by bulge chasing (reference
+    src/hb2st.cc): ``(d, e, V, tau)`` on the band's device, the packed
+    reflectors for :func:`unmtr_hb2st`.
+
+    On the card this is the hand-written chase kernel (B16) or an error:
+    there is no other rung. The JAX package's other rungs (the XLA wave,
+    the host C++ chase) are other implementations of the same function
+    and are not ported; the CPU runs the kernel's plain version. Its
+    validator is kept from the JAX ladder (``robust/ladder.py:235-241``):
+    a non-finite d or e raises :class:`SlateError`, which is where the
+    ladder ends once every rung has failed on such an input."""
+    d, e, V, tau = kernels.hb2st_chase(band)
+    if not bool(torch.isfinite(d).all() & torch.isfinite(e).all()):
+        raise SlateError("hb2st: non-finite tridiagonal (the band holds a "
+                         "NaN or Inf)")
+    return d, e, V, tau
+
+
+def unmtr_hb2st(V, tau, C: torch.Tensor, band: int,
+                trans: Op = Op.NoTrans) -> torch.Tensor:
+    """Apply Q from hb2st to the rows of C (reference
+    src/unmtr_hb2st.cc): Q·C for NoTrans, Qᵀ·C otherwise."""
+    return apply_bulge_reflectors(V, tau, C, band,
+                                  forward=trans != Op.NoTrans)
+
+
+def two_stage_chase_band(n: int, nb: int, band_nb: int) -> int:
+    """The band both two-stage pipelines (heev, gesvd) chase at: they
+    re-block an nb-tiled matrix to ``band_nb`` only when nb > band_nb and
+    n > 2·band_nb, else they chase at nb."""
+    return band_nb if (nb > band_nb and n > 2 * band_nb) else nb
+
+
+def reblock(A, band_nb: int):
+    """A at tile size ``band_nb``: tile-level :meth:`retile` when it
+    divides nb, else through the dense matrix."""
+    if A.nb % band_nb == 0:
+        return A.retile(band_nb)
+    return type(A).from_dense(A.to_dense(), nb=band_nb, grid=A.grid,
+                              uplo=A.uplo)
+
+
+def heev_two_stage(A: HermitianMatrix, opts=None, want_vectors=True,
+                   times=None):
+    """The whole two-stage pipeline (reference src/heev.cc:104-172):
+    he2hb → band gather → hb2st → sterf (values) or stedc/steqr
+    (vectors) → unmtr_hb2st → unmtr_he2hb. Returns ``(lam, Z)``: lam
+    ascending, a tensor of A's real dtype on its device; Z a Matrix or
+    None. ``times``, a dict, receives each stage's host-clock seconds,
+    with the device synchronised at each boundary; None (the default)
+    times nothing and adds no synchronisation."""
+    from .eig import sterf, steqr, stedc
+    _check_real("heev", A)
+    method = get_option(opts, Option.MethodEig, MethodEig.Auto)
+    band_nb = get_option(opts, Option.EigBand,
+                         preferred_eig_band(A.n, A.dtype, A.grid.device))
+    if two_stage_chase_band(A.n, A.nb, band_nb) != A.nb:
+        A = reblock(A, band_nb)
+    clock = _StageClock(times, A.grid.device)
+    Aband, T = clock("he2hb", he2hb, A, opts)
+    band = clock("gather", he2hb_gather, Aband)
+    d, e, V2, tau2 = clock("hb2st", hb2st, band)
+    if not want_vectors:
+        lam = clock("sterf", sterf, d, e)
+        return torch.as_tensor(lam).to(A.grid.device, A.dtype), None
+    if method == MethodEig.QR or (method != MethodEig.DC and A.n <= 128):
+        slate_error_if(A.n > 512,
+                       "heev: MethodEig.QR above n = 512 needs the device "
+                       "inverse iteration (stein), not ported yet; use "
+                       "MethodEig.DC")
+        lam, ztri = clock("steqr", steqr, d, e)
+        ztri = torch.from_numpy(ztri).to(A.grid.device, A.dtype)
+    else:
+        lam, ztri = clock("stedc", stedc, d, e, True, A.grid.device,
+                          A.dtype)
+    zb = clock("unmtr_hb2st", unmtr_hb2st, V2, tau2, ztri, A.nb)
+    Zb = Matrix.from_dense(zb, nb=A.nb, grid=A.grid)
+    Z = clock("unmtr_he2hb", unmtr_he2hb, Op.NoTrans, Aband, T, Zb, opts)
+    return torch.as_tensor(lam).to(A.grid.device, A.dtype), Z
+
+
+class _StageClock:
+    """Runs a stage and, when a ``times`` dict is given, adds its
+    host-clock seconds there with the device synchronised at both
+    ends."""
+
+    def __init__(self, times, device):
+        self.times = times
+        self.cuda = torch.device(device).type == "cuda"
+
+    def __call__(self, name, fn, *args):
+        if self.times is None:
+            return fn(*args)
+        if self.cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if self.cuda:
+            torch.cuda.synchronize()
+        self.times[name] = self.times.get(name, 0.0) + time.perf_counter() - t0
+        return out

@@ -208,6 +208,32 @@ class BaseTiledMatrix:
         return dataclasses.replace(self, data=bc_from_tiles(padded, g.p, g.q),
                                    op=Op.NoTrans, uplo=uplo)
 
+    def retile(self, new_nb: int) -> "BaseTiledMatrix":
+        """Change the tile size to a divisor of ``nb`` (the two-stage
+        eig/SVD re-block to ``Option.EigBand``; reference redistribute
+        with a finer blocking, Matrix.hh:831). Tile-level: each
+        [nb, nb] tile splits into f×f [new_nb, new_nb] subtiles on the
+        device; the dense matrix is never formed."""
+        A = self.materialize()
+        if new_nb == A.nb:
+            return A
+        slate_error_if(
+            A.nb % new_nb != 0,
+            f"retile: new nb {new_nb} must divide the current nb {A.nb}")
+        f = A.nb // new_nb
+        g = A.grid
+        tiles = bc_to_tiles(A.data)                # [mt_p, nt_p, nb, nb]
+        mtp, ntp = tiles.shape[0], tiles.shape[1]
+        sub = (tiles.reshape(mtp, ntp, f, new_nb, f, new_nb)
+                    .permute(0, 2, 1, 4, 3, 5)
+                    .reshape(mtp * f, ntp * f, new_nb, new_nb))
+        mt2, nt2 = cdiv(A.m, new_nb), cdiv(A.n, new_nb)
+        out = sub.new_zeros((cdiv(mt2, g.p) * g.p, cdiv(nt2, g.q) * g.q,
+                             new_nb, new_nb))
+        out[:mt2, :nt2] = sub[:mt2, :nt2]
+        return dataclasses.replace(A, data=bc_from_tiles(out, g.p, g.q),
+                                   nb=new_nb)
+
     def astype(self, dtype) -> "BaseTiledMatrix":
         return dataclasses.replace(self, data=self.data.to(dtype))
 

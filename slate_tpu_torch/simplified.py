@@ -1,15 +1,17 @@
 """Simplified verb-named API (reference include/slate/simplified_api.hh):
 multiply → gemm, chol_factor → potrf, chol_solve → posv, lu_factor →
 getrf, lu_solve → gesv, the unpivoted LU verbs, least_squares_solve →
-gels and the QR/LQ verbs."""
+gels, the QR/LQ verbs, and eig_vals/eig → heev, svd_vals/svd → gesvd."""
 
 from __future__ import annotations
 
 from .errors import raise_if_info, slate_error_if
+from .linalg.eig import heev
 from .linalg.geqrf import gelqf, gels, geqrf, unmlq, unmqr
 from .linalg.getrf import (gesv, gesv_nopiv, getrf, getrf_nopiv, getrs,
                            getrs_nopiv)
 from .linalg.potrf import posv, potrf, potrs
+from .linalg.svd import gesvd
 from .matrix import HermitianMatrix, TriangularMatrix
 from .ops.blas import gemm
 from .types import Op
@@ -87,3 +89,25 @@ def qr_multiply_by_q(side, op, QR, T, C, opts=None):
 def lq_multiply_by_q(side, op, LQ, T, C, opts=None):
     """C ← op(Q)·C or C·op(Q) from lq_factor's output (unmlq)."""
     return unmlq(side, op, LQ, T, C, opts)
+
+
+def eig_vals(A, opts=None):
+    """Eigenvalues of a symmetric matrix, ascending (heev)."""
+    lam, _ = heev(A, opts, want_vectors=False)
+    return lam
+
+
+def eig(A, opts=None):
+    """``(lam, Z)`` of a symmetric matrix (heev)."""
+    return heev(A, opts, want_vectors=True)
+
+
+def svd_vals(A, opts=None):
+    """Singular values, descending (gesvd)."""
+    s, _, _ = gesvd(A, opts)
+    return s
+
+
+def svd(A, opts=None):
+    """``(s, U, VT)`` (gesvd)."""
+    return gesvd(A, opts, want_u=True, want_vt=True)

@@ -3,8 +3,9 @@
 The per-call ``opts`` dict is the analog of SLATE's
 ``Options = std::map<Option, OptionValue>`` (types.hh:61). The keys are
 kept whole so that option-compatible call sites keep working; the port
-reads ``Option.TrailingPrecision``, ``Option.MethodLU`` and
-``Option.MethodGels``.
+reads ``Option.TrailingPrecision``, ``Option.MethodLU``,
+``Option.MethodGels``, ``Option.MethodEig``, ``Option.MethodSVD`` and
+``Option.EigBand``.
 """
 
 from __future__ import annotations
@@ -140,3 +141,27 @@ class MethodGels(enum.Enum):
         if m != MethodGels.Auto:
             return m
         return MethodGels.Cholqr if A.m >= 2 * A.n else MethodGels.Geqrf
+
+
+class MethodEig(enum.Enum):
+    """Eigensolver method (reference enums.hh; ``slate_tpu/types.py``).
+    QR and DC name the tridiagonal stage of the two-stage pipeline;
+    Dense is ``torch.linalg.eigh`` on the whole matrix."""
+    Auto = enum.auto()
+    QR = enum.auto()
+    DC = enum.auto()
+    Bisection = enum.auto()
+    MRRR = enum.auto()
+    Dense = enum.auto()
+    TwoStage = enum.auto()
+
+
+class MethodSVD(enum.Enum):
+    """SVD method: Dense is ``torch.linalg.svd`` on the whole matrix,
+    TwoStage the ge2tb → tb2bd → bdsqr pipeline."""
+    Auto = enum.auto()
+    QRIteration = enum.auto()
+    DC = enum.auto()
+    Jacobi = enum.auto()
+    Dense = enum.auto()
+    TwoStage = enum.auto()

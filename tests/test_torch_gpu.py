@@ -1,6 +1,6 @@
 """Tests of the port that need a CUDA card: each CUDA kernel against its
-plain PyTorch version, and the Cholesky, LU and QR paths on the card
-against the same paths on the CPU. They skip without a card.
+plain PyTorch version, and the Cholesky, LU, QR, eig and SVD paths on
+the card against the same paths on the CPU. They skip without a card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -261,3 +261,97 @@ def test_gesv_nopiv_on_card_matches_cpu(cuda):
         assert int(info) == 0
         xs.append(X.to_dense())
     assert rel(xs[0], xs[1]) < TOL
+
+
+def _dense_band(ab, upper):
+    b, n = ab.shape[0] - 1, ab.shape[1]
+    a = np.zeros((n, n))
+    for d in range(b + 1):
+        j = np.arange(n - d)
+        a[j, j + d] = ab[d, :n - d]
+        if not upper:
+            a[j + d, j] = ab[d, :n - d]
+    return a
+
+
+@pytest.mark.parametrize("n,b", [(12, 1), (50, 8), (100, 16), (300, 160)])
+def test_chase_kernels_match_plain(cuda, n, b):
+    """K8/K9 (hb2st/tb2bd) against their plain versions on the card:
+    d and |e| within 2e-2·‖A‖₂ (f32, a long chain of reflections summed
+    in other orders: the reduction is backward, not forward, stable, and
+    e's sign may flip at a near-zero pivot; 8.5e-3 absolute measured at
+    (300, 160)), V and τ within 5e-3 where the chain is short (n ≤ 50),
+    the spectrum within 2e-3·max|λ| of the dense f64 band's, one launch
+    each. b = 160 runs the blocks in global scratch instead of shared
+    memory."""
+    ab = np.random.default_rng(n * b).standard_normal((b + 1, n)).astype(
+        np.float32)
+    g = torch.from_numpy(ab).to(cuda)
+    before = K.LAUNCHES["hb2st_vmem"], K.LAUNCHES["tb2bd_vmem"]
+    for fn, plain, upper in ((K.hb2st_chase, st.internal.band_bulge.hb2st,
+                              False),
+                             (K.tb2bd_chase, st.internal.band_bulge.tb2bd,
+                              True)):
+        out = [x.cpu().numpy() for x in fn(g)]
+        ref = [x.cpu().numpy() for x in plain(g)]
+        torch.cuda.synchronize()
+        d, e = out[0].astype(np.float64), out[1].astype(np.float64)
+        dense = _dense_band(ab.astype(np.float64), upper)
+        if upper:
+            got = np.linalg.svd(np.diag(d) + np.diag(e, 1), compute_uv=False)
+            want = np.linalg.svd(dense, compute_uv=False)
+        else:
+            got = np.linalg.eigvalsh(np.diag(d) + np.diag(e, 1)
+                                     + np.diag(e, -1))
+            want = np.linalg.eigvalsh(dense)
+        norm2 = np.abs(want).max()
+        assert np.abs(got - want).max() <= 2e-3 * norm2
+        assert np.abs(np.abs(out[0]) - np.abs(ref[0])).max() <= 2e-2 * norm2
+        assert np.abs(np.abs(out[1]) - np.abs(ref[1])).max() <= 2e-2 * norm2
+        if n <= 50:
+            for x, y in zip(out[2:6], ref[2:6]):
+                assert np.abs(x - y).max() <= 5e-3
+    assert (K.LAUNCHES["hb2st_vmem"], K.LAUNCHES["tb2bd_vmem"]) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_chase_kernels_refuse_what_they_do_not_take(cuda):
+    ab = torch.randn(9, 40, device=cuda)
+    with pytest.raises(st.SlateError, match="float64"):
+        K.hb2st_chase(ab.double())
+    with pytest.raises(st.SlateError, match="float64"):
+        K.tb2bd_chase(ab.double())
+    with pytest.raises(st.SlateError, match="band 300"):
+        K.hb2st_chase(torch.randn(301, 400, device=cuda))
+    with pytest.raises(st.SlateError, match="non-finite"):
+        st.linalg.he2hb.hb2st(torch.full((9, 40), float("nan"), device=cuda))
+
+
+def test_heev_gesvd_on_card_match_cpu(cuda):
+    """The two-stage heev (DC) and gesvd at n=256, nb=32 on the card
+    (both chase kernels) and on the CPU: λ and σ within 10·n·2⁻²⁴ of
+    each other relative to the largest, vectors by residual."""
+    n, nb = 256, 32
+    rng = np.random.default_rng(11)
+    g = rng.standard_normal((n, n)).astype(np.float32)
+    a = (g + g.T) / 2
+    bound = 10 * n * 2.0 ** -24
+    lam, sv = {}, {}
+    for dev in (cuda, "cpu"):
+        grid = st.Grid(1, 1, device=dev)
+        l, Z = st.heev(st.HermitianMatrix.from_dense(a, nb=nb, grid=grid),
+                       {st.Option.MethodEig: st.MethodEig.DC})
+        z = Z.to_dense().double().cpu().numpy()
+        lam[str(dev)] = l.double().cpu().numpy()
+        assert np.linalg.norm(a @ z - z * lam[str(dev)]) \
+            <= bound * np.linalg.norm(a)
+        s, U, VT = st.svd(st.Matrix.from_dense(g, nb=nb, grid=grid),
+                          {st.Option.MethodSVD: st.MethodSVD.TwoStage})
+        sv[str(dev)] = s.double().cpu().numpy()
+        u, vt = (U.to_dense().double().cpu().numpy(),
+                 VT.to_dense().double().cpu().numpy())
+        assert np.linalg.norm(u * sv[str(dev)] @ vt - g) \
+            <= bound * np.linalg.norm(g)
+    assert np.abs(lam["cuda"] - lam["cpu"]).max() \
+        <= bound * np.abs(lam["cpu"]).max()
+    assert np.abs(sv["cuda"] - sv["cpu"]).max() <= bound * sv["cpu"][0]

@@ -53,8 +53,9 @@ def test_grid_never_picks_the_cpu_quietly(monkeypatch):
 
 def test_kernel_sources_and_build_key():
     names = [s.name for s in _build._sources()]
-    assert names == ["lu_nopiv_tile.cu", "panel_plu.cu", "panel_qr.cu",
-                     "panel_transpose.cu", "potrf_tile.cu", "trsm_lower.cu"]
+    assert names == ["band_chase.cu", "lu_nopiv_tile.cu", "panel_plu.cu",
+                     "panel_qr.cu", "panel_transpose.cu", "potrf_tile.cu",
+                     "trsm_lower.cu"]
     for src in _build._sources():
         text = src.read_text()
         assert "extern \"C\" int slate_" in text
@@ -90,7 +91,11 @@ def test_exports():
                  "lu_solve_nopiv", "lu_solve_using_factor_nopiv",
                  "least_squares_solve", "qr_factor", "lq_factor",
                  "qr_multiply_by_q", "lq_multiply_by_q",
-                 "t_factors_from_reference", "t_factors_to_reference"):
+                 "t_factors_from_reference", "t_factors_to_reference",
+                 "heev", "sterf", "steqr", "stedc", "gesvd", "he2hb", "ge2tb",
+                 "eig_vals", "eig", "svd_vals", "svd", "MethodEig",
+                 "MethodSVD", "band_from_reference", "band_to_reference",
+                 "reflectors_from_reference", "reflectors_to_reference"):
         assert hasattr(pst, name), name
 
 
