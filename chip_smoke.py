@@ -100,7 +100,35 @@ The two-stage eigensolver and SVD slice (f32, ``Grid(1, 1)``):
    the card; a zero matrix gives zero λ and σ; card against CPU at n=256,
    nb=32: λ and σ within 10·n·2⁻²⁴ of the largest.
 
-Each path of 3–3k runs with the launch counts set to 0 just before it
+The Aasen and band LU slice (f32, ``Grid(1, 1)``):
+
+2e. The physical-swap panel LU K10 (``panel_plu_pallas``) against its
+   plain version on the card at [16128, 256] (the first ``hetrf`` panel),
+   [300, 128] and a [128, 128] panel with an exact tie that the
+   current-position rule breaks (pivots, ``info`` and the NaN pattern
+   equal, values within atol 1e-4), and a panel with a NaN; the rank-k
+   tail K11 (``rank_k_tail_pallas``) at [32, 96]·[96, 96] (the ``gbtrf``
+   trailing update), [4096, 64]·[64, 4096] and a ragged [70, 1]·[1, 130]
+   within 1e-5. Times as in 2 at the path shapes; the library calls are
+   ``torch.linalg.lu_factor`` (cuSOLVER) on the same panel and ``addmm``
+   with TF32 off.
+3l. ``hesv`` at f32, n=16384, nb=256, 8 right-hand sides, A = (G + Gᵀ)/2:
+   ``info`` 0, ‖A·X − B‖/(‖A‖·‖X‖) within 10·n·2⁻²⁴, ‖P·A·Pᵀ − L·T·Lᵀ‖_F/
+   ‖A‖_F from the loop's T blocks within 10·n·2⁻²⁴, exact launch counts
+   (K10 on the 63 live panels, K3 on the 64 tiles of the L solve);
+   ``hetrf_ms``, ``hesv_ms``, the stage split, peak memory, the breakdown,
+   and ``torch.linalg.ldl_factor_ex`` + ``ldl_solve`` in f32 as the
+   yardstick (``torch.linalg.solve`` where CUDA has no LDLᵀ).
+3m. ``gbsv`` at f32, n=16384, kl = ku = 32 (storage nb=256, band block
+   96), 8 right-hand sides, a Gaussian band without a diagonal boost:
+   ``info`` 0, the residual within 10·n·2⁻²⁴, K11 once per panel (171);
+   ``gbtrf_ms``, ``gbsv_ms`` and the breakdown.
+4e. A singular symmetric matrix (a zero row and column) gives the same
+   ``info`` from ``hetrf`` on the card and on the CPU; ``hesv`` and
+   ``gbsv`` at n=512 agree between the two (equal pivots, X within the
+   forward error bound n·2⁻²⁴·κ(A)).
+
+Each path of 3–3m runs with the launch counts set to 0 just before it
 and read just after. Any failure raises and the script exits non-zero.
 Without a CUDA card it exits with code 2 before doing anything. The last
 line is ``{"ok": true, "device": {...}}``.
@@ -179,7 +207,14 @@ KERNELS = {
     "tb2bd_vmem": ("slate_tpu_torch/csrc/band_chase.cu",
                    "slate_tpu/internal/band_wave_vmem_bd.py:330",
                    "gesvd_vals"),
+    "panel_plu_pallas": ("slate_tpu_torch/csrc/panel_plu_swap.cu",
+                         "slate_tpu/internal/pallas_kernels.py:508", "hesv"),
+    "rank_k_tail_pallas": ("slate_tpu_torch/csrc/rank_k_tail.cu",
+                           "slate_tpu/internal/pallas_kernels.py:644",
+                           "gbsv"),
 }
+AASEN_NB = 256            # hesv's block: the top of B6's width range
+BAND_KL = BAND_KU = 32    # gbsv's band: block 2kl + ku = 96 < 128
 
 
 def say(*a):
@@ -654,6 +689,12 @@ def phase_plu_panel():
 
 
 def _category(name: str) -> str:
+    if "plu_swap" in name:
+        return "physical-swap panel LU kernel (K10)"
+    if "rank_k" in name:
+        return "rank-k tail kernel (K11)"
+    if "getrf" in name or "getf2" in name or "laswp" in name:
+        return "cuSOLVER getrf (band windows)"
     if "qr_subpanel" in name:
         return "panel QR kernel (K6)"
     if "hb2st_wave" in name:
@@ -683,12 +724,13 @@ def _category(name: str) -> str:
     return "copies and elementwise (layout, guards, padding, gathers)"
 
 
-def phase_breakdown(label, fn, cpu=True):
+def phase_breakdown(label, fn, cpu=True, host_top=0):
     """Where the device time of one call goes: kernel time by category
     from torch.profiler, and the device's busy share of the wall time.
     ``cpu=False`` traces the device alone: a call of tens of thousands
     of small torch ops otherwise spends minutes building its host
-    events."""
+    events. ``host_top`` > 0 also prints that many host ops with the
+    most self time."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     with profile(activities=acts) as prof:
@@ -710,6 +752,11 @@ def phase_breakdown(label, fn, cpu=True):
         f"(busy share {busy / wall_us:.3f})")
     for c, us in sorted(cats.items(), key=lambda kv: -kv[1]):
         say(f"  {c}: {us / 1e3:.3f} ms ({us / busy:.3f} of device time)")
+    if host_top:
+        ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        say("  host ops by self time: " + ", ".join(
+            f"{e.key} {e.self_cpu_time_total / 1e3:.1f} ms x{e.count}"
+            for e in ops[:host_top]))
 
 
 def phase_failure_report():
@@ -1481,6 +1528,288 @@ def phase_eig_failure_report():
     assert el <= limit and es <= limit, (el, es)
 
 
+# ---------------------------------------------------------------------------
+# the Aasen and band LU slice
+# ---------------------------------------------------------------------------
+
+def swap_bound(h, w):
+    """K10's least time: per column j the multipliers below it and the
+    rank-1 update right of it (a product and a difference each), and
+    the panel read and written once."""
+    flops = sum((h - j - 1) * (1 + 2 * (w - j - 1)) for j in range(min(h, w)))
+    return bound(flops, 2 * h * w * 4 + (min(h, w) + 1) * 4)
+
+
+def rank_k_bound(m, n, k):
+    return bound(2 * m * n * k, (m * k + k * n + 2 * m * n) * 4)
+
+
+def tie_panel(h=128, w=128, seed=0):
+    """Column 1 ties, after step 0 swaps rows 0 and 3, between position 1
+    and position 3 (where row 0 went): B6's current-position rule takes
+    1, a tie broken on the original row index would take 3."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((h, w)).astype(np.float32)
+    a[:, 0] = 0.0
+    a[0, 0], a[3, 0] = 1.0, 4.0
+    a[:, 1] = rng.integers(-1, 2, h)
+    a[0, 1], a[1, 1], a[3, 1] = 3.0, 2.0, 4.0
+    return torch.from_numpy(a).cuda()
+
+
+def check_swap(label, a):
+    """K10 against its plain version: pivots, info and the NaN pattern
+    equal, values within LU_ATOL; returns (max_abs_err, piv)."""
+    from slate_tpu_torch.internal import kernels as K
+    lu, piv, info = K.panel_plu_swap(a)
+    lu_p, piv_p, info_p = K.panel_plu_swap_plain(a)
+    torch.cuda.synchronize()
+    fin = ~torch.isnan(lu_p)
+    mx = float((lu[fin] - lu_p[fin]).abs().max())
+    same = (torch.equal(piv, piv_p) and int(info) == int(info_p)
+            and torch.equal(torch.isnan(lu), ~fin))
+    ok = same and mx <= LU_ATOL
+    say(f"  panel_plu_swap {label}: pivots/info/NaN pattern equal {same} "
+        f"(info {int(info)}), max_abs_err {mx:.3e} (tol {LU_ATOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"panel_plu_swap {label} disagrees with its "
+                             "plain version")
+    return mx, piv
+
+
+def phase_swap_rank_k_kernels():
+    """2e: K10 and K11 against their plain versions, timed at the path
+    shapes."""
+    from slate_tpu_torch.internal import kernels as K
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    rows = {}
+    say("Aasen and band LU kernel checks (kernel vs plain on the card):")
+    h, w = N - AASEN_NB, AASEN_NB
+    a = torch.randn(h, w, generator=gen, device="cuda")
+    mx, _ = check_swap(f"[{h},{w}]", a)
+    for label, x in (("[300,128]", torch.randn(300, 128, generator=gen,
+                                                device="cuda")),
+                     ("tie [128,128]", tie_panel())):
+        m2, piv = check_swap(label, x)
+        mx = max(mx, m2)
+    assert piv[:2].tolist() == [3, 1], piv[:2]
+    nan = torch.randn(256, 128, generator=gen, device="cuda")
+    nan[40, 7] = float("nan")
+    _, piv = check_swap("NaN [256,128]", nan)
+    assert int(piv[7]) == 256
+    rows["panel_plu_pallas"] = dict(
+        max_abs_err=mx, ms=time_ms(lambda: K.panel_plu_swap(a)),
+        plain_ms=time_ms(lambda: K.panel_plu_swap_plain(a), reps=3),
+        library_ms=cusolver(lambda: time_ms(lambda: torch.linalg.lu_factor(a))),
+        bound=swap_bound(h, w))
+    r = rows["panel_plu_pallas"]
+    say(f"  panel_plu_swap [{h},{w}]: {r['ms'] / w * 1e3:.2f} us per column")
+    mx = 0.0
+    for (m, n, k) in ((32, 96, 96), (4096, 4096, 64), (70, 130, 1)):
+        c = torch.randn(m, n, generator=gen, device="cuda")
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        y = torch.randn(k, n, generator=gen, device="cuda")
+        m2 = check("rank_k_tail", lambda: K.rank_k_tail(c, x, y, -1.0, 1.0),
+                   lambda: K.rank_k_tail_plain(c, x, y, -1.0, 1.0),
+                   f"[{m},{k}]x[{k},{n}]")
+        mx = max(mx, m2)
+        if (m, n, k) == (32, 96, 96):
+            with _f32():
+                lib = time_ms(lambda: torch.addmm(c, x, y, alpha=-1.0))
+            rows["rank_k_tail_pallas"] = dict(
+                ms=time_ms(lambda: K.rank_k_tail(c, x, y, -1.0, 1.0)),
+                plain_ms=time_ms(lambda: K.rank_k_tail_plain(c, x, y, -1.0,
+                                                             1.0)),
+                library_ms=lib, bound=rank_k_bound(m, n, k))
+        elif k == 64:
+            with _f32():
+                lib = time_ms(lambda: torch.addmm(c, x, y, alpha=-1.0))
+            ms = time_ms(lambda: K.rank_k_tail(c, x, y, -1.0, 1.0))
+            say(f"  rank_k_tail [{m},{k}]x[{k},{n}]: kernel_ms {ms:.4f}, "
+                f"addmm_ms {lib:.4f}, bound_ms "
+                f"{rank_k_bound(m, n, k)[0]:.6f} "
+                f"({rank_k_bound(m, n, k)[1]})")
+    rows["rank_k_tail_pallas"]["max_abs_err"] = mx
+    for name, r in rows.items():
+        say(f"  {name}: kernel_ms {r['ms']:.4f}, plain_ms "
+            f"{r['plain_ms']:.4f}, library_ms {r['library_ms']:.4f}, "
+            f"bound_ms {r['bound'][0]:.6f} ({r['bound'][1]})")
+    return rows
+
+
+def ldl_yardstick(a, b):
+    """``torch.linalg.ldl_factor_ex`` + ``ldl_solve`` in f32 where this
+    PyTorch build has them on CUDA, else ``torch.linalg.solve``: the
+    name and its time (one run after a warm-up)."""
+    def ldl():
+        ld, pv, _ = torch.linalg.ldl_factor_ex(a)
+        return torch.linalg.ldl_solve(ld, pv, b)
+    try:
+        ldl()
+        return "ldl_factor_ex+ldl_solve", time_ms(ldl, reps=1)
+    except RuntimeError as e:
+        say(f"  ldl_factor_ex on CUDA not available: {e}")
+        return "linalg.solve", time_ms(lambda: torch.linalg.solve(a, b),
+                                       reps=1)
+
+
+def phase_hesv():
+    """3l: the Aasen solve at the package's headline size."""
+    import slate_tpu_torch as st
+    from slate_tpu_torch import runtime
+    from slate_tpu_torch.linalg import hetrf as H
+    grid = st.Grid(1, 1)
+    n, nb = N, AASEN_NB
+    a = sym_matrix(n, 19)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    b = torch.randn(n, NRHS, generator=gen, device="cuda")
+    A = st.HermitianMatrix.from_dense(a, nb=nb, grid=grid)
+    B = st.Matrix.from_dense(b, nb=nb, grid=grid)
+    st.hesv(st.HermitianMatrix.from_dense(a[:1024, :1024], nb=nb, grid=grid),
+            st.Matrix.from_dense(b[:1024], nb=nb, grid=grid))   # warm-up
+    base, t0 = start_path()
+    times = {}
+    X, (L, FT, piv), info = st.hesv(A, B, times=times)
+    nt = n // nb
+    ms, launches, peak_gib = end_path(
+        base, t0, {"panel_plu_pallas": nt - 1, "trsm_left_lower": nt})
+    t1 = time.perf_counter()
+    st.hetrf(A)
+    torch.cuda.synchronize()
+    hetrf_ms = (time.perf_counter() - t1) * 1e3
+    info = int(info)
+    x = X.to_dense()
+    limit = 10 * n * 2.0 ** -24
+    with _f32():
+        r = float(torch.linalg.norm(a @ x - b)
+                  / (torch.linalg.norm(a) * torch.linalg.norm(x)))
+    # P·A·Pᵀ − L·T·Lᵀ from the loop's own T blocks (stage 1 run again)
+    w = H._mirror_full(A)
+    Td, Ts, piv2, _ = H._hetrf_aasen(w, n, nb)
+    ld = H._build_L(w, nb)[:n, :n]
+    del w
+    t = torch.block_diag(*Td)
+    for k in range(nt - 1):
+        t[(k + 1) * nb:(k + 2) * nb, k * nb:(k + 1) * nb] = Ts[k]
+        t[k * nb:(k + 1) * nb, (k + 1) * nb:(k + 2) * nb] = Ts[k].T
+    perm = torch.from_numpy(runtime.resolve_pivots(piv.cpu().numpy(), n)
+                            ).cuda()
+    with _f32():
+        f = float(torch.linalg.norm(a[perm][:, perm] - ld @ t @ ld.T)
+                  / torch.linalg.norm(a))
+    del t, ld
+    same = torch.equal(piv, piv2)
+    name, yard = ldl_yardstick(a, b)
+    split = ", ".join(f"{k} {v * 1e3:.3f}" for k, v in times.items())
+    say(f"Aasen path: hesv f32 n={n} nb={nb} nrhs={NRHS} Grid(1,1): info "
+        f"{info}, residual {r:.3e}, |PAP^T - LTL^T|/|A| {f:.3e} (bound "
+        f"{limit:.3e} each), pivots repeat {same}")
+    say(f"  hetrf_ms {hetrf_ms:.3f}, hesv_ms {ms:.3f} (stage clock on; "
+        f"split ms: {split}), hesv peak device memory above its inputs "
+        f"{peak_gib:.3f} GiB; torch.linalg.{name} f32 (yardstick, not on "
+        f"the path) {yard:.3f} ms")
+    assert info == 0, f"hesv info {info}"
+    assert tuple(x.shape) == (n, NRHS) and bool(torch.isfinite(x).all())
+    assert r <= limit and f <= limit and same, (r, f, same)
+    phase_breakdown("hesv", lambda: st.hesv(A, B), host_top=6)
+    return launches
+
+
+def band_matrix(n, kl, ku, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn(n, n, generator=gen, device="cuda")
+    i = torch.arange(n, device="cuda")
+    d = i[None, :] - i[:, None]
+    return a.masked_fill_((d > ku) | (-d > kl), 0.0)
+
+
+def phase_gbsv():
+    """3m: the band LU solve at the package's headline size."""
+    import slate_tpu_torch as st
+    grid = st.Grid(1, 1)
+    n, kl, ku, nb = N, BAND_KL, BAND_KU, AASEN_NB
+    a = band_matrix(n, kl, ku, 21)
+    b = torch.randn(n, NRHS, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(22))
+    A = st.BandMatrix.from_dense(a, nb=nb, grid=grid, kl=kl, ku=ku)
+    B = st.Matrix.from_dense(b, nb=nb, grid=grid)
+    st.gbsv(st.BandMatrix.from_dense(a[:1024, :1024], nb=nb, grid=grid,
+                                     kl=kl, ku=ku),
+            st.Matrix.from_dense(b[:1024], nb=nb, grid=grid))   # warm-up
+    base, t0 = start_path()
+    X, F, piv, info = st.gbsv(A, B)
+    panels = -(-n // F.nb)
+    ms, launches, peak_gib = end_path(base, t0,
+                                      {"rank_k_tail_pallas": panels})
+    t1 = time.perf_counter()
+    st.gbtrf(A)
+    torch.cuda.synchronize()
+    gbtrf_ms = (time.perf_counter() - t1) * 1e3
+    info = int(info)
+    x = X.to_dense()
+    limit = 10 * n * 2.0 ** -24
+    with _f32():
+        r = float(torch.linalg.norm(a @ x - b)
+                  / (torch.linalg.norm(a) * torch.linalg.norm(x)))
+    moved = int((piv.reshape(-1)[:n].cpu() != torch.arange(n)).sum())
+    say(f"band path: gbsv f32 n={n} kl={kl} ku={ku} (band block {F.nb}, "
+        f"{panels} panels) nrhs={NRHS} Grid(1,1): info {info}, residual "
+        f"{r:.3e} (bound {limit:.3e}), {moved} rows pivoted")
+    say(f"  gbtrf_ms {gbtrf_ms:.3f}, gbsv_ms {ms:.3f}, gbsv peak device "
+        f"memory above its inputs {peak_gib:.3f} GiB")
+    assert info == 0 and F.nb == 96 and moved > 0, (info, F.nb, moved)
+    assert tuple(x.shape) == (n, NRHS) and bool(torch.isfinite(x).all())
+    assert r <= limit, f"residual {r} above {limit}"
+    phase_breakdown("gbsv", lambda: st.gbsv(A, B), host_top=6)
+    return launches
+
+
+def phase_aasen_band_failure_report():
+    """4e: a singular symmetric matrix gives the same hetrf info on the
+    card and on the CPU; hesv and gbsv agree between the two: equal
+    pivots and info, X within the forward error bound n·2⁻²⁴·κ(A)."""
+    import slate_tpu_torch as st
+    n, nb = 512, 128
+    rng = np.random.default_rng(23)
+    g = rng.standard_normal((n, n)).astype(np.float32)
+    a = (g + g.T) / 2
+    b = rng.standard_normal((n, 3)).astype(np.float32)
+    z = a.copy()
+    z[100, :] = z[:, 100] = 0.0
+    infos, out = {}, {}
+    for dev in ("cuda", "cpu"):
+        grid = st.Grid(1, 1, device=dev)
+        infos[dev] = int(st.hetrf(st.HermitianMatrix.from_dense(
+            z, nb=nb, grid=grid))[1])
+        X, (_, _, piv), info = st.hesv(
+            st.HermitianMatrix.from_dense(a, nb=nb, grid=grid),
+            st.Matrix.from_dense(b, nb=nb, grid=grid))
+        ab = band_matrix(n, BAND_KL, BAND_KU, 24).cpu().numpy()
+        Y, _, bpiv, binfo = st.gbsv(
+            st.BandMatrix.from_dense(ab, nb=nb, grid=grid, kl=BAND_KL,
+                                     ku=BAND_KU),
+            st.Matrix.from_dense(b, nb=nb, grid=grid))
+        out[dev] = (X.to_dense().cpu(), piv.cpu(), int(info),
+                    Y.to_dense().cpu(), bpiv.cpu(), int(binfo))
+    ex, ey = rel_err(out["cuda"][0], out["cpu"][0]), rel_err(out["cuda"][3],
+                                                             out["cpu"][3])
+    same = (torch.equal(out["cuda"][1], out["cpu"][1])
+            and torch.equal(out["cuda"][4], out["cpu"][4]))
+    # two backward-stable f32 solves may differ by the forward error
+    # bound n·2⁻²⁴·κ(A) each; a random symmetric A has a small eigenvalue
+    tx = n * 2.0 ** -24 * float(np.linalg.cond(a.astype(np.float64)))
+    ty = n * 2.0 ** -24 * float(np.linalg.cond(ab.astype(np.float64)))
+    say(f"Aasen/band failure report: singular hetrf info card "
+        f"{infos['cuda']}, CPU {infos['cpu']}; n={n}: pivots equal {same}, "
+        f"hesv X rel_err {ex:.3e} (bound n*2^-24*cond(A) = {tx:.3e}), gbsv "
+        f"X rel_err {ey:.3e} (bound {ty:.3e})")
+    assert infos["cuda"] == infos["cpu"] > 0, infos
+    assert same and out["cuda"][2] == out["cpu"][2] == 0
+    assert out["cuda"][5] == out["cpu"][5] == 0
+    assert ex <= tx and ey <= ty, (ex, ey)
+
+
 def timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1502,6 +1831,8 @@ def main() -> int:
     rows.update(timed("2c QR and unpivoted-LU kernels",
                       phase_qr_nopiv_kernels))
     rows.update(timed("2d bulge-chase kernels", phase_chase_kernels))
+    rows.update(timed("2e Aasen and band LU kernels",
+                      phase_swap_rank_k_kernels))
     counts = {"posv": timed("3 posv", phase_main_path)}
     nt = N // NB
     counts["gesv"] = timed(
@@ -1521,11 +1852,14 @@ def main() -> int:
     timed("3i heev vectors", phase_heev_vectors)
     counts["gesvd_vals"] = timed("3j gesvd values", phase_gesvd_vals)
     timed("3k gesvd vectors", phase_gesvd_vectors)
+    counts["hesv"] = timed("3l hesv", phase_hesv)
+    counts["gbsv"] = timed("3m gbsv", phase_gbsv)
     timed("4 failure report", phase_failure_report)
     timed("4b LU failure report", phase_lu_failure_report)
     timed("4c QR and unpivoted-LU failure report",
           phase_qr_nopiv_failure_report)
     timed("4d eig/svd failure report", phase_eig_failure_report)
+    timed("4e Aasen/band failure report", phase_aasen_band_failure_report)
     out = []
     for name, (source, replaces, path) in KERNELS.items():
         r = rows[name]

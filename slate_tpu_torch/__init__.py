@@ -3,9 +3,11 @@
 Tiled matrices in the same 2-D block-cyclic layout as ``slate_tpu``, the
 Cholesky solve path (``potrf`` → ``potrs`` → ``posv``), the LU solve
 with partial pivoting (``getrf`` → ``getrs`` → ``gesv``) and without
-(``getrf_nopiv`` → ``getrs_nopiv`` → ``gesv_nopiv``), and least squares
+(``getrf_nopiv`` → ``getrs_nopiv`` → ``gesv_nopiv``), least squares
 through QR (``geqrf`` → ``unmqr`` → ``gels``, with ``gelqf``/``unmlq``
-and ``cholqr``), and the two-stage symmetric eigensolver and SVD
+and ``cholqr``), the band LU solve (``gbtrf`` → ``gbtrs`` → ``gbsv``),
+the symmetric-indefinite solve by Aasen (``hetrf`` → ``hetrs`` →
+``hesv``), and the two-stage symmetric eigensolver and SVD
 (``heev`` = ``he2hb`` → ``hb2st`` → ``sterf``/``stedc``, ``gesvd`` =
 ``ge2tb`` → ``tb2bd`` → ``bdsqr``, with their back-transforms) on one
 device. Its tile, panel and bulge-chase ops run hand-written CUDA kernels
@@ -25,7 +27,7 @@ from .types import (Op, Uplo, Diag, Side, Norm, Option, MethodLU,
 from .errors import SlateError, InfoError, slate_error_if, raise_if_info
 from .grid import Grid
 from .matrix import (
-    BaseTiledMatrix, Matrix, HermitianMatrix, TriangularMatrix,
+    BaseTiledMatrix, Matrix, HermitianMatrix, TriangularMatrix, BandMatrix,
     transpose, conj_transpose, cdiv, bc_from_tiles, bc_to_tiles,
     dense_to_tiles, tiles_to_dense,
 )
@@ -35,7 +37,9 @@ from .ops.blas import gemm, herk, syrk, trsm
 from .linalg.potrf import potrf, potrs, posv
 from .linalg.getrf import (getrf, getrs, gesv, PivotOrder,
                            pivot_order_to_ipiv, getrf_nopiv, getrs_nopiv,
-                           gesv_nopiv)
+                           gesv_nopiv, gbtrf, gbtrs, gbsv)
+from .linalg.band import BandLUFactor
+from .linalg.hetrf import hetrf, hetrs, hesv
 from .linalg.geqrf import geqrf, unmqr, gelqf, unmlq, cholqr, gels
 from .linalg.eig import heev, sterf, steqr, stedc
 from .linalg.he2hb import he2hb
@@ -45,11 +49,14 @@ from .simplified import (multiply, chol_factor, chol_solve,
                          chol_solve_using_factor, lu_factor, lu_solve,
                          lu_solve_using_factor, lu_factor_nopiv,
                          lu_solve_nopiv, lu_solve_using_factor_nopiv,
-                         least_squares_solve, qr_factor, lq_factor,
+                         indefinite_factor, indefinite_solve,
+                         indefinite_solve_using_factor, least_squares_solve, qr_factor, lq_factor,
                          qr_multiply_by_q, lq_multiply_by_q, eig_vals, eig,
                          svd_vals, svd)
 from .interop import (from_reference, to_reference, pivots_from_reference,
                       pivots_to_reference, t_factors_from_reference,
                       t_factors_to_reference, band_from_reference,
                       band_to_reference, reflectors_from_reference,
-                      reflectors_to_reference)
+                      reflectors_to_reference, band_lu_from_reference,
+                      band_lu_to_reference, hetrf_from_reference,
+                      hetrf_to_reference)

@@ -30,6 +30,10 @@ _INFO_MESSAGES = {
              "completed",
     "getrf": "U is exactly singular ({info} zero pivot(s)); a solve "
              "would divide by zero",
+    "gbtrf": "U is exactly singular ({info} zero pivot(s)); a solve "
+             "would divide by zero",
+    "hetrf": "the LTL^H factorization hit {info} zero pivot(s); the "
+             "factor is singular",
 }
 
 

@@ -6,7 +6,8 @@ Each kernel has three parts here:
 
 * a wrapper (``potrf_tile``, ``trsm_right_lower_t``, ``trsm_left_lower``,
   ``panel_plu``, ``panel_fold``, ``panel_unfold``, ``panel_qr``,
-  ``lu_nopiv_tile``, ``hb2st_chase``, ``tb2bd_chase``) that launches the
+  ``lu_nopiv_tile``, ``hb2st_chase``, ``tb2bd_chase``, ``panel_plu_swap``,
+  ``rank_k_tail``) that launches the
   kernel of ``csrc/`` for a CUDA tensor and counts the launch in
   :data:`LAUNCHES`, runs the plain version for a CPU tensor, and raises
   for anything else. There is no fallback from a failed build or launch;
@@ -23,7 +24,9 @@ The dispatch sites in :mod:`.tile_kernels` consult :data:`CAPABILITY`
 ``torch.linalg`` op, as the JAX package sends it to XLA. For the three
 panel kernels the range is that of the panel height h (the JAX
 package's ``H_MAX``); the LU and QR kernels' block width is always
-:data:`W`. For the two bulge chasers it is the band width.
+:data:`W`. For the two bulge chasers it is the band width; for the
+physical-swap panel LU the panel width (its height has its own limit,
+:data:`SWAP_H_MAX` on the card); for the rank-k tail the contraction k.
 """
 
 from __future__ import annotations
@@ -55,6 +58,15 @@ _PANEL_SPAN = (1, 16384, 1)
 # plain versions take any band
 _BAND_SPAN = (1, 256, 1)
 _ANY_BAND = (1, 1 << 30, 1)
+# panel widths of the physical-swap panel LU (``_CAPS_TPU["panel_plu"]``
+# of pallas_kernels.py) and contractions of the rank-k tail (its
+# ``rank_k`` row: below one 128-lane tile)
+_SWAP_SPAN = (128, 256, 128)
+_RANK_K_SPAN = (1, 127, 1)
+# Tallest panel the physical-swap kernel takes: its rows are spread over
+# one CTA per SM in shared memory (csrc/panel_plu_swap.cu), 187 rows of
+# 1 KB each at w = 256 on 132 SMs; the plain version takes any height.
+SWAP_H_MAX = 24576
 _CAPS_CUDA = {
     "potrf_tile": {"float32": _SPAN},
     "trsm_right_lower_t": {"float32": _SPAN},
@@ -65,6 +77,8 @@ _CAPS_CUDA = {
     "lu_nopiv_tile": {"float32": _SPAN},
     "hb2st_vmem": {"float32": _BAND_SPAN},
     "tb2bd_vmem": {"float32": _BAND_SPAN},
+    "panel_plu_swap": {"float32": _SWAP_SPAN},
+    "rank_k_tail": {"float32": _RANK_K_SPAN},
 }
 _CAPS_CPU = {
     "potrf_tile": {"float32": _SPAN, "float64": _SPAN},
@@ -76,6 +90,8 @@ _CAPS_CPU = {
     "lu_nopiv_tile": {"float32": _SPAN, "float64": _SPAN},
     "hb2st_vmem": {"float32": _ANY_BAND, "float64": _ANY_BAND},
     "tb2bd_vmem": {"float32": _ANY_BAND, "float64": _ANY_BAND},
+    "panel_plu_swap": {"float32": _SWAP_SPAN, "float64": _SWAP_SPAN},
+    "rank_k_tail": {"float32": _RANK_K_SPAN, "float64": _RANK_K_SPAN},
 }
 CAPABILITY = {"cuda": _CAPS_CUDA, "cpu": _CAPS_CPU}
 
@@ -87,14 +103,15 @@ TRANSPOSE_NAMES = ("transpose_tiled", "transpose_fold", "fold_panel",
                    "unfold_panel", "unfold_transpose")
 
 # Launches of each kernel on the card since the last reset. A wrapper
-# adds one where it launches its kernel, and nowhere else. The QR kernel
-# and the two bulge chasers count under the names of the Pallas functions
-# they stand for (``hb2st_vmem``, ``tb2bd_vmem``: one count per chase,
-# whose C entry point runs every wave).
+# adds one where it launches its kernel, and nowhere else. The QR kernel,
+# the two bulge chasers, the physical-swap panel LU and the rank-k tail
+# count under the names of the Pallas functions they stand for
+# (``hb2st_vmem``, ``tb2bd_vmem``: one count per chase, whose C entry
+# point runs every wave).
 LAUNCHES = {"potrf_tile": 0, "trsm_right_lower_t": 0, "trsm_left_lower": 0,
             **{k: 0 for k in PLU_NAMES + TRANSPOSE_NAMES},
             "qr_call": 0, "lu_nopiv_tile": 0, "hb2st_vmem": 0,
-            "tb2bd_vmem": 0}
+            "tb2bd_vmem": 0, "panel_plu_pallas": 0, "rank_k_tail_pallas": 0}
 
 
 def reset_launches() -> None:
@@ -122,6 +139,7 @@ def supported(kernel: str, dtype: torch.dtype, nb: int,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "slate_potrf_tile_f32": ("potrf_tile", (_P, _I, _P, _P)),
     "slate_trsm_right_lower_t_f32": ("trsm_lower", (_P, _P, _I, _I, _I, _P)),
@@ -134,6 +152,10 @@ _SIGNATURES = {
     "slate_lu_nopiv_tile_f32": ("lu_nopiv_tile", (_P, _I, _P, _P)),
     "slate_hb2st_f32": ("band_chase", (_P, _I, _I, _P, _P, _P, _I, _P)),
     "slate_tb2bd_f32": ("band_chase", (_P, _I, _I) + (_P,) * 5 + (_I, _P)),
+    "slate_panel_plu_swap_f32": ("panel_plu_swap", (_P,) * 7 + (_I,) * 3
+                                 + (_P,)),
+    "slate_rank_k_tail_f32": ("rank_k_tail", (_P, _I, _P, _I, _P, _I, _P)
+                              + (_I,) * 3 + (_F, _F, _P)),
 }
 _FNS: dict = {}
 
@@ -765,3 +787,137 @@ def tb2bd_chase(ub: torch.Tensor):
     LAUNCHES["tb2bd_vmem"] += 1
     d, e = band_bulge.ribbon_diagonals(rib, n, band, upper=True)
     return d, e, Vu, tauu, Vv, tauv, ub.new_ones(())
+
+
+# ---------------------------------------------------------------------------
+# K10: partial-pivot panel LU with physical row swaps
+# ---------------------------------------------------------------------------
+
+def panel_plu_swap(a: torch.Tensor):
+    """Partial-pivot LU of a rows-at-origin [h, w] panel with physical
+    row swaps: ``(lu, piv [min(h, w)] int32, info)``, ``lu`` a new tensor
+    holding unit-lower L strictly below the diagonal and U on and above
+    it, ``piv[j]`` the position swapped with position j at step j (LAPACK
+    sequential ipiv, 0-based; h where a NaN left column j without a
+    pivot), ``info`` the 0-dim int32 count of zero pivots. Column j takes
+    the largest |a[i, j]| over positions i ≥ j, a tie going to the lowest
+    current position (LAPACK isamax); whole rows move, the L columns
+    already factored included; the multipliers divide by the pivot, by 1
+    in place of a zero one.
+
+    Replaces ``panel_plu_pallas`` (pallas_kernels.py:508, body
+    ``_panel_plu_kernel`` :464-504), which extracts each column with a
+    masked sum and swaps rows by selecting over the whole [h, w] window,
+    Mosaic having no dynamic indexing. Bound on an H100: latency — w
+    dependent column steps, each a reduction over all h rows and a row
+    exchange; the bytes (2·h·w·4) and flops (h·w²) are tens of µs of
+    work. Design (csrc/panel_plu_swap.cu), K4's: one cooperative launch,
+    one CTA per SM holding its band of positions in shared memory; per
+    column each CTA publishes its winner and that row, and the holder of
+    position j publishes row j, one grid barrier, then every CTA reduces
+    the candidates in the same order (ties to the lower position), the
+    holders of j and of the winner exchange the two rows, and every CTA
+    updates its own rows.
+    """
+    h, w = a.shape
+    if not _route("panel_plu_pallas", a):
+        return panel_plu_swap_plain(a)
+    _check("panel_plu_swap", w, a)
+    slate_error_if(h > SWAP_H_MAX, f"panel_plu_swap: height {h} is above the "
+                   f"kernel's {SWAP_H_MAX}")
+    dev = a.device
+    lu = a.clone(memory_format=torch.contiguous_format)
+    maxc = -(-h // _PLU_MIN_ROWS)
+    cand_s = torch.empty(2 * maxc, dtype=torch.float32, device=dev)
+    cand_r = torch.empty(2 * maxc, dtype=torch.int32, device=dev)
+    cand_row = torch.empty(2 * maxc * w, dtype=torch.float32, device=dev)
+    row_j = torch.empty(2 * w, dtype=torch.float32, device=dev)
+    piv = torch.empty(min(h, w), dtype=torch.int32, device=dev)
+    info = torch.empty(1, dtype=torch.int32, device=dev)
+    _launch("slate_panel_plu_swap_f32", dev, *(_P(t.data_ptr()) for t in (
+        lu, piv, info, cand_s, cand_r, cand_row, row_j)), maxc, h, w)
+    LAUNCHES["panel_plu_pallas"] += 1
+    return lu, piv, info[0]
+
+
+def panel_plu_swap_plain(a: torch.Tensor):
+    """Plain PyTorch version of :func:`panel_plu_swap`: the JAX kernel's
+    column loop with the row exchange by index, the full rank-1 update of
+    the [h, w] panel (so a non-finite factor spreads NaN as IEEE
+    arithmetic spreads it there) and the same rounding as the kernel (a
+    true division per multiplier, then a product and a difference)."""
+    x = a.clone()
+    h, w = x.shape
+    dev = x.device
+    pos = torch.arange(h, device=dev)
+    cols = torch.arange(w, device=dev)
+    piv = torch.empty(min(h, w), dtype=torch.int32, device=dev)
+    info = torch.zeros((), dtype=torch.int32, device=dev)
+    zero = x.new_zeros(w)
+    for j in range(min(h, w)):
+        colv = x[:, j].clone()
+        score = torch.where(pos >= j, colv.abs(), -1.0)
+        # max is NaN if any score is; then score >= mx holds nowhere and no
+        # row is selected (r = h)
+        hits = (score >= score.max()).nonzero()
+        r = int(hits[0, 0]) if hits.numel() else h
+        rowr = x[r].clone() if r < h else zero
+        rowj = x[j].clone()
+        vr = colv[r].clone() if r < h else colv.new_zeros(())
+        if r < h:
+            x[r] = rowj
+            colv[r] = colv[j]
+        x[j] = rowr
+        colv[j] = vr
+        info += (vr == 0).int()
+        safe = torch.where(vr == 0, 1.0, vr)
+        lcol = torch.where(pos > j, colv / safe, 0.0)
+        urow = torch.where(cols > j, rowr, 0.0)
+        x -= torch.outer(lcol, urow)
+        x[j + 1:, j] = lcol[j + 1:]
+        piv[j] = r
+    return x, piv, info
+
+
+# ---------------------------------------------------------------------------
+# K11: rank-k tail
+# ---------------------------------------------------------------------------
+
+def rank_k_tail(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                alpha: float = -1.0, beta: float = 1.0) -> torch.Tensor:
+    """α·A·B + β·C with k = a.shape[1] in 1…127, in true FP32 (no TF32);
+    a new tensor. Any m and n.
+
+    Replaces ``rank_k_tail_pallas`` (pallas_kernels.py:644, body
+    ``_rank_k_kernel`` :635-640), the sub-nb remainder of a trailing
+    update. Bound on an H100: bytes at the band LU's shapes (k/4 flops a
+    byte at most, against a ridge of ~20), latency at its [32, 96]·[96,
+    96]. Design (csrc/rank_k_tail.cu): a tiled SIMT product, one CTA per
+    64×64 tile of C staging its whole A and B strips in shared memory,
+    4×4 FMA micro-tiles, one fused α/β epilogue.
+    """
+    m, k = a.shape
+    n = b.shape[1]
+    slate_error_if(tuple(c.shape) != (m, n) or b.shape[0] != k,
+                   f"rank_k_tail dims: C {tuple(c.shape)}, A {tuple(a.shape)}, "
+                   f"B {tuple(b.shape)}")
+    if not _route("rank_k_tail_pallas", c):
+        return rank_k_tail_plain(c, a, b, alpha, beta)
+    _check("rank_k_tail", k, c, a, b)
+    out = torch.empty((m, n), dtype=c.dtype, device=c.device)
+    if m == 0 or n == 0:
+        return out
+    c, a, b = (t if t.stride(1) == 1 else t.contiguous() for t in (c, a, b))
+    _launch("slate_rank_k_tail_f32", c.device, _P(c.data_ptr()), c.stride(0),
+            _P(a.data_ptr()), a.stride(0), _P(b.data_ptr()), b.stride(0),
+            _P(out.data_ptr()), m, n, k, float(alpha), float(beta))
+    LAUNCHES["rank_k_tail_pallas"] += 1
+    return out
+
+
+def rank_k_tail_plain(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                      alpha: float = -1.0, beta: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch version of :func:`rank_k_tail`: the Pallas kernel's
+    ``alpha * (A @ B) + beta * C`` with the product in full FP32."""
+    with full_f32_matmul():
+        return alpha * (a @ b) + beta * c

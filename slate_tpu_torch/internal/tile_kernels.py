@@ -1,6 +1,6 @@
 """Single-tile and panel dispatch sites (reference
 include/slate/Tile_blas.hh; counterpart of
-``slate_tpu/internal/tile_kernels.py:61-133`` and ``:303-430``).
+``slate_tpu/internal/tile_kernels.py:35-207`` and ``:303-430``).
 
 Each site sends what :data:`kernels.CAPABILITY` admits to the port's own
 kernel (its plain version on the CPU) and everything else to the
@@ -12,7 +12,24 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .precision import full_f32_matmul
+from .precision import full_f32_matmul, trailing_matmul
+
+
+def tile_gemm(alpha, a: torch.Tensor, b: torch.Tensor, beta,
+              c: torch.Tensor, tier: str = "bf16_6x") -> torch.Tensor:
+    """alpha·a·b + beta·c; a new tensor. A contraction that
+    :data:`kernels.CAPABILITY` admits for the rank-k tail (k below one
+    128-lane tile) with Python-scalar alpha and beta goes to the port's
+    kernel K11 whatever the JAX package's ``rank_k`` rung says; anything
+    else is one ``addmm`` at ``tier``."""
+    if (isinstance(alpha, (int, float)) and isinstance(beta, (int, float))
+            and a.dim() == 2 and b.dim() == 2 and c.dim() == 2
+            and kernels.supported("rank_k_tail", a.dtype, a.shape[1],
+                                  a.device)):
+        return kernels.rank_k_tail(c, a, b, alpha=float(alpha),
+                                   beta=float(beta))
+    with trailing_matmul(tier):
+        return torch.addmm(c, a, b, beta=beta, alpha=alpha)
 
 
 def _factor_dtype(dt: torch.dtype) -> torch.dtype:
@@ -93,6 +110,50 @@ def lu_nopiv_block(a: torch.Tensor, ib: int = 32):
             with full_f32_matmul():
                 a[j_hi:, j_hi:] -= S[j_hi:] @ u12
     return a, info
+
+
+# ---------------------------------------------------------------------------
+# LU panel with partial pivoting (reference Tile_getrf.hh:161-300;
+# tile_kernels.py:147-207)
+# ---------------------------------------------------------------------------
+
+def panel_lu_factor(panel: torch.Tensor, start: int, m: int):
+    """Pivoted LU of the window [start, max(m, start + nb)) of a
+    full-height panel [M, nb] (global row i at index i; the caller put an
+    identity on padded diagonal entries, so padding self-pivots).
+
+    Returns new tensors ``(panel, piv [nb] int32, info)``: the window as
+    L (unit diagonal implicit) below and U on and above the diagonal, the
+    rows outside it as they were; ``piv[j]`` the global row swapped with
+    row start + j (LAPACK ipiv, 0-based); ``info`` the number of zero
+    diagonal entries of U. The JAX package rolls the window to row 0 and
+    zeroes the rest, to keep one static shape; the port slices it. A
+    window that :data:`kernels.CAPABILITY` admits (its width, and on the
+    card its height) goes to the port's physical-swap kernel K10, its
+    plain version on the CPU, whatever the JAX package's ``panel_plu``
+    rung says; any other to ``torch.linalg.lu_factor_ex``, the
+    counterpart of ``lax.linalg.lu``. A pivot past the window (a NaN
+    column) becomes a self-swap, as in the JAX package. The CALU
+    tournament the JAX package takes above ``LU_PANEL_MAX_ROWS`` on a TPU
+    is not ported (ROADMAP A4)."""
+    M, nb = panel.shape
+    hi = max(m, start + nb)
+    win = panel[start:hi]
+    h = win.shape[0]
+    fd = _factor_dtype(panel.dtype)
+    if (kernels.supported("panel_plu_swap", fd, nb, panel.device)
+            and (panel.device.type != "cuda" or h <= kernels.SWAP_H_MAX)):
+        lu, piv_r, _ = kernels.panel_plu_swap(win.to(fd))
+        piv_r = piv_r.long()
+    else:
+        lu, ipiv, _ = torch.linalg.lu_factor_ex(win.to(fd))
+        piv_r = ipiv.long() - 1                  # LAPACK's 1-based ipiv
+    out = panel.clone()
+    out[start:hi] = lu.to(panel.dtype)
+    info = (torch.diagonal(lu) == 0).sum().int()
+    slot = torch.arange(nb, device=panel.device)
+    piv = torch.where(piv_r < h, piv_r + start, slot + start).int()
+    return out, piv, info
 
 
 # ---------------------------------------------------------------------------

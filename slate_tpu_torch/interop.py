@@ -11,7 +11,10 @@ cross as a numpy int32 ``[kt, nb]`` array, LAPACK ipiv or, wrapped in a
 array. The two-stage eig/SVD's compact bands (``ab``/``ub``
 ``[band + 1, n]``) and packed bulge reflectors (``V [S, T, band]``,
 ``tau [S, T]``) cross as numpy arrays too, so either package's
-back-transform can run on the other's stage-1 and stage-2 output.
+back-transform can run on the other's stage-1 and stage-2 output. A band
+LU factor crosses as a dict of numpy arrays and ints, and the hetrf
+factors ``(L, T band LU factor, piv)`` as a dict of the three, so either
+package's ``gbtrs``/``hetrs`` can run on the other's factors.
 """
 
 from __future__ import annotations
@@ -21,21 +24,24 @@ import torch
 
 from .errors import slate_error_if
 from .grid import Grid
+from .linalg.band import BandLUFactor
 from .linalg.getrf import PivotOrder
-from .matrix import BaseTiledMatrix, HermitianMatrix, Matrix, TriangularMatrix
+from .matrix import (BandMatrix, BaseTiledMatrix, HermitianMatrix, Matrix,
+                     TriangularMatrix)
 from .types import Diag, Op, Uplo
 
 _KINDS = {cls.__name__: cls
-          for cls in (Matrix, HermitianMatrix, TriangularMatrix)}
+          for cls in (Matrix, HermitianMatrix, TriangularMatrix, BandMatrix)}
 
 
 def from_reference(data: np.ndarray, *, kind: str, m: int, n: int, nb: int,
                    op: str = "NoTrans", uplo: str = "General",
-                   diag: str = "NonUnit", device=None) -> BaseTiledMatrix:
+                   diag: str = "NonUnit", kl: int = 0, ku: int = 0,
+                   device=None) -> BaseTiledMatrix:
     """Build the port's matrix from a JAX matrix's fields: ``data`` is
     ``np.asarray(A.data)``, ``kind`` its class name, ``op``/``uplo``/
-    ``diag`` the enum member names (``A.op.name`` …). ``device`` is as
-    for :class:`Grid`."""
+    ``diag`` the enum member names (``A.op.name`` …), ``kl``/``ku`` a
+    band's widths. ``device`` is as for :class:`Grid`."""
     slate_error_if(kind not in _KINDS, f"from_reference: unknown kind {kind!r}"
                    f"; expected one of {sorted(_KINDS)}")
     data = np.asarray(data)
@@ -45,7 +51,7 @@ def from_reference(data: np.ndarray, *, kind: str, m: int, n: int, nb: int,
     grid = Grid(data.shape[0], data.shape[1], device=device)
     t = torch.from_numpy(np.array(data, order="C")).to(grid.device)
     return _KINDS[kind](data=t, m=m, n=n, nb=nb, grid=grid, op=Op[op],
-                        uplo=Uplo[uplo], diag=Diag[diag])
+                        uplo=Uplo[uplo], diag=Diag[diag], kl=kl, ku=ku)
 
 
 def to_reference(M: BaseTiledMatrix) -> dict:
@@ -53,7 +59,8 @@ def to_reference(M: BaseTiledMatrix) -> dict:
     array on the host, the rest as plain ints and strings."""
     return {"data": M.data.detach().cpu().numpy(), "kind": type(M).__name__,
             "m": M.m, "n": M.n, "nb": M.nb, "op": M.op.name,
-            "uplo": M.uplo.name, "diag": M.diag.name}
+            "uplo": M.uplo.name, "diag": M.diag.name, "kl": M.kl,
+            "ku": M.ku}
 
 
 def pivots_from_reference(piv, *, order: bool = False, device=None):
@@ -124,3 +131,49 @@ def reflectors_from_reference(V, tau, *, device=None):
 def reflectors_to_reference(V: torch.Tensor, tau: torch.Tensor):
     """The numpy ``(V, tau)`` of the port's packed bulge reflectors."""
     return V.detach().cpu().numpy(), tau.detach().cpu().numpy()
+
+
+_BAND_INTS = ("m", "n", "kl", "ku", "nb")
+
+
+def band_lu_from_reference(ab, lpan, piv, *, m: int, n: int, kl: int,
+                           ku: int, nb: int, device=None) -> BandLUFactor:
+    """The port's band LU factor from a JAX ``BandLUFactor``'s fields:
+    ``np.asarray`` of its ``ab``, ``lpan`` and ``piv`` and its ints."""
+    ab, lpan, piv = np.asarray(ab), np.asarray(lpan), np.asarray(piv)
+    slate_error_if(ab.ndim != 2 or lpan.ndim != 3 or piv.ndim != 2,
+                   f"a band LU factor is ab [ldab, ncols], lpan [kt, hr, nb] "
+                   f"and piv [kt, nb], got {ab.shape}, {lpan.shape}, "
+                   f"{piv.shape}")
+    return BandLUFactor(_tensor(ab, device), _tensor(lpan, device),
+                        _tensor(piv.astype(np.int32), device), m, n, kl, ku,
+                        nb)
+
+
+def band_lu_to_reference(F: BandLUFactor) -> dict:
+    """The fields of :func:`band_lu_from_reference` for ``F``, as numpy
+    arrays and ints, for the JAX ``BandLUFactor(ab, lpan, piv, m, n, kl,
+    ku, nb)``."""
+    return {"ab": F.ab.detach().cpu().numpy(),
+            "lpan": F.lpan.detach().cpu().numpy(),
+            "piv": F.piv.detach().cpu().numpy().astype(np.int32),
+            **{k: getattr(F, k) for k in _BAND_INTS}}
+
+
+def hetrf_from_reference(L: dict, T: dict, piv, *, device=None):
+    """The port's hetrf factors ``(L, T, piv)`` from the JAX ones: ``L``
+    the :func:`to_reference`-style fields of the JAX L, ``T`` those of
+    :func:`band_lu_from_reference` of its band factor, ``piv`` its
+    ``np.asarray(piv)``."""
+    return (from_reference(**L, device=device),
+            band_lu_from_reference(**T, device=device),
+            pivots_from_reference(piv, device=device))
+
+
+def hetrf_to_reference(factors) -> dict:
+    """``{"L": …, "T": …, "piv": …}``: the JAX-side fields of the port's
+    hetrf factors (:func:`to_reference`, :func:`band_lu_to_reference`,
+    :func:`pivots_to_reference`)."""
+    L, T, piv = factors
+    return {"L": to_reference(L), "T": band_lu_to_reference(T),
+            "piv": pivots_to_reference(piv)}

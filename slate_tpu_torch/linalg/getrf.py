@@ -1,6 +1,7 @@
-"""LU on one device: getrf / getrs / gesv with partial pivoting and
-getrf_nopiv / getrs_nopiv / gesv_nopiv without (reference src/getrf.cc,
-src/getrs.cc, src/gesv.cc, src/getrf_nopiv.cc; counterpart of
+"""LU on one device: getrf / getrs / gesv with partial pivoting,
+getrf_nopiv / getrs_nopiv / gesv_nopiv without, and the band LU gbtrf /
+gbtrs / gbsv (reference src/getrf.cc, src/getrs.cc, src/gesv.cc,
+src/getrf_nopiv.cc, src/gbtrf.cc; counterpart of
 ``slate_tpu/linalg/getrf.py``).
 
 Two paths, chosen as the JAX package chooses them on one device:
@@ -38,11 +39,12 @@ import torch
 
 from .. import runtime
 from ..errors import slate_error_if
+from . import band as _band
 from ..internal import panel_plu
 from ..internal.precision import (full_f32_matmul, resolve_tier,
                                   trailing_matmul)
 from ..matrix import (Matrix, TriangularMatrix, bc_from_tiles, bc_to_tiles,
-                      conj_transpose, dense_to_tiles, tiles_to_dense,
+                      cdiv, conj_transpose, dense_to_tiles, tiles_to_dense,
                       transpose)
 from ..internal.tile_kernels import lu_nopiv_block
 from ..ops.blas import trsm
@@ -472,3 +474,49 @@ def _sim_perm(piv, rows: int, forward: bool) -> torch.Tensor:
     t = piv if isinstance(piv, torch.Tensor) else torch.as_tensor(piv)
     perm = runtime.resolve_pivots(t.cpu().numpy(), rows, forward)
     return torch.from_numpy(perm).to(t.device)
+
+
+# ---------------------------------------------------------------------------
+# band LU (reference src/gbtrf.cc, gbtrs.cc, gbsv.cc; getrf.py:1873-1911):
+# the packed-band loop of linalg/band.py on dgbtrf working storage
+# ---------------------------------------------------------------------------
+
+def gbtrf(A, opts=None):
+    """Band LU with partial pivoting of a ``BandMatrix``. Returns
+    ``(BandLUFactor, piv, info)``: the packed dgbtrf-layout factor,
+    ``piv [kt, nb]`` (row k·nb + j swapped with ``piv[k, j]``, nb the
+    band block) and the number of zero pivots. A is not modified."""
+    Am = A.materialize()          # resolves op views; flips kl/ku
+    slate_error_if(Am.dtype.is_complex,
+                   "gbtrf: complex dtypes are not ported yet")
+    kl, ku = Am.kl, Am.ku
+    kuf = kl + ku
+    nbw = _band._band_block(min(Am.m, Am.n), kl + kuf)
+    nt = cdiv(min(Am.m, Am.n), nbw)
+    ncols = nt * nbw + nbw + kl + kuf
+    ab = _band.pack_tiled(Am, kl, kuf, ncols, band=(kl, ku))
+    ab, lpan, piv, info = _band.gbtrf_packed(ab, Am.m, Am.n, kl, ku, nbw,
+                                             resolve_tier(opts))
+    return (_band.BandLUFactor(ab, lpan, piv, Am.m, Am.n, kl, ku, nbw),
+            piv, info)
+
+
+def gbtrs(F, piv=None, B: Matrix = None, trans: Op = Op.NoTrans,
+          opts=None) -> Matrix:
+    """Solve op(A)·X = B from gbtrf factors (reference src/gbtrs.cc,
+    row swaps at panel-block granularity). ``piv`` defaults to the
+    factor's own pivots."""
+    slate_error_if(F.n != B.m, "gbtrs dims")
+    B = B.materialize()
+    pv = F.piv if piv is None else piv
+    pad = cdiv(min(F.m, F.n), F.nb) * F.nb + F.kl + F.kl + F.ku
+    b = _band._b_to_dense(B, pad)
+    x = _band.gbtrs_packed(F.ab, F.lpan, pv, b, F.m, F.n, F.kl, F.ku, F.nb,
+                           trans)
+    return _band._dense_to_b(x, B)
+
+
+def gbsv(A, B: Matrix, opts=None):
+    """Solve A·X = B by band LU. Returns ``(X, LU, piv, info)``."""
+    LU, piv, info = gbtrf(A, opts)
+    return gbtrs(LU, piv, B, Op.NoTrans, opts), LU, piv, info

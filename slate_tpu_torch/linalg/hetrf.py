@@ -1,0 +1,236 @@
+"""Symmetric-indefinite solve: hetrf / hetrs / hesv by Aasen's LTLᵀ
+(reference src/hetrf.cc, src/hetrs.cc, src/hesv.cc; counterpart of
+``slate_tpu/linalg/hetrf.py``).
+
+P·A·Pᵀ = L·T·Lᵀ with L unit lower triangular (its first block column
+e₁) and T symmetric block tridiagonal; stage 2 factors T by the packed
+band LU (``linalg/band.py``, bandwidth 2nb − 1) and the solves ride the
+band solve.
+
+The JAX package runs stage 1 as one ``shard_map`` loop over block
+columns with masked einsums and candidate-gather psums. On one device
+the port loops in Python over the nt block columns on the dense padded
+[M, M] matrix, updated in place, as its ``_getrf_dense_1dev`` does; with
+H := T·Lᵀ (block upper Hessenberg), step k:
+
+1. L's block row k (L(k, j) is stored at tile (k, j − 1));
+2. H(j, k) = T(j, j−1)·L(k, j−1)ᵀ + T(j, j)·L(k, j)ᵀ + T(j, j+1)·L(k, j+1)ᵀ
+   for 1 ≤ j < k, three batched products;
+3. W = A(:, k) − Σ_{1≤j<k} L(:, j)·H(j, k) over the rows ≥ k·nb only,
+   one product (the JAX package masks all tile rows);
+4. H(k, k) = L(k, k)⁻¹·W(k), T(k, k) = (H(k, k) − T(k, k−1)·L(k, k−1)ᵀ)·
+   L(k, k)⁻ᵀ, symmetrised;
+5. V = W − L(:, k)·H(k, k) below block row k; its pivoted panel LU
+   (``tile_kernels.panel_lu_factor``, the physical-swap kernel K10 where
+   the capability table admits the window) gives L(:, k+1) and the upper
+   triangular H(k+1, k); T(k+1, k) = H(k+1, k)·L(k, k)⁻ᵀ;
+6. the panel's swaps apply symmetrically: one row gather outside tile
+   column k, one column gather over the columns ≥ (k+1)·nb (rows below
+   block row k: the rows above hold the upper triangle, which nothing
+   reads).
+
+The last step's panel starts at n and is dead in the JAX loop (its result
+is dropped); the port skips it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import runtime
+from ..errors import slate_error_if
+from ..internal.masks import tile_diag_pad_identity
+from ..internal.precision import full_f32_matmul, resolve_tier
+from ..internal.tile_kernels import panel_lu_factor
+from ..matrix import (Matrix, TriangularMatrix, bc_from_tiles, bc_to_tiles,
+                      cdiv, conj_transpose, dense_to_tiles, tiles_to_dense)
+from ..ops.blas import trsm
+from ..types import Diag, Op, Side, Uplo
+from . import band as _band
+from .getrf import _apply_pivots_matrix, gbtrs
+from .he2hb import _StageClock
+
+
+def hetrf(A, opts=None, health: bool = False, times=None):
+    """Aasen LTLᵀ factorization of a symmetric ``HermitianMatrix``
+    (reference src/hetrf.cc). Returns ``(factors, info)``; factors =
+    ``(L TriangularMatrix, T BandLUFactor, piv [nt, nb])``, consumed by
+    :func:`hetrs`; ``info`` the number of zero pivots met across the
+    panel LUs and the band LU of T (0 ⇒ nonsingular). ``times``, a dict,
+    receives the stages' host-clock seconds (``aasen``: stage 1 with the
+    mirror and L; ``gbtrf_T``: T's band LU), the device synchronised at
+    each boundary. Complex inputs and ``health=True`` are not ported and
+    raise."""
+    slate_error_if(A.dtype.is_complex,
+                   "hetrf: complex dtypes are not ported yet")
+    slate_error_if(health, "hetrf: health=True is not ported yet")
+    slate_error_if(A.op != Op.NoTrans, "mirror before transpose views")
+    clock = _StageClock(times, A.grid.device)
+    L, Td, Ts, piv, info_p = clock("aasen", _stage1, A)
+    FT, info_t = clock("gbtrf_T", _stage2, Td, Ts, A.n, A.nb, opts)
+    return (L, FT, piv), info_p + info_t
+
+
+def hetrs(factors, B: Matrix, opts=None) -> Matrix:
+    """Solve from hetrf factors (reference src/hetrs.cc):
+    x = Pᵀ·L⁻ᵀ·T⁻¹·L⁻¹·P·b, the T solve by the packed band LU."""
+    L, FT, piv = factors
+    Bp = _apply_pivots_matrix(B, piv, forward=True)
+    Z = trsm(Side.Left, 1.0, L, Bp, opts)
+    W = gbtrs(FT, FT.piv, Z, Op.NoTrans, opts)
+    X = trsm(Side.Left, 1.0, conj_transpose(L), W, opts)
+    return _apply_pivots_matrix(X, piv, forward=False)
+
+
+def hesv(A, B: Matrix, opts=None, times=None):
+    """Factor and solve (reference src/hesv.cc). Returns
+    ``(X, factors, info)``; ``times`` as for :func:`hetrf`, plus
+    ``hetrs``."""
+    factors, info = hetrf(A, opts, times=times)
+    X = _StageClock(times, A.grid.device)("hetrs", hetrs, factors, B, opts)
+    return X, factors, info
+
+
+def _stage1(A):
+    """Stage 1 on the dense padded matrix: ``(L, Td, Ts, piv, info)``."""
+    a = _mirror_full(A)                                  # [M, M], updated
+    Td, Ts, piv, info = _hetrf_aasen(a, A.n, A.nb)
+    L = TriangularMatrix(data=bc_from_tiles(dense_to_tiles(
+        _build_L(a, A.nb), A.nb, A.mtl, A.mtl), 1, 1), m=A.m, n=A.n,
+        nb=A.nb, grid=A.grid, uplo=Uplo.Lower, diag=Diag.NonUnit)
+    return L, Td, Ts, piv, info
+
+
+def _stage2(Td, Ts, n: int, nb: int, opts):
+    """Stage 2: the band LU of the block-tridiagonal T (bandwidth
+    2nb − 1): ``(BandLUFactor, info)``."""
+    kd = 2 * nb - 1
+    nbt = _band._band_block(n, 3 * kd)
+    ncols = cdiv(n, nbt) * nbt + nbt + 3 * kd
+    abT = _pack_blocktridiag(Td, Ts, n, nb, kd, ncols)
+    abT, lpanT, pivT, info = _band.gbtrf_packed(abT, n, n, kd, kd, nbt,
+                                                resolve_tier(opts))
+    return _band.BandLUFactor(abT, lpanT, pivT, n, n, kd, kd, nbt), info
+
+
+# ---------------------------------------------------------------------------
+# stage 1: the blocked Aasen loop
+# ---------------------------------------------------------------------------
+
+def _mirror_full(A) -> torch.Tensor:
+    """The dense padded symmetric matrix from the stored triangle (the
+    JAX package's ``_mirror_full``, ``ops/blas.py:434-478``): a new
+    [M, M] tensor."""
+    M = A.mtl * A.nb
+    d = tiles_to_dense(bc_to_tiles(A.data), M, M)
+    if A.uplo == Uplo.Upper:
+        return torch.triu(d) + torch.triu(d, 1).mT
+    return torch.tril(d) + torch.tril(d, -1).mT
+
+
+def _hetrf_aasen(a: torch.Tensor, n: int, nb: int):
+    """Aasen's loop on the dense padded [M, M] matrix ``a``, in place
+    (``hetrf.py:119-279``): L(:, k+1) goes to tile column k below block
+    row k. Returns ``(Td [nt, nb, nb], Ts [nt, nb, nb], piv [nt, nb]
+    int32, info)``: T's diagonal blocks, its sub-diagonal blocks
+    T(k+1, k), the panel pivots (block row 0 pivots on itself) and the
+    zero pivots of the panels."""
+    M = a.shape[0]
+    nt = cdiv(n, nb)
+    dev = a.device
+    eye = torch.eye(nb, dtype=a.dtype, device=dev)
+    Td = a.new_zeros((nt, nb, nb))
+    Ts = a.new_zeros((nt, nb, nb))
+    piv = (torch.arange(nt, device=dev)[:, None] * nb
+           + torch.arange(nb, device=dev)[None, :]).int()
+    info = torch.zeros((), dtype=torch.int32, device=dev)
+    with full_f32_matmul():
+        for k in range(nt):
+            r0, start = k * nb, (k + 1) * nb
+            # 1. L(k, j): 0 for j = 0, tile (k, j − 1) for 1 ≤ j < k
+            Lkk = (a[r0:start, r0 - nb:r0].tril(-1) + eye) if k else eye
+            LT = torch.zeros((k + 1, nb, nb), dtype=a.dtype, device=dev)
+            if k > 1:
+                LT[1:k] = a[r0:start, :r0 - nb].reshape(
+                    nb, k - 1, nb).permute(1, 2, 0)
+            LT[k] = Lkk.mT
+            # 2.-3. W = A(:, k) − Σ_{1≤j<k} L(:, j)·H(j, k), rows ≥ k·nb
+            W = a[r0:, r0:start].clone()
+            if k > 1:
+                H = (Ts[:k - 1] @ LT[:k - 1] + Td[1:k] @ LT[1:k]
+                     + Ts[1:k].mT @ LT[2:k + 1])
+                W -= a[r0:, :r0 - nb] @ H.reshape((k - 1) * nb, nb)
+            # 4. H(k, k) and T(k, k)
+            wk = tile_diag_pad_identity(W[:nb], k, n, nb)
+            Hkk = torch.linalg.solve_triangular(Lkk, wk, upper=False,
+                                                unitriangular=True)
+            corr = Ts[k - 1] @ LT[k - 1] if k else 0.0
+            tkk = torch.linalg.solve_triangular(
+                Lkk.mT, Hkk - corr, upper=True, left=False,
+                unitriangular=True)
+            Td[k] = (tkk + tkk.mT) * 0.5
+            if start >= n:              # the dead last step
+                continue
+            # 5. V = W − L(:, k)·H(k, k) below block row k; its panel LU
+            V = W[nb:]
+            if k:
+                V -= a[start:, r0 - nb:r0] @ Hkk
+            j = torch.arange(nb, device=dev)
+            pad = (start + j >= n) & (start + j < M)
+            V[j[pad], j[pad]] = 1.0     # padding self-pivots
+            vfull = torch.cat([a.new_zeros((start, nb)), V])
+            V2, piv_k, info_k = panel_lu_factor(vfull, start, n)
+            info += info_k
+            piv[k + 1] = piv_k
+            Ts[k] = torch.linalg.solve_triangular(
+                Lkk.mT, V2[start:start + nb].triu(), upper=True, left=False,
+                unitriangular=True)
+            # 6. store the panel in tile column k, then swap symmetrically
+            a[start:, r0:start] = V2[start:]
+            hi = max(n, start + nb)
+            perm = torch.from_numpy(runtime.resolve_pivots(
+                (piv_k.cpu().numpy() - start), hi - start)).to(dev) + start
+            a[start:hi, :r0] = a[perm, :r0]
+            a[start:hi, start:] = a[perm, start:]
+            a[start:, start:hi] = a[start:, perm]
+    return Td, Ts, piv, info
+
+
+def _build_L(a: torch.Tensor, nb: int) -> torch.Tensor:
+    """The explicit unit-lower L from the factored storage (L(:, j) in
+    tile column j − 1, column 0 is e₁; ``hetrf.py:282-305``): tile
+    columns shifted right by one, strictly lower part, unit diagonal
+    over the whole padded matrix, as in the JAX package."""
+    M = a.shape[0]
+    shifted = torch.zeros_like(a)
+    shifted[:, nb:] = a[:, :M - nb]
+    return shifted.tril_(-1) + torch.eye(M, dtype=a.dtype, device=a.device)
+
+
+def _pack_blocktridiag(Td: torch.Tensor, Ts: torch.Tensor, n: int, nb: int,
+                       kd: int, ncols: int) -> torch.Tensor:
+    """Block-tridiagonal symmetric T (diagonal blocks Td[k], sub-diagonal
+    blocks Ts[k] = T(k+1, k)) → packed gbtrf working storage
+    [kd + 2kd + 1, ncols] with band offsets (kd, 2kd); one gather, T is
+    never formed densely (``hetrf.py:308-337``)."""
+    nt = Td.shape[0]
+    dev = Td.device
+    kuf = 2 * kd
+    ldab = kd + kuf + 1
+    dd = torch.arange(ldab, device=dev)[:, None]
+    cc = torch.arange(ncols, device=dev)[None, :]
+    ii = cc + dd - kuf                       # global row of each slot
+    bi, bj = ii.div(nb, rounding_mode="floor"), cc // nb
+    oi, oj = ii.remainder(nb), cc % nb
+    bjc = bj.clamp(0, nt - 1)
+    bic = bi.clamp(0, nt - 1)
+    diag_v = Td[bjc, oi, oj]
+    sub_v = Ts[bjc, oi, oj]
+    sup_v = Ts[bic, oj, oi]
+    val = torch.where(bi == bj, diag_v,
+                      torch.where(bi == bj + 1, sub_v,
+                                  torch.where(bi + 1 == bj, sup_v, 0.0)))
+    valid = ((ii >= 0) & (ii < n) & (cc < n) & (bi >= 0) & (bi < nt)
+             & (bj < nt))
+    ab = torch.where(valid, val, 0.0)
+    return torch.where((cc >= n) & (dd == kuf), 1.0, ab).contiguous()

@@ -90,6 +90,8 @@ class BaseTiledMatrix:
     op: Op = Op.NoTrans      # shallow transpose flag (Tile.hh:40-113)
     uplo: Uplo = Uplo.General
     diag: Diag = Diag.NonUnit
+    kl: int = 0              # band lower bandwidth (BandMatrix)
+    ku: int = 0              # band upper bandwidth
 
     # -- geometry -----------------------------------------------------------
     @property
@@ -189,7 +191,7 @@ class BaseTiledMatrix:
 
     def materialize(self) -> "BaseTiledMatrix":
         """Resolve a shallow transpose flag into storage; a triangular or
-        Hermitian ``uplo`` flips with it."""
+        Hermitian ``uplo`` flips with it, and so do a band's kl and ku."""
         if self.op == Op.NoTrans:
             return self
         tiles = bc_to_tiles(self.data).permute(1, 0, 3, 2)
@@ -206,7 +208,8 @@ class BaseTiledMatrix:
         if uplo in (Uplo.Lower, Uplo.Upper):
             uplo = Uplo.Upper if uplo == Uplo.Lower else Uplo.Lower
         return dataclasses.replace(self, data=bc_from_tiles(padded, g.p, g.q),
-                                   op=Op.NoTrans, uplo=uplo)
+                                   op=Op.NoTrans, uplo=uplo, kl=self.ku,
+                                   ku=self.kl)
 
     def retile(self, new_nb: int) -> "BaseTiledMatrix":
         """Change the tile size to a divisor of ``nb`` (the two-stage
@@ -267,6 +270,12 @@ class HermitianMatrix(BaseTiledMatrix):
     def __init__(self, *a, **kw):
         kw.setdefault("uplo", Uplo.Lower)
         super().__init__(*a, **kw)
+
+
+class BandMatrix(BaseTiledMatrix):
+    """General band matrix with bandwidths (kl, ku) (reference
+    BandMatrix.hh). As in the JAX package's v1, the band is stored in the
+    dense tile stack; the band drivers pack it."""
 
 
 # ---------------------------------------------------------------------------

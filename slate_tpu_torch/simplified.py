@@ -1,7 +1,8 @@
 """Simplified verb-named API (reference include/slate/simplified_api.hh):
 multiply → gemm, chol_factor → potrf, chol_solve → posv, lu_factor →
-getrf, lu_solve → gesv, the unpivoted LU verbs, least_squares_solve →
-gels, the QR/LQ verbs, and eig_vals/eig → heev, svd_vals/svd → gesvd."""
+getrf, lu_solve → gesv, the unpivoted LU verbs, indefinite_factor /
+indefinite_solve → hetrf / hesv, least_squares_solve → gels, the QR/LQ
+verbs, and eig_vals/eig → heev, svd_vals/svd → gesvd."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from .linalg.eig import heev
 from .linalg.geqrf import gelqf, gels, geqrf, unmlq, unmqr
 from .linalg.getrf import (gesv, gesv_nopiv, getrf, getrf_nopiv, getrs,
                            getrs_nopiv)
+from .linalg.hetrf import hesv, hetrf, hetrs
 from .linalg.potrf import posv, potrf, potrs
 from .linalg.svd import gesvd
 from .matrix import HermitianMatrix, TriangularMatrix
@@ -67,6 +69,20 @@ def lu_solve_nopiv(A, B, opts=None):
 
 def lu_solve_using_factor_nopiv(LU, B, opts=None):
     return getrs_nopiv(LU, B, opts)
+
+
+def indefinite_factor(A, opts=None):
+    return hetrf(A, opts)
+
+
+def indefinite_solve(A, B, opts=None):
+    X, factors, info = hesv(A, B, opts)
+    raise_if_info(info, "hetrf")
+    return X
+
+
+def indefinite_solve_using_factor(factors, B, opts=None):
+    return hetrs(factors, B, opts)
 
 
 def least_squares_solve(A, BX, opts=None):

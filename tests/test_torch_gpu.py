@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card: each CUDA kernel against its
-plain PyTorch version, and the Cholesky, LU, QR, eig and SVD paths on
-the card against the same paths on the CPU. They skip without a card.
+plain PyTorch version, and the Cholesky, LU, QR, eig, SVD, band LU and
+Aasen paths on the card against the same paths on the CPU. They skip
+without a card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -355,3 +356,121 @@ def test_heev_gesvd_on_card_match_cpu(cuda):
     assert np.abs(lam["cuda"] - lam["cpu"]).max() \
         <= bound * np.abs(lam["cpu"]).max()
     assert np.abs(sv["cuda"] - sv["cpu"]).max() <= bound * sv["cpu"][0]
+
+
+def tie_panel(h=128, w=128, seed=0):
+    """A panel whose column 1 ties, after step 0's swap of rows 0 and 3,
+    between position 1 and position 3 (where row 0 went): the
+    current-position rule (LAPACK's, and B6's) takes 1, a tie broken on
+    the original row index would take 3. Integer entries keep the tie
+    exact."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((h, w)).astype(np.float32)
+    a[:, 0] = 0.0
+    a[0, 0], a[3, 0] = 1.0, 4.0
+    a[:, 1] = rng.integers(-1, 2, h)
+    a[0, 1], a[1, 1], a[3, 1] = 3.0, 2.0, 4.0
+    return a
+
+
+@pytest.mark.parametrize("h,w,case", [(16128, 256, "random"),
+                                      (300, 128, "random"),
+                                      (128, 128, "tie"),
+                                      (256, 128, "nan")])
+def test_panel_plu_swap_kernel_matches_plain(cuda, h, w, case):
+    """K10 against its plain version on the card: pivots and info equal,
+    values within atol 1e-4 (both divide, multiply and subtract with one
+    rounding each, so they agree bit for bit in practice), the NaN
+    pattern equal; the tie goes to position 1."""
+    rng = np.random.default_rng(h)
+    a = (tie_panel(h, w) if case == "tie"
+         else rng.standard_normal((h, w)).astype(np.float32))
+    if case == "nan":
+        a[40, 7] = np.nan
+    g = torch.from_numpy(a).to(cuda)
+    before = K.LAUNCHES["panel_plu_pallas"]
+    lu, piv, info = K.panel_plu_swap(g)
+    lu_p, piv_p, info_p = K.panel_plu_swap_plain(g)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["panel_plu_pallas"] == before + 1
+    assert torch.equal(piv.cpu(), piv_p.cpu()) and int(info) == int(info_p)
+    assert torch.equal(torch.isnan(lu).cpu(), torch.isnan(lu_p).cpu())
+    fin = ~torch.isnan(lu_p)
+    assert float((lu[fin] - lu_p[fin]).abs().max()) <= 1e-4
+    if case == "tie":
+        assert piv[:2].tolist() == [3, 1]
+    if case == "nan":
+        assert int(piv[7]) == h and int(info) >= 1
+
+
+@pytest.mark.parametrize("m,n,k", [(32, 96, 96), (4096, 4096, 64),
+                                   (70, 130, 1), (5, 300, 127)])
+def test_rank_k_tail_kernel_matches_plain(cuda, m, n, k):
+    """K11 against its plain version on the card (FMA accumulation
+    against cuBLAS's FP32 product: rounding only), at α = −1, β = 1 and
+    α = 0.5, β = −2, on strided windows of wider tensors."""
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    c = torch.randn(m, n + 3, generator=gen, device=cuda)[:, :n]
+    a = torch.randn(m, k + 5, generator=gen, device=cuda)[:, 2:2 + k]
+    b = torch.randn(k, n, generator=gen, device=cuda)
+    for alpha, beta in ((-1.0, 1.0), (0.5, -2.0)):
+        before = K.LAUNCHES["rank_k_tail_pallas"]
+        out = K.rank_k_tail(c, a, b, alpha, beta)
+        ref = K.rank_k_tail_plain(c, a, b, alpha, beta)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["rank_k_tail_pallas"] == before + 1
+        assert rel(out, ref) < TOL
+
+
+def test_gbsv_on_card_matches_cpu(cuda):
+    """gbsv at n=512, kl = ku = 32, a Gaussian band with no diagonal
+    boost: the band block is 96, so K11 takes every trailing update;
+    equal pivots and info, X within 1e-4 of the CPU's."""
+    n, kl, ku = 512, 32, 32
+    rng = np.random.default_rng(12)
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    i, j = np.indices((n, n))
+    a[(j - i > ku) | (i - j > kl)] = 0.0
+    b = rng.standard_normal((n, 3)).astype(np.float32)
+    out = []
+    for dev in (cuda, "cpu"):
+        grid = st.Grid(1, 1, device=dev)
+        before = K.LAUNCHES["rank_k_tail_pallas"]
+        X, F, piv, info = st.gbsv(
+            st.BandMatrix.from_dense(a, nb=128, grid=grid, kl=kl, ku=ku),
+            st.Matrix.from_dense(b, nb=128, grid=grid))
+        out.append((X.to_dense().cpu(), piv.cpu(), int(info),
+                    K.LAUNCHES["rank_k_tail_pallas"] - before))
+    assert out[0][3] == -(-n // 96) and out[1][3] == 0
+    assert torch.equal(out[0][1], out[1][1]) and out[0][2] == out[1][2] == 0
+    assert rel(out[0][0], out[1][0]) < 1e-4
+
+
+def test_hesv_on_card_matches_cpu(cuda):
+    """hesv at n=600, nb=128 (ragged): K10 on every live panel on the
+    card, its plain version on the CPU; equal pivots, both residuals
+    within 10·n·2⁻²⁴, and X within the forward error bound n·2⁻²⁴·κ(A)
+    of the CPU's (1.1e-3 apart measured on an H100: a random symmetric
+    A has eigenvalues near zero)."""
+    n, nb = 600, 128
+    rng = np.random.default_rng(13)
+    g = rng.standard_normal((n, n)).astype(np.float32)
+    a = (g + g.T) / 2
+    b = rng.standard_normal((n, 3)).astype(np.float32)
+    out = []
+    for dev in (cuda, "cpu"):
+        grid = st.Grid(1, 1, device=dev)
+        before = K.LAUNCHES["panel_plu_pallas"]
+        X, (L, FT, piv), info = st.hesv(
+            st.HermitianMatrix.from_dense(a, nb=nb, grid=grid),
+            st.Matrix.from_dense(b, nb=nb, grid=grid))
+        x = X.to_dense().cpu()
+        xd = x.double().numpy()
+        r = np.linalg.norm(a @ xd - b) / (np.linalg.norm(a)
+                                          * np.linalg.norm(xd))
+        assert r <= 10 * n * 2.0 ** -24, r
+        out.append((x, piv.cpu(), int(info),
+                    K.LAUNCHES["panel_plu_pallas"] - before))
+    assert out[0][3] == -(-n // nb) - 1 and out[1][3] == 0
+    assert torch.equal(out[0][1], out[1][1]) and out[0][2] == out[1][2] == 0
+    assert rel(out[0][0], out[1][0]) < n * 2.0 ** -24 * np.linalg.cond(a)

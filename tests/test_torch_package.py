@@ -54,8 +54,8 @@ def test_grid_never_picks_the_cpu_quietly(monkeypatch):
 def test_kernel_sources_and_build_key():
     names = [s.name for s in _build._sources()]
     assert names == ["band_chase.cu", "lu_nopiv_tile.cu", "panel_plu.cu",
-                     "panel_qr.cu", "panel_transpose.cu", "potrf_tile.cu",
-                     "trsm_lower.cu"]
+                     "panel_plu_swap.cu", "panel_qr.cu", "panel_transpose.cu",
+                     "potrf_tile.cu", "rank_k_tail.cu", "trsm_lower.cu"]
     for src in _build._sources():
         text = src.read_text()
         assert "extern \"C\" int slate_" in text
@@ -95,7 +95,12 @@ def test_exports():
                  "heev", "sterf", "steqr", "stedc", "gesvd", "he2hb", "ge2tb",
                  "eig_vals", "eig", "svd_vals", "svd", "MethodEig",
                  "MethodSVD", "band_from_reference", "band_to_reference",
-                 "reflectors_from_reference", "reflectors_to_reference"):
+                 "reflectors_from_reference", "reflectors_to_reference",
+                 "BandMatrix", "BandLUFactor", "gbtrf", "gbtrs", "gbsv",
+                 "hetrf", "hetrs", "hesv", "indefinite_factor",
+                 "indefinite_solve", "indefinite_solve_using_factor",
+                 "band_lu_from_reference", "band_lu_to_reference",
+                 "hetrf_from_reference", "hetrf_to_reference"):
         assert hasattr(pst, name), name
 
 
