@@ -12,7 +12,11 @@
    against the stated tolerance, then, at the main-path shape, the
    kernel's time, the plain version's time, the ``torch.linalg`` call's
    time (CUDA events, median of 7 runs after a warm-up) and the least
-   time the card could take (FP32 operations or bytes).
+   time the card could take (FP32 operations or bytes). K1 at nb = 1024,
+   256, 200, 65 and 1; K3 at B = [1024, 8] and [256, 8] (its callers'
+   real columns: posv, gesv, gesv_nopiv, gels LQ; hesv), [1024, 1024]
+   and [200, 37], unit and not, timed at the first three beside
+   ``solve_triangular``.
 2b. The LU panel kernels (K4 ``panel_plu``, K5 ``panel_fold`` /
    ``panel_unfold``) against their plain versions on the card: K4 on a
    folded [8, 1024, 2048] panel at blocks 0 and 7 with 3000 rows already
@@ -187,7 +191,7 @@ KERNELS = {
                    "slate_tpu/internal/pallas_kernels.py:428", "posv"),
     "trsm_right_lower_t": ("slate_tpu_torch/csrc/trsm_lower.cu",
                            "slate_tpu/internal/pallas_kernels.py:613", "posv"),
-    "trsm_left_lower": ("slate_tpu_torch/csrc/trsm_lower.cu",
+    "trsm_left_lower": ("slate_tpu_torch/csrc/trsm_left.cu",
                         "slate_tpu/internal/pallas_kernels.py:594", "posv"),
     "plu_call": (_PLU, f"{_JPP}:505", "gesv_flat"),
     "plu_call_folded": (_PLU, f"{_JPP}:483", "plu_panel"),
@@ -304,6 +308,32 @@ def phase_toolchain():
     return smi
 
 
+def potrf_tile_row(a, plain_reps=REPS):
+    """K1's times on the tile ``a`` [nb, nb] beside its plain version and
+    ``cholesky``; bound: nb³/3 FLOP, or the tile read and written."""
+    from slate_tpu_torch.internal import kernels as K
+    nb = a.shape[0]
+    return dict(ms=time_ms(lambda: K.potrf_tile(a)),
+                plain_ms=time_ms(lambda: K.potrf_tile_plain(a),
+                                 reps=plain_reps),
+                library_ms=time_ms(lambda: torch.linalg.cholesky(a)),
+                bound=bound(nb ** 3 / 3, 2 * nb * nb * 4))
+
+
+def trsm_left_row(l, b, plain_reps=REPS):
+    """K3's times on L [n, n], B [n, m] beside its plain version and
+    ``solve_triangular``; bound: n²·m FLOP, or L's lower triangle and B
+    read and X written."""
+    from slate_tpu_torch.internal import kernels as K
+    n, m = b.shape
+    return dict(ms=time_ms(lambda: K.trsm_left_lower(l, b)),
+                plain_ms=time_ms(lambda: K.trsm_left_lower_plain(l, b),
+                                 reps=plain_reps),
+                library_ms=time_ms(lambda: torch.linalg.solve_triangular(
+                    l, b, upper=False)),
+                bound=bound(n * n * m, (n * (n + 1) / 2 + 2 * n * m) * 4))
+
+
 def check(name, kernel_fn, plain_fn, label):
     out = kernel_fn()
     ref = plain_fn()
@@ -324,18 +354,13 @@ def phase_kernels():
     rows = {}
 
     say("kernel checks (kernel vs plain on the card):")
-    for nb in (NB, 200):
+    for nb in (NB, AASEN_NB, 200, 65, 1):
         a = spd_tile(nb, gen)
         mx = check("potrf_tile", lambda: K.potrf_tile(a),
                    lambda: K.potrf_tile_plain(a), f"nb={nb}")
         assert float(torch.triu(K.potrf_tile(a), 1).abs().max()) == 0.0
         if nb == NB:
-            rows["potrf_tile"] = dict(
-                max_abs_err=mx,
-                ms=time_ms(lambda: K.potrf_tile(a)),
-                plain_ms=time_ms(lambda: K.potrf_tile_plain(a)),
-                library_ms=time_ms(lambda: torch.linalg.cholesky(a)),
-                bound=bound(nb ** 3 / 3, 2 * nb * nb * 4))
+            rows["potrf_tile"] = dict(max_abs_err=mx, **potrf_tile_row(a))
 
     for (m, n) in ((N - NB, NB), (300, 200)):
         for unit in (False, True):
@@ -354,7 +379,11 @@ def phase_kernels():
                         l.mT, b, upper=True, left=False)),
                     bound=bound(m * n * n, (n * n + 2 * m * n) * 4))
 
-    for (n, m) in ((NB, NB), (200, 37)):
+    # K3 at its callers' shapes (the nrhs = 8 real columns of a block row
+    # against a 1024 tile in posv, gesv, gesv_nopiv and gels LQ, a 256
+    # tile in hesv), wide and ragged; the [NB, NRHS] row is the main path's
+    thin = {}
+    for (n, m) in ((NB, NRHS), (AASEN_NB, NRHS), (NB, NB), (200, 37)):
         for unit in (False, True):
             l = lower_factor(n, gen, unit)
             b = torch.randn(n, m, generator=gen, device="cuda")
@@ -362,14 +391,14 @@ def phase_kernels():
                        lambda: K.trsm_left_lower(l, b, unit),
                        lambda: K.trsm_left_lower_plain(l, b, unit),
                        f"B=[{n},{m}] unit={unit}")
-            if (n, m) == (NB, NB) and not unit:
-                rows["trsm_left_lower"] = dict(
-                    max_abs_err=mx,
-                    ms=time_ms(lambda: K.trsm_left_lower(l, b)),
-                    plain_ms=time_ms(lambda: K.trsm_left_lower_plain(l, b)),
-                    library_ms=time_ms(lambda: torch.linalg.solve_triangular(
-                        l, b, upper=False)),
-                    bound=bound(n * n * m, (n * n + 2 * n * m) * 4))
+            if n != 200 and not unit:
+                thin[(n, m)] = dict(max_abs_err=mx, **trsm_left_row(l, b))
+    for (n, m), r in thin.items():
+        say(f"  trsm_left_lower B=[{n},{m}]: kernel_ms {r['ms']:.4f}, "
+            f"plain_ms {r['plain_ms']:.4f}, library_ms {r['library_ms']:.4f}"
+            f" (solve_triangular), bound_ms {r['bound'][0]:.6f} "
+            f"({r['bound'][1]})")
+    rows["trsm_left_lower"] = thin[(NB, NRHS)]
     for name, r in rows.items():
         say(f"  {name}: kernel_ms {r['ms']:.4f}, plain_ms "
             f"{r['plain_ms']:.4f}, library_ms {r['library_ms']:.4f}, "
@@ -711,10 +740,10 @@ def _category(name: str) -> str:
         return "panel LU kernel (K4)"
     if "panel_transpose" in name:
         return "panel transposes (K5)"
-    if any(k in name for k in ("chol_diag", "panel", "trailing")):
-        return "potrf_tile kernel"
-    if "trsm_lower" in name:
-        return "trsm kernels (ours)"
+    if "dataflow_potrf_tile" in name:
+        return "potrf_tile kernel (K1)"
+    if "trsm_lower" in name or "dataflow_trsm_left" in name:
+        return "trsm kernels (ours: K2, K3)"
     if "gemm" in name or "xmma" in name or "cutlass" in name:
         return "cuBLAS gemm (trailing update, trsm update)"
     if "trsm" in name:

@@ -43,6 +43,12 @@ from .precision import full_f32_matmul
 # versions block the same way.
 BS = 64
 
+# Task edge of the dataflow kernels K1 and K3 (BT in csrc/dataflow.cuh):
+# K1's tiles and K3's block rows; their plain versions block the same way.
+BT = 64
+# Panel width of K1's diagonal-block factor (CP in csrc/potrf_tile.cu).
+_CHOL_PANEL = 16
+
 # Block width of the panel LU kernel (W in csrc/panel_plu.cu and in
 # slate_tpu/internal/panel_plu.py).
 W = 128
@@ -140,10 +146,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_U = ctypes.c_uint
 _SIGNATURES = {
-    "slate_potrf_tile_f32": ("potrf_tile", (_P, _I, _P, _P)),
+    "slate_potrf_tile_f32": ("potrf_tile", (_P, _I, _P, _P, _U, _P)),
     "slate_trsm_right_lower_t_f32": ("trsm_lower", (_P, _P, _I, _I, _I, _P)),
-    "slate_trsm_left_lower_f32": ("trsm_lower", (_P, _P, _I, _I, _I, _P)),
+    "slate_trsm_left_lower_f32": ("trsm_left", (_P, _P, _I, _I, _I, _P, _U,
+                                                _P)),
     "slate_plu_block_f32": ("panel_plu", (_P,) * 7 + (_I,) * 5 + (_P,)),
     "slate_panel_transpose_f32": ("panel_transpose",
                                   (_P, _P, _I, _I, _I) + (_L,) * 4 + (_P,)),
@@ -178,6 +186,39 @@ def _launch(symbol: str, device: torch.device, *args) -> None:
         raise SlateError(f"{symbol}: CUDA error {rc} at launch")
 
 
+# Ready flags of the dataflow kernels K1 and K3, one buffer per (device,
+# stream) with the epoch of its last launch: every launch passes the next
+# epoch, so the flags need no reset between launches (csrc/dataflow.cuh).
+# The kernels order a flag against the epoch by their signed difference,
+# which is right only while no flag is 2³¹ or more behind: so once the
+# epoch reaches EPOCH_RESTART the buffer is zeroed on the stream and the
+# epochs start again at 1, and no epoch ever wraps.
+_READY: dict = {}
+EPOCH_RESTART = 1 << 30
+
+
+def _ready_flags(device: torch.device, count: int) -> tuple[torch.Tensor, int]:
+    """A flag buffer of at least ``count`` entries for a launch on
+    ``device``'s current stream, and the launch's epoch (1 … 2³⁰).
+    Raises under CUDA graph capture: a replay would repeat the captured
+    epoch, which every flag has already reached."""
+    slate_error_if(torch.cuda.is_current_stream_capturing(),
+                   "the dataflow kernels (potrf_tile, trsm_left_lower) "
+                   "cannot be captured in a CUDA graph: each launch needs "
+                   "a new epoch for its ready flags")
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    ent = _READY.get(key)
+    if ent is None or ent[0].numel() < count:
+        ent = [torch.zeros(max(count, 1024), dtype=torch.int32, device=device),
+               0]
+        _READY[key] = ent
+    if ent[1] >= EPOCH_RESTART:
+        ent[0].zero_()
+        ent[1] = 0
+    ent[1] += 1
+    return ent[0], ent[1]
+
+
 def _check(kernel: str, nb: int, *ts: torch.Tensor) -> None:
     for t in ts:
         slate_error_if(t.device.type != "cuda" or t.dtype != torch.float32
@@ -207,16 +248,19 @@ def potrf_tile(a: torch.Tensor) -> torch.Tensor:
     comes out zeroed. The lower triangle of ``a`` is read.
 
     Replaces ``potrf_tile_pallas`` (pallas_kernels.py:428), which keeps
-    the tile in VMEM. Bound on an H100: FP32 operations (nb³/3 FMAs on
-    the CUDA cores) at large nb, but the column-by-column diagonal blocks
-    are latency-bound, one CTA each. Design (csrc/potrf_tile.cu): the
-    tile stays in global memory (4 MB at nb = 1024, resident in L2) and
-    is walked in 64-column blocks, three launches per block from a host
-    loop: the diagonal block factored and inverted by one CTA in shared
-    memory, the panel T·L⁻ᵀ over a grid of CTAs, the lower trailing
-    tiles −P·Pᵀ over a grid of CTAs. Any nb from 1 to 1024; the ragged
-    last block is masked. A non-positive pivot comes out as NaN on the
-    diagonal (``sqrtf`` of a negative), for the caller's finite guard.
+    the tile in VMEM. Bound on an H100: the flops (nb³/3, 5 µs of the
+    FP32 rate at nb = 1024) are not; the chain of nb/64 dependent
+    diagonal blocks is. Design (csrc/potrf_tile.cu): one cooperative
+    launch of a left-looking tile algorithm driven by ready flags. The
+    tile stays in global memory (4 MB at nb = 1024, resident in L2); each
+    lower 64×64 tile (i, k) is a task that sums L[i, j]·L[k, j]ᵀ over
+    j < k as its operands are published, then either factors the
+    diagonal block in shared memory (16-column panels, each by one warp
+    in registers) and inverts it by recursive doubling, or, below the
+    diagonal, multiplies by that inverse's transpose. No host loop,
+    launch or grid barrier sits on the chain. Any nb from 1 to 1024; the
+    ragged last block is masked. A non-positive pivot d comes out as NaN
+    on the diagonal (d·rsqrt(d)), for the caller's finite guard.
     """
     if not _route("potrf_tile", a):
         return potrf_tile_plain(a)
@@ -224,50 +268,79 @@ def potrf_tile(a: torch.Tensor) -> torch.Tensor:
     _check("potrf_tile", nb, a)
     slate_error_if(a.shape[0] != nb, "potrf_tile: square tile expected")
     out = a.clone(memory_format=torch.contiguous_format)
-    inv = torch.empty(BS * BS, dtype=torch.float32, device=a.device)
+    nt = -(-nb // BT)
+    inv = torch.empty(nt * BT * BT, dtype=torch.float32, device=a.device)
+    flags, epoch = _ready_flags(a.device, nt * (nt + 1) // 2)
     _launch("slate_potrf_tile_f32", a.device, _P(out.data_ptr()), nb,
-            _P(inv.data_ptr()))
+            _P(inv.data_ptr()), _P(flags.data_ptr()), epoch)
     LAUNCHES["potrf_tile"] += 1
     return out
 
 
-def _chol_unblocked(d: torch.Tensor) -> torch.Tensor:
-    """Unblocked lower Cholesky of a small block, in place, column by
-    column (the kernel's ``chol_diag`` loop)."""
+def _chol_block(d: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky of a diagonal block (width ≤ :data:`BT`), in place,
+    as the kernel's ``chol_block``: 16-column panels factored column by
+    column (with r = rsqrt(d) the pivot d·r and the column scaled by r,
+    the update kept inside the panel), then the trailing block minus the
+    panel's product."""
     w = d.shape[0]
-    for j in range(w):
-        piv = torch.sqrt(d[j, j])
-        d[j, j] = piv
-        d[j + 1:, j] /= piv
-        d[j + 1:, j + 1:] -= torch.outer(d[j + 1:, j], d[j + 1:, j])
+    for p in range(0, w, _CHOL_PANEL):
+        e = min(w, p + _CHOL_PANEL)
+        for j in range(p, e):
+            r = torch.rsqrt(d[j, j])
+            col = d[j + 1:, j] * r
+            d[j + 1:, j + 1:e] -= torch.outer(col, col[:e - j - 1])
+            d[j + 1:, j] = col
+            d[j, j] = d[j, j] * r
+        if e < w:
+            d[e:, e:] -= d[e:, p:e] @ d[e:, p:e].mT
     return d.tril_()
 
 
-def _inv_lower(l: torch.Tensor) -> torch.Tensor:
-    """Inverse of a small lower-triangular block by forward
-    substitution."""
+def _inv_lower_doubling(l: torch.Tensor, unit: bool = False) -> torch.Tensor:
+    """Inverse of a lower-triangular block of width w ≤ :data:`BT` by
+    recursive doubling, as the kernels' ``inv_lower`` (csrc/dataflow.cuh):
+    padded to BT with the identity, the inverted diagonal first, then at
+    block size s = 1, 2, …, BT/2 every 2s-block [[A, 0], [C, D]] gets
+    −D⁻¹·(C·A⁻¹) from its two inverted s-blocks. ``unit`` takes the
+    diagonal as ones."""
     w = l.shape[0]
-    eye = torch.eye(w, dtype=l.dtype, device=l.device)
-    x = torch.zeros_like(l)
-    for i in range(w):
-        x[i] = (eye[i] - l[i, :i] @ x[:i]) / l[i, i]
-    return x
+    t = torch.eye(BT, dtype=l.dtype, device=l.device)
+    t[:w, :w] = l.tril()
+    v = torch.eye(BT, dtype=l.dtype, device=l.device)
+    if not unit:
+        v[:w, :w] = torch.diag(1 / torch.diagonal(t)[:w])
+    s = 1
+    while s < BT:
+        q = 2 * s
+        nblk = BT // q
+        blk = torch.arange(nblk, device=l.device)
+        tb = t.view(nblk, q, nblk, q)[blk, :, blk, :]      # [nblk, 2s, 2s]
+        vv = v.view(nblk, q, nblk, q)
+        vb = vv[blk, :, blk, :]
+        ca = tb[:, s:, :s] @ vb[:, :s, :s]                 # C·A⁻¹
+        vv[blk, s:, blk, :s] = -(vb[:, s:, s:] @ ca)
+        s = q
+    return v[:w, :w].clone()
 
 
 def potrf_tile_plain(a: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`potrf_tile`: the same 64-column
-    blocked algorithm."""
+    """Plain PyTorch version of :func:`potrf_tile`: the same left-looking
+    algorithm over 64-column blocks — per block column the sum of the
+    earlier columns' products, the diagonal block's factor, its inverse
+    by recursive doubling, and the panel times that inverse's
+    transpose."""
     a = a.clone()
     nb = a.shape[0]
     with full_f32_matmul():
-        for j0 in range(0, nb, BS):
-            e = min(nb, j0 + BS)
-            d = _chol_unblocked(a[j0:e, j0:e].clone())
-            a[j0:e, j0:e] = d
+        for k0 in range(0, nb, BT):
+            e = min(nb, k0 + BT)
+            if k0:
+                a[k0:, k0:e] -= a[k0:, :k0] @ a[k0:e, :k0].mT
+            d = _chol_block(a[k0:e, k0:e].clone())
+            a[k0:e, k0:e] = d
             if e < nb:
-                p = a[e:, j0:e] @ _inv_lower(d).mT
-                a[e:, j0:e] = p
-                a[e:, e:] -= p @ p.mT
+                a[e:, k0:e] = a[e:, k0:e] @ _inv_lower_doubling(d).mT
     return a.tril()
 
 
@@ -308,11 +381,17 @@ def trsm_left_lower(l: torch.Tensor, b: torch.Tensor,
     """X = L⁻¹·B for lower L [n, n] and B [n, m]; a new tensor.
 
     Replaces ``trsm_left_lower_pallas`` (pallas_kernels.py:594), here the
-    potrs forward solve of one diagonal tile against a block row. Bound on
-    an H100: FP32 operations (n²·m flops). Design: the kernel of
-    :func:`trsm_right_lower_t` transposed — the columns of X are
-    independent, so the grid runs over 64-column blocks of B and the
-    same substitution walks rows; the loads coalesce along the columns.
+    forward solve of one diagonal tile against the real columns of a
+    block row: m = nrhs = 8 on posv, gesv, gesv_nopiv, gels LQ and hesv.
+    Bound on an H100: the bytes of L at those shapes (2 MB of its lower
+    half at n = 1024; the flops are a few µs), but what costs time is the
+    chain of n/64 dependent block rows. Design (csrc/trsm_left.cu): one
+    cooperative launch whose tasks are (64-row block r, column block c);
+    each inverts its diagonal block by recursive doubling at once, sums
+    L[r, j]·X[j] as each X[j]'s ready flag shows it, and publishes
+    X[r] = inv(L[r, r])·(B[r] − sum). Thin B splits each product's
+    contraction over the CTA's threads, so a step of the chain is a flag,
+    a short product and the inverse's product.
     """
     if not _route("trsm_left_lower", b):
         return trsm_left_lower_plain(l, b, unit)
@@ -321,8 +400,9 @@ def trsm_left_lower(l: torch.Tensor, b: torch.Tensor,
     slate_error_if(tuple(l.shape) != (n, n), "trsm_left_lower dims")
     lc = l.contiguous()
     x = b.clone(memory_format=torch.contiguous_format)
+    flags, epoch = _ready_flags(b.device, -(-n // BT) * -(-m // 8))
     _launch("slate_trsm_left_lower_f32", b.device, _P(lc.data_ptr()),
-            _P(x.data_ptr()), n, m, int(unit))
+            _P(x.data_ptr()), n, m, int(unit), _P(flags.data_ptr()), epoch)
     LAUNCHES["trsm_left_lower"] += 1
     return x
 
@@ -346,9 +426,17 @@ def trsm_right_lower_t_plain(l: torch.Tensor, b: torch.Tensor,
 
 def trsm_left_lower_plain(l: torch.Tensor, b: torch.Tensor,
                           unit: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of :func:`trsm_left_lower`: the right solve
-    on the transpose, as the kernel is."""
-    return trsm_right_lower_t_plain(l, b.mT, unit).mT.contiguous()
+    """Plain PyTorch version of :func:`trsm_left_lower`: block rows of
+    64, each X[r] = inv(L[r, r])·(B[r] − L[r, :r]·X[:r]) with the inverse
+    by recursive doubling, as the kernel is."""
+    x = b.clone()
+    n = l.shape[0]
+    with full_f32_matmul():
+        for r0 in range(0, n, BT):
+            e = min(n, r0 + BT)
+            s = x[r0:e] - l[r0:e, :r0] @ x[:r0] if r0 else x[r0:e]
+            x[r0:e] = _inv_lower_doubling(l[r0:e, r0:e], unit) @ s
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -650,6 +738,17 @@ def _lu_unblocked(d: torch.Tensor) -> torch.Tensor:
         d[j + 1:, j] /= torch.where(p == 0, 1.0, p).to(d.dtype)
         d[j + 1:, j + 1:] -= torch.outer(d[j + 1:, j], d[j, j + 1:])
     return d
+
+
+def _inv_lower(l: torch.Tensor) -> torch.Tensor:
+    """Inverse of a small lower-triangular block by forward
+    substitution."""
+    w = l.shape[0]
+    eye = torch.eye(w, dtype=l.dtype, device=l.device)
+    x = torch.zeros_like(l)
+    for i in range(w):
+        x[i] = (eye[i] - l[i, :i] @ x[:i]) / l[i, i]
+    return x
 
 
 def _inv_upper_safe(u: torch.Tensor) -> torch.Tensor:

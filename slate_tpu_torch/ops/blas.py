@@ -120,32 +120,30 @@ def _diag_tile(A, k, lower, unit, n):
 
 def _trsm_left(alpha, A, B, lower, unit):
     """Block forward (lower) or backward (upper) substitution over the
-    block rows of B: solve the diagonal tile against the whole block row,
-    then subtract its product from the remaining block rows. Works on a
-    copy of B's tiles, updated in place."""
+    block rows of B: solve the diagonal tile against the real columns of
+    the block row, ``[nb, B.n]``, then subtract its product from the
+    remaining block rows. Works on a dense copy of B's real columns; the
+    column padding of the result is zero."""
     nb = B.nb
     mt = cdiv(A.m, nb)
-    ntl = B.ntl
-    x = B.data[0, 0] * alpha                       # [mtl, ntl, nb, nb]
+    x = tiles_to_dense(B.data[0, 0], B.mtl * nb, B.ntl * nb)[:, :B.n] * alpha
     with full_f32_matmul():                        # solves are always FP32
         for t in range(mt):
             k = t if lower else mt - 1 - t
             tri = _diag_tile(A, k, lower, unit, A.m)
-            # block row k as one [nb, ntl·nb] right-hand side
-            xrow = x[k].permute(1, 0, 2).reshape(nb, ntl * nb)
+            rk = slice(k * nb, (k + 1) * nb)
             if lower:
-                solved = tile_trsm_left_lower(tri, xrow, unit=unit)
+                solved = tile_trsm_left_lower(tri, x[rk], unit=unit)
             else:
                 solved = torch.linalg.solve_triangular(
-                    tri, xrow, upper=True, left=True, unitriangular=unit)
-            x[k] = solved.reshape(nb, ntl, nb).permute(1, 0, 2)
-            rows = slice(k + 1, mt) if lower else slice(0, k)
-            acol = A.data[0, 0, rows, k]           # [r, nb, nb]
-            r = acol.shape[0]
-            if r:
-                upd = acol.reshape(r * nb, nb) @ solved
-                x[rows] -= upd.reshape(r, nb, ntl, nb).permute(0, 2, 1, 3)
-    return B._replace(data=x[None, None])
+                    tri, x[rk], upper=True, left=True, unitriangular=unit)
+            x[rk] = solved
+            lo, hi = (k + 1, mt) if lower else (0, k)
+            if hi > lo:
+                acol = A.data[0, 0, lo:hi, k]      # [hi - lo, nb, nb]
+                x[lo * nb:hi * nb] -= acol.reshape(-1, nb) @ solved
+    data = dense_to_tiles(x, nb, B.mtl, B.ntl)[None, None]
+    return B._replace(data=data)
 
 
 def _trsm_right(alpha, A, B, lower, unit):

@@ -68,6 +68,87 @@ def test_cuda_kernel_reports_a_failed_pivot(cuda):
     assert not torch.isfinite(d[70]) and torch.isfinite(d[:70]).all()
 
 
+@pytest.mark.parametrize("n,m", [(1024, 8), (256, 8), (1024, 1024),
+                                 (200, 37), (65, 1), (300, 130), (1024, 16),
+                                 (1024, 32), (1024, 65), (1024, 128),
+                                 (1024, 129)])
+def test_trsm_left_kernel_matches_plain(cuda, n, m):
+    """K3 at the path shapes (m = nrhs = 8 against a 1024 or 256 tile),
+    thin with several 8-column blocks (m = 16 … 128), wide (m > 128:
+    64-column blocks) and ragged, unit and not, twice in a row on one
+    flag buffer (the second launch must wait for its own epoch, not the
+    first's)."""
+    gen = torch.Generator(device=cuda).manual_seed(n + m)
+    l = torch.tril(torch.randn(n, n, generator=gen, device=cuda)) / n
+    l += torch.eye(n, device=cuda)
+    b = torch.randn(n, m, generator=gen, device=cuda)
+    for unit in (False, True):
+        before = K.LAUNCHES["trsm_left_lower"]
+        x1 = K.trsm_left_lower(l, b, unit)
+        x2 = K.trsm_left_lower(l, b, unit)
+        ref = K.trsm_left_lower_plain(l, b, unit)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["trsm_left_lower"] == before + 2
+        assert rel(x1, ref) < TOL and torch.equal(x1, x2)
+
+
+def test_dataflow_kernels_refuse_graph_capture(cuda):
+    """K1 and K3 raise under CUDA graph capture: a replay would repeat
+    the captured epoch of their ready flags."""
+    l = torch.eye(64, device=cuda)
+    b = torch.ones(64, 8, device=cuda)
+    torch.cuda.synchronize()
+    for fn in (lambda: K.trsm_left_lower(l, b), lambda: K.potrf_tile(l)):
+        with pytest.raises(st.SlateError, match="CUDA graph"):
+            with torch.cuda.graph(torch.cuda.CUDAGraph()):
+                fn()
+    assert rel(K.trsm_left_lower(l, b), b) == 0.0
+
+
+@pytest.mark.parametrize("nb", [256, 129, 65, 64])
+def test_potrf_tile_kernel_ragged(cuda, nb):
+    """K1 at ragged and whole widths against its plain version, upper
+    triangle zero, twice in a row with equal bits."""
+    gen = torch.Generator(device=cuda).manual_seed(nb)
+    g = torch.randn(nb, nb, generator=gen, device=cuda)
+    a = g @ g.T / nb + torch.eye(nb, device=cuda)
+    l1, l2 = K.potrf_tile(a), K.potrf_tile(a)
+    assert rel(l1, K.potrf_tile_plain(a)) < TOL and torch.equal(l1, l2)
+    assert float(torch.triu(l1, 1).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("bad", [0, 63, 64, 199])
+def test_potrf_tile_kernel_failed_pivot_positions(cuda, bad):
+    """A negative pivot in the first column of a block, its last, and
+    the ragged last block: non-finite there on the diagonal, finite
+    before it."""
+    a = torch.eye(200, device=cuda) * 2
+    a[bad, bad] = -1.0
+    d = torch.diagonal(K.potrf_tile(a)).cpu()
+    assert not torch.isfinite(d[bad]) and torch.isfinite(d[:bad]).all()
+
+
+def test_posv_launch_counts_on_card(cuda):
+    """posv at n=300, nb=128: one K1 per diagonal tile, one K2 per
+    panel below it, one K3 per tile of the forward solve."""
+    n, nb = 300, 128
+    rng = np.random.default_rng(6)
+    g = rng.standard_normal((n, n))
+    a = (g @ g.T / n + np.eye(n)).astype(np.float32)
+    b = rng.standard_normal((n, 8)).astype(np.float32)
+    grid = st.Grid(1, 1, device=cuda)
+    K.reset_launches()
+    X, _, info = st.posv(st.HermitianMatrix.from_dense(a, nb=nb, grid=grid),
+                         st.Matrix.from_dense(b, nb=nb, grid=grid))
+    torch.cuda.synchronize()
+    assert int(info) == 0
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), "potrf_tile": 3,
+                          "trsm_right_lower_t": 2, "trsm_left_lower": 3}
+    x = X.to_dense().double().cpu().numpy()
+    r = np.linalg.norm(a @ x - b) / (np.linalg.norm(a) * np.linalg.norm(x))
+    assert r < 10 * n * 2.0 ** -24
+
+
 @pytest.mark.parametrize("upper", [False, True])
 def test_posv_on_card_matches_cpu(cuda, upper):
     n, nb = 300, 128

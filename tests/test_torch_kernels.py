@@ -64,6 +64,22 @@ def test_trsm_left_lower_plain_matches_pallas(dt, unit):
     assert rel(out, ref) < TOL[dt]
 
 
+@pytest.mark.parametrize("m", [8, 1])
+@pytest.mark.parametrize("dt", [np.float32, np.float64])
+@pytest.mark.parametrize("unit", [False, True])
+def test_trsm_left_lower_plain_matches_pallas_thin(m, dt, unit):
+    # the right-hand sides the solves really give K3: nrhs = 8 (and 1)
+    # against a 256 tile, as in hesv's L solve
+    n = 256
+    l = well_conditioned_lower(n, dt, seed=3, unit=unit)
+    b = rand(n, m, dt, seed=m)
+    ref = np.asarray(pk.trsm_left_lower_pallas(
+        jnp.asarray(l), jnp.asarray(b), unit=unit, interpret=True))
+    out = K.trsm_left_lower_plain(torch.from_numpy(l), torch.from_numpy(b),
+                                  unit).numpy()
+    assert rel(out, ref) < TOL[dt]
+
+
 @pytest.mark.parametrize("dt", [np.float32, np.float64])
 @pytest.mark.parametrize("unit", [False, True])
 def test_trsm_right_lower_t_plain_matches_pallas(dt, unit):
@@ -160,3 +176,39 @@ def test_launch_counters_stay_zero_on_cpu():
     assert {"potrf_tile", "trsm_right_lower_t", "trsm_left_lower",
             "qr_call", "lu_nopiv_tile"} <= set(K.LAUNCHES)
     assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)
+
+
+def test_ready_flags_restart_before_the_epoch_wraps(monkeypatch):
+    """The flag buffer of the dataflow kernels (K1, K3): one epoch more
+    per launch; at EPOCH_RESTART the buffer is zeroed and the epochs start
+    again at 1, so every flag stays behind the next epoch in the kernels'
+    signed 32-bit order; under CUDA graph capture the call raises."""
+    class Stream:
+        cuda_stream = 7
+
+    def behind(flags, epoch):
+        return bool((((flags.long() - epoch) & 0xFFFFFFFF) >= 1 << 31).all())
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    monkeypatch.setattr(K, "_READY", {})
+    cpu = torch.device("cpu")
+    f1, e1 = K._ready_flags(cpu, 10)
+    f2, e2 = K._ready_flags(cpu, 10)
+    assert f1 is f2 and f1.numel() >= 10 and (e1, e2) == (1, 2)
+    # a wide launch long ago left its epoch in slots the thin ones skip
+    f1[-1] = 5
+    K._READY[(None, 7)][1] = K.EPOCH_RESTART - 1
+    _, e = K._ready_flags(cpu, 10)
+    assert e == K.EPOCH_RESTART and int(f1[-1]) == 5
+    f3, e = K._ready_flags(cpu, 10)
+    assert f3 is f1 and e == 1 and int(f3.abs().max()) == 0
+    assert behind(f3, e)
+    # a launch with more tasks gets a new buffer, zeroed, from epoch 1
+    f4, e = K._ready_flags(cpu, 5000)
+    assert f4.numel() >= 5000 and e == 1 and behind(f4, e)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    with pytest.raises(SlateError, match="CUDA graph"):
+        K._ready_flags(cpu, 10)

@@ -55,7 +55,8 @@ def test_kernel_sources_and_build_key():
     names = [s.name for s in _build._sources()]
     assert names == ["band_chase.cu", "lu_nopiv_tile.cu", "panel_plu.cu",
                      "panel_plu_swap.cu", "panel_qr.cu", "panel_transpose.cu",
-                     "potrf_tile.cu", "rank_k_tail.cu", "trsm_lower.cu"]
+                     "potrf_tile.cu", "rank_k_tail.cu", "trsm_left.cu",
+                     "trsm_lower.cu"]
     for src in _build._sources():
         text = src.read_text()
         assert "extern \"C\" int slate_" in text

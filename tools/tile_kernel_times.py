@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""Time the tile-Cholesky (K1) and left triangular-solve (K3) kernels of
+``slate_tpu_torch`` on one CUDA card, beside their plain versions and the
+one ``torch.linalg`` call that computes the same function; run K2 (the
+right solve) on fixed inputs; and time ``potrf``/``posv`` at the main
+path's shape (f32, n=16384, nb=1024, 8 right-hand sides).
+
+    python3 tools/tile_kernel_times.py [--root DIR] [--label NAME] [--sweep]
+
+``--root`` is a checkout of the repository (default: this one) whose
+``slate_tpu_torch`` is timed; the rows, times and bounds are those of this
+tree's ``chip_smoke.py`` (``potrf_tile_row``, ``trsm_left_row``,
+``time_ms``), so two trees can be compared on one card in one command
+(parent, change, change, parent). K2 runs at ``chip_smoke.py``'s phase-2
+shapes; its output is printed as a digest (equal digests: equal bits)
+and it is timed at the posv panel. ``--sweep`` also times the kernels
+alone at widths 64 … 1024 (K3 with 8 columns: the time per 64-wide block
+step) and K3 at n = 1024 over m = 8 … 256 beside ``solve_triangular``.
+Prints one JSON object per line: a row per kernel shape (``ms``,
+``plain_ms``, ``library_ms``, ``bound_ms``, ``ratio`` = ``ms /
+library_ms``) and one ``posv`` row. Compare ratios only within one
+command.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--label", default="tree")
+    ap.add_argument("--sweep", action="store_true")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("tile_kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import slate_tpu_torch as st
+    from slate_tpu_torch.internal import kernels as K
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def emit(kernel, shape, r):
+        b, by = r.pop("bound")
+        print(json.dumps(dict(kernel=kernel, shape=shape, **r, bound_ms=b,
+                              bound_by=by, ratio=r["ms"] / r["library_ms"],
+                              label=args.label, device=smi)), flush=True)
+
+    for nb in (1024, 256):
+        emit("potrf_tile", [nb, nb],
+             cs.potrf_tile_row(cs.spd_tile(nb, gen), plain_reps=3))
+    for n, m in ((1024, 8), (256, 8), (1024, 1024)):
+        l = cs.lower_factor(n, gen)
+        x = torch.randn(n, m, generator=gen, device="cuda")
+        emit("trsm_left_lower", [n, m], cs.trsm_left_row(l, x, plain_reps=3))
+
+    # K2 at chip_smoke's phase-2 shapes: a digest of its output, so two
+    # trees can be held to equal bits, and its time at the posv panel
+    g2 = torch.Generator(device="cuda").manual_seed(2)
+    for m, n in ((cs.N - cs.NB, cs.NB), (300, 200)):
+        for unit in (False, True):
+            l = cs.lower_factor(n, g2, unit)
+            b = torch.randn(m, n, generator=g2, device="cuda")
+            x = K.trsm_right_lower_t(l, b, unit).cpu().numpy()
+            row = dict(kernel="trsm_right_lower_t", shape=[m, n], unit=unit,
+                       sha256=hashlib.sha256(x.tobytes()).hexdigest()[:16])
+            if m == cs.N - cs.NB and not unit:
+                row["ms"] = cs.time_ms(lambda: K.trsm_right_lower_t(l, b))
+            print(json.dumps(dict(**row, label=args.label, device=smi)),
+                  flush=True)
+
+    if args.sweep:
+        for w in (64, 128, 256, 512, 1024):
+            a = cs.spd_tile(w, gen)
+            l = cs.lower_factor(w, gen)
+            x = torch.randn(w, 8, generator=gen, device="cuda")
+            print(json.dumps(dict(
+                kernel="sweep", width=w,
+                potrf_tile_ms=cs.time_ms(lambda: K.potrf_tile(a)),
+                trsm_left_lower_ms=cs.time_ms(
+                    lambda: K.trsm_left_lower(l, x)),
+                label=args.label, device=smi)), flush=True)
+        l = cs.lower_factor(1024, gen)
+        for m in (8, 16, 32, 64, 65, 128, 256):
+            x = torch.randn(1024, m, generator=gen, device="cuda")
+            ms = cs.time_ms(lambda: K.trsm_left_lower(l, x))
+            lib = cs.time_ms(lambda: torch.linalg.solve_triangular(
+                l, x, upper=False))
+            print(json.dumps(dict(
+                kernel="sweep_m", shape=[1024, m], ms=ms, library_ms=lib,
+                ratio=ms / lib, label=args.label, device=smi)), flush=True)
+
+    N, NB = cs.N, cs.NB
+    grid = st.Grid(1, 1)
+    g = torch.randn(N, N, generator=gen, device="cuda")
+    with cs._f32():
+        a = g @ g.T / N + torch.eye(N, device="cuda")
+    del g
+    A = st.HermitianMatrix.from_dense(a, nb=NB, grid=grid)
+    B = st.Matrix.from_dense(torch.randn(N, cs.NRHS, generator=gen,
+                                         device="cuda"), nb=NB, grid=grid)
+    st.posv(A, B)
+    torch.cuda.synchronize()
+    out = {}
+    for name, fn in (("potrf_ms", lambda: st.potrf(A)),
+                     ("posv_ms", lambda: st.posv(A, B))):
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out[name] = sorted(ts)[1]
+    print(json.dumps(dict(kernel="posv", n=N, nb=NB, nrhs=cs.NRHS, **out,
+                          solve_ms=out["posv_ms"] - out["potrf_ms"],
+                          label=args.label, device=smi)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
