@@ -30,8 +30,9 @@
    card: K6 ``panel_qr`` at [16384, 128] from d0=0, [13312, 128] from
    d0=896 (the last subpanel of the last ``geqrf`` panel) and [384, 128]
    from d0=128, each a column window of a wider matrix (rows above d0
-   bitwise unchanged); K7 ``lu_nopiv_tile`` at [1024, 1024] and
-   [200, 200] (``info`` equal). Times as in 2; the library calls are
+   bitwise unchanged); K7 ``lu_nopiv_tile`` at [1024, 1024], [200, 200]
+   and [65, 65], and at [200, 200] with one exact zero pivot (``info``
+   equal). Times as in 2; the library calls are
    ``torch.geqrf`` on the same [h, 128] block and
    ``torch.linalg.lu_factor(pivot=False)`` on the tile.
 3. The main path: ``posv`` at f32, n=16384, nb=1024 on ``Grid(1, 1)``
@@ -108,9 +109,10 @@ The Aasen and band LU slice (f32, ``Grid(1, 1)``):
 
 2e. The physical-swap panel LU K10 (``panel_plu_pallas``) against its
    plain version on the card at [16128, 256] (the first ``hetrf`` panel),
-   [300, 128] and a [128, 128] panel with an exact tie that the
-   current-position rule breaks (pivots, ``info`` and the NaN pattern
-   equal, values within atol 1e-4), and a panel with a NaN; the rank-k
+   [2048, 256] (a later one) and [300, 128], bit for bit, and on a
+   [128, 128] panel with an exact tie that the current-position rule
+   breaks, a panel with a NaN and one with a zero column (pivots,
+   ``info`` and the NaN pattern equal, values within atol 1e-4); the rank-k
    tail K11 (``rank_k_tail_pallas``) at [32, 96]·[96, 96] (the ``gbtrf``
    trailing update), [4096, 64]·[64, 4096] and a ragged [70, 1]·[1, 130]
    within 1e-5. Times as in 2 at the path shapes; the library calls are
@@ -332,6 +334,32 @@ def trsm_left_row(l, b, plain_reps=REPS):
                 library_ms=time_ms(lambda: torch.linalg.solve_triangular(
                     l, b, upper=False)),
                 bound=bound(n * n * m, (n * (n + 1) / 2 + 2 * n * m) * 4))
+
+
+def lu_nopiv_tile_row(a, plain_reps=REPS):
+    """K7's times on the tile ``a`` [nb, nb] beside its plain version and
+    ``lu_factor(pivot=False)``; bound: 2nb³/3 FLOP, or the tile read and
+    written."""
+    from slate_tpu_torch.internal import kernels as K
+    nb = a.shape[0]
+    return dict(ms=time_ms(lambda: K.lu_nopiv_tile(a)),
+                plain_ms=time_ms(lambda: K.lu_nopiv_tile_plain(a),
+                                 reps=plain_reps),
+                library_ms=lu_nopiv_library_ms(a),
+                bound=bound(2 * nb ** 3 / 3, 2 * nb * nb * 4))
+
+
+def swap_row(a, plain_reps=3):
+    """K10's times on the panel ``a`` [h, w] beside its plain version and
+    ``lu_factor`` (cuSOLVER) on the same panel; bound: swap_bound."""
+    from slate_tpu_torch.internal import kernels as K
+    h, w = a.shape
+    return dict(ms=time_ms(lambda: K.panel_plu_swap(a)),
+                plain_ms=time_ms(lambda: K.panel_plu_swap_plain(a),
+                                 reps=plain_reps),
+                library_ms=cusolver(lambda: time_ms(
+                    lambda: torch.linalg.lu_factor(a))),
+                bound=swap_bound(h, w))
 
 
 def check(name, kernel_fn, plain_fn, label):
@@ -734,7 +762,7 @@ def _category(name: str) -> str:
         return "cuSOLVER panel QR (geqrf)"
     if "gemv" in name:
         return "cuBLAS gemv (larft, small products)"
-    if any(k in name for k in ("lu_diag", "lu_l21", "lu_u12", "lu_trailing")):
+    if "lu_nopiv_tile" in name:
         return "tile LU kernel (K7)"
     if "plu_block" in name:
         return "panel LU kernel (K4)"
@@ -941,28 +969,31 @@ def phase_qr_nopiv_kernels():
         mx = check_qr(h, d0, gen, False)["max_abs_err"]
         rows["qr_call"]["max_abs_err"] = max(rows["qr_call"]["max_abs_err"],
                                              mx)
-    for nb in (NB, 200):
+    # K7 on G + nb·I at gesv_nopiv's tile, a ragged width and one below a
+    # 64-column block; then a zero row and column: one exact zero pivot
+    for nb, zero in ((NB, None), (200, None), (65, None), (200, 70)):
         a = torch.randn(nb, nb, generator=gen, device="cuda") \
             + nb * torch.eye(nb, device="cuda")
+        if zero is not None:
+            a[zero, :] = 0.0
+            a[:, zero] = 0.0
         lu, info = K.lu_nopiv_tile(a)
         lu_p, info_p = K.lu_nopiv_tile_plain(a)
         torch.cuda.synchronize()
         err = rel_err(lu, lu_p)
         mx = float((lu - lu_p).abs().max())
+        want = 0 if zero is None else 1
         ok = (bool(torch.isfinite(lu).all()) and err <= TOL
-              and int(info) == int(info_p) == 0)
-        say(f"  lu_nopiv_tile nb={nb}: rel_err {err:.3e} (tol {TOL:g}), "
-            f"max_abs_err {mx:.3e}, info {int(info)}/{int(info_p)} "
-            f"{'ok' if ok else 'FAIL'}")
+              and int(info) == int(info_p) == want)
+        say(f"  lu_nopiv_tile nb={nb}{'' if zero is None else ' zero pivot'}: "
+            f"rel_err {err:.3e} (tol {TOL:g}), max_abs_err {mx:.3e}, info "
+            f"{int(info)}/{int(info_p)} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"lu_nopiv_tile nb={nb} disagrees with its "
                                  "plain version")
         if nb == NB:
-            rows["lu_nopiv_tile"] = dict(
-                max_abs_err=mx, ms=time_ms(lambda: K.lu_nopiv_tile(a)),
-                plain_ms=time_ms(lambda: K.lu_nopiv_tile_plain(a)),
-                library_ms=lu_nopiv_library_ms(a),
-                bound=bound(2 * nb ** 3 / 3, 2 * nb * nb * 4))
+            rows["lu_nopiv_tile"] = dict(max_abs_err=mx,
+                                         **lu_nopiv_tile_row(a))
         else:
             rows["lu_nopiv_tile"]["max_abs_err"] = max(
                 rows["lu_nopiv_tile"]["max_abs_err"], mx)
@@ -1586,9 +1617,10 @@ def tie_panel(h=128, w=128, seed=0):
     return torch.from_numpy(a).cuda()
 
 
-def check_swap(label, a):
+def check_swap(label, a, bitwise=False):
     """K10 against its plain version: pivots, info and the NaN pattern
-    equal, values within LU_ATOL; returns (max_abs_err, piv)."""
+    equal, values within LU_ATOL, and with ``bitwise`` every bit equal;
+    returns (max_abs_err, piv)."""
     from slate_tpu_torch.internal import kernels as K
     lu, piv, info = K.panel_plu_swap(a)
     lu_p, piv_p, info_p = K.panel_plu_swap_plain(a)
@@ -1597,9 +1629,11 @@ def check_swap(label, a):
     mx = float((lu[fin] - lu_p[fin]).abs().max())
     same = (torch.equal(piv, piv_p) and int(info) == int(info_p)
             and torch.equal(torch.isnan(lu), ~fin))
-    ok = same and mx <= LU_ATOL
+    bits = torch.equal(lu.view(torch.int32), lu_p.view(torch.int32))
+    ok = same and mx <= LU_ATOL and (bits or not bitwise)
     say(f"  panel_plu_swap {label}: pivots/info/NaN pattern equal {same} "
-        f"(info {int(info)}), max_abs_err {mx:.3e} (tol {LU_ATOL:g}) "
+        f"(info {int(info)}), max_abs_err {mx:.3e} (tol {LU_ATOL:g}), "
+        f"bits equal {bits}{' (required)' if bitwise else ''} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"panel_plu_swap {label} disagrees with its "
@@ -1616,22 +1650,22 @@ def phase_swap_rank_k_kernels():
     say("Aasen and band LU kernel checks (kernel vs plain on the card):")
     h, w = N - AASEN_NB, AASEN_NB
     a = torch.randn(h, w, generator=gen, device="cuda")
-    mx, _ = check_swap(f"[{h},{w}]", a)
-    for label, x in (("[300,128]", torch.randn(300, 128, generator=gen,
-                                                device="cuda")),
-                     ("tie [128,128]", tie_panel())):
-        m2, piv = check_swap(label, x)
+    mx, _ = check_swap(f"[{h},{w}]", a, bitwise=True)
+    for hh, ww in ((2048, AASEN_NB), (300, 128)):
+        m2, _ = check_swap(f"[{hh},{ww}]", torch.randn(
+            hh, ww, generator=gen, device="cuda"), bitwise=True)
         mx = max(mx, m2)
+    m2, piv = check_swap("tie [128,128]", tie_panel())
+    mx = max(mx, m2)
     assert piv[:2].tolist() == [3, 1], piv[:2]
     nan = torch.randn(256, 128, generator=gen, device="cuda")
     nan[40, 7] = float("nan")
     _, piv = check_swap("NaN [256,128]", nan)
     assert int(piv[7]) == 256
-    rows["panel_plu_pallas"] = dict(
-        max_abs_err=mx, ms=time_ms(lambda: K.panel_plu_swap(a)),
-        plain_ms=time_ms(lambda: K.panel_plu_swap_plain(a), reps=3),
-        library_ms=cusolver(lambda: time_ms(lambda: torch.linalg.lu_factor(a))),
-        bound=swap_bound(h, w))
+    zero = torch.randn(256, 128, generator=gen, device="cuda")
+    zero[:, 0] = 0.0
+    check_swap("zero column [256,128]", zero)
+    rows["panel_plu_pallas"] = dict(max_abs_err=mx, **swap_row(a))
     r = rows["panel_plu_pallas"]
     say(f"  panel_plu_swap [{h},{w}]: {r['ms'] / w * 1e3:.2f} us per column")
     mx = 0.0

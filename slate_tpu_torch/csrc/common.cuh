@@ -1,5 +1,6 @@
-// Shared pieces of the FP32 tile kernels: a 64x64 tile in shared memory,
-// its strided loader, and the 4x4-per-thread product of two such tiles.
+// Pieces of the FP32 tile kernel K2 (trsm_lower.cu): a 64x64 tile in
+// shared memory, its loader, and the 4x4-per-thread product of two such
+// tiles.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,16 +13,13 @@ constexpr int LDS = TS + 1;  // padded shared row: column walks hit 32 banks
 
 typedef float Tile[TS][LDS];
 
-// s[i][k] = g(i, k) for i < rows, k < cols, zero elsewhere in the tile.
-// g(i, k) is g[i * si + k * sk]. KCONTIG says k is the contiguous index,
-// so consecutive threads walk k (else i) and the global load coalesces.
-template <bool KCONTIG>
-__device__ __forceinline__ void load_tile(Tile& s, const float* g, size_t si,
-                                          size_t sk, int rows, int cols) {
+// s[i][k] = g[i * si + k] for i < rows, k < cols, zero elsewhere in the
+// tile; consecutive threads walk k, so the global load coalesces.
+__device__ __forceinline__ void load_tile(Tile& s, const float* g, size_t si, int rows,
+                                          int cols) {
   for (int idx = threadIdx.x; idx < TS * TS; idx += NT) {
-    int i = KCONTIG ? idx / TS : idx % TS;
-    int k = KCONTIG ? idx % TS : idx / TS;
-    s[i][k] = (i < rows && k < cols) ? g[i * si + k * sk] : 0.f;
+    const int i = idx / TS, k = idx % TS;
+    s[i][k] = (i < rows && k < cols) ? g[i * si + k] : 0.f;
   }
 }
 

@@ -37,14 +37,14 @@ trsm_lower(const float* __restrict__ l, float* x, int m, int n, int unit) {
     const int wc = min(TS, n - c0);
     float acc[4][4] = {};
     for (int k0 = 0; k0 < c0; k0 += TS) {  // solved blocks: k0 + TS <= c0
-      slate::load_tile<true>(sx, xb + k0, n, 1, ni, TS);
-      slate::load_tile<true>(sl, l + (size_t)c0 * n + k0, n, 1, wc, TS);
+      slate::load_tile(sx, xb + k0, n, ni, TS);
+      slate::load_tile(sl, l + (size_t)c0 * n + k0, n, wc, TS);
       __syncthreads();
       slate::tile_abt(sx, sl, TS, acc);
       __syncthreads();
     }
-    slate::load_tile<true>(sx, xb + c0, n, 1, ni, wc);
-    slate::load_tile<true>(sl, l + (size_t)c0 * n + c0, n, 1, wc, wc);
+    slate::load_tile(sx, xb + c0, n, ni, wc);
+    slate::load_tile(sl, l + (size_t)c0 * n + c0, n, wc, wc);
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < 4; ++r)

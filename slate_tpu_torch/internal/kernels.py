@@ -43,11 +43,16 @@ from .precision import full_f32_matmul
 # versions block the same way.
 BS = 64
 
-# Task edge of the dataflow kernels K1 and K3 (BT in csrc/dataflow.cuh):
-# K1's tiles and K3's block rows; their plain versions block the same way.
+# Task edge of the dataflow kernels K1, K3 and K7 (BT in
+# csrc/dataflow.cuh): K1's and K7's tiles and K3's block rows; their plain
+# versions block the same way.
 BT = 64
-# Panel width of K1's diagonal-block factor (CP in csrc/potrf_tile.cu).
+# Panel width of K1's and K7's diagonal-block factors (CP in
+# csrc/potrf_tile.cu and csrc/lu_nopiv_tile.cu).
 _CHOL_PANEL = 16
+# Diagonal blocks that K7's inverses start from before they double
+# (inv_lu in csrc/lu_nopiv_tile.cu).
+_LU_INV_BASE = 16
 
 # Block width of the panel LU kernel (W in csrc/panel_plu.cu and in
 # slate_tpu/internal/panel_plu.py).
@@ -71,7 +76,8 @@ _SWAP_SPAN = (128, 256, 128)
 _RANK_K_SPAN = (1, 127, 1)
 # Tallest panel the physical-swap kernel takes: its rows are spread over
 # one CTA per SM in shared memory (csrc/panel_plu_swap.cu), 187 rows of
-# 1 KB each at w = 256 on 132 SMs; the plain version takes any height.
+# 1 KB each at w = 256 on 132 SMs beside the 32 pivot rows of a column
+# block; the plain version takes any height.
 SWAP_H_MAX = 24576
 _CAPS_CUDA = {
     "potrf_tile": {"float32": _SPAN},
@@ -157,10 +163,10 @@ _SIGNATURES = {
                                   (_P, _P, _I, _I, _I) + (_L,) * 4 + (_P,)),
     "slate_qr_subpanel_f32": ("panel_qr",
                               (_P, _L, _I, _I, _P, _P, _P, _I, _P)),
-    "slate_lu_nopiv_tile_f32": ("lu_nopiv_tile", (_P, _I, _P, _P)),
+    "slate_lu_nopiv_tile_f32": ("lu_nopiv_tile", (_P, _I, _P, _P, _U, _P)),
     "slate_hb2st_f32": ("band_chase", (_P, _I, _I, _P, _P, _P, _I, _P)),
     "slate_tb2bd_f32": ("band_chase", (_P, _I, _I) + (_P,) * 5 + (_I, _P)),
-    "slate_panel_plu_swap_f32": ("panel_plu_swap", (_P,) * 7 + (_I,) * 3
+    "slate_panel_plu_swap_f32": ("panel_plu_swap", (_P,) * 6 + (_I,) * 3
                                  + (_P,)),
     "slate_rank_k_tail_f32": ("rank_k_tail", (_P, _I, _P, _I, _P, _I, _P)
                               + (_I,) * 3 + (_F, _F, _P)),
@@ -186,7 +192,7 @@ def _launch(symbol: str, device: torch.device, *args) -> None:
         raise SlateError(f"{symbol}: CUDA error {rc} at launch")
 
 
-# Ready flags of the dataflow kernels K1 and K3, one buffer per (device,
+# Ready flags of the dataflow kernels K1, K3 and K7, one buffer per (device,
 # stream) with the epoch of its last launch: every launch passes the next
 # epoch, so the flags need no reset between launches (csrc/dataflow.cuh).
 # The kernels order a flag against the epoch by their signed difference,
@@ -203,7 +209,8 @@ def _ready_flags(device: torch.device, count: int) -> tuple[torch.Tensor, int]:
     Raises under CUDA graph capture: a replay would repeat the captured
     epoch, which every flag has already reached."""
     slate_error_if(torch.cuda.is_current_stream_capturing(),
-                   "the dataflow kernels (potrf_tile, trsm_left_lower) "
+                   "the dataflow kernels (potrf_tile, trsm_left_lower, "
+                   "lu_nopiv_tile) "
                    "cannot be captured in a CUDA graph: each launch needs "
                    "a new epoch for its ready flags")
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
@@ -297,20 +304,28 @@ def _chol_block(d: torch.Tensor) -> torch.Tensor:
     return d.tril_()
 
 
-def _inv_lower_doubling(l: torch.Tensor, unit: bool = False) -> torch.Tensor:
+def _inv_lower_doubling(l: torch.Tensor, unit: bool = False,
+                        base: int = 1) -> torch.Tensor:
     """Inverse of a lower-triangular block of width w ≤ :data:`BT` by
     recursive doubling, as the kernels' ``inv_lower`` (csrc/dataflow.cuh):
     padded to BT with the identity, the inverted diagonal first, then at
     block size s = 1, 2, …, BT/2 every 2s-block [[A, 0], [C, D]] gets
     −D⁻¹·(C·A⁻¹) from its two inverted s-blocks. ``unit`` takes the
-    diagonal as ones."""
+    diagonal as ones. With ``base`` > 1 the doubling starts from the
+    inverted base × base diagonal blocks (K7's ``inv_lu``)."""
     w = l.shape[0]
     t = torch.eye(BT, dtype=l.dtype, device=l.device)
     t[:w, :w] = l.tril()
     v = torch.eye(BT, dtype=l.dtype, device=l.device)
-    if not unit:
+    if base > 1:
+        eye = torch.eye(base, dtype=l.dtype, device=l.device)
+        for b in range(0, BT, base):
+            v[b:b + base, b:b + base] = torch.linalg.solve_triangular(
+                t[b:b + base, b:b + base], eye, upper=False,
+                unitriangular=unit)
+    elif not unit:
         v[:w, :w] = torch.diag(1 / torch.diagonal(t)[:w])
-    s = 1
+    s = base
     while s < BT:
         q = 2 * s
         nblk = BT // q
@@ -707,14 +722,20 @@ def lu_nopiv_tile(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     package it sits behind the ``tile`` rung, off by default
     (tile_kernels.py:71-80, :308-311), as B1 does; the port sends it
     whatever :data:`CAPABILITY` admits on the card, as it does for
-    :func:`potrf_tile`. Bound on an H100: FP32 operations (2nb³/3 flops)
-    at large nb, but each diagonal block is latency-bound on one CTA.
-    Design (csrc/lu_nopiv_tile.cu), K1's: the tile stays in global memory
-    (4 MB at nb = 1024, resident in L2) and a host loop walks 64-column
-    blocks, four launches each: the diagonal block factored by one CTA
-    in shared memory, with the inverses of its unit L and safe U; then
-    L21 = A21·U11⁻¹, U12 = L11⁻¹·A12 and A22 −= L21·U12 over grids of
-    CTAs. Any nb from 1 to 1024; the ragged last block is masked.
+    :func:`potrf_tile`. Bound on an H100: the flops (2nb³/3, 11 µs of
+    the FP32 rate at nb = 1024) are not; the chain of nb/64 dependent
+    diagonal blocks is. Design (csrc/lu_nopiv_tile.cu), K1's: one
+    cooperative launch of a left-looking tile algorithm driven by ready
+    flags. The tile stays in global memory (4 MB at nb = 1024, resident
+    in L2); each 64×64 tile (i, k) is a task that sums L[i, j]·U[j, k]
+    over j < min(i, k) as its operands are published, then either
+    factors the diagonal block in shared memory (16-column panels, each
+    by one warp in registers) and inverts its unit L and safe U (16×16
+    blocks by one warp each, then recursive doubling), or multiplies by
+    one of those inverses: L[i, k] = (A − Σ)·U⁻¹ below the diagonal,
+    U[i, k] = L⁻¹·(A − Σ) above. No host loop, launch or grid barrier
+    sits on the chain. Any nb from 1 to 1024; the ragged last block is
+    masked.
     """
     if not _route("lu_nopiv_tile", a):
         return lu_nopiv_tile_plain(a)
@@ -722,63 +743,70 @@ def lu_nopiv_tile(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     _check("lu_nopiv_tile", nb, a)
     slate_error_if(a.shape[0] != nb, "lu_nopiv_tile: square tile expected")
     out = a.clone(memory_format=torch.contiguous_format)
-    inv = torch.empty(2 * BS * BS, dtype=torch.float32, device=a.device)
+    nt = -(-nb // BT)
+    inv = torch.empty(nt * 2 * BT * BT, dtype=torch.float32, device=a.device)
+    flags, epoch = _ready_flags(a.device, nt * nt)
     _launch("slate_lu_nopiv_tile_f32", a.device, _P(out.data_ptr()), nb,
-            _P(inv.data_ptr()))
+            _P(inv.data_ptr()), _P(flags.data_ptr()), epoch)
     LAUNCHES["lu_nopiv_tile"] += 1
     return out, (torch.diagonal(out) == 0).sum().int()
 
 
-def _lu_unblocked(d: torch.Tensor) -> torch.Tensor:
-    """Unblocked unpivoted LU of a small block, in place, with the safe
-    pivot (the kernel's ``lu_diag`` loop)."""
+def _lu_block(d: torch.Tensor) -> torch.Tensor:
+    """Unpivoted LU of a diagonal block (width ≤ :data:`BT`), in place,
+    as the kernel's ``lu_block``: 16-column panels factored column by
+    column (the multipliers times the reciprocal of the pivot, 1 in
+    place of a zero one; the update kept inside the panel), then the
+    panel's U rows right of it, L11⁻¹·A12 by forward substitution, and
+    the trailing block minus L21·U12."""
     w = d.shape[0]
-    for j in range(w):
-        p = d[j, j]
-        d[j + 1:, j] /= torch.where(p == 0, 1.0, p).to(d.dtype)
-        d[j + 1:, j + 1:] -= torch.outer(d[j + 1:, j], d[j, j + 1:])
+    for p in range(0, w, _CHOL_PANEL):
+        e = min(w, p + _CHOL_PANEL)
+        for j in range(p, e):
+            piv = d[j, j]
+            r = 1 / torch.where(piv == 0, 1.0, piv).to(d.dtype)
+            col = d[j + 1:, j] * r
+            d[j + 1:, j + 1:e] -= torch.outer(col, d[j, j + 1:e])
+            d[j + 1:, j] = col
+        if e < w:
+            for q in range(p, e):
+                d[q + 1:e, e:] -= torch.outer(d[q + 1:e, q], d[q, e:])
+            d[e:, e:] -= d[e:, p:e] @ d[p:e, e:]
     return d
 
 
-def _inv_lower(l: torch.Tensor) -> torch.Tensor:
-    """Inverse of a small lower-triangular block by forward
-    substitution."""
-    w = l.shape[0]
-    eye = torch.eye(w, dtype=l.dtype, device=l.device)
-    x = torch.zeros_like(l)
-    for i in range(w):
-        x[i] = (eye[i] - l[i, :i] @ x[:i]) / l[i, i]
-    return x
-
-
-def _inv_upper_safe(u: torch.Tensor) -> torch.Tensor:
-    """Inverse of a small upper-triangular block whose zero diagonal
-    entries are taken as 1, by back substitution."""
-    w = u.shape[0]
+def _inv_upper_safe_doubling(u: torch.Tensor) -> torch.Tensor:
+    """Inverse of an upper-triangular block (width ≤ :data:`BT`) whose zero
+    diagonal entries are taken as 1, as the kernel forms it: the
+    doubling inverse (:func:`_inv_lower_doubling`, from 16×16 blocks) of
+    the lower block Uᵀ, transposed."""
+    u = u.triu()
     d = torch.diagonal(u)
-    d = torch.where(d == 0, 1.0, d).to(u.dtype)
-    eye = torch.eye(w, dtype=u.dtype, device=u.device)
-    x = torch.zeros_like(u)
-    for i in reversed(range(w)):
-        x[i] = (eye[i] - u[i, i + 1:] @ x[i + 1:]) / d[i]
-    return x
+    u = u - torch.diag(d) + torch.diag(torch.where(d == 0, 1.0, d).to(u.dtype))
+    return _inv_lower_doubling(u.mT, base=_LU_INV_BASE).mT
 
 
 def lu_nopiv_tile_plain(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`lu_nopiv_tile`: the same 64-column
-    blocked algorithm."""
+    """Plain PyTorch version of :func:`lu_nopiv_tile`: the same
+    left-looking algorithm over 64-column blocks — per block the sums of
+    the earlier blocks' products in its L column and U row, the diagonal
+    block's factor, the inverses of its unit L and safe U (16×16 blocks,
+    then recursive doubling), and the products of the L column with U⁻¹
+    and of L⁻¹ with the U row."""
     a = a.clone()
     nb = a.shape[0]
     with full_f32_matmul():
-        for j0 in range(0, nb, BS):
-            e = min(nb, j0 + BS)
-            d = _lu_unblocked(a[j0:e, j0:e].clone())
-            a[j0:e, j0:e] = d
+        for k0 in range(0, nb, BT):
+            e = min(nb, k0 + BT)
+            if k0:
+                a[k0:, k0:e] -= a[k0:, :k0] @ a[:k0, k0:e]
+                a[k0:e, e:] -= a[k0:e, :k0] @ a[:k0, e:]
+            d = _lu_block(a[k0:e, k0:e].clone())
+            a[k0:e, k0:e] = d
             if e < nb:
-                eye = torch.eye(e - j0, dtype=a.dtype, device=a.device)
-                a[e:, j0:e] = a[e:, j0:e] @ _inv_upper_safe(d.triu())
-                a[j0:e, e:] = _inv_lower(d.tril(-1) + eye) @ a[j0:e, e:]
-                a[e:, e:] -= a[e:, j0:e] @ a[j0:e, e:]
+                a[e:, k0:e] = a[e:, k0:e] @ _inv_upper_safe_doubling(d)
+                a[k0:e, e:] = _inv_lower_doubling(
+                    d, unit=True, base=_LU_INV_BASE) @ a[k0:e, e:]
     return a, (torch.diagonal(a) == 0).sum().int()
 
 
@@ -910,13 +938,20 @@ def panel_plu_swap(a: torch.Tensor):
     Mosaic having no dynamic indexing. Bound on an H100: latency — w
     dependent column steps, each a reduction over all h rows and a row
     exchange; the bytes (2·h·w·4) and flops (h·w²) are tens of µs of
-    work. Design (csrc/panel_plu_swap.cu), K4's: one cooperative launch,
-    one CTA per SM holding its band of positions in shared memory; per
-    column each CTA publishes its winner and that row, and the holder of
-    position j publishes row j, one grid barrier, then every CTA reduces
-    the candidates in the same order (ties to the lower position), the
-    holders of j and of the winner exchange the two rows, and every CTA
-    updates its own rows.
+    work. Design (csrc/panel_plu_swap.cu): one cooperative launch, one
+    CTA per SM holding its band of positions in shared memory; per column
+    each CTA publishes its winner as one 64-bit word, then that row (and
+    the holder of position j row j) with the column's tag on every
+    element, waits for the other CTAs' words (no grid barrier, no memory
+    fence), reduces them in the same order (ties to the lower position),
+    the holders of j and of the winner exchange the two rows, and every
+    CTA forms its multipliers and updates column j + 1 before it
+    publishes the next candidate. The rest of the rank-1
+    update leaves the column's chain: a step updates only its 32-column
+    block, and at the block's end each CTA applies the block's 32 updates
+    to its rows' trailing columns from registers, in the column loop's
+    order and roundings (the result is bitwise that of the plain
+    version).
     """
     h, w = a.shape
     if not _route("panel_plu_pallas", a):
@@ -926,15 +961,19 @@ def panel_plu_swap(a: torch.Tensor):
                    f"kernel's {SWAP_H_MAX}")
     dev = a.device
     lu = a.clone(memory_format=torch.contiguous_format)
-    maxc = -(-h // _PLU_MIN_ROWS)
-    cand_s = torch.empty(2 * maxc, dtype=torch.float32, device=dev)
-    cand_r = torch.empty(2 * maxc, dtype=torch.int32, device=dev)
-    cand_row = torch.empty(2 * maxc * w, dtype=torch.float32, device=dev)
-    row_j = torch.empty(2 * w, dtype=torch.float32, device=dev)
+    # one CTA per SM at most (csrc/panel_plu_swap.cu)
+    maxc = min(-(-h // _PLU_MIN_ROWS),
+               torch.cuda.get_device_properties(dev).multi_processor_count)
+    # candidate words and published rows, zeroed: an entry is ready once
+    # it carries its column's tag, so none of an earlier call may be left
+    cand = torch.zeros(2 * maxc * (w + 1) + 2 * w, dtype=torch.int64,
+                       device=dev)
+    cand_row = cand[2 * maxc:2 * maxc * (w + 1)]
+    row_j = cand[2 * maxc * (w + 1):]
     piv = torch.empty(min(h, w), dtype=torch.int32, device=dev)
     info = torch.empty(1, dtype=torch.int32, device=dev)
     _launch("slate_panel_plu_swap_f32", dev, *(_P(t.data_ptr()) for t in (
-        lu, piv, info, cand_s, cand_r, cand_row, row_j)), maxc, h, w)
+        lu, piv, info, cand, cand_row, row_j)), maxc, h, w)
     LAUNCHES["panel_plu_pallas"] += 1
     return lu, piv, info[0]
 

@@ -8,8 +8,12 @@ tests/test_torch_gpu.py.
 Inputs are diagonally dominant (G + n·I from a numpy seed), so no pivot
 is needed, except where a zero row and column make one exact zero pivot.
 Tolerances: ``info`` must be equal. The tile LU against the Pallas
-kernel in interpret mode within relative Frobenius 1e-5 in f32 (the
-Pallas kernel blocks by 128 columns, the port's by 64); the drivers and
+kernel in interpret mode (and at the ragged nb = 200, which the Pallas
+kernel does not factor, against the textbook LU in f64) within relative
+Frobenius 1e-5 in f32 (the
+Pallas kernel blocks by 128 columns right-looking, the port's by 64
+left-looking); the plain version's doubling inverse of a safe upper
+block against ``solve_triangular`` within 1e-13 in f64; the drivers and
 solves within 1e-5 in f32 and 1e-12 in f64 (the tile factorizations and
 trailing products sum in other orders).
 """
@@ -47,7 +51,7 @@ def dominant(n, dt, seed, zero=None):
     return a.astype(dt)
 
 
-@pytest.mark.parametrize("nb", [64, 256])
+@pytest.mark.parametrize("nb", [64, 256, 100])
 def test_lu_nopiv_tile_plain_matches_pallas(nb):
     a = dominant(nb, np.float32, nb, zero=ZERO)
     ref, rinfo = pk.lu_nopiv_tile_pallas(jnp.asarray(a), interpret=True)
@@ -56,6 +60,42 @@ def test_lu_nopiv_tile_plain_matches_pallas(nb):
     assert K.LAUNCHES == before               # the plain version ran
     assert int(info) == int(rinfo) == 1 and lu[ZERO, ZERO] == 0.0
     assert rel(lu.numpy(), np.asarray(ref)) < TOL[np.float32]
+
+
+def test_lu_nopiv_tile_plain_ragged_matches_textbook_lu():
+    """nb = 200 is ragged against the port's 64-column blocks; the Pallas
+    kernel factors only nb // 128 of its 128-column blocks (its
+    capability row is 128 … 1024 by 128), so the reference here is the
+    textbook right-looking LU in f64 with the same safe pivot."""
+    nb = 200
+    a = dominant(nb, np.float32, nb, zero=ZERO)
+    ref = a.astype(np.float64)
+    for j in range(nb):
+        p = ref[j, j]
+        ref[j + 1:, j] /= 1.0 if p == 0 else p
+        ref[j + 1:, j + 1:] -= np.outer(ref[j + 1:, j], ref[j, j + 1:])
+    lu, info = K.lu_nopiv_tile(torch.from_numpy(a))
+    assert int(info) == 1 and lu[ZERO, ZERO] == 0.0
+    assert rel(lu.numpy(), ref) < TOL[np.float32]
+
+
+@pytest.mark.parametrize("w", [64, 37])
+def test_inv_upper_safe_doubling_matches_solve_triangular(w):
+    """The plain version's U⁻¹ (the doubling inverse of Uᵀ, as the kernel
+    forms it) against a triangular solve with the safe diagonal, one
+    diagonal entry exactly zero."""
+    rng = np.random.default_rng(w)
+    u = np.triu(rng.standard_normal((w, w)) / w) + np.eye(w)
+    u[w // 2, w // 2] = 0.0
+    safe = u.copy()
+    safe[w // 2, w // 2] = 1.0
+    ut = torch.from_numpy(u)
+    ref = torch.linalg.solve_triangular(torch.from_numpy(safe),
+                                        torch.eye(w, dtype=ut.dtype),
+                                        upper=True)
+    inv = K._inv_upper_safe_doubling(ut)
+    assert torch.equal(inv, inv.triu())
+    assert rel(inv.numpy(), ref.numpy()) < 1e-13
 
 
 @pytest.mark.parametrize("dt", [np.float32, np.float64])

@@ -93,12 +93,13 @@ def test_trsm_left_kernel_matches_plain(cuda, n, m):
 
 
 def test_dataflow_kernels_refuse_graph_capture(cuda):
-    """K1 and K3 raise under CUDA graph capture: a replay would repeat
+    """K1, K3 and K7 raise under CUDA graph capture: a replay would repeat
     the captured epoch of their ready flags."""
     l = torch.eye(64, device=cuda)
     b = torch.ones(64, 8, device=cuda)
     torch.cuda.synchronize()
-    for fn in (lambda: K.trsm_left_lower(l, b), lambda: K.potrf_tile(l)):
+    for fn in (lambda: K.trsm_left_lower(l, b), lambda: K.potrf_tile(l),
+               lambda: K.lu_nopiv_tile(l)):
         with pytest.raises(st.SlateError, match="CUDA graph"):
             with torch.cuda.graph(torch.cuda.CUDAGraph()):
                 fn()
@@ -283,7 +284,7 @@ def test_panel_qr_kernel_matches_plain(cuda, h, d0):
     assert torch.equal(big[:, 256:], ref[:, 256:])
 
 
-@pytest.mark.parametrize("nb", [1024, 200, 37, 1])
+@pytest.mark.parametrize("nb", [1024, 256, 200, 65, 37, 1])
 def test_lu_nopiv_tile_kernel_matches_plain(cuda, nb):
     gen = torch.Generator(device=cuda).manual_seed(nb)
     a = torch.randn(nb, nb, generator=gen, device=cuda) \
@@ -454,20 +455,30 @@ def tie_panel(h=128, w=128, seed=0):
     return a
 
 
-@pytest.mark.parametrize("h,w,case", [(16128, 256, "random"),
+@pytest.mark.parametrize("h,w,case", [(K.SWAP_H_MAX, 256, "random"),
+                                      (16128, 256, "random"),
+                                      (8192, 256, "random"),
+                                      (2048, 256, "random"),
+                                      (256, 256, "random"),
                                       (300, 128, "random"),
+                                      (130, 128, "random"),
+                                      (70, 128, "random"),
                                       (128, 128, "tie"),
-                                      (256, 128, "nan")])
+                                      (256, 128, "nan"),
+                                      (256, 128, "zero")])
 def test_panel_plu_swap_kernel_matches_plain(cuda, h, w, case):
     """K10 against its plain version on the card: pivots and info equal,
-    values within atol 1e-4 (both divide, multiply and subtract with one
-    rounding each, so they agree bit for bit in practice), the NaN
-    pattern equal; the tie goes to position 1."""
+    the NaN pattern equal, values within atol 1e-4; at the random shapes
+    (hesv's panel heights among them) bit for bit (both divide, multiply
+    and subtract with one rounding each, in the same order); the tie goes
+    to position 1."""
     rng = np.random.default_rng(h)
     a = (tie_panel(h, w) if case == "tie"
          else rng.standard_normal((h, w)).astype(np.float32))
     if case == "nan":
         a[40, 7] = np.nan
+    if case == "zero":
+        a[:, 0] = 0.0
     g = torch.from_numpy(a).to(cuda)
     before = K.LAUNCHES["panel_plu_pallas"]
     lu, piv, info = K.panel_plu_swap(g)
@@ -478,10 +489,14 @@ def test_panel_plu_swap_kernel_matches_plain(cuda, h, w, case):
     assert torch.equal(torch.isnan(lu).cpu(), torch.isnan(lu_p).cpu())
     fin = ~torch.isnan(lu_p)
     assert float((lu[fin] - lu_p[fin]).abs().max()) <= 1e-4
+    if case == "random":
+        assert torch.equal(lu.view(torch.int32), lu_p.view(torch.int32))
     if case == "tie":
         assert piv[:2].tolist() == [3, 1]
     if case == "nan":
         assert int(piv[7]) == h and int(info) >= 1
+    if case == "zero":
+        assert int(info) >= 1
 
 
 @pytest.mark.parametrize("m,n,k", [(32, 96, 96), (4096, 4096, 64),

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the tile-Cholesky (K1) and left triangular-solve (K3) kernels of
+"""Time the tile-Cholesky (K1), left triangular-solve (K3), unpivoted
+tile-LU (K7) and physical-swap panel-LU (K10) kernels of
 ``slate_tpu_torch`` on one CUDA card, beside their plain versions and the
 one ``torch.linalg`` call that computes the same function; run K2 (the
 right solve) on fixed inputs; and time ``potrf``/``posv`` at the main
@@ -13,9 +14,13 @@ tree's ``chip_smoke.py`` (``potrf_tile_row``, ``trsm_left_row``,
 ``time_ms``), so two trees can be compared on one card in one command
 (parent, change, change, parent). K2 runs at ``chip_smoke.py``'s phase-2
 shapes; its output is printed as a digest (equal digests: equal bits)
-and it is timed at the posv panel. ``--sweep`` also times the kernels
-alone at widths 64 … 1024 (K3 with 8 columns: the time per 64-wide block
-step) and K3 at n = 1024 over m = 8 … 256 beside ``solve_triangular``.
+and it is timed at the posv panel. K7 runs at [1024, 1024] (gesv_nopiv's
+tile), [256, 256] and [200, 200] beside ``lu_factor(pivot=False)``; K10
+at hesv's panel heights [16128, 256], [8192, 256], [2048, 256] and
+[256, 256] beside ``lu_factor``, with a digest of its output.
+``--sweep`` also times K1, K3 and K7 alone at widths 64 … 1024 (K3 with
+8 columns: the time per 64-wide block step) and K3 at n = 1024 over
+m = 8 … 256 beside ``solve_triangular``.
 Prints one JSON object per line: a row per kernel shape (``ms``,
 ``plain_ms``, ``library_ms``, ``bound_ms``, ``ratio`` = ``ms /
 library_ms``) and one ``posv`` row. Compare ratios only within one
@@ -34,6 +39,13 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
+
+
+def dominant_tile(nb, gen):
+    """G + nb·I: a tile the unpivoted LU factors without a small pivot."""
+    import torch
+    return (torch.randn(nb, nb, generator=gen, device="cuda")
+            + nb * torch.eye(nb, device="cuda"))
 
 
 def main() -> int:
@@ -62,7 +74,9 @@ def main() -> int:
     def emit(kernel, shape, r):
         b, by = r.pop("bound")
         print(json.dumps(dict(kernel=kernel, shape=shape, **r, bound_ms=b,
-                              bound_by=by, ratio=r["ms"] / r["library_ms"],
+                              bound_by=by,
+                              ratio=(r["ms"] / r["library_ms"]
+                                     if r["library_ms"] else None),
                               label=args.label, device=smi)), flush=True)
 
     for nb in (1024, 256):
@@ -88,16 +102,37 @@ def main() -> int:
             print(json.dumps(dict(**row, label=args.label, device=smi)),
                   flush=True)
 
+    # K7 on G + nb·I (gesv_nopiv's tile at 1024, smaller and ragged ones)
+    g7 = torch.Generator(device="cuda").manual_seed(7)
+    for nb in (1024, 256, 200):
+        emit("lu_nopiv_tile", [nb, nb],
+             cs.lu_nopiv_tile_row(dominant_tile(nb, g7), plain_reps=3))
+
+    # K10 at hesv's panel heights, with a digest of its output (lu, piv,
+    # info) so two trees can be held to equal bits
+    g10 = torch.Generator(device="cuda").manual_seed(10)
+    for h in (cs.N - cs.AASEN_NB, 8192, 2048, cs.AASEN_NB):
+        a = torch.randn(h, cs.AASEN_NB, generator=g10, device="cuda")
+        lu, piv, info = K.panel_plu_swap(a)
+        sha = hashlib.sha256(lu.cpu().numpy().tobytes()
+                             + piv.cpu().numpy().tobytes()
+                             + info.cpu().numpy().tobytes()).hexdigest()[:16]
+        r = cs.swap_row(a, plain_reps=1 if h > 8192 else 3)
+        r["us_per_column"] = r["ms"] / cs.AASEN_NB * 1e3
+        emit("panel_plu_swap", [h, cs.AASEN_NB], dict(**r, sha256=sha))
+
     if args.sweep:
         for w in (64, 128, 256, 512, 1024):
             a = cs.spd_tile(w, gen)
             l = cs.lower_factor(w, gen)
             x = torch.randn(w, 8, generator=gen, device="cuda")
+            d = dominant_tile(w, gen)
             print(json.dumps(dict(
                 kernel="sweep", width=w,
                 potrf_tile_ms=cs.time_ms(lambda: K.potrf_tile(a)),
                 trsm_left_lower_ms=cs.time_ms(
                     lambda: K.trsm_left_lower(l, x)),
+                lu_nopiv_tile_ms=cs.time_ms(lambda: K.lu_nopiv_tile(d)),
                 label=args.label, device=smi)), flush=True)
         l = cs.lower_factor(1024, gen)
         for m in (8, 16, 32, 64, 65, 128, 256):
