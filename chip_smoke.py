@@ -13,16 +13,20 @@
    kernel's time, the plain version's time, the ``torch.linalg`` call's
    time (CUDA events, median of 7 runs after a warm-up) and the least
    time the card could take (FP32 operations or bytes). K1 at nb = 1024,
-   256, 200, 65 and 1; K3 at B = [1024, 8] and [256, 8] (its callers'
+   256, 200, 65 and 1; K2 at B = [15360, 1024] and [300, 200], unit and
+   not, and [1024, 1024], timed at the largest and smallest ``posv``
+   panel heights (15360, 1024) beside ``solve_triangular``; K3 at B =
+   [1024, 8] and [256, 8] (its callers'
    real columns: posv, gesv, gesv_nopiv, gels LQ; hesv), [1024, 1024]
    and [200, 37], unit and not, timed at the first three beside
    ``solve_triangular``.
 2b. The LU panel kernels (K4 ``panel_plu``, K5 ``panel_fold`` /
    ``panel_unfold``) against their plain versions on the card: K4 on a
    folded [8, 1024, 2048] panel at blocks 0 and 7 with 3000 rows already
-   inactive, flat at h=7424 and h=384, and through
+   inactive, the same shape block 0 on a tie, a NaN, a zero-column and a
+   half-inactive panel, flat at h=7424 and h=384, and through
    ``plu_subpanel(fold=True)`` at h=16384 (pivots, mask and ``info``
-   equal, values within atol 1e-4); K5 bitwise against
+   equal, values bit for bit); K5 bitwise against
    ``permute().contiguous()``. Times as in 2; the library call is
    ``torch.linalg.lu_factor`` on the [h, 128] subpanel for K4 and the
    ``permute().contiguous()`` copy for K5.
@@ -154,6 +158,7 @@ import torch
 
 N, NB, NRHS = 16384, 1024, 8
 FLAT_N, FLAT_NB = 8448, 256   # every LU panel window height ≡ 256 mod 1024
+PLU_FLAT_H = 7424             # a K4 flat subpanel height of the 8448 gesv
 QR_M, QR_N = 16384, 4096      # the JAX bench's geqrf shape (bench.py:766-791)
 EIG_N, EIG_NB = 8192, 128     # heev2_split_8192 / gesvd2_split_8192 (bench.py:945-1051)
 # K8/K9 checks (n, band): the shapes of 3h/3j and 3i/3k, then two small
@@ -174,7 +179,7 @@ CHASE_PLAIN_MAX_N = 4096
 CHASE_DE_TOL = 5e-2
 CHASE_SWEEP0_TOL = 1e-4   # K8/K9 vs plain: sweep 0's V and τ (a short chain)
 TOL = 1e-5                # kernel vs plain: relative Frobenius error, FP32
-LU_ATOL = 1e-4            # K4 vs plain: values (pivots, mask, info equal)
+LU_ATOL = 1e-4            # K10 vs plain where not bitwise (pivots, info equal)
 FP32_PEAK = 67e12         # H100 SXM, non-tensor FP32 FLOP/s (data sheet)
 HBM_RATE = 3.35e12        # H100 SXM, bytes/s (data sheet)
 REPS = 7
@@ -362,6 +367,20 @@ def swap_row(a, plain_reps=3):
                 bound=swap_bound(h, w))
 
 
+def trsm_right_row(l, b, plain_reps=REPS):
+    """K2's times on L [n, n], B [m, n] beside its plain version and
+    ``solve_triangular``; bound: m·n² FLOP, or L and B read and X
+    written."""
+    from slate_tpu_torch.internal import kernels as K
+    m, n = b.shape
+    return dict(ms=time_ms(lambda: K.trsm_right_lower_t(l, b)),
+                plain_ms=time_ms(lambda: K.trsm_right_lower_t_plain(l, b),
+                                 reps=plain_reps),
+                library_ms=time_ms(lambda: torch.linalg.solve_triangular(
+                    l.mT, b, upper=True, left=False)),
+                bound=bound(m * n * n, (n * n + 2 * m * n) * 4))
+
+
 def check(name, kernel_fn, plain_fn, label):
     out = kernel_fn()
     ref = plain_fn()
@@ -399,13 +418,19 @@ def phase_kernels():
                        lambda: K.trsm_right_lower_t_plain(l, b, unit),
                        f"B=[{m},{n}] unit={unit}")
             if (m, n) == (N - NB, NB) and not unit:
-                rows["trsm_right_lower_t"] = dict(
-                    max_abs_err=mx,
-                    ms=time_ms(lambda: K.trsm_right_lower_t(l, b)),
-                    plain_ms=time_ms(lambda: K.trsm_right_lower_t_plain(l, b)),
-                    library_ms=time_ms(lambda: torch.linalg.solve_triangular(
-                        l.mT, b, upper=True, left=False)),
-                    bound=bound(m * n * n, (n * n + 2 * m * n) * 4))
+                rows["trsm_right_lower_t"] = dict(max_abs_err=mx,
+                                                  **trsm_right_row(l, b))
+                # the smallest posv panel height beside the largest
+                b = torch.randn(NB, NB, generator=gen, device="cuda")
+                mx = check("trsm_right_lower_t",
+                           lambda: K.trsm_right_lower_t(l, b),
+                           lambda: K.trsm_right_lower_t_plain(l, b),
+                           f"B=[{NB},{NB}]")
+                r = trsm_right_row(l, b, plain_reps=3)
+                say(f"  trsm_right_lower_t B=[{NB},{NB}]: kernel_ms "
+                    f"{r['ms']:.4f}, library_ms {r['library_ms']:.4f} "
+                    f"(solve_triangular), bound_ms {r['bound'][0]:.4f} "
+                    f"({r['bound'][1]})")
 
     # K3 at its callers' shapes (the nrhs = 8 real columns of a block row
     # against a 1024 tile in posv, gesv, gesv_nopiv and gels LQ, a 256
@@ -504,22 +529,61 @@ def plu_bound(h, act):
     return bound(flops, (2 * h * 128 + 2 * h) * 4 + 128 * 4)
 
 
+# the panels K4 is checked and digested on (plu_panel_case)
+PLU_KINDS = ("random", "tie", "nan", "zero_column", "inactive")
+
+
+def plu_panel_case(kind, S, nb, L, seed, device="cuda"):
+    """A segmented panel [S, nb, L] and its mask for K4: ``random``
+    (Gaussian, 18% of rows inactive), ``tie`` (integers in [-3, 3]:
+    equal magnitudes in every column), ``nan`` (one NaN in an active row,
+    column 9 of every block), ``zero_column`` (column 3 of every block
+    zero: a zero pivot) or ``inactive`` (half the rows inactive, those
+    100 times larger: they must neither pivot nor change)."""
+    g = torch.Generator().manual_seed(seed)
+    h = S * L
+    if kind == "tie":
+        buf = torch.randint(-3, 4, (S, nb, L), generator=g).float()
+    else:
+        buf = torch.randn(S, nb, L, generator=g)
+    kill = 0.5 if kind == "inactive" else 0.18
+    act = (torch.rand(h, generator=g) >= kill).float()
+    if kind == "inactive":
+        dead = (act == 0).view(S, 1, L)
+        buf = torch.where(dead, 100 * buf, buf)
+    elif kind == "zero_column":
+        buf[:, 3::128, :] = 0.0
+    elif kind == "nan":
+        r = int(torch.nonzero(act)[h // 3])
+        buf[r // L, 9::128, r % L] = float("nan")
+    return buf.to(device), act.to(device)
+
+
+def same_bits(x, y) -> bool:
+    """NaN at the same places and every other bit equal."""
+    nx, ny = torch.isnan(x), torch.isnan(y)
+    return bool(torch.equal(nx, ny) and torch.equal(
+        x.masked_fill(nx, 0).view(torch.int32),
+        y.masked_fill(ny, 0).view(torch.int32)))
+
+
 def check_plu(label, buf, act, blk, name):
     """K4 on copies of (buf, act) against its plain version: equal
-    pivots, mask and info, values within LU_ATOL; returns the max
-    absolute difference."""
+    pivots, mask and info, and the values bit for bit (NaN where the
+    plain version has NaN); returns the max absolute difference."""
     from slate_tpu_torch.internal import kernels as K
     kb, ka = buf.clone(), act.clone()
     piv, info = K.panel_plu(kb, ka, blk, name=name)
     piv_p, info_p = K.panel_plu_plain(buf, act, blk)   # in place on the inputs
     torch.cuda.synchronize()
-    mx = float((kb - buf).abs().max())
+    mx = float((kb - buf).abs().nan_to_num(0.0).max())
+    bits = same_bits(kb, buf)
     ok = (torch.equal(piv, piv_p) and torch.equal(ka, act)
-          and int(info) == int(info_p) and mx <= LU_ATOL)
+          and int(info) == int(info_p) and bits)
     say(f"  panel_plu {label}: pivots/mask/info equal "
         f"{torch.equal(piv, piv_p)}/{torch.equal(ka, act)}/"
-        f"{int(info) == int(info_p)} (info {int(info)}), max_abs_err "
-        f"{mx:.3e} (tol {LU_ATOL:g}) {'ok' if ok else 'FAIL'}")
+        f"{int(info) == int(info_p)} (info {int(info)}), values bit for bit "
+        f"{bits} (max_abs_err {mx:.3e}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"panel_plu {label} disagrees with its plain "
                              "version")
@@ -595,15 +659,22 @@ def phase_lu_kernels():
                            "plu_call_folded_block"))
     rows["plu_call_folded_block"] = dict(max_abs_err=mx, **t)
     del buf
+    # the same shape on ties, a NaN, a zero column and half the rows
+    # inactive
+    for kind in PLU_KINDS[1:]:
+        kb, ka = plu_panel_case(kind, 8, NB, h // 8, seed=5)
+        check_plu(f"folded [8,1024,2048] block 0, {kind}", kb, ka, 0,
+                  "plu_call_folded_block")
+    del kb
     # K4, flat: [1, 128, h]
-    for hf in (7424, 384):
+    for hf in (PLU_FLAT_H, 384):
         fb = torch.randn(1, 128, hf, generator=gen, device="cuda")
         fa = torch.ones(hf, device="cuda")
         fa[torch.randperm(hf, generator=gen, device="cuda")[:hf // 7]] = 0.0
-        if hf == 7424:
+        if hf == PLU_FLAT_H:
             t = time_plu(fb, fa, 0, "plu_call")
         mxf = check_plu(f"flat h={hf}", fb, fa, 0, "plu_call")
-        if hf == 7424:
+        if hf == PLU_FLAT_H:
             rows["plu_call"] = dict(max_abs_err=mxf, **t)
         else:
             rows["plu_call"]["max_abs_err"] = max(
@@ -621,9 +692,9 @@ def phase_lu_kernels():
     torch.cuda.synchronize()
     mx = float((out - out_p).abs().max())
     ok = (torch.equal(piv, piv_p) and torch.equal(act_k, act_p)
-          and int(info) == int(info_p) and mx <= LU_ATOL)
+          and int(info) == int(info_p) and torch.equal(out, out_p))
     say(f"  plu_subpanel(fold=True) h={h}: pivots, mask, info and values "
-        f"(max_abs_err {mx:.3e}, tol {LU_ATOL:g}) {'ok' if ok else 'FAIL'}")
+        f"bit for bit (max_abs_err {mx:.3e}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("plu_subpanel(fold=True) disagrees with the "
                              "plain versions")
@@ -770,8 +841,10 @@ def _category(name: str) -> str:
         return "panel transposes (K5)"
     if "dataflow_potrf_tile" in name:
         return "potrf_tile kernel (K1)"
-    if "trsm_lower" in name or "dataflow_trsm_left" in name:
-        return "trsm kernels (ours: K2, K3)"
+    if "dataflow_trsm_right" in name:
+        return "right-solve kernel (K2)"
+    if "dataflow_trsm_left" in name:
+        return "left-solve kernel (K3)"
     if "gemm" in name or "xmma" in name or "cutlass" in name:
         return "cuBLAS gemm (trailing update, trsm update)"
     if "trsm" in name:

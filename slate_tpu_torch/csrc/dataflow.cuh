@@ -1,9 +1,9 @@
-// Shared pieces of the dataflow tile kernels (K1 potrf_tile.cu, K3
-// trsm_left.cu, K7 lu_nopiv_tile.cu): one persistent cooperative grid
-// whose CTAs take 64-wide tasks in a fixed order and wait for the tasks
-// they read through a ready flag per task in global memory, the 64x64
-// FP32 operand tiles in shared memory with their products, and the
-// inverse of a lower-triangular 64x64 block by recursive doubling.
+// Shared pieces of the dataflow tile kernels (K1 potrf_tile.cu, K2
+// trsm_lower.cu, K3 trsm_left.cu, K7 lu_nopiv_tile.cu): one persistent
+// cooperative grid whose CTAs take 64-wide tasks in a fixed order and wait
+// for the tasks they read through a ready flag per task in global memory,
+// the 64x64 FP32 operand tiles in shared memory with their products, and
+// the inverse of a lower-triangular 64x64 block by recursive doubling.
 //
 // Flags carry an epoch: the caller keeps one flag buffer per stream and
 // passes a new epoch to every launch, so a task is ready once its flag has

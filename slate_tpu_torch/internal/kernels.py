@@ -39,13 +39,9 @@ from ..errors import SlateError, slate_error_if
 from . import band_bulge
 from .precision import full_f32_matmul
 
-# Column-block width of the kernels (TS in csrc/common.cuh); the plain
-# versions block the same way.
-BS = 64
-
-# Task edge of the dataflow kernels K1, K3 and K7 (BT in
-# csrc/dataflow.cuh): K1's and K7's tiles and K3's block rows; their plain
-# versions block the same way.
+# Task edge of the dataflow kernels K1, K2, K3 and K7 (BT in
+# csrc/dataflow.cuh): K1's and K7's tiles, K2's column blocks and K3's
+# block rows; their plain versions block the same way.
 BT = 64
 # Panel width of K1's and K7's diagonal-block factors (CP in
 # csrc/potrf_tile.cu and csrc/lu_nopiv_tile.cu).
@@ -57,8 +53,8 @@ _LU_INV_BASE = 16
 # Block width of the panel LU kernel (W in csrc/panel_plu.cu and in
 # slate_tpu/internal/panel_plu.py).
 W = 128
-# Fewest rows one CTA of the panel LU kernel holds (MIN_ROWS in
-# csrc/panel_plu.cu); it bounds the grid, hence the scratch, by h / 32.
+# Fewest rows one CTA of the panel LU kernels holds (MIN_ROWS in
+# csrc/panel_plu.cu and csrc/panel_plu_swap.cu).
 _PLU_MIN_ROWS = 32
 # The same for the panel QR kernel (MIN_ROWS in csrc/panel_qr.cu).
 _QR_MIN_ROWS = 32
@@ -155,10 +151,11 @@ _F = ctypes.c_float
 _U = ctypes.c_uint
 _SIGNATURES = {
     "slate_potrf_tile_f32": ("potrf_tile", (_P, _I, _P, _P, _U, _P)),
-    "slate_trsm_right_lower_t_f32": ("trsm_lower", (_P, _P, _I, _I, _I, _P)),
+    "slate_trsm_right_lower_t_f32": ("trsm_lower", (_P, _P, _P, _I, _I, _I, _P,
+                                                    _U, _P)),
     "slate_trsm_left_lower_f32": ("trsm_left", (_P, _P, _I, _I, _I, _P, _U,
                                                 _P)),
-    "slate_plu_block_f32": ("panel_plu", (_P,) * 7 + (_I,) * 5 + (_P,)),
+    "slate_plu_block_f32": ("panel_plu", (_P,) * 5 + (_I,) * 6 + (_P,)),
     "slate_panel_transpose_f32": ("panel_transpose",
                                   (_P, _P, _I, _I, _I) + (_L,) * 4 + (_P,)),
     "slate_qr_subpanel_f32": ("panel_qr",
@@ -192,9 +189,10 @@ def _launch(symbol: str, device: torch.device, *args) -> None:
         raise SlateError(f"{symbol}: CUDA error {rc} at launch")
 
 
-# Ready flags of the dataflow kernels K1, K3 and K7, one buffer per (device,
-# stream) with the epoch of its last launch: every launch passes the next
-# epoch, so the flags need no reset between launches (csrc/dataflow.cuh).
+# Ready flags of the dataflow kernels K1, K2, K3 and K7, one buffer per
+# (device, stream) with the epoch of its last launch: every launch passes
+# the next epoch, so the flags need no reset between launches
+# (csrc/dataflow.cuh).
 # The kernels order a flag against the epoch by their signed difference,
 # which is right only while no flag is 2³¹ or more behind: so once the
 # epoch reaches EPOCH_RESTART the buffer is zeroed on the stream and the
@@ -209,8 +207,8 @@ def _ready_flags(device: torch.device, count: int) -> tuple[torch.Tensor, int]:
     Raises under CUDA graph capture: a replay would repeat the captured
     epoch, which every flag has already reached."""
     slate_error_if(torch.cuda.is_current_stream_capturing(),
-                   "the dataflow kernels (potrf_tile, trsm_left_lower, "
-                   "lu_nopiv_tile) "
+                   "the dataflow kernels (potrf_tile, trsm_right_lower_t, "
+                   "trsm_left_lower, lu_nopiv_tile) "
                    "cannot be captured in a CUDA graph: each launch needs "
                    "a new epoch for its ready flags")
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
@@ -368,15 +366,18 @@ def trsm_right_lower_t(l: torch.Tensor, b: torch.Tensor,
     """X = B·L⁻ᵀ for lower L [n, n] and B [m, n]; a new tensor.
 
     Replaces ``trsm_right_lower_t_pallas`` (pallas_kernels.py:613), the
-    potrf panel solve. Bound on an H100: FP32 operations (m·n² flops on
-    the CUDA cores; at the panel [15360, 1024] the bytes are a tenth of
-    that in time). Design (csrc/trsm_lower.cu): a row of X depends only
-    on the same row of B, so a grid of CTAs takes 64 rows each and runs
-    blocked column substitution against L with no dependence across CTAs
-    — no diagonal-block inverses as in the VMEM-resident Pallas kernel.
-    Per 64-column block, the solved blocks are subtracted as 64×64×64
-    products from shared-memory tiles, then the block is substituted
-    column by column, four lanes per row.
+    potrf panel solve (m = 1024 … 15360 rows at n = 1024 on posv). Bound
+    on an H100: FP32 operations (m·n² flops on the CUDA cores; at the
+    panel [15360, 1024] the bytes are a tenth of that in time), provided
+    every SM has work at every m. Design (csrc/trsm_lower.cu): one
+    cooperative launch whose tasks are first the n/64 diagonal inverses
+    of L (recursive doubling, published once behind ready flags), then
+    the tiles (row block r, 64-column block c), each starting from
+    B[r, c], subtracting X[r, k]·L[c, k]ᵀ as each X[r, k]'s ready flag
+    shows it, and publishing X[r, c] = S·inv(L[c, c])ᵀ; 64-row blocks up
+    to m = 4096, 128 above. The products keep 4×4 or 8×4 register tiles,
+    read float4 operands from shared memory and stage the next tile pair
+    with ``cp.async`` while the current one is multiplied.
     """
     if not _route("trsm_right_lower_t", b):
         return trsm_right_lower_t_plain(l, b, unit)
@@ -385,8 +386,12 @@ def trsm_right_lower_t(l: torch.Tensor, b: torch.Tensor,
     slate_error_if(tuple(l.shape) != (n, n), "trsm_right_lower_t dims")
     lc = l.contiguous()
     x = b.clone(memory_format=torch.contiguous_format)
+    nc = -(-n // BT)
+    dinv = torch.empty(nc * BT * BT, dtype=torch.float32, device=b.device)
+    flags, epoch = _ready_flags(b.device, nc * (1 + -(-m // BT)))
     _launch("slate_trsm_right_lower_t_f32", b.device, _P(lc.data_ptr()),
-            _P(x.data_ptr()), m, n, int(unit))
+            _P(x.data_ptr()), _P(dinv.data_ptr()), m, n, int(unit),
+            _P(flags.data_ptr()), epoch)
     LAUNCHES["trsm_right_lower_t"] += 1
     return x
 
@@ -424,18 +429,16 @@ def trsm_left_lower(l: torch.Tensor, b: torch.Tensor,
 
 def trsm_right_lower_t_plain(l: torch.Tensor, b: torch.Tensor,
                              unit: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of :func:`trsm_right_lower_t`: blocked
-    column substitution, 64 columns per block."""
+    """Plain PyTorch version of :func:`trsm_right_lower_t`: column blocks
+    of 64, each X[:, c] = (B[:, c] − X[:, :c]·L[c, :c]ᵀ)·inv(L[c, c])ᵀ
+    with the inverse by recursive doubling, as the kernel is."""
     x = b.clone()
     n = l.shape[0]
     with full_f32_matmul():
-        for c0 in range(0, n, BS):
-            e = min(n, c0 + BS)
-            if c0:
-                x[:, c0:e] -= x[:, :c0] @ l[c0:e, :c0].mT
-            for c in range(c0, e):
-                s = x[:, c] - x[:, c0:c] @ l[c, c0:c]
-                x[:, c] = s if unit else s / l[c, c]
+        for c0 in range(0, n, BT):
+            e = min(n, c0 + BT)
+            s = x[:, c0:e] - x[:, :c0] @ l[c0:e, :c0].mT if c0 else x[:, c0:e]
+            x[:, c0:e] = s @ _inv_lower_doubling(l[c0:e, c0:e], unit).mT
     return x
 
 
@@ -489,9 +492,16 @@ def panel_plu(buf: torch.Tensor, act: torch.Tensor, blk: int, *,
     reduction over all h rows; the bytes (2·h·W·4) and flops (h·W²) are
     a few µs of work. Design (csrc/panel_plu.cu): one cooperative launch,
     one CTA per SM holding its share of the rows in shared memory for
-    the whole call; per column one grid barrier, after which every CTA
-    reduces the published candidates in the same order and updates its
-    own rows. Rows inactive on entry are never written.
+    the whole call. No grid barrier: per column each CTA publishes its
+    candidate as one tagged 64-bit word, then that row with the tag on
+    every element, and every CTA reduces the G words in the same order.
+    The multipliers, column j + 1 and the next search are one pass; the
+    rest of the rank-1 update leaves the column's chain: a step updates
+    only its 32-column block, and at the block's end each CTA gives its
+    rows the block's updates from registers, in the column loop's order
+    and roundings (the bits are those of the plain version). Rows
+    inactive on entry are never written. The scratch is kept per device
+    and stream (:func:`_plu_scratch`).
     """
     slate_error_if(name not in PLU_NAMES, f"panel_plu: unknown name {name!r}")
     S, nb, L = buf.shape
@@ -504,16 +514,43 @@ def panel_plu(buf: torch.Tensor, act: torch.Tensor, blk: int, *,
         return panel_plu_plain(buf, act, blk)
     _check_panel("panel_plu", name, h, buf, act)
     dev = buf.device
-    maxc = -(-h // _PLU_MIN_ROWS)
-    cand_s = torch.empty(2 * maxc, dtype=torch.float32, device=dev)
-    cand_r = torch.empty(2 * maxc, dtype=torch.int32, device=dev)
-    cand_row = torch.empty(2 * maxc * W, dtype=torch.float32, device=dev)
+    scratch, ctas, epoch = _plu_scratch(dev)
     piv = torch.empty(W, dtype=torch.int32, device=dev)
     info = torch.empty(1, dtype=torch.int32, device=dev)
     _launch("slate_plu_block_f32", dev, *(_P(t.data_ptr()) for t in (
-        buf, act, piv, info, cand_s, cand_r, cand_row)), maxc, S, nb, L, blk)
+        buf, act, piv, info, scratch)), ctas, epoch, S, nb, L, blk)
     LAUNCHES[name] += 1
     return piv, info[0]
+
+
+# Candidate words and published rows of the panel LU kernel, one buffer
+# per (device, stream) with the epoch of its last launch (1 … 255): a
+# launch's tags carry its epoch, so nothing of an earlier launch is taken
+# for this one's; the buffer is zeroed before the epoch wraps.
+_PLU_SCRATCH: dict = {}
+_PLU_EPOCHS = 255
+
+
+def _plu_scratch(device: torch.device) -> tuple[torch.Tensor, int, int]:
+    """The scratch for one panel LU launch on ``device``'s current
+    stream: ``(words, max_ctas, epoch)``, 2·max_ctas·(W + 1) int64 words
+    for a grid of at most one CTA per SM. Raises under CUDA graph
+    capture: a replay would repeat the captured epoch."""
+    slate_error_if(torch.cuda.is_current_stream_capturing(),
+                   "the panel LU kernel cannot be captured in a CUDA graph: "
+                   "each launch needs a new epoch for its tags")
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    ent = _PLU_SCRATCH.get(key)
+    if ent is None:
+        ctas = torch.cuda.get_device_properties(device).multi_processor_count
+        ent = [torch.zeros(2 * ctas * (W + 1), dtype=torch.int64,
+                           device=device), ctas, 0]
+        _PLU_SCRATCH[key] = ent
+    if ent[2] >= _PLU_EPOCHS:
+        ent[0].zero_()
+        ent[2] = 0
+    ent[2] += 1
+    return ent[0], ent[1], ent[2]
 
 
 def panel_plu_plain(buf: torch.Tensor, act: torch.Tensor,

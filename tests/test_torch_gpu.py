@@ -92,14 +92,38 @@ def test_trsm_left_kernel_matches_plain(cuda, n, m):
         assert rel(x1, ref) < TOL and torch.equal(x1, x2)
 
 
+@pytest.mark.parametrize("m", [1024, 15360, 4097, 300])
+def test_trsm_right_kernel_matches_plain(cuda, m):
+    """K2 at the smallest and largest posv panel heights (64-row and
+    128-row blocks), just past the switch between them and ragged, unit
+    and not, twice in a row on one flag buffer."""
+    n = 1024
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    l = torch.tril(torch.randn(n, n, generator=gen, device=cuda)) / n
+    l += torch.eye(n, device=cuda)
+    b = torch.randn(m, n, generator=gen, device=cuda)
+    for unit in (False, True):
+        before = K.LAUNCHES["trsm_right_lower_t"]
+        x1 = K.trsm_right_lower_t(l, b, unit)
+        x2 = K.trsm_right_lower_t(l, b, unit)
+        ref = K.trsm_right_lower_t_plain(l, b, unit)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["trsm_right_lower_t"] == before + 2
+        assert rel(x1, ref) < TOL and torch.equal(x1, x2)
+
+
 def test_dataflow_kernels_refuse_graph_capture(cuda):
-    """K1, K3 and K7 raise under CUDA graph capture: a replay would repeat
-    the captured epoch of their ready flags."""
+    """K1, K2, K3 and K7 raise under CUDA graph capture: a replay would
+    repeat the captured epoch of their ready flags; so does K4, whose tags
+    carry an epoch too."""
     l = torch.eye(64, device=cuda)
     b = torch.ones(64, 8, device=cuda)
+    buf, act = torch.ones(1, 128, 64, device=cuda), torch.ones(64, device=cuda)
     torch.cuda.synchronize()
     for fn in (lambda: K.trsm_left_lower(l, b), lambda: K.potrf_tile(l),
-               lambda: K.lu_nopiv_tile(l)):
+               lambda: K.lu_nopiv_tile(l),
+               lambda: K.trsm_right_lower_t(l, b.mT),
+               lambda: K.panel_plu(buf, act, 0, name="plu_call")):
         with pytest.raises(st.SlateError, match="CUDA graph"):
             with torch.cuda.graph(torch.cuda.CUDAGraph()):
                 fn()
@@ -178,17 +202,21 @@ def _panel(S, nb, L, seed, device, kill=0.2, zero_col=None):
     return buf.to(device), act.to(device)
 
 
-@pytest.mark.parametrize("S,nb,L,blocks", [
-    (8, 256, 48, (0, 1)),     # folded, two blocks in a row (h = 384)
-    (1, 128, 200, (0,)),      # flat, h not a multiple of the CTA rows
-    (1, 128, 40, (0,)),       # fewer rows than columns
-    (8, 128, 1024, (0,)),     # h = 8192, one CTA per SM
+@pytest.mark.parametrize("S,nb,L,blocks,tie", [
+    (8, 256, 48, (0, 1), False),     # folded, two blocks in a row (h = 384)
+    (1, 128, 200, (0,), False),      # flat, h not a multiple of the CTA rows
+    (1, 128, 40, (0,), False),       # fewer rows than columns
+    (8, 128, 1024, (0,), False),     # h = 8192, one CTA per SM
+    (8, 1024, 2048, (0, 7), False),  # gesv's folded panel, h = 16384
+    (8, 256, 256, (0, 1), True),     # integer entries: ties in every column
 ])
-def test_panel_plu_kernel_matches_plain(cuda, S, nb, L, blocks):
+def test_panel_plu_kernel_matches_plain(cuda, S, nb, L, blocks, tie):
     """K4 against its plain version on the card: pivots, mask and info
-    equal; values within atol 1e-4 (both round each product and
-    difference once, so they agree bit for bit in practice)."""
+    equal, and the values bit for bit (both round each product and
+    difference once, in the column loop's order)."""
     buf, act = _panel(S, nb, L, seed=L, device=cuda, zero_col=3)
+    if tie:
+        buf = torch.round(3 * buf).clamp_(-3, 3)
     pbuf, pact = buf.clone(), act.clone()
     before = K.LAUNCHES["plu_call_folded_block"]
     for blk in blocks:
@@ -198,8 +226,9 @@ def test_panel_plu_kernel_matches_plain(cuda, S, nb, L, blocks):
         assert torch.equal(piv.cpu(), ppiv.cpu())
         assert torch.equal(act.cpu(), pact.cpu())
         assert int(info) == int(pinfo)
-        assert float((buf - pbuf).abs().max()) <= 1e-4
-        assert int(info) == (blk == 0)        # the zero column
+        assert torch.equal(buf, pbuf)
+        if not tie:
+            assert int(info) == (blk == 0)        # the zero column
     assert K.LAUNCHES["plu_call_folded_block"] == before + len(blocks)
 
 

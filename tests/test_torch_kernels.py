@@ -80,10 +80,18 @@ def test_trsm_left_lower_plain_matches_pallas_thin(m, dt, unit):
     assert rel(out, ref) < TOL[dt]
 
 
+@pytest.mark.parametrize("m,n", [
+    (192, 256),
+    (1536, 128),    # a tall panel, as potrf gives it
+    (200, 100),     # a width that is not a multiple of K2's 64 (one
+                    # Pallas block of 100)
+])
 @pytest.mark.parametrize("dt", [np.float32, np.float64])
 @pytest.mark.parametrize("unit", [False, True])
-def test_trsm_right_lower_t_plain_matches_pallas(dt, unit):
-    n, m = 256, 192
+def test_trsm_right_lower_t_plain_matches_pallas(m, n, dt, unit):
+    # the plain version is K2's algorithm (64-column blocks, each times
+    # its doubling inverse's transpose); B2 solves 128-wide blocks by
+    # substitution: the same solve, summed in another order (TOL)
     l = well_conditioned_lower(n, dt, seed=4, unit=unit)
     b = rand(m, n, dt, seed=5)
     ref = np.asarray(pk.trsm_right_lower_t_pallas(

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the tile-Cholesky (K1), left triangular-solve (K3), unpivoted
-tile-LU (K7) and physical-swap panel-LU (K10) kernels of
-``slate_tpu_torch`` on one CUDA card, beside their plain versions and the
-one ``torch.linalg`` call that computes the same function; run K2 (the
-right solve) on fixed inputs; and time ``potrf``/``posv`` at the main
+"""Time the tile-Cholesky (K1), left triangular-solve (K3), right
+triangular-solve (K2), unpivoted tile-LU (K7), by-index panel-LU (K4) and
+physical-swap panel-LU (K10) kernels of ``slate_tpu_torch`` on one CUDA
+card, beside their plain versions and the one ``torch.linalg`` call that
+computes the same function, and time ``potrf``/``posv`` at the main
 path's shape (f32, n=16384, nb=1024, 8 right-hand sides).
 
     python3 tools/tile_kernel_times.py [--root DIR] [--label NAME] [--sweep]
@@ -11,13 +11,20 @@ path's shape (f32, n=16384, nb=1024, 8 right-hand sides).
 ``--root`` is a checkout of the repository (default: this one) whose
 ``slate_tpu_torch`` is timed; the rows, times and bounds are those of this
 tree's ``chip_smoke.py`` (``potrf_tile_row``, ``trsm_left_row``,
-``time_ms``), so two trees can be compared on one card in one command
-(parent, change, change, parent). K2 runs at ``chip_smoke.py``'s phase-2
-shapes; its output is printed as a digest (equal digests: equal bits)
-and it is timed at the posv panel. K7 runs at [1024, 1024] (gesv_nopiv's
-tile), [256, 256] and [200, 200] beside ``lu_factor(pivot=False)``; K10
-at hesv's panel heights [16128, 256], [8192, 256], [2048, 256] and
-[256, 256] beside ``lu_factor``, with a digest of its output.
+``time_plu``, ``time_ms``), so two trees can be compared on one card in
+one command (parent, change, change, parent). K2 runs at
+``chip_smoke.py``'s phase-2 shapes with its output printed as a digest
+(equal digests: equal bits), and is timed at the 15 panel heights of
+``posv`` (B [1024·k, 1024], k = 1 … 15) beside ``solve_triangular``, with
+a row of their sums. K4 is timed at its callers' shapes ([8, 1024, 2048]
+block 0 of ``gesv``, [8, 128, 2048] of ``plu_panel``, [1, 128, 7424] of
+the 8448 ``gesv``) beside ``lu_factor`` (cuSOLVER), and run there on a
+random, a tie, a NaN, a zero-column and a half-inactive panel, each
+printed as a digest of values, pivots, mask and info. K7 runs at [1024,
+1024] (gesv_nopiv's tile), [256, 256] and [200, 200] beside
+``lu_factor(pivot=False)``; K10 at hesv's panel heights [16128, 256],
+[8192, 256], [2048, 256] and [256, 256] beside ``lu_factor``, with a
+digest of its output.
 ``--sweep`` also times K1, K3 and K7 alone at widths 64 … 1024 (K3 with
 8 columns: the time per 64-wide block step) and K3 at n = 1024 over
 m = 8 … 256 beside ``solve_triangular``.
@@ -88,19 +95,58 @@ def main() -> int:
         emit("trsm_left_lower", [n, m], cs.trsm_left_row(l, x, plain_reps=3))
 
     # K2 at chip_smoke's phase-2 shapes: a digest of its output, so two
-    # trees can be held to equal bits, and its time at the posv panel
+    # trees can be held to equal bits
     g2 = torch.Generator(device="cuda").manual_seed(2)
     for m, n in ((cs.N - cs.NB, cs.NB), (300, 200)):
         for unit in (False, True):
             l = cs.lower_factor(n, g2, unit)
             b = torch.randn(m, n, generator=g2, device="cuda")
             x = K.trsm_right_lower_t(l, b, unit).cpu().numpy()
-            row = dict(kernel="trsm_right_lower_t", shape=[m, n], unit=unit,
-                       sha256=hashlib.sha256(x.tobytes()).hexdigest()[:16])
-            if m == cs.N - cs.NB and not unit:
-                row["ms"] = cs.time_ms(lambda: K.trsm_right_lower_t(l, b))
-            print(json.dumps(dict(**row, label=args.label, device=smi)),
-                  flush=True)
+            print(json.dumps(dict(
+                kernel="trsm_right_lower_t", shape=[m, n], unit=unit,
+                sha256=hashlib.sha256(x.tobytes()).hexdigest()[:16],
+                label=args.label, device=smi)), flush=True)
+    # K2 at the 15 panel heights of posv, beside solve_triangular
+    n = cs.NB
+    l = cs.lower_factor(n, g2)
+    tot = dict(ms=0.0, library_ms=0.0, bound_ms=0.0)
+    for k in range(1, cs.N // cs.NB):
+        m = k * n
+        b = torch.randn(m, n, generator=g2, device="cuda")
+        r = cs.trsm_right_row(l, b, plain_reps=1 if m > 4096 else 3)
+        for key in tot:
+            tot[key] += r[key] if key != "bound_ms" else r["bound"][0]
+        emit("trsm_right_lower_t", [m, n], r)
+    print(json.dumps(dict(kernel="trsm_right_lower_t_posv_sum",
+                          heights=cs.N // cs.NB - 1, **tot,
+                          ratio=tot["ms"] / tot["library_ms"],
+                          label=args.label, device=smi)), flush=True)
+    del b
+
+    # K4 at its three callers' shapes beside lu_factor, and digests of its
+    # output (values, pivots, mask, info) on five kinds of panel there
+    for S, L, name in ((8, cs.N // 8, "plu_call_folded_block"),
+                       (8, cs.N // 8, "plu_call_folded"),
+                       (1, cs.PLU_FLAT_H, "plu_call")):
+        nb = cs.NB if name == "plu_call_folded_block" else 128
+        for kind in cs.PLU_KINDS:
+            buf, act = cs.plu_panel_case(kind, S, nb, L, seed=4)
+            kb, ka = buf.clone(), act.clone()
+            piv, info = K.panel_plu(kb, ka, 0, name=name)
+            sha = hashlib.sha256(b"".join(
+                t.cpu().numpy().tobytes() for t in (kb, ka, piv, info))
+                ).hexdigest()[:16]
+            row = dict(kind=kind, sha256=sha, info=int(info))
+            if kind == "random":
+                row.update(cs.time_plu(buf, act, 0, name))
+                row["us_per_column"] = row["ms"] / 128 * 1e3
+                emit(f"panel_plu/{name}", [S, nb, L], row)
+            else:
+                print(json.dumps(dict(kernel=f"panel_plu/{name}",
+                                      shape=[S, nb, L], **row,
+                                      label=args.label, device=smi)),
+                      flush=True)
+            del buf, kb
 
     # K7 on G + nb·I (gesv_nopiv's tile at 1024, smaller and ragged ones)
     g7 = torch.Generator(device="cuda").manual_seed(7)
