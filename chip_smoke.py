@@ -90,9 +90,11 @@ The two-stage eigensolver and SVD slice (f32, ``Grid(1, 1)``):
    within 5e-2·‖A‖₂, the plain version's spectrum to the same bound. At
    the two small shapes the plain version also runs in f64 on the card
    and in f32 on the CPU, and the distances of d and |e| between them
-   are printed. Kernel times (median of 3) at (8192, 128), with waves
-   and time per wave, and at (4096, 128), where the plain version is
-   timed once.
+   are printed. Kernel times (median of 3) at (8192, 128), with the
+   time per wave-equivalent (2(n − 2) + T of them) beside the 42.55 µs
+   of K8's former design of one launch per wave (commit 6498b2e, same
+   card type), and at (4096, 128), where the plain version is timed
+   once. K8 twice on one band gives equal bits.
 3h. ``heev`` values at n=8192, nb=128, ``MethodEig.TwoStage``, A = (G + Gᵀ)/2:
    λ within 10·n·2⁻²⁴·‖A‖₂ of ``eigvalsh`` in f64; ``hb2st_vmem`` 1 and no
    other kernel; ``heev_vals_ms``, the stage split (he2hb, gather, hb2st,
@@ -121,7 +123,9 @@ The Aasen and band LU slice (f32, ``Grid(1, 1)``):
    trailing update), [4096, 64]·[64, 4096] and a ragged [70, 1]·[1, 130]
    within 1e-5. Times as in 2 at the path shapes; the library calls are
    ``torch.linalg.lu_factor`` (cuSOLVER) on the same panel and ``addmm``
-   with TF32 off.
+   with TF32 off; K11 at both of its timed shapes beside ``addmm`` and
+   an empty kernel (one CTA of 32 threads, built here by ``nvcc``) in
+   the same harness, the floor any launch pays.
 3l. ``hesv`` at f32, n=16384, nb=256, 8 right-hand sides, A = (G + Gᵀ)/2:
    ``info`` 0, ‖A·X − B‖/(‖A‖·‖X‖) within 10·n·2⁻²⁴, ‖P·A·Pᵀ − L·T·Lᵀ‖_F/
    ‖A‖_F from the loop's T blocks within 10·n·2⁻²⁴, exact launch counts
@@ -213,7 +217,7 @@ KERNELS = {
     "lu_nopiv_tile": ("slate_tpu_torch/csrc/lu_nopiv_tile.cu",
                       "slate_tpu/internal/pallas_kernels.py:442",
                       "gesv_nopiv"),
-    "hb2st_vmem": ("slate_tpu_torch/csrc/band_chase.cu",
+    "hb2st_vmem": ("slate_tpu_torch/csrc/hb2st_chase.cu",
                    "slate_tpu/internal/band_wave_vmem.py:492", "heev_vals"),
     "tb2bd_vmem": ("slate_tpu_torch/csrc/band_chase.cu",
                    "slate_tpu/internal/band_wave_vmem_bd.py:330",
@@ -224,12 +228,48 @@ KERNELS = {
                            "slate_tpu/internal/pallas_kernels.py:644",
                            "gbsv"),
 }
+# K8 a wave-equivalent at (8192, 128) in its former design of one launch
+# per wave (commit 6498b2e; NVIDIA H100 80GB HBM3, 700 W)
+K8_WAVE_US_BEFORE = 42.55
 AASEN_NB = 256            # hesv's block: the top of B6's width range
 BAND_KL = BAND_KU = 32    # gbsv's band: block 2kl + ku = 96 < 128
 
 
 def say(*a):
     print(*a, flush=True)
+
+
+EMPTY_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int slate_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def empty_launcher():
+    """A launcher of an empty kernel (one CTA of 32 threads), built with
+    ``nvcc`` into ``slate_tpu_torch/_build/empty/``: what any launch
+    costs in the timing harness."""
+    import ctypes
+    from slate_tpu_torch.internal import _build
+    out = _build.BUILD_DIR / "empty"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "empty.cu").write_text(EMPTY_SRC)
+    so = out / "libempty.so"
+    subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(so),
+                    str(out / "empty.cu")], check=True)
+    fn = ctypes.CDLL(str(so)).slate_empty
+    fn.argtypes = (ctypes.c_void_p,)
+    fn.restype = ctypes.c_int
+
+    def launch():
+        if fn(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)):
+            raise RuntimeError("empty kernel: launch error")
+    return launch
 
 
 def time_ms(fn, setup=None, reps=REPS) -> float:
@@ -825,7 +865,7 @@ def _category(name: str) -> str:
         return "cuSOLVER getrf (band windows)"
     if "qr_subpanel" in name:
         return "panel QR kernel (K6)"
-    if "hb2st_wave" in name:
+    if "Hb2st" in name:  # chase_flow<Hb2st<J>>, csrc/hb2st_chase.cu
         return "hb2st chase kernel (K8)"
     if "tb2bd_wave" in name:
         return "tb2bd chase kernel (K9)"
@@ -1468,9 +1508,19 @@ def phase_chase_kernels():
         flops, nbytes = chase_work(EIG_N, EIG_NB, which)
         rows[name] = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
                           library_ms=None, bound=bound(flops, nbytes))
+        if which == "hb2st":
+            again = fn(ab)
+            same = all(torch.equal(x, y) for x, y in zip(fn(ab), again))
+            say(f"  {name}: {ms / waves * 1e3:.3f} us per wave-equivalent "
+                f"(one launch) against {K8_WAVE_US_BEFORE} in its former "
+                f"design of one launch per wave; two runs bit for bit "
+                f"equal: {same}")
+            assert same, "hb2st_chase does not repeat its bits"
+            del again
         say(f"  {name}: kernel_ms {ms:.4f} at n={EIG_N} band={EIG_NB} "
-            f"({waves} waves, {ms / waves * 1e3:.3f} us per wave); at n={n0} "
-            f"band={b0} kernel_ms {ms0:.4f}, plain_ms {plain_ms:.4f}; "
+            f"({waves} wave-equivalents, {ms / waves * 1e3:.3f} us each); "
+            f"at n={n0} band={b0} kernel_ms {ms0:.4f}, plain_ms "
+            f"{plain_ms:.4f}; "
             f"library_ms null, bound_ms {rows[name]['bound'][0]:.4f} at "
             f"n={EIG_N} ({rows[name]['bound'][1]}; {flops / 1e9:.2f} GFLOP, "
             f"{nbytes / 2 ** 20:.1f} MiB)")
@@ -1742,6 +1792,7 @@ def phase_swap_rank_k_kernels():
     r = rows["panel_plu_pallas"]
     say(f"  panel_plu_swap [{h},{w}]: {r['ms'] / w * 1e3:.2f} us per column")
     mx = 0.0
+    empty_ms = time_ms(empty_launcher())
     for (m, n, k) in ((32, 96, 96), (4096, 4096, 64), (70, 130, 1)):
         c = torch.randn(m, n, generator=gen, device="cuda")
         x = torch.randn(m, k, generator=gen, device="cuda")
@@ -1750,22 +1801,21 @@ def phase_swap_rank_k_kernels():
                    lambda: K.rank_k_tail_plain(c, x, y, -1.0, 1.0),
                    f"[{m},{k}]x[{k},{n}]")
         mx = max(mx, m2)
+        if k == 1:
+            continue
+        with _f32():
+            lib = time_ms(lambda: torch.addmm(c, x, y, alpha=-1.0))
+        ms = time_ms(lambda: K.rank_k_tail(c, x, y, -1.0, 1.0))
+        say(f"  rank_k_tail [{m},{k}]x[{k},{n}]: kernel_ms {ms:.6f}, "
+            f"addmm_ms {lib:.6f}, empty kernel {empty_ms:.6f} ms; above "
+            f"that floor {(ms - empty_ms) * 1e3:.2f} us against "
+            f"{(lib - empty_ms) * 1e3:.2f}; bound_ms "
+            f"{rank_k_bound(m, n, k)[0]:.6f} ({rank_k_bound(m, n, k)[1]})")
         if (m, n, k) == (32, 96, 96):
-            with _f32():
-                lib = time_ms(lambda: torch.addmm(c, x, y, alpha=-1.0))
             rows["rank_k_tail_pallas"] = dict(
-                ms=time_ms(lambda: K.rank_k_tail(c, x, y, -1.0, 1.0)),
-                plain_ms=time_ms(lambda: K.rank_k_tail_plain(c, x, y, -1.0,
-                                                             1.0)),
+                ms=ms, plain_ms=time_ms(lambda: K.rank_k_tail_plain(
+                    c, x, y, -1.0, 1.0)),
                 library_ms=lib, bound=rank_k_bound(m, n, k))
-        elif k == 64:
-            with _f32():
-                lib = time_ms(lambda: torch.addmm(c, x, y, alpha=-1.0))
-            ms = time_ms(lambda: K.rank_k_tail(c, x, y, -1.0, 1.0))
-            say(f"  rank_k_tail [{m},{k}]x[{k},{n}]: kernel_ms {ms:.4f}, "
-                f"addmm_ms {lib:.4f}, bound_ms "
-                f"{rank_k_bound(m, n, k)[0]:.6f} "
-                f"({rank_k_bound(m, n, k)[1]})")
     rows["rank_k_tail_pallas"]["max_abs_err"] = mx
     for name, r in rows.items():
         say(f"  {name}: kernel_ms {r['ms']:.4f}, plain_ms "

@@ -1,15 +1,16 @@
-// Bulge chasers of the two-stage eigensolver and SVD, in FP32:
-//   slate_hb2st_f32  symmetric band -> tridiagonal  (replaces _hb2st_vmem_jit,
-//                    slate_tpu/internal/band_wave_vmem.py)
+// Bulge chaser of the two-stage SVD, in FP32:
 //   slate_tb2bd_f32  upper band -> upper bidiagonal (replaces _tb2bd_vmem_jit,
 //                    slate_tpu/internal/band_wave_vmem_bd.py)
+// (its eigensolver twin, K8 slate_hb2st_f32, is hb2st_chase.cu, whose
+// design of one cooperative launch this kernel has still to take).
 //
-// Both compute the task DAG of the numpy twin (slate_tpu/internal/band_bulge.py):
-// task (sweep s, chase t) generates one Householder reflector of length
-// L <= b acting on indices [s + 1 + t b, s + t b + L] and applies it inside a
-// few b x b blocks of the band; task (s, t) needs only the reflector of task
-// (s, t - 1). Run in wave w = 2 s + t, the tasks of one wave touch disjoint
-// elements, so a wave's tasks run in parallel and the waves in order.
+// It computes the task DAG of the numpy twin (slate_tpu/internal/band_bulge.py):
+// task (sweep s, chase t) generates two Householder reflectors of length
+// L <= b acting on indices [s + 1 + t b, s + t b + L] and applies them
+// inside a few b x b blocks of the band; task (s, t) needs only the U-side
+// reflector of task (s, t - 1). Run in wave w = 2 s + t, the tasks of one
+// wave touch disjoint elements, so a wave's tasks run in parallel and the
+// waves in order.
 //
 // The band lives in a ribbon in device memory: element (r, c) at
 // rib[r (4b - 1) + c + 2b - 1], so each c - r in [-(2b - 1), 2b] has a slot
@@ -19,7 +20,7 @@
 // ribbon.
 //
 // Bound on an H100: latency. There are ~2n dependent waves of small
-// Householder steps; the flops (~16 b^2 a task) and the reflector pack, the
+// Householder steps; the flops (~16 b^2 a task) and the reflector packs, the
 // one large write, are a few ms of work at n = 8192, b = 128. Design: the C
 // entry point launches one grid per wave on the caller's stream, one CTA per
 // task. The CTA stages its b x b blocks in shared memory (bands <= 128; up
@@ -119,15 +120,6 @@ __device__ void store(const float* M, int ld, const Ribbon& R, int r0, int nr, i
   }
 }
 
-// the mirror: A(c0 + k, r0 + i) = M[i][k]
-__device__ void store_mirror(const float* M, int ld, const Ribbon& R, int r0, int nr, int c0,
-                             int nc) {
-  for (int idx = threadIdx.x; idx < nr * nc; idx += NTH) {
-    const int k = idx / nr, i = idx % nr;
-    R.at(c0 + k, r0 + i) = M[i * ld + k];
-  }
-}
-
 // The task (s, t) of CTA blockIdx.x in wave w, or false if there is none.
 __device__ bool task_of(int w, int s_lo, int n, int b, int T, int& s, int& t, int& i0) {
   s = s_lo + blockIdx.x;
@@ -138,82 +130,6 @@ __device__ bool task_of(int w, int s_lo, int n, int b, int T, int& s, int& t, in
 
 __device__ float* blocks(float* dyn, float* scratch, int b, int ld) {
   return b <= SMEM_BMAX ? dyn : scratch + static_cast<size_t>(blockIdx.x) * 2 * b * ld;
-}
-
-__global__ void __launch_bounds__(NTH)
-hb2st_wave(Ribbon R, int n, int b, int T, int w, int s_lo, float* __restrict__ V,
-           float* __restrict__ tau, float* scratch) {
-  extern __shared__ float dyn[];
-  __shared__ Vectors sh;
-  int s, t, i0;
-  if (!task_of(w, s_lo, n, b, T, s, t, i0)) return;
-  const int L = min(b, n - i0), ld = b | 1, tid = threadIdx.x;
-  float* B = blocks(dyn, scratch, b, ld);
-  float* D = B + b * ld;
-  float* v = sh.x;
-  const size_t task = static_cast<size_t>(s) * T + t;
-
-  if (t == 0) {
-    // annihilate column s below the subdiagonal, and its mirror row
-    for (int i = tid; i < L; i += NTH) v[i] = R.at(i0 + i, s);
-    __syncthreads();
-    larfg(v, L, sh.sc);
-    const float beta = sh.sc[0];
-    for (int i = tid; i < L; i += NTH) {
-      const float x = i == 0 ? beta : 0.f;
-      R.at(i0 + i, s) = x;
-      R.at(s, i0 + i) = x;
-    }
-  } else {
-    // B = A[i0 : i0 + L, j0 : j0 + b], right of it the diagonal block
-    const int j0 = i0 - b;
-    float* vp = sh.y;
-    load(B, ld, R, i0, L, j0, b);
-    for (int k = tid; k < b; k += NTH) vp[k] = V[(task - 1) * b + k];
-    const float tp = tau[task - 1];
-    __syncthreads();
-    // the previous reflector's deferred right-apply makes the bulge
-    matvec(B, ld, 1, vp, L, b, sh.w, sh.red);
-    for (int idx = tid; idx < L * b; idx += NTH) {
-      const int i = idx / b, k = idx % b;
-      B[i * ld + k] -= (tp * sh.w[i]) * vp[k];
-    }
-    __syncthreads();
-    for (int i = tid; i < L; i += NTH) v[i] = B[i * ld];
-    __syncthreads();
-    larfg(v, L, sh.sc);
-    const float beta = sh.sc[0], tv = sh.sc[1];
-    // annihilate the bulge column; left-apply to the columns right of it
-    matvec(B + 1, 1, ld, v, b - 1, L, sh.w, sh.red);
-    for (int idx = tid; idx < L * b; idx += NTH) {
-      const int i = idx / b, k = idx % b;
-      if (k == 0) B[i * ld] = i == 0 ? beta : 0.f;
-      else B[i * ld + k] -= (tv * v[i]) * sh.w[k - 1];
-    }
-    __syncthreads();
-    store(B, ld, R, i0, L, j0, b);
-    store_mirror(B, ld, R, i0, L, j0, b);
-  }
-
-  // the diagonal block, both sides: D <- H D H
-  const float tv = sh.sc[1];
-  load(D, ld, R, i0, L, i0, L);
-  __syncthreads();
-  matvec(D, 1, ld, v, L, L, sh.w, sh.red);  // w = v^T D
-  for (int idx = tid; idx < L * L; idx += NTH) {
-    const int i = idx / L, k = idx % L;
-    D[i * ld + k] -= (tv * v[i]) * sh.w[k];
-  }
-  __syncthreads();
-  matvec(D, ld, 1, v, L, L, sh.w, sh.red);  // w = D v
-  for (int idx = tid; idx < L * L; idx += NTH) {
-    const int i = idx / L, k = idx % L;
-    D[i * ld + k] -= (tv * sh.w[i]) * v[k];
-  }
-  __syncthreads();
-  store(D, ld, R, i0, L, i0, L);
-  for (int i = tid; i < L; i += NTH) V[task * b + i] = v[i];
-  if (tid == 0) tau[task] = tv;
 }
 
 __global__ void __launch_bounds__(NTH)
@@ -334,24 +250,11 @@ int prepare(K kernel, int n, int b, size_t* smem) {
 
 }  // namespace
 
-// rib: the ribbon, n (4b) floats, updated in place. V: [n-1, T, b] and tau:
-// [n-1, T], T = (n-2)/b + 1, zeroed by the caller. scratch: 2 b (b|1) floats
-// per CTA for b > 128. max_ctas: the most CTAs a wave may take (T/2 + 2).
-// Returns a CUDA error code (0 on success).
-extern "C" int slate_hb2st_f32(float* rib, int n, int b, float* V, float* tau,
-                               float* scratch, int max_ctas, void* stream) {
-  size_t smem = 0;
-  int e = prepare(hb2st_wave, n, b, &smem);
-  if (e != 0) return e;
-  const Ribbon R{rib, 4LL * b - 1, 2 * b - 1};
-  const int T = (n - 2) / b + 1;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return run_waves(n, b, max_ctas, [&](int w, int s_lo, int cnt) {
-    hb2st_wave<<<cnt, NTH, smem, st>>>(R, n, b, T, w, s_lo, V, tau, scratch);
-  });
-}
-
-// As slate_hb2st_f32, with the U-side (Vu, tauu) and V-side (Vv, tauv) packs.
+// rib: the ribbon, n (4b) floats, updated in place. Vu, Vv: [n-1, T, b] and
+// tauu, tauv: [n-1, T], T = (n-2)/b + 1, zeroed by the caller: the U-side
+// and V-side packs. scratch: 2 b (b|1) floats per CTA for b > 128.
+// max_ctas: the most CTAs a wave may take (T/2 + 2). Returns a CUDA error
+// code (0 on success).
 extern "C" int slate_tb2bd_f32(float* rib, int n, int b, float* Vu, float* tauu, float* Vv,
                                float* tauv, float* scratch, int max_ctas, void* stream) {
   size_t smem = 0;

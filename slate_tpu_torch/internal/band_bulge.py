@@ -121,6 +121,17 @@ def _apply_right(v, tau, B):
     B.sub_(torch.outer(tau * w, v))
 
 
+def _apply_two_sided(v, tau, D):
+    """D ← (I − tau·v·vᵀ)·D·(I − tau·v·vᵀ) in place for a symmetric D, as
+    one matvec and one symmetric rank-2 update (the form of the hb2st
+    kernel, csrc/hb2st_chase.cu): y = tau·D·v, w = y − (tau/2)·(vᵀy)·v,
+    D −= v·wᵀ + w·vᵀ. D stays exactly symmetric."""
+    y = tau * (D @ v)
+    alpha = (-0.5 * tau) * (v @ y)
+    w = y + alpha * v
+    D.sub_(torch.outer(v, w) + torch.outer(w, v))
+
+
 def _check_real(name: str, t: torch.Tensor) -> None:
     slate_error_if(t.dtype.is_complex,
                    f"{name}: complex bands are not ported yet (got "
@@ -164,9 +175,7 @@ def hb2st(ab: torch.Tensor):
             col[0] = beta
             row.zero_()
             row[0] = beta
-            D = blk(r0, L, r0, L)
-            _apply_left(v, tv, D)
-            _apply_right(v, tv, D)
+            _apply_two_sided(v, tv, blk(r0, L, r0, L))
             # chase the bulge down the band
             for t in range(1, T):
                 i0, L2 = reflector_span(n, s, t, band)
@@ -182,9 +191,7 @@ def hb2st(ab: torch.Tensor):
                 B[0, 0] = beta
                 _apply_left(v, tv, B[:, 1:])
                 blk(j0, L1, i0, L2).copy_(B.mT)      # the mirror
-                D = blk(i0, L2, i0, L2)
-                _apply_left(v, tv, D)
-                _apply_right(v, tv, D)
+                _apply_two_sided(v, tv, blk(i0, L2, i0, L2))
     d, e = ribbon_diagonals(rib, n, band, upper=False)
     return d, e, V, tau
 

@@ -114,8 +114,8 @@ TRANSPOSE_NAMES = ("transpose_tiled", "transpose_fold", "fold_panel",
 # adds one where it launches its kernel, and nowhere else. The QR kernel,
 # the two bulge chasers, the physical-swap panel LU and the rank-k tail
 # count under the names of the Pallas functions they stand for
-# (``hb2st_vmem``, ``tb2bd_vmem``: one count per chase, whose C entry
-# point runs every wave).
+# (``hb2st_vmem``, ``tb2bd_vmem``: one count per chase; K8's is one
+# launch, K9's C entry point runs every wave).
 LAUNCHES = {"potrf_tile": 0, "trsm_right_lower_t": 0, "trsm_left_lower": 0,
             **{k: 0 for k in PLU_NAMES + TRANSPOSE_NAMES},
             "qr_call": 0, "lu_nopiv_tile": 0, "hb2st_vmem": 0,
@@ -161,7 +161,7 @@ _SIGNATURES = {
     "slate_qr_subpanel_f32": ("panel_qr",
                               (_P, _L, _I, _I, _P, _P, _P, _I, _P)),
     "slate_lu_nopiv_tile_f32": ("lu_nopiv_tile", (_P, _I, _P, _P, _U, _P)),
-    "slate_hb2st_f32": ("band_chase", (_P, _I, _I, _P, _P, _P, _I, _P)),
+    "slate_hb2st_f32": ("hb2st_chase", (_P, _I, _I, _P, _P, _P, _I, _P, _P)),
     "slate_tb2bd_f32": ("band_chase", (_P, _I, _I) + (_P,) * 5 + (_I, _P)),
     "slate_panel_plu_swap_f32": ("panel_plu_swap", (_P,) * 6 + (_I,) * 3
                                  + (_P,)),
@@ -868,16 +868,16 @@ def _trivial_band(name: str, ab: torch.Tensor) -> bool:
 
 
 def _chase_ctas(n: int, b: int) -> int:
-    """Most tasks in one wave: a bound on the chasers' grid size."""
+    """Most tasks in one wave: a bound on K9's grid size."""
     return band_bulge.max_chase(n, b) // 2 + 2
 
 
-def _chase_scratch(n: int, b: int, device) -> torch.Tensor:
+def _chase_scratch(b: int, ctas: int, device) -> torch.Tensor:
     """Global scratch for the task blocks of bands too wide for shared
-    memory (SMEM_BMAX in csrc/band_chase.cu): two [b, b|1] blocks per
-    CTA; one float otherwise."""
+    memory (SMEM_BMAX in csrc/band_chase.cu and csrc/hb2st_chase.cu): two
+    [b, b|1] blocks per CTA; one float otherwise."""
     per = 2 * b * (b | 1) if b > 128 else 0
-    return torch.empty(max(1, per * _chase_ctas(n, b)), dtype=torch.float32,
+    return torch.empty(max(1, per * ctas), dtype=torch.float32,
                        device=device)
 
 
@@ -889,34 +889,46 @@ def hb2st_chase(ab: torch.Tensor):
     Replaces ``_hb2st_vmem_jit`` (band_wave_vmem.py:492), which keeps the
     whole ribbon in VMEM across a sequential grid of waves and works on
     sheared blocks with masked rolls and one-hot MXU moves. What it
-    computes is the twin's task DAG: task (sweep s, chase t) runs in wave
-    2s + t, the tasks of a wave touch disjoint elements, and each needs
-    only the reflector of (s, t − 1) from the wave before. Bound on an
-    H100: latency — ~2n dependent waves of small Householder steps; the
-    flops (~16·b² a task) and the V pack (the one large write) are a few
-    ms at n = 8192, b = 128. Design (csrc/band_chase.cu): the 4b-wide
-    ribbon stays in device memory (17 MB at n = 8192, b = 128, resident
-    in L2); one C entry point launches one grid per wave on the stream,
-    one CTA per task, which stages its b×b blocks (B, D) in shared
-    memory (bands ≤ 128; up to 256 in global scratch), applies the
-    previous reflector, generates its own (the twin's ``larfg``), writes
-    B, its mirror and the two-sided D update back, and stores its
-    reflector in the V pack. Reductions run in a fixed order inside the
-    CTA, so runs repeat bit for bit. A CPU tensor runs the plain
-    version; a band < 1 or n < 2 is the trivial case."""
+    computes is the twin's task DAG: task (sweep s, chase t) needs the
+    reflector of (s, t − 1) and the elements that (s − 1, t) and
+    (s − 1, t + 1) wrote last. Bound on an H100: latency along the ~2n
+    dependent task parts of the chain (a sweep trails the one before it
+    by about two tasks); the flops (~16·b² a task, 1.0 ms at n = 8192,
+    b = 128) and the bytes are far below it. Design (csrc/hb2st_chase.cu
+    on the persistent loop of csrc/chase_flow.cuh): one cooperative
+    launch for the whole chase. CTA x takes the sweeps x, x + G, …; a
+    task loads and right-applies all but the last row of its blocks once
+    (s − 1, t) is done, goes on with the last row once (s − 1, t + 1)
+    has stored its bulge, and reads D's last diagonal element once
+    (s − 1, t + 1) is done. The counters it waits on are zeroed by this
+    wrapper for every call (no epoch). A task keeps only the lower
+    triangle (no mirror store), runs each pass one warp a row with
+    shuffle reductions in a fixed order, so runs repeat bit for bit, and
+    updates D by one matvec and one symmetric rank-2 update, the form of
+    :func:`band_bulge.hb2st`. The blocks sit in shared memory for bands
+    ≤ 128 and in global scratch up to 256. The 4b-wide ribbon stays in
+    device memory (17 MB at n = 8192, b = 128, resident in L2). A CPU
+    tensor runs the plain version; a band < 1 or n < 2 is the trivial
+    case."""
     band, n = ab.shape[0] - 1, ab.shape[1]
     if not _route("hb2st_vmem", ab):
         return band_bulge.hb2st(ab)
     if _trivial_band("hb2st_vmem", ab):
         return band_bulge.hb2st(ab)
+    slate_error_if(torch.cuda.is_current_stream_capturing(),
+                   "hb2st_chase cannot be captured in a CUDA graph: its "
+                   "ribbon is built by boolean indexing, which waits for "
+                   "the host")
     S, T = n - 1, band_bulge.max_chase(n, band)
     rib = band_bulge.ribbon(ab.contiguous(), upper=False)
     V = ab.new_zeros((S, T, band))
     tau = ab.new_zeros((S, T))
-    scratch = _chase_scratch(n, band, ab.device)
+    ctas = torch.cuda.get_device_properties(ab.device).multi_processor_count
+    scratch = _chase_scratch(band, ctas, ab.device)
+    cnt = torch.zeros(2 * S, dtype=torch.int32, device=ab.device)
     _launch("slate_hb2st_f32", ab.device, _P(rib.data_ptr()), n, band,
             _P(V.data_ptr()), _P(tau.data_ptr()), _P(scratch.data_ptr()),
-            _chase_ctas(n, band))
+            ctas, _P(cnt.data_ptr()))
     LAUNCHES["hb2st_vmem"] += 1
     d, e = band_bulge.ribbon_diagonals(rib, n, band, upper=False)
     return d, e, V, tau
@@ -928,11 +940,15 @@ def tb2bd_chase(ub: torch.Tensor):
     ``(d, e, Vu, tauu, Vv, tauv, phase0)``.
 
     Replaces ``_tb2bd_vmem_jit`` (band_wave_vmem_bd.py:330), the SVD twin
-    of the eig chaser. Same bound and design as :func:`hb2st_chase`
-    (csrc/band_chase.cu), with the gebr task body: left-apply the
-    previous U-side reflector to the B block, the V-side reflector from
-    its row 0 applied to the rest of B and to the diagonal block, then
-    the U-side reflector from the diagonal block's column 0. The ribbon
+    of the eig chaser. Same bound as :func:`hb2st_chase`; design
+    (csrc/band_chase.cu): one grid per wave w = 2s + t on the stream,
+    one CTA per task, whose tasks touch disjoint elements; the CTA stages
+    its b×b blocks in shared memory (bands ≤ 128; up to 256 in global
+    scratch) and runs the gebr task body: left-apply the previous U-side
+    reflector to the B block, the V-side reflector from its row 0
+    applied to the rest of B and to the diagonal block, then the U-side
+    reflector from the diagonal block's column 0. Reductions run in a
+    fixed order inside the CTA, so runs repeat bit for bit. The ribbon
     holds the upper band alone; only the U-side reflector chains across
     tasks."""
     band, n = ub.shape[0] - 1, ub.shape[1]
@@ -944,7 +960,7 @@ def tb2bd_chase(ub: torch.Tensor):
     rib = band_bulge.ribbon(ub.contiguous(), upper=True)
     Vu, Vv = ub.new_zeros((S, T, band)), ub.new_zeros((S, T, band))
     tauu, tauv = ub.new_zeros((S, T)), ub.new_zeros((S, T))
-    scratch = _chase_scratch(n, band, ub.device)
+    scratch = _chase_scratch(band, _chase_ctas(n, band), ub.device)
     _launch("slate_tb2bd_f32", ub.device, _P(rib.data_ptr()), n, band,
             *(_P(t.data_ptr()) for t in (Vu, tauu, Vv, tauv, scratch)),
             _chase_ctas(n, band))
@@ -1065,11 +1081,15 @@ def rank_k_tail(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
     Replaces ``rank_k_tail_pallas`` (pallas_kernels.py:644, body
     ``_rank_k_kernel`` :635-640), the sub-nb remainder of a trailing
-    update. Bound on an H100: bytes at the band LU's shapes (k/4 flops a
-    byte at most, against a ridge of ~20), latency at its [32, 96]·[96,
-    96]. Design (csrc/rank_k_tail.cu): a tiled SIMT product, one CTA per
-    64×64 tile of C staging its whole A and B strips in shared memory,
-    4×4 FMA micro-tiles, one fused α/β epilogue.
+    update. Bound on an H100: bytes at large shapes (k/4 flops a byte
+    at most, against a ridge of ~20), latency at the band LU's [32, 96]·
+    [96, 96], a launch in a loop of 171. Design (csrc/rank_k_tail.cu): a
+    tiled SIMT product whose C tile is chosen by shape: 16×32 tiles for
+    small outputs (6 CTAs at [32, 96], none past m), 64×64 tiles with
+    4×4 micro-tiles otherwise; every CTA starts its C loads and its A
+    and B strips' loads (float4 where aligned) before it uses any, and
+    one fused α/β epilogue writes the output. One accumulator per
+    output, k ascending, so the bits do not depend on the tile.
     """
     m, k = a.shape
     n = b.shape[1]

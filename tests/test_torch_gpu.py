@@ -427,6 +427,51 @@ def test_chase_kernels_match_plain(cuda, n, b):
         before[0] + 1, before[1] + 1)
 
 
+@pytest.mark.parametrize("n,b", [(300, 16), (1024, 128), (300, 160)])
+def test_hb2st_kernel_repeats_its_bits(cuda, n, b):
+    """K8 twice on one band: every output bit for bit equal (its
+    reductions run in a fixed order and its waits order every task
+    before what reads it, whatever the CTAs' timing), one launch each."""
+    ab = torch.from_numpy(np.random.default_rng(n + b).standard_normal(
+        (b + 1, n)).astype(np.float32)).to(cuda)
+    before = K.LAUNCHES["hb2st_vmem"]
+    first = K.hb2st_chase(ab)
+    second = K.hb2st_chase(ab)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["hb2st_vmem"] == before + 2
+    for x, y in zip(first, second):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def test_hb2st_kernel_refuses_graph_capture(cuda):
+    """K8's wrapper builds its ribbon by boolean indexing, which waits for
+    the host: under CUDA graph capture it raises, and the card is fine
+    after."""
+    ab = torch.randn(17, 200, device=cuda)
+    torch.cuda.synchronize()
+    with pytest.raises(st.SlateError, match="CUDA graph"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            K.hb2st_chase(ab)
+    d, e, V, tau = K.hb2st_chase(ab)
+    assert bool(torch.isfinite(d).all())
+
+
+# sha256 (first 16 hex digits) of K9's (d, e, Vu, tauu, Vv, tauv) at
+# n = 300, band = 16 on the band below, fixed from the kernel before its
+# twin K8 was redesigned: K9 keeps its bits
+TB2BD_300_16_SHA = "5352bf4e1dd409a6"
+
+
+def test_tb2bd_kernel_keeps_its_bits(cuda):
+    import hashlib
+    ab = torch.from_numpy(np.random.default_rng(916).standard_normal(
+        (17, 300)).astype(np.float32)).to(cuda)
+    out = K.tb2bd_chase(ab)[:6]
+    sha = hashlib.sha256(b"".join(x.cpu().numpy().tobytes()
+                                  for x in out)).hexdigest()[:16]
+    assert sha == TB2BD_300_16_SHA
+
+
 def test_chase_kernels_refuse_what_they_do_not_take(cuda):
     ab = torch.randn(9, 40, device=cuda)
     with pytest.raises(st.SlateError, match="float64"):
@@ -528,12 +573,20 @@ def test_panel_plu_swap_kernel_matches_plain(cuda, h, w, case):
         assert int(info) >= 1
 
 
-@pytest.mark.parametrize("m,n,k", [(32, 96, 96), (4096, 4096, 64),
-                                   (70, 130, 1), (5, 300, 127)])
+@pytest.mark.parametrize("m,n,k", [
+    (32, 96, 96), (4096, 4096, 64), (70, 130, 1), (5, 300, 127),
+    (32, 96, 1), (32, 96, 127), (1, 96, 96), (32, 1, 96), (33, 130, 96),
+    (130, 33, 127), (1, 130, 1), (130, 1, 1), (33, 33, 33),
+    (1024, 1024, 127), (4096, 4096, 96)])
 def test_rank_k_tail_kernel_matches_plain(cuda, m, n, k):
     """K11 against its plain version on the card (FMA accumulation
     against cuBLAS's FP32 product: rounding only), at α = −1, β = 1 and
-    α = 0.5, β = −2, on strided windows of wider tensors."""
+    α = 0.5, β = −2, on strided windows of wider tensors (leading
+    dimensions above the widths and not multiples of 4, as the band LU's
+    slices may have): the 16×32 tile (fewer than 128 tiles of 64×64)
+    and the 64×64 one (k = 64 in one round of strips; 96 and 127 in two,
+    with shared memory above the 48 KB default), k = 1 and 127, m or n
+    of 1, 33 and 130."""
     gen = torch.Generator(device=cuda).manual_seed(k)
     c = torch.randn(m, n + 3, generator=gen, device=cuda)[:, :n]
     a = torch.randn(m, k + 5, generator=gen, device=cuda)[:, 2:2 + k]
@@ -545,6 +598,28 @@ def test_rank_k_tail_kernel_matches_plain(cuda, m, n, k):
         torch.cuda.synchronize()
         assert K.LAUNCHES["rank_k_tail_pallas"] == before + 1
         assert rel(out, ref) < TOL
+
+
+@pytest.mark.parametrize("m,n,k", [(32, 96, 96), (4096, 4096, 64),
+                                   (100, 4000, 127), (1024, 1024, 127)])
+def test_rank_k_tail_kernel_contiguous_and_strided_agree(cuda, m, n, k):
+    """K11 reads aligned operands as float4 and others as scalars, in
+    either tile size (16×32 at the first and third shapes, 64×64 at
+    the second and fourth): both give the same bits (one accumulator
+    per output, k ascending, then α·acc + β·c)."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    c = torch.randn(m, n, generator=gen, device=cuda)
+    a = torch.randn(m, k, generator=gen, device=cuda)
+    b = torch.randn(k, n, generator=gen, device=cuda)
+    wide = [torch.zeros(x.shape[0], x.shape[1] + 3, device=cuda)
+            for x in (c, a, b)]
+    for w, x in zip(wide, (c, a, b)):
+        w[:, 1:1 + x.shape[1]] = x
+    out = K.rank_k_tail(c, a, b, -1.0, 1.0)
+    out_s = K.rank_k_tail(*(w[:, 1:1 + x.shape[1]]
+                            for w, x in zip(wide, (c, a, b))), -1.0, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), out_s.view(torch.int32))
 
 
 def test_gbsv_on_card_matches_cpu(cuda):

@@ -53,7 +53,8 @@ def test_grid_never_picks_the_cpu_quietly(monkeypatch):
 
 def test_kernel_sources_and_build_key():
     names = [s.name for s in _build._sources()]
-    assert names == ["band_chase.cu", "lu_nopiv_tile.cu", "panel_plu.cu",
+    assert names == ["band_chase.cu", "hb2st_chase.cu", "lu_nopiv_tile.cu",
+                     "panel_plu.cu",
                      "panel_plu_swap.cu", "panel_qr.cu", "panel_transpose.cu",
                      "potrf_tile.cu", "rank_k_tail.cu", "trsm_left.cu",
                      "trsm_lower.cu"]

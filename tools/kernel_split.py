@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Split the column step of the by-index panel LU (K4) and of the
-physical-swap panel LU (K10), and the block step of the unpivoted tile LU
-(K7) of ``slate_tpu_torch`` into phases, and time the right triangular
-solve (K2) against variants of its design, on one CUDA card.
+physical-swap panel LU (K10), the block step of the unpivoted tile LU
+(K7) and the task of the band → tridiagonal chase (K8) of
+``slate_tpu_torch`` into phases, and time the right triangular solve
+(K2) against variants of its design, on one CUDA card.
 
     python3 tools/kernel_split.py [--root DIR] [--label NAME]
 
@@ -18,7 +19,22 @@ callers' shapes ([8, 1024, 2048] block 0, [8, 128, 2048], [1, 128,
 7424]) and K10 at hesv's panel heights [16128, 256], [8192, 256],
 [2048, 256] and [256, 256], each in either of its designs (a grid
 barrier per column, or tagged candidate words with a deferred trailing
-update); K7 (its dataflow design) at [1024, 1024]. K2's variants (its
+update); K7 (its dataflow design) at [1024, 1024]; K8, in its design of
+one launch per wave (``hb2st_wave`` in ``csrc/band_chase.cu``), at
+(n, band) = (8192, 128) and (4096, 128): each task's phases (B load
+with the previous reflector, its right-apply, ``larfg``, the left-apply,
+B's store and mirror, D's load, the two-sided D update, D's and V/τ's
+store; a barrier closes each phase, so the stores count the time to
+start them only) for the tasks of the middle sweep and for the t = 0 tasks, the
+instrumented copy's outputs held bit for bit to the committed kernel's,
+and the gap between waves: the waves' span minus the sum of their
+longest tasks (device clock), beside a copy whose tasks return at once
+(the launches alone, same grids); K8 in its design of one cooperative
+launch (``csrc/hb2st_chase.cu`` on ``csrc/chase_flow.cuh``, whose copy
+goes beside the other) at the same shapes: each task's three waits, its
+early loads and right-apply, the rest of stage 1, its publishes and its
+D stage, the time from a done[] publish to the part that waits for it,
+and the lag between a sweep and the next. K2's variants (its
 inverse formed at each tile task's start into a third shared buffer, the
 inverse tasks skipped; 64-row blocks at every m; 128-row blocks at every
 m) run beside the committed K2 at the posv panel heights B [1024·k,
@@ -292,6 +308,205 @@ LU_POINTS = [
      "unsigned epoch, long long* prof, void* stream) {"),
     ("launch arguments", "void* args[] = {&a, &nb, &inv, &flags, &epoch};",
      "void* args[] = {&a, &nb, &inv, &flags, &epoch, &prof};"),
+]
+
+
+# K8's task in its one-launch-per-wave design: thread 0 sums each phase's
+# cycles, and takes the task's start and end on the global clock
+_K8_MARK = {q: _mark(q) for q in range(8)}
+K8_PHASES = ["B_load", "right_apply", "larfg", "left_apply",
+             "B_store_mirror", "D_load", "D_update", "D_V_tau_store"]
+K8_POINTS = [
+    ("kernel", "__global__ void __launch_bounds__(NTH)\nhb2st_wave(",
+     """__device__ __forceinline__ unsigned long long gtime() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__global__ void __launch_bounds__(NTH)
+hb2st_wave("""),
+    ("kernel arguments", """float* __restrict__ tau, float* scratch) {
+  extern __shared__ float dyn[];
+  __shared__ Vectors sh;
+  int s, t, i0;
+  if (!task_of(w, s_lo, n, b, T, s, t, i0)) return;""",
+     """float* __restrict__ tau, float* scratch, long long* prof) {
+  extern __shared__ float dyn[];
+  __shared__ Vectors sh;
+  int s, t, i0;
+  if (!task_of(w, s_lo, n, b, T, s, t, i0)) return;
+  long long q[8] = {};
+  const unsigned long long ns0 = gtime();
+  long long ck = clock64();"""),
+    ("seed load", """    for (int i = tid; i < L; i += NTH) v[i] = R.at(i0 + i, s);
+    __syncthreads();
+    larfg(v, L, sh.sc);""", """    for (int i = tid; i < L; i += NTH) v[i] = R.at(i0 + i, s);
+    __syncthreads();
+    """ + _K8_MARK[0] + """
+    larfg(v, L, sh.sc);
+    """ + _K8_MARK[2]),
+    ("seed store", """      R.at(s, i0 + i) = x;
+    }
+  } else {""", """      R.at(s, i0 + i) = x;
+    }
+    __syncthreads();
+    """ + _K8_MARK[4] + """
+  } else {"""),
+    ("B load", """    const float tp = tau[task - 1];
+    __syncthreads();""", """    const float tp = tau[task - 1];
+    __syncthreads();
+    """ + _K8_MARK[0]),
+    ("right-apply", """      B[i * ld + k] -= (tp * sh.w[i]) * vp[k];
+    }
+    __syncthreads();""", """      B[i * ld + k] -= (tp * sh.w[i]) * vp[k];
+    }
+    __syncthreads();
+    """ + _K8_MARK[1]),
+    ("larfg", """    larfg(v, L, sh.sc);
+    const float beta = sh.sc[0], tv = sh.sc[1];
+    // annihilate the bulge column""", """    larfg(v, L, sh.sc);
+    """ + _K8_MARK[2] + """
+    const float beta = sh.sc[0], tv = sh.sc[1];
+    // annihilate the bulge column"""),
+    ("left-apply", """      else B[i * ld + k] -= (tv * v[i]) * sh.w[k - 1];
+    }
+    __syncthreads();""", """      else B[i * ld + k] -= (tv * v[i]) * sh.w[k - 1];
+    }
+    __syncthreads();
+    """ + _K8_MARK[3]),
+    ("B store", """    store_mirror(B, ld, R, i0, L, j0, b);
+  }""", """    store_mirror(B, ld, R, i0, L, j0, b);
+    __syncthreads();
+    """ + _K8_MARK[4] + """
+  }"""),
+    ("D load", """  load(D, ld, R, i0, L, i0, L);
+  __syncthreads();""", """  load(D, ld, R, i0, L, i0, L);
+  __syncthreads();
+  """ + _K8_MARK[5]),
+    ("D update", """    D[i * ld + k] -= (tv * sh.w[i]) * v[k];
+  }
+  __syncthreads();
+  store(D, ld, R, i0, L, i0, L);""", """    D[i * ld + k] -= (tv * sh.w[i]) * v[k];
+  }
+  __syncthreads();
+  """ + _K8_MARK[6] + """
+  store(D, ld, R, i0, L, i0, L);"""),
+    ("task end", """  if (tid == 0) tau[task] = tv;
+}""", """  if (tid == 0) tau[task] = tv;
+  __syncthreads();
+  """ + _K8_MARK[7] + """
+  if (tid == 0) {
+    long long* p = prof + task * 10;
+    for (int u = 0; u < 8; ++u) p[u] = q[u];
+    p[8] = static_cast<long long>(ns0);
+    p[9] = static_cast<long long>(gtime());
+  }
+}"""),
+    ("launch", "hb2st_wave<<<cnt, NTH, smem, st>>>(R, n, b, T, w, s_lo, V, tau, scratch);",
+     "hb2st_wave<<<cnt, NTH, smem, st>>>(R, n, b, T, w, s_lo, V, tau, scratch, prof);"),
+    ("entry arguments", """float* scratch, int max_ctas, void* stream) {
+  size_t smem = 0;
+  int e = prepare(hb2st_wave, n, b, &smem);""", """float* scratch, int max_ctas, long long* prof,
+                               void* stream) {
+  size_t smem = 0;
+  int e = prepare(hb2st_wave, n, b, &smem);"""),
+]
+# the same grids with tasks that return at once: the launches alone
+K8_EMPTY = [("empty task",
+             "  if (!task_of(w, s_lo, n, b, T, s, t, i0)) return;\n"
+             "  const int L = min(b, n - i0), ld = b | 1, tid = threadIdx.x;\n"
+             "  float* B = blocks(dyn, scratch, b, ld);",
+             "  if (!task_of(w, s_lo, n, b, T, s, t, i0) || w >= 0) return;\n"
+             "  const int L = min(b, n - i0), ld = b | 1, tid = threadIdx.x;\n"
+             "  float* B = blocks(dyn, scratch, b, ld);")]
+
+
+# K8 in its one-launch design: the persistent loop (chase_flow.cuh) stamps each
+# task's waits, stages and publishes, the task body (hb2st_chase.cu) its
+# passes; thread 0 sums cycles and takes the global clock at five points
+K8F_PHASES = ["wait_done_t+1", "early_fetch", "early_right_apply",
+              "wait_stage_t+2", "last_row+larfg+left_sums",
+              "left_update+store", "publish_stage", "wait_done_t+2",
+              "D_stage", "publish_done"]
+
+
+def _k8f_mark(q: int, who: str = "task.") -> str:
+    return (f"if (threadIdx.x == 0) {{ long long c2 = clock64(); {who}q[{q}] "
+            f"+= c2 - {who}ck; {who}ck = c2; }}")
+
+
+K8F_LOOP = [
+    ("kernel arguments",
+     "chase_flow(const Task task0, unsigned* cnt) {",
+     "chase_flow(const Task task0, unsigned* cnt, long long* prof) {"),
+    ("task loop", """    for (int t = 0; t < ts; ++t) {
+      if (s > 0) wait_counts(done + s - 1, min(t + 1, tp), nullptr, 0);
+      task.early(s, t, dyn);
+      if (s > 0) wait_counts(stage + s - 1, min(t + 2, tp), nullptr, 0);
+      task.first(s, t, dyn);
+      publish(stage + s, t + 1);
+      if (s > 0) wait_counts(done + s - 1, min(t + 2, tp), nullptr, 0);
+      task.second(s, t, dyn);
+      publish(done + s, t + 1);
+    }""", """    for (int t = 0; t < ts; ++t) {
+      for (int u = 0; u < 10; ++u) task.q[u] = 0;
+      unsigned long long g[5];
+      g[0] = df::now_ns();
+      task.ck = clock64();
+      if (s > 0) wait_counts(done + s - 1, min(t + 1, tp), nullptr, 0);
+      """ + _k8f_mark(0) + """
+      g[1] = df::now_ns();
+      task.early(s, t, dyn);
+      """ + _k8f_mark(2) + """
+      if (s > 0) wait_counts(stage + s - 1, min(t + 2, tp), nullptr, 0);
+      """ + _k8f_mark(3) + """
+      task.first(s, t, dyn);
+      """ + _k8f_mark(5) + """
+      publish(stage + s, t + 1);
+      """ + _k8f_mark(6) + """
+      g[2] = df::now_ns();
+      if (s > 0) wait_counts(done + s - 1, min(t + 2, tp), nullptr, 0);
+      """ + _k8f_mark(7) + """
+      g[3] = df::now_ns();
+      task.second(s, t, dyn);
+      """ + _k8f_mark(8) + """
+      publish(done + s, t + 1);
+      """ + _k8f_mark(9) + """
+      g[4] = df::now_ns();
+      if (threadIdx.x == 0) {
+        long long* p = prof + (static_cast<size_t>(s) * task.T + t) * 16;
+        for (int u = 0; u < 10; ++u) p[u] = task.q[u];
+        for (int u = 0; u < 5; ++u) p[10 + u] = static_cast<long long>(g[u]);
+      }
+    }"""),
+    ("launch arguments", "void* args[] = {&arg, &cnt};",
+     "long long* prof = arg.prof;\n  void* args[] = {&arg, &cnt, &prof};"),
+]
+K8F_BODY = [
+    ("task state", "  float tv, tp, sq;\n",
+     "  float tv, tp, sq;\n  long long* prof;\n  long long q[10];\n  long long ck;\n"),
+    ("early fetch", """    fetch(B, B + b * ld, ld, i0 - b, t > 0, lr);
+    __syncthreads();
+""", """    fetch(B, B + b * ld, ld, i0 - b, t > 0, lr);
+    __syncthreads();
+    """ + _k8f_mark(1, "") + "\n"),
+    ("column sums", """      sh.y[k] = w;
+    }
+    __syncthreads();
+""", """      sh.y[k] = w;
+    }
+    __syncthreads();
+    """ + _k8f_mark(4, "") + "\n"),
+    ("profile buffer", "  task.scratch = scratch;\n",
+     "  task.scratch = scratch;\n  task.prof = g_prof;\n"),
+    ("entry arguments", """extern "C" int slate_hb2st_f32(float* rib, int n, int b, float* V, float* tau, float* scratch,
+                               int max_ctas, unsigned* cnt, void* stream) {""",
+     """extern "C" int slate_hb2st_f32(float* rib, int n, int b, float* V, float* tau, float* scratch,
+                               int max_ctas, unsigned* cnt, long long* prof, void* stream) {
+  g_prof = prof;"""),
+    ("profile pointer", "template <int J>\ncudaError_t run(",
+     "long long* g_prof = nullptr;\n\ntemplate <int J>\ncudaError_t run("),
 ]
 
 
@@ -604,6 +819,186 @@ def split_lu(root: Path, out: Path, label: str, smi: str) -> None:
         label=label, device=smi)), flush=True)
 
 
+def split_chase(root: Path, out: Path, label: str, smi: str) -> None:
+    """K8 in the design the checkout has: one launch per wave in a tree
+    whose ``band_chase.cu`` still holds ``hb2st_wave`` (a ``--root``
+    before K8's redesign: the baseline its split is measured against),
+    else the one-launch design (:func:`split_chase_flow`)."""
+    import numpy as np
+    import torch
+    from slate_tpu_torch.internal import kernels as K
+    csrc = root / "slate_tpu_torch/csrc"
+    src = (csrc / "band_chase.cu").read_text()
+    if "hb2st_wave(" not in src:
+        split_chase_flow(root, out, label, smi)
+        return
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fns = {}
+    for name, points in (("split", K8_POINTS), ("empty", K8_EMPTY)):
+        fn = build(instrument(src, points, "band_chase"), out,
+                   f"k8_{name}", csrc).slate_hb2st_f32
+        fn.argtypes = (P, I, I, P, P, P, I) + ((P,) if name == "split"
+                                              else ()) + (P,)
+        fn.restype = I
+        fns[name] = fn
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for n in (8192, 4096):
+        b = 128
+        S, T = n - 1, (n - 2) // b + 1
+        ab = torch.randn(b + 1, n, generator=gen, device="cuda")
+        prof = torch.zeros(S * T * 10, dtype=torch.int64, device="cuda")
+        scratch = torch.empty(1, device="cuda")
+        maxc = K._chase_ctas(n, b)
+
+        def run(name):
+            rib = K.band_bulge.ribbon(ab, upper=False)
+            V, tau = ab.new_zeros((S, T, b)), ab.new_zeros((S, T))
+            extra = (P(prof.data_ptr()),) if name == "split" else ()
+            rc = fns[name](P(rib.data_ptr()), n, b, P(V.data_ptr()),
+                           P(tau.data_ptr()), P(scratch.data_ptr()), maxc,
+                           *extra, P(torch.cuda.current_stream().cuda_stream))
+            if rc:
+                raise SystemExit(f"kernel_split: K8 launch error {rc}")
+            d, e = K.band_bulge.ribbon_diagonals(rib, n, b, upper=False)
+            return d, e, V, tau
+        got = run("split")
+        want = K.hb2st_chase(ab)
+        same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(got, want))
+        ms = events_ms(lambda: run("split"), reps=3)
+        committed_ms = events_ms(lambda: K.hb2st_chase(ab), reps=3)
+        empty_ms = events_ms(lambda: run("empty"), reps=3)
+        prof.zero_()
+        run("split")
+        torch.cuda.synchronize()
+        pr = prof.view(S, T, 10).cpu().numpy().astype(np.float64)
+        s_ix, t_ix = np.meshgrid(np.arange(S), np.arange(T), indexing="ij")
+        live = (s_ix + 1 + t_ix * b) <= n - 1
+        start, end = pr[..., 8], pr[..., 9]
+        dur = end - start
+        # cycles per ns of the SM clock, from the tasks' own spans
+        ghz = float(pr[..., :8][live].sum() / dur[live].sum())
+        wave = (2 * s_ix + t_ix)[live]
+        nw = int(wave.max()) + 1
+        w_lo = np.full(nw, np.inf)
+        w_hi = np.zeros(nw)
+        w_long = np.zeros(nw)
+        np.minimum.at(w_lo, wave, start[live])
+        np.maximum.at(w_hi, wave, end[live])
+        np.maximum.at(w_long, wave, dur[live])
+        has = np.isfinite(w_lo)  # waves with a task
+        w_lo, w_hi, w_long = w_lo[has], w_hi[has], w_long[has]
+        span_us = float((w_hi[-1] - w_lo[0]) / 1e3)
+        longest_us = float(w_long.sum() / 1e3)
+        gaps_us = float(np.clip(w_lo[1:] - w_hi[:-1], 0, None).sum() / 1e3)
+        mid = S // 2
+        row = live[mid] & (np.arange(T) >= 1)
+        t0 = live[:, 0]
+
+        def phases(sel):
+            return {k: float(v) / ghz / 1e3
+                    for k, v in zip(K8_PHASES, pr[..., :8][sel].mean(0))}
+        print(json.dumps(dict(
+            kernel="hb2st", design="wave", shape=[n, b], waves=int(has.sum()),
+            bitwise_equal_to_committed=same, ms=ms, committed_ms=committed_ms,
+            us_per_wave=committed_ms * 1e3 / nw, empty_tasks_ms=empty_ms,
+            empty_us_per_wave=empty_ms * 1e3 / nw, sm_clock_ghz=ghz,
+            span_us=span_us, sum_longest_task_us=longest_us,
+            gap_us=span_us - longest_us, gaps_between_waves_us=gaps_us,
+            mean_task_us=float(dur[live].mean() / 1e3),
+            middle_sweep_task_us=phases(
+                (s_ix == mid) & (t_ix >= 1) & live),
+            middle_sweep_task_total_us=float(dur[mid][row].mean() / 1e3),
+            t0_task_us=phases((t_ix == 0) & live),
+            t0_task_total_us=float(dur[:, 0][t0].mean() / 1e3),
+            label=label, device=smi)), flush=True)
+        del prof, ab
+
+
+def split_chase_flow(root: Path, out: Path, label: str, smi: str) -> None:
+    """K8 in its one-launch design: each task's waits, passes and
+    publishes (µs, the middle sweep's tasks with t ≥ 1 and the t = 0
+    tasks), the time from a done[] publish to the start of the part that
+    waits for it, and the lag between a sweep and the next at the middle
+    t."""
+    import numpy as np
+    import torch
+    from slate_tpu_torch.internal import kernels as K
+    csrc = root / "slate_tpu_torch/csrc"
+    (out / "chase_flow.cuh").write_text(instrument(
+        (csrc / "chase_flow.cuh").read_text(), K8F_LOOP, "chase_flow"))
+    fn = build(instrument((csrc / "hb2st_chase.cu").read_text(), K8F_BODY,
+                          "hb2st_chase"), out, "k8_flow", csrc).slate_hb2st_f32
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = (P, I, I, P, P, P, I, P, P, P)
+    fn.restype = I
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for n in (8192, 4096):
+        b = 128
+        S, T = n - 1, (n - 2) // b + 1
+        ab = torch.randn(b + 1, n, generator=gen, device="cuda")
+        prof = torch.zeros(S * T * 16, dtype=torch.int64, device="cuda")
+        scratch = torch.empty(1, device="cuda")
+
+        def run():
+            rib = K.band_bulge.ribbon(ab, upper=False)
+            V, tau = ab.new_zeros((S, T, b)), ab.new_zeros((S, T))
+            cnt = torch.zeros(2 * S, dtype=torch.int32, device="cuda")
+            rc = fn(P(rib.data_ptr()), n, b, P(V.data_ptr()),
+                    P(tau.data_ptr()), P(scratch.data_ptr()), sms,
+                    P(cnt.data_ptr()), P(prof.data_ptr()),
+                    P(torch.cuda.current_stream().cuda_stream))
+            if rc:
+                raise SystemExit(f"kernel_split: K8 launch error {rc}")
+            d, e = K.band_bulge.ribbon_diagonals(rib, n, b, upper=False)
+            return d, e, V, tau
+        got = run()
+        want = K.hb2st_chase(ab)
+        same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(got, want))
+        ms = events_ms(run, reps=3)
+        committed_ms = events_ms(lambda: K.hb2st_chase(ab), reps=3)
+        prof.zero_()
+        run()
+        torch.cuda.synchronize()
+        pr = prof.view(S, T, 16).cpu().numpy().astype(np.float64)
+        s_ix, t_ix = np.meshgrid(np.arange(S), np.arange(T), indexing="ij")
+        live = (s_ix + 1 + t_ix * b) <= n - 1
+        g = pr[..., 10:15]
+        span = g[..., 4] - g[..., 0]
+        ghz = float(pr[..., :10][live].sum() / span[live].sum())
+        mid = S // 2
+
+        def phases(sel):
+            return {k: float(v) / ghz / 1e3
+                    for k, v in zip(K8F_PHASES, pr[..., :10][sel].mean(0))}
+        # (s, t) with s >= 1 whose (s - 1, t + 1) exists
+        s1, t1 = np.nonzero(live[1:, :-1] & live[:-1, 1:])
+        s1 = s1 + 1
+        lat1 = g[s1, t1, 1] - g[s1 - 1, t1, 4]
+        lat2 = g[s1, t1, 3] - g[s1 - 1, t1 + 1, 4]
+        t_mid = T // 2
+        sw = np.arange(1, S)
+        sw = sw[live[sw, t_mid]]
+        lag = np.diff(g[sw, t_mid, 1]) / 1e3
+        row = live[mid] & (np.arange(T) >= 1)
+        print(json.dumps(dict(
+            kernel="hb2st", design="dataflow", shape=[n, b],
+            bitwise_equal_to_committed=same, ms=ms, committed_ms=committed_ms,
+            sm_clock_ghz=ghz,
+            middle_sweep_task_us=phases((s_ix == mid) & (t_ix >= 1) & live),
+            middle_sweep_task_total_us=float(span[mid][row].mean() / 1e3),
+            t0_task_us=phases((t_ix == 0) & live),
+            done_t1_publish_to_early_start_us_median=float(
+                np.median(lat1) / 1e3),
+            done_t2_publish_to_stage2_start_us_median=float(
+                np.median(lat2) / 1e3),
+            sweep_lag_us_median=float(np.median(lag)),
+            label=label, device=smi)), flush=True)
+        del prof, ab
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE))
@@ -624,6 +1019,7 @@ def main() -> int:
     time_k2_variants(root, out, args.label, smi)
     split_swap(root, out, args.label, smi)
     split_lu(root, out, args.label, smi)
+    split_chase(root, out, args.label, smi)
     return 0
 
 

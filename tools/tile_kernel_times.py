@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time the tile-Cholesky (K1), left triangular-solve (K3), right
-triangular-solve (K2), unpivoted tile-LU (K7), by-index panel-LU (K4) and
-physical-swap panel-LU (K10) kernels of ``slate_tpu_torch`` on one CUDA
-card, beside their plain versions and the one ``torch.linalg`` call that
-computes the same function, and time ``potrf``/``posv`` at the main
-path's shape (f32, n=16384, nb=1024, 8 right-hand sides).
+triangular-solve (K2), unpivoted tile-LU (K7), by-index panel-LU (K4),
+physical-swap panel-LU (K10) and rank-k tail (K11) kernels and the two
+bulge chasers (K8, K9) of ``slate_tpu_torch`` on one CUDA card, beside
+their plain versions and the one PyTorch call that computes the same
+function, and time ``potrf``/``posv`` at the main path's shape (f32,
+n=16384, nb=1024, 8 right-hand sides).
 
     python3 tools/tile_kernel_times.py [--root DIR] [--label NAME] [--sweep]
 
@@ -24,7 +25,12 @@ printed as a digest of values, pivots, mask and info. K7 runs at [1024,
 1024] (gesv_nopiv's tile), [256, 256] and [200, 200] beside
 ``lu_factor(pivot=False)``; K10 at hesv's panel heights [16128, 256],
 [8192, 256], [2048, 256] and [256, 256] beside ``lu_factor``, with a
-digest of its output.
+digest of its output. K11 runs at gbsv's [32, 96]·[96, 96] and at
+[4096, 64]·[64, 4096] beside ``addmm`` (TF32 off) and an empty kernel
+(``chip_smoke.empty_launcher``: one CTA of 32 threads) timed by the same
+harness: the floor any launch pays. K8 and K9 run at (n, band) = (8192,
+128) and (4096, 128) with a digest of every output (d, e and the
+reflector packs), so equal digests mean equal bits.
 ``--sweep`` also times K1, K3 and K7 alone at widths 64 … 1024 (K3 with
 8 columns: the time per 64-wide block step) and K3 at n = 1024 over
 m = 8 … 256 beside ``solve_triangular``.
@@ -46,6 +52,11 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
+
+
+def digest(ts) -> str:
+    return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in ts)
+                          ).hexdigest()[:16]
 
 
 def dominant_tile(nb, gen):
@@ -166,6 +177,39 @@ def main() -> int:
         r = cs.swap_row(a, plain_reps=1 if h > 8192 else 3)
         r["us_per_column"] = r["ms"] / cs.AASEN_NB * 1e3
         emit("panel_plu_swap", [h, cs.AASEN_NB], dict(**r, sha256=sha))
+
+    # K11 beside addmm (TF32 off) and the empty kernel's floor
+    empty_ms = cs.time_ms(cs.empty_launcher())
+    g11 = torch.Generator(device="cuda").manual_seed(11)
+    for m, n, k in ((32, 96, 96), (4096, 4096, 64)):
+        c = torch.randn(m, n, generator=g11, device="cuda")
+        x = torch.randn(m, k, generator=g11, device="cuda")
+        y = torch.randn(k, n, generator=g11, device="cuda")
+        with cs._f32():
+            lib = cs.time_ms(lambda: torch.addmm(c, x, y, alpha=-1.0))
+        emit("rank_k_tail", [m, k, n], dict(
+            ms=cs.time_ms(lambda: K.rank_k_tail(c, x, y, -1.0, 1.0)),
+            plain_ms=cs.time_ms(lambda: K.rank_k_tail_plain(c, x, y, -1.0,
+                                                            1.0)),
+            library_ms=lib, empty_ms=empty_ms,
+            bound=cs.rank_k_bound(m, n, k),
+            sha256=digest([K.rank_k_tail(c, x, y, -1.0, 1.0)])))
+
+    # K8 and K9 at heev's/gesvd's band and half its order, with digests
+    g8 = torch.Generator(device="cuda").manual_seed(8)
+    for which, fn in (("hb2st", K.hb2st_chase), ("tb2bd", K.tb2bd_chase)):
+        for n in (cs.EIG_N, 4096):
+            b = cs.EIG_NB
+            ab = torch.randn(b + 1, n, generator=g8, device="cuda")
+            sha = digest(fn(ab)[:6])
+            ms = cs.time_ms(lambda: fn(ab), reps=3)
+            S, T = n - 1, (n - 2) // b + 1
+            waves = 2 * (S - 1) + T
+            emit(which, [n, b], dict(
+                ms=ms, plain_ms=None, library_ms=None, waves=waves,
+                us_per_wave=ms / waves * 1e3, sha256=sha,
+                bound=cs.bound(*cs.chase_work(n, b, which))))
+            del ab
 
     if args.sweep:
         for w in (64, 128, 256, 512, 1024):
