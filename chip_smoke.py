@@ -34,7 +34,8 @@
    card: K6 ``panel_qr`` at [16384, 128] from d0=0, [13312, 128] from
    d0=896 (the last subpanel of the last ``geqrf`` panel) and [384, 128]
    from d0=128, each a column window of a wider matrix (rows above d0
-   bitwise unchanged); K7 ``lu_nopiv_tile`` at [1024, 1024], [200, 200]
+   bitwise unchanged), and twice on one [16384, 128] panel (equal
+   bits); K7 ``lu_nopiv_tile`` at [1024, 1024], [200, 200]
    and [65, 65], and at [200, 200] with one exact zero pivot (``info``
    equal). Times as in 2; the library calls are
    ``torch.geqrf`` on the same [h, 128] block and
@@ -92,9 +93,10 @@ The two-stage eigensolver and SVD slice (f32, ``Grid(1, 1)``):
    and in f32 on the CPU, and the distances of d and |e| between them
    are printed. Kernel times (median of 3) at (8192, 128), with the
    time per wave-equivalent (2(n − 2) + T of them) beside the 42.55 µs
-   of K8's former design of one launch per wave (commit 6498b2e, same
-   card type), and at (4096, 128), where the plain version is timed
-   once. K8 twice on one band gives equal bits.
+   (K8) and 41.53 µs (K9) of their former design of one launch per wave
+   (commits 6498b2e and 274cf77, same card type), and at (4096, 128),
+   where the plain version is timed once. Each chaser twice on one band
+   gives equal bits.
 3h. ``heev`` values at n=8192, nb=128, ``MethodEig.TwoStage``, A = (G + Gᵀ)/2:
    λ within 10·n·2⁻²⁴·‖A‖₂ of ``eigvalsh`` in f64; ``hb2st_vmem`` 1 and no
    other kernel; ``heev_vals_ms``, the stage split (he2hb, gather, hb2st,
@@ -164,6 +166,8 @@ N, NB, NRHS = 16384, 1024, 8
 FLAT_N, FLAT_NB = 8448, 256   # every LU panel window height ≡ 256 mod 1024
 PLU_FLAT_H = 7424             # a K4 flat subpanel height of the 8448 gesv
 QR_M, QR_N = 16384, 4096      # the JAX bench's geqrf shape (bench.py:766-791)
+# K6's (h, d0): geqrf's first subpanel, one of its later ones, gels' short one
+QR_SHAPES = ((QR_M, 0), (QR_M - 3 * NB, NB - 128), (384, 128))
 EIG_N, EIG_NB = 8192, 128     # heev2_split_8192 / gesvd2_split_8192 (bench.py:945-1051)
 # K8/K9 checks (n, band): the shapes of 3h/3j and 3i/3k, then two small
 # ones. The plain version, a task-by-task loop of small torch ops, runs up
@@ -228,9 +232,9 @@ KERNELS = {
                            "slate_tpu/internal/pallas_kernels.py:644",
                            "gbsv"),
 }
-# K8 a wave-equivalent at (8192, 128) in its former design of one launch
-# per wave (commit 6498b2e; NVIDIA H100 80GB HBM3, 700 W)
-K8_WAVE_US_BEFORE = 42.55
+# K8 and K9 a wave-equivalent at (8192, 128) in their former design of one
+# launch per wave (commits 6498b2e and 274cf77; NVIDIA H100 80GB HBM3, 700 W)
+WAVE_US_BEFORE = {"hb2st": 42.55, "tb2bd": 41.53}
 AASEN_NB = 256            # hesv's block: the top of B6's width range
 BAND_KL = BAND_KU = 32    # gbsv's band: block 2kl + ku = 96 < 128
 
@@ -867,7 +871,7 @@ def _category(name: str) -> str:
         return "panel QR kernel (K6)"
     if "Hb2st" in name:  # chase_flow<Hb2st<J>>, csrc/hb2st_chase.cu
         return "hb2st chase kernel (K8)"
-    if "tb2bd_wave" in name:
+    if "Tb2bd" in name:  # chase_flow<Tb2bd<J>>, csrc/band_chase.cu
         return "tb2bd chase kernel (K9)"
     if any(k in name for k in ("geqr", "larf", "orm", "nrm2", "cusolver")):
         return "cuSOLVER panel QR (geqrf)"
@@ -1077,11 +1081,19 @@ def phase_qr_nopiv_kernels():
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = {}
     say("QR and unpivoted-LU kernel checks (kernel vs plain on the card):")
-    rows["qr_call"] = check_qr(QR_M, 0, gen, True)
-    for h, d0 in ((QR_M - 3 * NB, NB - 128), (384, 128)):
+    rows["qr_call"] = check_qr(*QR_SHAPES[0], gen, True)
+    for h, d0 in QR_SHAPES[1:]:
         mx = check_qr(h, d0, gen, False)["max_abs_err"]
         rows["qr_call"]["max_abs_err"] = max(rows["qr_call"]["max_abs_err"],
                                              mx)
+    # two runs on one window: the same bits (a fixed reduction order)
+    a = torch.randn(QR_M, 128, generator=gen, device="cuda")
+    x, y = a.clone(), a.clone()
+    same = (torch.equal(K.panel_qr(x, 0), K.panel_qr(y, 0))
+            and torch.equal(x, y))
+    say(f"  panel_qr [{QR_M},128]: two runs bit for bit equal: {same}")
+    assert same, "panel_qr does not repeat its bits"
+    del a, x, y
     # K7 on G + nb·I at gesv_nopiv's tile, a ragged width and one below a
     # 64-column block; then a zero row and column: one exact zero pivot
     for nb, zero in ((NB, None), (200, None), (65, None), (200, 70)):
@@ -1508,15 +1520,14 @@ def phase_chase_kernels():
         flops, nbytes = chase_work(EIG_N, EIG_NB, which)
         rows[name] = dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
                           library_ms=None, bound=bound(flops, nbytes))
-        if which == "hb2st":
-            again = fn(ab)
-            same = all(torch.equal(x, y) for x, y in zip(fn(ab), again))
-            say(f"  {name}: {ms / waves * 1e3:.3f} us per wave-equivalent "
-                f"(one launch) against {K8_WAVE_US_BEFORE} in its former "
-                f"design of one launch per wave; two runs bit for bit "
-                f"equal: {same}")
-            assert same, "hb2st_chase does not repeat its bits"
-            del again
+        again = fn(ab)
+        same = all(torch.equal(x, y) for x, y in zip(fn(ab), again))
+        say(f"  {name}: {ms / waves * 1e3:.3f} us per wave-equivalent "
+            f"(one launch) against {WAVE_US_BEFORE[which]} in its former "
+            f"design of one launch per wave; two runs bit for bit "
+            f"equal: {same}")
+        assert same, f"{which} chase does not repeat its bits"
+        del again
         say(f"  {name}: kernel_ms {ms:.4f} at n={EIG_N} band={EIG_NB} "
             f"({waves} wave-equivalents, {ms / waves * 1e3:.3f} us each); "
             f"at n={n0} band={b0} kernel_ms {ms0:.4f}, plain_ms "

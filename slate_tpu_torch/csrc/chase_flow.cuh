@@ -1,31 +1,33 @@
-// The persistent loop of a bulge chase (K8 hb2st_chase.cu; written so
-// that K9 can take it too): one cooperative launch runs the whole chase.
+// The persistent loop of a bulge chase, shared by K8 (hb2st_chase.cu, the
+// band -> tridiagonal chase) and K9 (band_chase.cu, band -> bidiagonal):
+// one cooperative launch runs the whole chase.
 //
 // The chase is the twin's task DAG (slate_tpu/internal/band_bulge.py):
-// task (sweep s, chase t) works on the b x b blocks around row
+// task (sweep s, chase t) works on the b x b blocks around row and column
 // i0 = s + 1 + t b, and reads its own sweep's previous reflector. CTA x of
 // a grid of G takes the sweeps x, x + G, x + 2G, ... in order, and each
 // sweep's tasks t = 0, 1, ... in order, so a sweep's reflector chain never
 // leaves its CTA. A task runs in two stages, each published by a counter
 // of its sweep in device memory:
-//   first   its B block (for t = 0 the column s), which it annihilates
-//           and stores: t + 1 in stage[s];
-//   second  its diagonal block D, whose two-sided update it stores:
-//           t + 1 in done[s].
-// Of what task (s, t) reads, sweep s - 1 writes last: all but the last
-// row of B and D in (s - 1, t), that row in (s - 1, t + 1)'s first stage
-// (its B block) and D's last diagonal element in (s - 1, t + 1)'s second.
-// So the task waits in three places, each count capped at the length of
-// sweep s - 1: done[s - 1] >= t + 1 before it loads all but those rows
-// (early, which also right-applies them), stage[s - 1] >= t + 2 before it
-// loads the last rows and goes on with stage 1 (first), done[s - 1] >=
-// t + 2 before it reads that element (second). Its writes come after the
-// same waits. tests/test_torch_band_chase_sched.py models the order, the
-// element sets and the waits on the host. A task waits only on an earlier
-// sweep, whose CTA is co-resident (cooperative launch) and runs it before
-// any later one: so no CTA waits on a CTA that cannot run, and a wait over
-// WAIT_LIMIT_NS traps (a launch error for the caller) instead of hanging
-// the card.
+//   first   its bulge block B (for t = 0 the column or row s), which it
+//           annihilates and stores: t + 1 in stage[s];
+//   second  its diagonal block D, whose update it stores: t + 1 in done[s].
+// Of what task (s, t) reads, sweep s - 1 writes last: most of B and D in
+// (s - 1, t); a late part of them in (s - 1, t + 1)'s first stage (its B
+// block: K8's last row of B and D, K9's last element of B and last column
+// of D) and D's last diagonal element in (s - 1, t + 1)'s second. So the
+// task waits in three places, each count capped at the length of sweep
+// s - 1: done[s - 1] >= t + 1 before it loads all but the late parts
+// (early, which also starts the arithmetic on them), stage[s - 1] >= t + 2
+// before it loads the late part and goes on with stage 1 (first),
+// done[s - 1] >= t + 2 before it reads that element (second). Between its
+// stage-1 publish and the last wait it may go on with what it holds (mid).
+// Its writes come after the same waits. tests/test_torch_band_chase_sched.py
+// models the order, both chases' element sets and the waits on the host.
+// A task waits only on an earlier sweep, whose CTA is co-resident
+// (cooperative launch) and runs it before any later one: so no CTA waits on
+// a CTA that cannot run, and a wait over WAIT_LIMIT_NS traps (a launch error
+// for the caller) instead of hanging the card.
 //
 // The counters count from 0 in every launch: the caller zeroes them with
 // each call, so no epoch is needed. A counter is published by a release
@@ -52,6 +54,31 @@ struct Ribbon {
     return p + static_cast<long long>(r) * ld + c + off;
   }
 };
+
+// The task bodies' reductions, in a fixed order so that runs repeat bit
+// for bit: a butterfly within a warp, then the warps' partials in warp order.
+__device__ __forceinline__ float warp_sum(float p) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) p += __shfl_xor_sync(0xffffffffu, p, m);
+  return p;
+}
+
+// warp_sum of each of RG values, the butterflies interleaved
+template <int RG>
+__device__ __forceinline__ void warp_sums(float (&p)[RG]) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1)
+#pragma unroll
+    for (int r = 0; r < RG; ++r) p[r] += __shfl_xor_sync(0xffffffffu, p[r], m);
+}
+
+// Sum of red[0 .. NW) in warp order.
+__device__ __forceinline__ float warps_sum(const float* red) {
+  float s = red[0];
+#pragma unroll
+  for (int w = 1; w < NW; ++w) s += red[w];
+  return s;
+}
 
 __device__ __forceinline__ int sweep_tasks(int n, int b, int s) { return (n - 2 - s) / b + 1; }
 
@@ -83,8 +110,8 @@ __device__ __forceinline__ void publish(unsigned* f, unsigned v) {
 }
 
 // The whole chase: sweeps blockIdx.x, + gridDim.x, ...; Task provides
-// early(s, t, dyn), first(s, t, dyn) and second(s, t, dyn) as above. cnt: 2 (n - 1) zeroed
-// counters, stage[] then done[].
+// early(s, t, dyn), first(s, t, dyn), mid(s, t, dyn) and second(s, t, dyn)
+// as above. cnt: 2 (n - 1) zeroed counters, stage[] then done[].
 template <class Task>
 __global__ void __launch_bounds__(NTH) chase_flow(const Task task0, unsigned* cnt) {
   extern __shared__ float4 dyn4[];
@@ -102,6 +129,7 @@ __global__ void __launch_bounds__(NTH) chase_flow(const Task task0, unsigned* cn
       if (s > 0) wait_counts(stage + s - 1, min(t + 2, tp), nullptr, 0);
       task.first(s, t, dyn);
       publish(stage + s, t + 1);
+      task.mid(s, t, dyn);
       if (s > 0) wait_counts(done + s - 1, min(t + 2, tp), nullptr, 0);
       task.second(s, t, dyn);
       publish(done + s, t + 1);

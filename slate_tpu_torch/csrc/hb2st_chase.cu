@@ -54,6 +54,9 @@ namespace {
 using slate::chase::NTH;
 using slate::chase::NW;
 using slate::chase::Ribbon;
+using slate::chase::warp_sum;
+using slate::chase::warp_sums;
+using slate::chase::warps_sum;
 
 constexpr int BMAX = 256;       // widest band
 constexpr int SMEM_BMAX = 128;  // widest band whose two blocks fit shared memory
@@ -70,29 +73,6 @@ struct Vectors {
 __device__ __forceinline__ Vectors& vectors() {
   __shared__ Vectors sh;
   return sh;
-}
-
-__device__ __forceinline__ float warp_sum(float p) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) p += __shfl_xor_sync(0xffffffffu, p, m);
-  return p;
-}
-
-// warp_sum of each of RG values, the butterflies interleaved
-template <int RG>
-__device__ __forceinline__ void warp_sums(float (&p)[RG]) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1)
-#pragma unroll
-    for (int r = 0; r < RG; ++r) p[r] += __shfl_xor_sync(0xffffffffu, p[r], m);
-}
-
-// Sum of red[0 .. NW) in warp order.
-__device__ __forceinline__ float warps_sum(const float* red) {
-  float s = red[0];
-#pragma unroll
-  for (int w = 1; w < NW; ++w) s += red[w];
-  return s;
 }
 
 // J column slots a lane (b <= 32 J): K8 with its blocks in shared memory
@@ -322,6 +302,9 @@ struct Hb2st {
       }
     }
   }
+
+  // Nothing between the stages: D's update needs its last diagonal element.
+  __device__ __forceinline__ void mid(int, int, float*) {}
 
   // Stage 2: D <- H D H on its lower triangle, then V and tau.
   __device__ void second(int s, int t, float* dyn) {

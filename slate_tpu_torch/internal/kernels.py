@@ -32,6 +32,7 @@ physical-swap panel LU the panel width (its height has its own limit,
 from __future__ import annotations
 
 import ctypes
+from collections.abc import Callable
 
 import torch
 
@@ -56,8 +57,6 @@ W = 128
 # Fewest rows one CTA of the panel LU kernels holds (MIN_ROWS in
 # csrc/panel_plu.cu and csrc/panel_plu_swap.cu).
 _PLU_MIN_ROWS = 32
-# The same for the panel QR kernel (MIN_ROWS in csrc/panel_qr.cu).
-_QR_MIN_ROWS = 32
 
 _SPAN = (1, 1024, 1)
 _PANEL_SPAN = (1, 16384, 1)
@@ -114,8 +113,7 @@ TRANSPOSE_NAMES = ("transpose_tiled", "transpose_fold", "fold_panel",
 # adds one where it launches its kernel, and nowhere else. The QR kernel,
 # the two bulge chasers, the physical-swap panel LU and the rank-k tail
 # count under the names of the Pallas functions they stand for
-# (``hb2st_vmem``, ``tb2bd_vmem``: one count per chase; K8's is one
-# launch, K9's C entry point runs every wave).
+# (``hb2st_vmem``, ``tb2bd_vmem``: one launch per chase).
 LAUNCHES = {"potrf_tile": 0, "trsm_right_lower_t": 0, "trsm_left_lower": 0,
             **{k: 0 for k in PLU_NAMES + TRANSPOSE_NAMES},
             "qr_call": 0, "lu_nopiv_tile": 0, "hb2st_vmem": 0,
@@ -159,10 +157,11 @@ _SIGNATURES = {
     "slate_panel_transpose_f32": ("panel_transpose",
                                   (_P, _P, _I, _I, _I) + (_L,) * 4 + (_P,)),
     "slate_qr_subpanel_f32": ("panel_qr",
-                              (_P, _L, _I, _I, _P, _P, _P, _I, _P)),
+                              (_P, _L, _I, _I, _P, _P, _I, _U, _P)),
     "slate_lu_nopiv_tile_f32": ("lu_nopiv_tile", (_P, _I, _P, _P, _U, _P)),
     "slate_hb2st_f32": ("hb2st_chase", (_P, _I, _I, _P, _P, _P, _I, _P, _P)),
-    "slate_tb2bd_f32": ("band_chase", (_P, _I, _I) + (_P,) * 5 + (_I, _P)),
+    "slate_tb2bd_f32": ("band_chase", (_P, _I, _I) + (_P,) * 5 + (_I, _P,
+                                                                  _P)),
     "slate_panel_plu_swap_f32": ("panel_plu_swap", (_P,) * 6 + (_I,) * 3
                                  + (_P,)),
     "slate_rank_k_tail_f32": ("rank_k_tail", (_P, _I, _P, _I, _P, _I, _P)
@@ -523,34 +522,45 @@ def panel_plu(buf: torch.Tensor, act: torch.Tensor, blk: int, *,
     return piv, info[0]
 
 
-# Candidate words and published rows of the panel LU kernel, one buffer
-# per (device, stream) with the epoch of its last launch (1 … 255): a
-# launch's tags carry its epoch, so nothing of an earlier launch is taken
-# for this one's; the buffer is zeroed before the epoch wraps.
+# Scratch of the kernels whose words carry a tag with the launch's epoch
+# (the panel LU kernel K4 and the panel QR kernel K6), one int64 buffer per
+# (device, stream) with the epoch of its last launch: nothing of an earlier
+# launch is taken for this one's, and the buffer is zeroed before the epoch
+# wraps. K4's tags hold 8 bits of epoch, K6's 24.
 _PLU_SCRATCH: dict = {}
 _PLU_EPOCHS = 255
+_QR_SCRATCH: dict = {}
+_QR_EPOCHS = (1 << 24) - 1
 
 
-def _plu_scratch(device: torch.device) -> tuple[torch.Tensor, int, int]:
-    """The scratch for one panel LU launch on ``device``'s current
-    stream: ``(words, max_ctas, epoch)``, 2·max_ctas·(W + 1) int64 words
-    for a grid of at most one CTA per SM. Raises under CUDA graph
-    capture: a replay would repeat the captured epoch."""
+def _epoch_scratch(table: dict, device: torch.device,
+                   words: Callable[[int], int],
+                   epochs: int, what: str) -> tuple[torch.Tensor, int, int]:
+    """``(words, ctas, epoch)`` for one launch on ``device``'s current
+    stream of a kernel on one CTA per SM, ``words(ctas)`` int64 words of
+    scratch. Raises under CUDA graph capture: a replay would repeat the
+    captured epoch."""
     slate_error_if(torch.cuda.is_current_stream_capturing(),
-                   "the panel LU kernel cannot be captured in a CUDA graph: "
-                   "each launch needs a new epoch for its tags")
+                   f"{what} cannot be captured in a CUDA graph: each launch "
+                   "needs a new epoch for its tags")
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    ent = _PLU_SCRATCH.get(key)
+    ent = table.get(key)
     if ent is None:
         ctas = torch.cuda.get_device_properties(device).multi_processor_count
-        ent = [torch.zeros(2 * ctas * (W + 1), dtype=torch.int64,
-                           device=device), ctas, 0]
-        _PLU_SCRATCH[key] = ent
-    if ent[2] >= _PLU_EPOCHS:
+        ent = [torch.zeros(words(ctas), dtype=torch.int64, device=device),
+               ctas, 0]
+        table[key] = ent
+    if ent[2] >= epochs:
         ent[0].zero_()
         ent[2] = 0
     ent[2] += 1
     return ent[0], ent[1], ent[2]
+
+
+def _plu_scratch(device: torch.device) -> tuple[torch.Tensor, int, int]:
+    """K4's scratch: 2·ctas·(W + 1) words (:func:`_epoch_scratch`)."""
+    return _epoch_scratch(_PLU_SCRATCH, device, lambda c: 2 * c * (W + 1),
+                          _PLU_EPOCHS, "the panel LU kernel")
 
 
 def panel_plu_plain(buf: torch.Tensor, act: torch.Tensor,
@@ -682,15 +692,24 @@ def panel_qr(sub: torch.Tensor, d0: int) -> torch.Tensor:
     which holds the subpanel transposed, [W, h], in VMEM. Bound on an
     H100: latency — 128 dependent columns, each a reduction over all rows
     below the diagonal; the bytes (2·h·W·4) and flops (~4·h·W²) are a
-    few µs of work. Design (csrc/panel_qr.cu), K4's pattern: one
-    cooperative launch, one CTA per SM holding its band of rows in
-    shared memory for the whole call; per column each CTA publishes its
-    partial sums s_k = Σ a[i, j]·a[i, k] (i below the diagonal, k ≥ j),
-    one grid barrier, then every CTA reduces them in the same order and
-    derives the same α, β, τ and vᵀa_k = a[d, k] + s_k/(α − β), and
-    updates its own rows. Each reflector is applied eagerly, where the
-    JAX kernel batches IB = 8 of them for the MXU; the two agree in exact
-    arithmetic.
+    few µs of work. Design (csrc/panel_qr.cu): one cooperative launch of
+    one CTA per SM (of 132, 66 and 44 CTAs at [16384, 128] the most is
+    the fastest: the pass grows with the rows a CTA holds), each holding
+    its band of rows in shared memory for the whole call. The grid barrier and the flat reduction of the design
+    it replaced (13.0 µs a column at [16384, 128], 5 of them in the
+    exchange) give way to a two-level exchange of tagged words: per
+    column each CTA publishes its partial sums s_k = Σ a[i, j]·a[i, k]
+    (i below the diagonal, k ≥ j), the owner of column k (CTA k mod G)
+    sums the G words of k in a fixed order and publishes s_k, and every
+    CTA waits for the s_k and the diagonal row it needs; no grid barrier,
+    no fence. Every thread derives α, β, τ, 1/(α − β) and
+    τ·vᵀa_k = τ·(a[d, k] + s_k/(α − β)) itself; one pass over its rows,
+    one warp a row, writes v, updates the columns right of j and sums
+    the next column's partials (3.7 µs a column at [16384, 128]). Each
+    reflector is applied eagerly, where the JAX kernel batches IB = 8 of
+    them for the MXU; the two agree in exact arithmetic. Runs repeat bit
+    for bit. The words live in scratch kept per device and stream
+    (:func:`_qr_scratch`), whose tags carry the launch's epoch.
     """
     h, w = sub.shape
     slate_error_if(w != W or not 0 <= d0 < h,
@@ -704,22 +723,27 @@ def panel_qr(sub: torch.Tensor, d0: int) -> torch.Tensor:
     slate_error_if(not supported("panel_qr", sub.dtype, h, sub.device),
                    f"qr_call: height {h} is outside the capability table")
     dev = sub.device
-    maxc = -(-(h - d0) // _QR_MIN_ROWS)
-    part = torch.empty(2 * maxc * W, dtype=torch.float32, device=dev)
-    head = torch.empty(2 * W, dtype=torch.float32, device=dev)
+    scratch, ctas, epoch = _qr_scratch(dev)
     tau = torch.empty(W, dtype=torch.float32, device=dev)
     _launch("slate_qr_subpanel_f32", dev, _P(sub.data_ptr()), sub.stride(0),
-            h, d0, _P(tau.data_ptr()), _P(part.data_ptr()),
-            _P(head.data_ptr()), maxc)
+            h, d0, _P(tau.data_ptr()), _P(scratch.data_ptr()), ctas, epoch)
     LAUNCHES["qr_call"] += 1
     return tau
+
+
+def _qr_scratch(device: torch.device) -> tuple[torch.Tensor, int, int]:
+    """K6's scratch: (2·ctas + 4)·W words (:func:`_epoch_scratch`)."""
+    return _epoch_scratch(_QR_SCRATCH, device, lambda c: (2 * c + 4) * W,
+                          _QR_EPOCHS, "the panel QR kernel")
 
 
 def panel_qr_plain(sub: torch.Tensor, d0: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`panel_qr`, in place on ``sub`` the
     same way: the kernel's eager column loop on a copy of the rows from
-    ``d0`` down, with vᵀa_k formed from the same sums. Its sums run in
-    another order than the kernel's grid reduction, so the two agree to
+    ``d0`` down, with vᵀa_k formed from the same sums and v scaled by
+    1/(α − β) as LAPACK's ``larfg`` does. Its sums run in another order
+    than the kernel's reduction across CTAs, and the kernel fuses the
+    rank-1 update's product and difference, so the two agree to
     rounding, not bit for bit."""
     x = sub[d0:].clone()                                   # a copy
     hh = x.shape[0]
@@ -734,8 +758,9 @@ def panel_qr_plain(sub: torch.Tensor, d0: int) -> torch.Tensor:
                                -sgn * torch.sqrt(alpha * alpha + xnorm2))
             t = torch.where(trivial, 0.0, (beta - alpha) / beta).to(x.dtype)
             vden = torch.where(trivial, 1.0, alpha - beta).to(x.dtype)
-            tw = t * (x[j, j + 1:] + s[1:] / vden)
-            x[j + 1:, j] /= vden
+            rv = 1.0 / vden                   # LAPACK's larfg scales by it
+            tw = t * (x[j, j + 1:] + s[1:] * rv)
+            x[j + 1:, j] *= rv
             x[j, j] = beta
             x[j, j + 1:] -= tw
             x[j + 1:, j + 1:] -= torch.outer(x[j + 1:, j], tw)
@@ -867,11 +892,6 @@ def _trivial_band(name: str, ab: torch.Tensor) -> bool:
     return False
 
 
-def _chase_ctas(n: int, b: int) -> int:
-    """Most tasks in one wave: a bound on K9's grid size."""
-    return band_bulge.max_chase(n, b) // 2 + 2
-
-
 def _chase_scratch(b: int, ctas: int, device) -> torch.Tensor:
     """Global scratch for the task blocks of bands too wide for shared
     memory (SMEM_BMAX in csrc/band_chase.cu and csrc/hb2st_chase.cu): two
@@ -940,30 +960,48 @@ def tb2bd_chase(ub: torch.Tensor):
     ``(d, e, Vu, tauu, Vv, tauv, phase0)``.
 
     Replaces ``_tb2bd_vmem_jit`` (band_wave_vmem_bd.py:330), the SVD twin
-    of the eig chaser. Same bound as :func:`hb2st_chase`; design
-    (csrc/band_chase.cu): one grid per wave w = 2s + t on the stream,
-    one CTA per task, whose tasks touch disjoint elements; the CTA stages
-    its b×b blocks in shared memory (bands ≤ 128; up to 256 in global
-    scratch) and runs the gebr task body: left-apply the previous U-side
-    reflector to the B block, the V-side reflector from its row 0
-    applied to the rest of B and to the diagonal block, then the U-side
-    reflector from the diagonal block's column 0. Reductions run in a
-    fixed order inside the CTA, so runs repeat bit for bit. The ribbon
-    holds the upper band alone; only the U-side reflector chains across
-    tasks."""
+    of the eig chaser. Same bound as :func:`hb2st_chase`: latency along
+    the ~2n dependent task parts of the chain. Design (csrc/band_chase.cu
+    on the persistent loop of csrc/chase_flow.cuh, K8's): one cooperative
+    launch for the whole chase, CTA x taking the sweeps x, x + G, …, so
+    the U-side reflector that chains task (s, t − 1) to (s, t) stays in
+    the CTA's shared memory. A task loads its bulge block B and its whole
+    diagonal block D (whose lower part holds the fill the next sweep
+    chases) but B's last element and D's last column once (s − 1, t) is
+    done, and left-applies the previous U-side reflector to all of B's
+    columns but the last; once (s − 1, t + 1) has stored its bulge it
+    takes those, forms the V-side reflector from B's row 0 and
+    right-applies it to B's rows (stored) and, after publishing, to D's
+    rows; once (s − 1, t + 1) is done it takes D's last diagonal element,
+    forms the U-side reflector from D's column 0 and left-applies it. The
+    counters it waits on are zeroed by this wrapper for every call (no
+    epoch). Every pass runs one warp a row with shuffle reductions in a
+    fixed order, so runs repeat bit for bit; the arithmetic is
+    :func:`band_bulge.tb2bd`'s. The blocks sit in shared memory for
+    bands ≤ 128 and in global scratch up to 256. At n = 8192, b = 128 a
+    chase takes 166 ms, against 680 in the design of one launch per wave
+    it replaced (41.5 µs a wave, block moves and four full-block passes
+    per task); a task's loads lead its 20 µs. A CPU tensor runs the
+    plain version; a band < 1 or n < 2 is the trivial case."""
     band, n = ub.shape[0] - 1, ub.shape[1]
     if not _route("tb2bd_vmem", ub):
         return band_bulge.tb2bd(ub)
     if _trivial_band("tb2bd_vmem", ub):
         return band_bulge.tb2bd(ub)
+    slate_error_if(torch.cuda.is_current_stream_capturing(),
+                   "tb2bd_chase cannot be captured in a CUDA graph: its "
+                   "ribbon is built by boolean indexing, which waits for "
+                   "the host")
     S, T = n - 1, band_bulge.max_chase(n, band)
     rib = band_bulge.ribbon(ub.contiguous(), upper=True)
     Vu, Vv = ub.new_zeros((S, T, band)), ub.new_zeros((S, T, band))
     tauu, tauv = ub.new_zeros((S, T)), ub.new_zeros((S, T))
-    scratch = _chase_scratch(band, _chase_ctas(n, band), ub.device)
+    ctas = torch.cuda.get_device_properties(ub.device).multi_processor_count
+    scratch = _chase_scratch(band, ctas, ub.device)
+    cnt = torch.zeros(2 * S, dtype=torch.int32, device=ub.device)
     _launch("slate_tb2bd_f32", ub.device, _P(rib.data_ptr()), n, band,
             *(_P(t.data_ptr()) for t in (Vu, tauu, Vv, tauv, scratch)),
-            _chase_ctas(n, band))
+            ctas, _P(cnt.data_ptr()))
     LAUNCHES["tb2bd_vmem"] += 1
     d, e = band_bulge.ribbon_diagonals(rib, n, band, upper=True)
     return d, e, Vu, tauu, Vv, tauv, ub.new_ones(())

@@ -220,3 +220,40 @@ def test_ready_flags_restart_before_the_epoch_wraps(monkeypatch):
                         lambda: True)
     with pytest.raises(SlateError, match="CUDA graph"):
         K._ready_flags(cpu, 10)
+
+
+@pytest.mark.parametrize("scratch,table", [("_plu_scratch", "_PLU_SCRATCH"),
+                                           ("_qr_scratch", "_QR_SCRATCH")])
+def test_tagged_scratch_zeroed_before_the_epoch_wraps(monkeypatch, scratch,
+                                                      table):
+    """The scratch of the tagged-word kernels (K4, K6): one buffer per
+    stream sized for one CTA per SM, one epoch more per launch; at the
+    last epoch the next launch finds the buffer zeroed and epoch 1, so no
+    word of an earlier launch carries its tag; under CUDA graph capture
+    the call raises."""
+    class Stream:
+        cuda_stream = 7
+
+    class Props:
+        multi_processor_count = 3
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d: Props)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    monkeypatch.setattr(K, table, {})
+    get = getattr(K, scratch)
+    cpu = torch.device("cpu")
+    w1, ctas, e1 = get(cpu)
+    w2, _, e2 = get(cpu)
+    assert w1 is w2 and ctas == 3 and (e1, e2) == (1, 2)
+    assert w1.dtype == torch.int64 and w1.numel() >= 2 * ctas * K.W
+    w1.fill_(9)
+    getattr(K, table)[(None, 7)][2] = (K._QR_EPOCHS if scratch == "_qr_scratch"
+                                       else K._PLU_EPOCHS)
+    w3, _, e3 = get(cpu)
+    assert w3 is w1 and e3 == 1 and int(w3.abs().max()) == 0
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    with pytest.raises(SlateError, match="CUDA graph"):
+        get(cpu)

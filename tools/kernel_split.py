@@ -1,52 +1,63 @@
 #!/usr/bin/env python3
-"""Split the column step of the by-index panel LU (K4) and of the
-physical-swap panel LU (K10), the block step of the unpivoted tile LU
-(K7) and the task of the band → tridiagonal chase (K8) of
-``slate_tpu_torch`` into phases, and time the right triangular solve
-(K2) against variants of its design, on one CUDA card.
+"""Split the column step of the by-index panel LU (K4), of the
+physical-swap panel LU (K10) and of the Householder subpanel QR (K6), the
+block step of the unpivoted tile LU (K7) and the task of the two bulge
+chases (K8, K9) of ``slate_tpu_torch`` into phases, and time the right
+triangular solve (K2) against variants of its design, on one CUDA card.
 
     python3 tools/kernel_split.py [--root DIR] [--label NAME]
+                                  [--only plu,k2,swap,lu,qr,chase]
 
 ``ncu`` does not run where the card is, so the split is taken inside the
-kernels: the script copies ``csrc/panel_plu.cu``, ``csrc/panel_plu_swap.cu``,
-``csrc/lu_nopiv_tile.cu`` and ``csrc/trsm_lower.cu`` of the checkout DIR
-(default: this one) into ``DIR/slate_tpu_torch/_build/split/``, adds
-``clock64()`` counters at fixed points of the copies (thread 0 of each
-CTA, or of each task, sums the cycles of each phase into a device array)
-or K2's variants, builds each copy with ``nvcc`` into a library of its
-own and runs it. The committed sources are never changed. K4 runs at its
-callers' shapes ([8, 1024, 2048] block 0, [8, 128, 2048], [1, 128,
-7424]) and K10 at hesv's panel heights [16128, 256], [8192, 256],
-[2048, 256] and [256, 256], each in either of its designs (a grid
-barrier per column, or tagged candidate words with a deferred trailing
-update); K7 (its dataflow design) at [1024, 1024]; K8, in its design of
-one launch per wave (``hb2st_wave`` in ``csrc/band_chase.cu``), at
-(n, band) = (8192, 128) and (4096, 128): each task's phases (B load
-with the previous reflector, its right-apply, ``larfg``, the left-apply,
-B's store and mirror, D's load, the two-sided D update, D's and V/τ's
-store; a barrier closes each phase, so the stores count the time to
-start them only) for the tasks of the middle sweep and for the t = 0 tasks, the
-instrumented copy's outputs held bit for bit to the committed kernel's,
-and the gap between waves: the waves' span minus the sum of their
-longest tasks (device clock), beside a copy whose tasks return at once
-(the launches alone, same grids); K8 in its design of one cooperative
-launch (``csrc/hb2st_chase.cu`` on ``csrc/chase_flow.cuh``, whose copy
-goes beside the other) at the same shapes: each task's three waits, its
-early loads and right-apply, the rest of stage 1, its publishes and its
-D stage, the time from a done[] publish to the part that waits for it,
-and the lag between a sweep and the next. K2's variants (its
-inverse formed at each tile task's start into a third shared buffer, the
-inverse tasks skipped; 64-row blocks at every m; 128-row blocks at every
-m) run beside the committed K2 at the posv panel heights B [1024·k,
-1024], k = 1 … 15, each with its relative error to the plain version.
-Each output is checked against the tree's plain version (K4 and K10 bit
-for bit). One JSON line a shape: the instrumented kernel's time (CUDA
-events, median of 5), and per K4 or K10 column or per K7 block step the
-time of each phase, its share of the counted cycles applied to the
-measured time. The counters cost time of their
-own, so compare phases within one line. The probe points are found by
-text: a source they no longer match stops the script with the point's
-name.
+kernels: the script copies the sources of the checkout DIR (default: this
+one) into ``DIR/slate_tpu_torch/_build/split/``, adds ``clock64()``
+counters at fixed points of the copies (thread 0 of each CTA, or of each
+task, sums the cycles of each phase into a device array) or K2's
+variants, builds each copy with ``nvcc`` into a library of its own and
+runs it. The committed sources are never changed. Each kernel is split in
+the design the checkout has, so a ``--root`` of an earlier commit splits
+the design this one replaced:
+
+* K4 at its callers' shapes ([8, 1024, 2048] block 0, [8, 128, 2048],
+  [1, 128, 7424]) and K10 at hesv's panel heights [16128, 256], [8192,
+  256], [2048, 256] and [256, 256], each with a grid barrier per column
+  or with tagged candidate words and a deferred trailing update;
+* K6 at [16384, 128] with grids of 132, 66 and 44 CTAs, [13312, 128]
+  from d0 = 896 and [384, 128] from d0 = 128: with a grid barrier per
+  column (up to commit 274cf77: partials, publish, barrier, the flat
+  reduction, one-thread larfg, update) or with the two-level exchange of
+  tagged words (larfg and tw, the pass over the rows, the partials'
+  barrier and publish, the owners' wait and sums, the wait for the sums),
+  and then timed beside copies that update 2 or 8 rows a warp at once
+  (the committed kernel: 4);
+* K7 (its dataflow design) at [1024, 1024];
+* K9 in its design of one launch per wave (``tb2bd_wave``, up to commit
+  274cf77) at (n, band) = (8192, 128) and (4096, 128): each task's phases
+  (B load, the previous U-side reflector's left-apply, ``larfg`` of v,
+  its right-apply, B's store, D's load, D's right-apply, ``larfg`` of u,
+  its left-apply, the stores; a barrier closes each phase) for the
+  middle sweep's tasks and the t = 0 tasks, and the gap between waves
+  (the waves' span minus their longest tasks) beside a copy whose tasks
+  return at once (the launches alone);
+* K8 and K9 in their one-launch design (``csrc/chase_flow.cuh``) at the
+  same shapes: each task's three waits, its parts and publishes, the time
+  from a done[] publish to the part that waits for it, and the lag
+  between a sweep and the next;
+* K2's variants (its inverse formed at each tile task's start into a
+  third shared buffer, the inverse tasks skipped; 64-row blocks at every
+  m; 128-row blocks at every m) beside the committed K2 at the posv panel
+  heights B [1024·k, 1024], k = 1 … 15, each with its relative error to
+  the plain version.
+
+Each instrumented copy's output is checked against the tree's plain
+version (K4 and K10 bit for bit, K6 within 1e-5) or the committed
+kernel's (K8, K9 bit for bit). One JSON line a shape: the instrumented
+kernel's time (CUDA events, median of 5, 3 for the chases), and per
+column, block step or task the time of each phase, its share of the
+counted cycles applied to the measured time (the chases: cycles over the
+SM clock). The counters cost time of their own, so compare phases within
+one line. The probe points are found by text: a source they no longer
+match stops the script with the point's name.
 """
 
 from __future__ import annotations
@@ -311,13 +322,143 @@ LU_POINTS = [
 ]
 
 
-# K8's task in its one-launch-per-wave design: thread 0 sums each phase's
-# cycles, and takes the task's start and end on the global clock
-_K8_MARK = {q: _mark(q) for q in range(8)}
-K8_PHASES = ["B_load", "right_apply", "larfg", "left_apply",
-             "B_store_mirror", "D_load", "D_update", "D_V_tau_store"]
-K8_POINTS = [
-    ("kernel", "__global__ void __launch_bounds__(NTH)\nhb2st_wave(",
+# K6 with a grid barrier per column (up to commit 274cf77): (partial sums,
+# their publish, grid barrier, the reduction of every CTA's partials,
+# larfg by one thread, the column and trailing update); the copy also
+# takes the grid size
+QR_GRID = ("grid", ["partials", "publish", "grid_barrier", "reduce",
+                    "larfg", "update"], [
+    ("kernel arguments", "float* part, float* head, int R, int RP) {",
+     "float* part, float* head, int R, int RP, long long* prof) {\n"
+     "  long long q[8] = {};\n  long long ck = clock64();"),
+    ("column start", "    const int slot = j & 1;",
+     "    if (threadIdx.x == 0) ck = clock64();\n    const int slot = j & 1;"),
+    ("partials", """      red[half][k] = acc0 + acc1;
+    }
+    __syncthreads();""", """      red[half][k] = acc0 + acc1;
+    }
+    __syncthreads();
+    """ + _mark(0)),
+    ("grid barrier", "    grid.sync();\n",
+     "    __syncthreads();\n    " + _mark(1) + "\n    grid.sync();\n    "
+     + _mark(2) + "\n"),
+    ("reduce", """    if (half == 0 && k >= j) s[k] = red[0][k] + red[1][k];
+    __syncthreads();""", """    if (half == 0 && k >= j) s[k] = red[0][k] + red[1][k];
+    __syncthreads();
+    """ + _mark(3)),
+    ("larfg", """    __syncthreads();
+    const float beta = sc[0], t = sc[1], vden = sc[2];""", """    __syncthreads();
+    """ + _mark(4) + """
+    const float beta = sc[0], t = sc[1], vden = sc[2];"""),
+    ("update", """      sx[c * RP + i] -= v * tw[c];
+    }
+    __syncthreads();
+  }""", """      sx[c * RP + i] -= v * tw[c];
+    }
+    __syncthreads();
+    """ + _mark(5) + """
+  }
+  if (tid == 0) for (int z = 0; z < 8; ++z) prof[g * 8 + z] = q[z];"""),
+    ("entry arguments", """float* part, float* head, int max_ctas,
+                                     void* stream) {""",
+     """float* part, float* head, int max_ctas,
+                                     int ctas, long long* prof, void* stream) {"""),
+    ("grid size", "  int R = (hh + sms - 1) / sms;",
+     "  int R = (hh + ctas - 1) / ctas;"),
+    ("launch arguments", "&part, &head, &R, &RP};",
+     "&part, &head, &R, &RP, &prof};"),
+])
+# K6 with tagged words and a two-level exchange (no grid barrier): larfg
+# and tw in every thread, the pass over the CTA's rows by thread 0's warp,
+# then the exchange: the partials' barrier, their publish, the owners' wait
+# for every CTA's words (and its barrier), the owners' sums and publish,
+# the wait for the sums and the diagonal row (and its barrier). The
+# kernel's own q (an owner slot) keeps its name: the counters are qq.
+def _qmark(q: int) -> str:
+    return _mark(q, "qq", "threadIdx.x")
+
+
+QR_TAGGED = ("tagged", ["larfg+tw", "pass", "partials_barrier", "publish",
+                        "owner_wait", "owner_sums", "sum_wait"], [
+    ("kernel arguments",
+     "unsigned long long* scratch, int R, int RP, unsigned epoch) {",
+     "unsigned long long* scratch, int R, int RP, unsigned epoch, "
+     "long long* prof) {\n  long long qq[8] = {};\n  long long ck = clock64();"),
+    ("exchange arguments", """__device__ void exchange(Shared& sh, const Words& ws, int g, int G, int c, unsigned tag,
+                         int kl, int q) {""",
+     """__device__ void exchange(Shared& sh, const Words& ws, int g, int G, int c, unsigned tag,
+                         int kl, int q, long long* qq, long long& ck) {"""),
+    ("partials barrier", """  __syncthreads();
+  if (tid < W && tid >= c) {
+    float s = sh.part[0][tid];""", """  __syncthreads();
+  """ + _qmark(2) + """
+  if (tid < W && tid >= c) {
+    float s = sh.part[0][tid];"""),
+    ("owner wait", """  const int own = (W - 1 - g) / G + 1;  // columns g, g + G, ... below W""",
+     "  " + _qmark(3) + """
+  const int own = (W - 1 - g) / G + 1;  // columns g, g + G, ... below W"""),
+    ("owner sums", """  __syncthreads();
+  if (g < W)
+    for (int m = wp; m < own; m += NW) {""", """  __syncthreads();
+  """ + _qmark(4) + """
+  if (g < W)
+    for (int m = wp; m < own; m += NW) {"""),
+    ("sum wait", """  if (tid < W && tid >= c) sh.s[tid] = wait_word(ws.sum + par * W + tid, tag);""",
+     "  " + _qmark(5) + """
+  if (tid < W && tid >= c) sh.s[tid] = wait_word(ws.sum + par * W + tid, tag);"""),
+    ("exchange end", """    sh.hrow[tid - W] = wait_word(ws.row + par * W + tid - W, tag);
+  __syncthreads();
+}""", """    sh.hrow[tid - W] = wait_word(ws.row + par * W + tid - W, tag);
+  __syncthreads();
+  """ + _qmark(6) + """
+}"""),
+    ("first exchange", "exchange(sh, ws, g, G, 0, col_tag(epoch, 0), kl, q);",
+     "exchange(sh, ws, g, G, 0, col_tag(epoch, 0), kl, q, qq, ck);"),
+    ("column start", """  for (int j = 0; j < jn; ++j) {
+    // every thread alike""", """  for (int j = 0; j < jn; ++j) {
+    if (threadIdx.x == 0) ck = clock64();
+    // every thread alike"""),
+    ("pass start", """    float acc[4] = {};
+    const int ilo = max(0, j - r0);""", "    " + _qmark(0) + """
+    float acc[4] = {};
+    const int ilo = max(0, j - r0);"""),
+    ("pass end", "    if (!next) break;", "    " + _qmark(1) + "\n    if (!next) break;"),
+    ("column exchange", "    exchange(sh, ws, g, G, jx, tagn, kl, q);",
+     "    exchange(sh, ws, g, G, jx, tagn, kl, q, qq, ck);"),
+    ("kernel end", """  if (g == 0)
+    for (int j = jn + tid; j < W; j += NTH) tau[j] = 0.f;""",
+     """  if (tid == 0) for (int z = 0; z < 8; ++z) prof[g * 8 + z] = qq[z];
+  if (g == 0)
+    for (int j = jn + tid; j < W; j += NTH) tau[j] = 0.f;"""),
+    ("entry arguments", """unsigned long long* scratch, int ctas, unsigned epoch,
+                                     void* stream) {""",
+     """unsigned long long* scratch, int ctas, unsigned epoch,
+                                     long long* prof, void* stream) {"""),
+    ("launch arguments", "&scratch, &R, &RP, &epoch};",
+     "&scratch, &R, &RP, &epoch, &prof};"),
+])
+
+
+def QR_WORDS(G: int) -> int:
+    """Words of K6's scratch for a grid of G (csrc/panel_qr.cu)."""
+    return (2 * G + 4) * 128
+
+
+# K6's (h, d0, G): geqrf's first subpanel at three grid sizes, a later
+# one, gels' short one
+QR_SHAPES = ((16384, 0, 132), (16384, 0, 66), (16384, 0, 44),
+             (13312, 896, 66), (384, 128, 66))
+
+# K9's task in its former design of one launch per wave (``tb2bd_wave`` in
+# ``csrc/band_chase.cu`` up to commit 274cf77, for ``--root`` of such a
+# tree): thread 0 sums each phase's cycles and takes the task's start and
+# end on the global clock; a barrier closes every phase
+_K9_MARK = {q: _mark(q) for q in range(10)}
+K9_WAVE_PHASES = ["B_load", "left_apply_prev_u", "larfg_v",
+                  "right_apply_v", "B_store", "D_load", "D_right_apply",
+                  "larfg_u", "D_left_apply", "D_V_tau_store"]
+K9_WAVE_POINTS = [
+    ("kernel", "__global__ void __launch_bounds__(NTH)\ntb2bd_wave(",
      """__device__ __forceinline__ unsigned long long gtime() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
@@ -325,118 +466,126 @@ K8_POINTS = [
 }
 
 __global__ void __launch_bounds__(NTH)
-hb2st_wave("""),
-    ("kernel arguments", """float* __restrict__ tau, float* scratch) {
+tb2bd_wave("""),
+    ("kernel arguments", """float* scratch) {
   extern __shared__ float dyn[];
   __shared__ Vectors sh;
-  int s, t, i0;
-  if (!task_of(w, s_lo, n, b, T, s, t, i0)) return;""",
-     """float* __restrict__ tau, float* scratch, long long* prof) {
+  int s, t, c0;
+  if (!task_of(w, s_lo, n, b, T, s, t, c0)) return;""",
+     """float* scratch, long long* prof) {
   extern __shared__ float dyn[];
   __shared__ Vectors sh;
-  int s, t, i0;
-  if (!task_of(w, s_lo, n, b, T, s, t, i0)) return;
-  long long q[8] = {};
+  int s, t, c0;
+  if (!task_of(w, s_lo, n, b, T, s, t, c0)) return;
+  long long q[10] = {};
   const unsigned long long ns0 = gtime();
   long long ck = clock64();"""),
-    ("seed load", """    for (int i = tid; i < L; i += NTH) v[i] = R.at(i0 + i, s);
+    ("seed row", """    for (int k = tid; k < L; k += NTH) v[k] = R.at(s, c0 + k);
     __syncthreads();
-    larfg(v, L, sh.sc);""", """    for (int i = tid; i < L; i += NTH) v[i] = R.at(i0 + i, s);
-    __syncthreads();
-    """ + _K8_MARK[0] + """
     larfg(v, L, sh.sc);
-    """ + _K8_MARK[2]),
-    ("seed store", """      R.at(s, i0 + i) = x;
+    const float beta = sh.sc[0];
+    for (int k = tid; k < L; k += NTH) R.at(s, c0 + k) = k == 0 ? beta : 0.f;""",
+     """    for (int k = tid; k < L; k += NTH) v[k] = R.at(s, c0 + k);
+    __syncthreads();
+    """ + _K9_MARK[0] + """
+    larfg(v, L, sh.sc);
+    """ + _K9_MARK[2] + """
+    const float beta = sh.sc[0];
+    for (int k = tid; k < L; k += NTH) R.at(s, c0 + k) = k == 0 ? beta : 0.f;
+    __syncthreads();
+    """ + _K9_MARK[4]),
+    ("B load", """    const float tp = tauu[task - 1];
+    __syncthreads();""", """    const float tp = tauu[task - 1];
+    __syncthreads();
+    """ + _K9_MARK[0]),
+    ("left-apply", """      B[i * ld + k] -= (tp * u[i]) * sh.w[k];
     }
-  } else {""", """      R.at(s, i0 + i) = x;
+    __syncthreads();""", """      B[i * ld + k] -= (tp * u[i]) * sh.w[k];
     }
     __syncthreads();
-    """ + _K8_MARK[4] + """
-  } else {"""),
-    ("B load", """    const float tp = tau[task - 1];
-    __syncthreads();""", """    const float tp = tau[task - 1];
-    __syncthreads();
-    """ + _K8_MARK[0]),
-    ("right-apply", """      B[i * ld + k] -= (tp * sh.w[i]) * vp[k];
-    }
-    __syncthreads();""", """      B[i * ld + k] -= (tp * sh.w[i]) * vp[k];
+    """ + _K9_MARK[1]),
+    ("larfg v", """    larfg(v, L, sh.sc);
+    const float beta = sh.sc[0], tv = sh.sc[1];""", """    larfg(v, L, sh.sc);
+    """ + _K9_MARK[2] + """
+    const float beta = sh.sc[0], tv = sh.sc[1];"""),
+    ("right-apply", """      else B[i * ld + k] -= (tv * sh.w[i - 1]) * v[k];
     }
     __syncthreads();
-    """ + _K8_MARK[1]),
-    ("larfg", """    larfg(v, L, sh.sc);
-    const float beta = sh.sc[0], tv = sh.sc[1];
-    // annihilate the bulge column""", """    larfg(v, L, sh.sc);
-    """ + _K8_MARK[2] + """
-    const float beta = sh.sc[0], tv = sh.sc[1];
-    // annihilate the bulge column"""),
-    ("left-apply", """      else B[i * ld + k] -= (tv * v[i]) * sh.w[k - 1];
-    }
-    __syncthreads();""", """      else B[i * ld + k] -= (tv * v[i]) * sh.w[k - 1];
+    store(B, ld, R, r0, b, c0, L);""", """      else B[i * ld + k] -= (tv * sh.w[i - 1]) * v[k];
     }
     __syncthreads();
-    """ + _K8_MARK[3]),
-    ("B store", """    store_mirror(B, ld, R, i0, L, j0, b);
-  }""", """    store_mirror(B, ld, R, i0, L, j0, b);
+    """ + _K9_MARK[3] + """
+    store(B, ld, R, r0, b, c0, L);
     __syncthreads();
-    """ + _K8_MARK[4] + """
-  }"""),
-    ("D load", """  load(D, ld, R, i0, L, i0, L);
-  __syncthreads();""", """  load(D, ld, R, i0, L, i0, L);
+    """ + _K9_MARK[4]),
+    ("D load", """  load(D, ld, R, c0, L, c0, L);
+  __syncthreads();""", """  load(D, ld, R, c0, L, c0, L);
   __syncthreads();
-  """ + _K8_MARK[5]),
-    ("D update", """    D[i * ld + k] -= (tv * sh.w[i]) * v[k];
+  """ + _K9_MARK[5]),
+    ("D right-apply", """  for (int i = tid; i < L; i += NTH) u[i] = D[i * ld];
+  __syncthreads();
+  larfg(u, L, sh.sc);""", """  for (int i = tid; i < L; i += NTH) u[i] = D[i * ld];
+  __syncthreads();
+  """ + _K9_MARK[6] + """
+  larfg(u, L, sh.sc);
+  """ + _K9_MARK[7]),
+    ("D left-apply", """    else D[i * ld + k] -= (tu * u[i]) * sh.w[k - 1];
+  }
+  __syncthreads();""", """    else D[i * ld + k] -= (tu * u[i]) * sh.w[k - 1];
   }
   __syncthreads();
-  store(D, ld, R, i0, L, i0, L);""", """    D[i * ld + k] -= (tv * sh.w[i]) * v[k];
+  """ + _K9_MARK[8]),
+    ("task end", """    tauu[task] = tu;
+  }
+}""", """    tauu[task] = tu;
   }
   __syncthreads();
-  """ + _K8_MARK[6] + """
-  store(D, ld, R, i0, L, i0, L);"""),
-    ("task end", """  if (tid == 0) tau[task] = tv;
-}""", """  if (tid == 0) tau[task] = tv;
-  __syncthreads();
-  """ + _K8_MARK[7] + """
+  """ + _K9_MARK[9] + """
   if (tid == 0) {
-    long long* p = prof + task * 10;
-    for (int u = 0; u < 8; ++u) p[u] = q[u];
-    p[8] = static_cast<long long>(ns0);
-    p[9] = static_cast<long long>(gtime());
+    long long* p = prof + task * 12;
+    for (int z = 0; z < 10; ++z) p[z] = q[z];
+    p[10] = static_cast<long long>(ns0);
+    p[11] = static_cast<long long>(gtime());
   }
 }"""),
-    ("launch", "hb2st_wave<<<cnt, NTH, smem, st>>>(R, n, b, T, w, s_lo, V, tau, scratch);",
-     "hb2st_wave<<<cnt, NTH, smem, st>>>(R, n, b, T, w, s_lo, V, tau, scratch, prof);"),
-    ("entry arguments", """float* scratch, int max_ctas, void* stream) {
-  size_t smem = 0;
-  int e = prepare(hb2st_wave, n, b, &smem);""", """float* scratch, int max_ctas, long long* prof,
-                               void* stream) {
-  size_t smem = 0;
-  int e = prepare(hb2st_wave, n, b, &smem);"""),
+    ("launch", "(R, n, b, T, w, s_lo, Vu, tauu, Vv, tauv, scratch);",
+     "(R, n, b, T, w, s_lo, Vu, tauu, Vv, tauv, scratch, prof);"),
+    ("entry arguments", "float* tauv, float* scratch, int max_ctas, void* stream) {",
+     "float* tauv, float* scratch, int max_ctas, long long* prof,\n"
+     "                               void* stream) {"),
 ]
 # the same grids with tasks that return at once: the launches alone
-K8_EMPTY = [("empty task",
-             "  if (!task_of(w, s_lo, n, b, T, s, t, i0)) return;\n"
-             "  const int L = min(b, n - i0), ld = b | 1, tid = threadIdx.x;\n"
-             "  float* B = blocks(dyn, scratch, b, ld);",
-             "  if (!task_of(w, s_lo, n, b, T, s, t, i0) || w >= 0) return;\n"
-             "  const int L = min(b, n - i0), ld = b | 1, tid = threadIdx.x;\n"
-             "  float* B = blocks(dyn, scratch, b, ld);")]
+K9_WAVE_EMPTY = [("empty task",
+                  "  if (!task_of(w, s_lo, n, b, T, s, t, c0)) return;\n",
+                  "  if (!task_of(w, s_lo, n, b, T, s, t, c0) || w >= 0) return;\n")]
 
 
-# K8 in its one-launch design: the persistent loop (chase_flow.cuh) stamps each
-# task's waits, stages and publishes, the task body (hb2st_chase.cu) its
-# passes; thread 0 sums cycles and takes the global clock at five points
-K8F_PHASES = ["wait_done_t+1", "early_fetch", "early_right_apply",
+# K8 and K9 in their one-launch design: the persistent loop
+# (chase_flow.cuh) stamps each task's waits, parts and publishes, the task
+# bodies (hb2st_chase.cu, band_chase.cu) a point inside some parts; thread
+# 0 sums cycles and takes the global clock at five points. Phase q of a
+# task: 0 the wait for done[s - 1] >= t + 1, 1 and 2 the early part (to the
+# body's mark, then the rest), 3 the wait for stage[s - 1] >= t + 2, 4 and
+# 5 the rest of stage 1, 6 its publish, 7 the part between the stages, 8 the
+# wait for done[s - 1] >= t + 2, 9 and 10 stage 2, 11 its publish.
+FLOW_PHASES = {
+    "hb2st": ["wait_done_t+1", "early_fetch", "early_right_apply",
               "wait_stage_t+2", "last_row+larfg+left_sums",
-              "left_update+store", "publish_stage", "wait_done_t+2",
-              "D_stage", "publish_done"]
+              "left_update+store", "publish_stage", "mid",
+              "wait_done_t+2", "-", "D_stage", "publish_done"],
+    "tb2bd": ["wait_done_t+1", "early_fetch", "early_left_apply_prev_u",
+              "wait_stage_t+2", "late_loads+larfg_v", "B_right_apply+store",
+              "publish_stage", "mid_D_right_apply", "wait_done_t+2",
+              "last_row+norm", "u_left_apply+store+packs", "publish_done"],
+}
 
 
-def _k8f_mark(q: int, who: str = "task.") -> str:
+def _flow_mark(q: int, who: str = "task.") -> str:
     return (f"if (threadIdx.x == 0) {{ long long c2 = clock64(); {who}q[{q}] "
             f"+= c2 - {who}ck; {who}ck = c2; }}")
 
 
-K8F_LOOP = [
+FLOW_LOOP = [
     ("kernel arguments",
      "chase_flow(const Task task0, unsigned* cnt) {",
      "chase_flow(const Task task0, unsigned* cnt, long long* prof) {"),
@@ -446,68 +595,99 @@ K8F_LOOP = [
       if (s > 0) wait_counts(stage + s - 1, min(t + 2, tp), nullptr, 0);
       task.first(s, t, dyn);
       publish(stage + s, t + 1);
+      task.mid(s, t, dyn);
       if (s > 0) wait_counts(done + s - 1, min(t + 2, tp), nullptr, 0);
       task.second(s, t, dyn);
       publish(done + s, t + 1);
     }""", """    for (int t = 0; t < ts; ++t) {
-      for (int u = 0; u < 10; ++u) task.q[u] = 0;
+      for (int u = 0; u < 12; ++u) task.q[u] = 0;
       unsigned long long g[5];
       g[0] = df::now_ns();
       task.ck = clock64();
       if (s > 0) wait_counts(done + s - 1, min(t + 1, tp), nullptr, 0);
-      """ + _k8f_mark(0) + """
+      """ + _flow_mark(0) + """
       g[1] = df::now_ns();
       task.early(s, t, dyn);
-      """ + _k8f_mark(2) + """
+      """ + _flow_mark(2) + """
       if (s > 0) wait_counts(stage + s - 1, min(t + 2, tp), nullptr, 0);
-      """ + _k8f_mark(3) + """
+      """ + _flow_mark(3) + """
       task.first(s, t, dyn);
-      """ + _k8f_mark(5) + """
+      """ + _flow_mark(5) + """
       publish(stage + s, t + 1);
-      """ + _k8f_mark(6) + """
+      """ + _flow_mark(6) + """
+      task.mid(s, t, dyn);
+      """ + _flow_mark(7) + """
       g[2] = df::now_ns();
       if (s > 0) wait_counts(done + s - 1, min(t + 2, tp), nullptr, 0);
-      """ + _k8f_mark(7) + """
+      """ + _flow_mark(8) + """
       g[3] = df::now_ns();
       task.second(s, t, dyn);
-      """ + _k8f_mark(8) + """
+      """ + _flow_mark(10) + """
       publish(done + s, t + 1);
-      """ + _k8f_mark(9) + """
+      """ + _flow_mark(11) + """
       g[4] = df::now_ns();
       if (threadIdx.x == 0) {
-        long long* p = prof + (static_cast<size_t>(s) * task.T + t) * 16;
-        for (int u = 0; u < 10; ++u) p[u] = task.q[u];
-        for (int u = 0; u < 5; ++u) p[10 + u] = static_cast<long long>(g[u]);
+        long long* p = prof + (static_cast<size_t>(s) * task.T + t) * 20;
+        for (int u = 0; u < 12; ++u) p[u] = task.q[u];
+        for (int u = 0; u < 5; ++u) p[12 + u] = static_cast<long long>(g[u]);
       }
     }"""),
     ("launch arguments", "void* args[] = {&arg, &cnt};",
      "long long* prof = arg.prof;\n  void* args[] = {&arg, &cnt, &prof};"),
 ]
-K8F_BODY = [
-    ("task state", "  float tv, tp, sq;\n",
-     "  float tv, tp, sq;\n  long long* prof;\n  long long q[10];\n  long long ck;\n"),
-    ("early fetch", """    fetch(B, B + b * ld, ld, i0 - b, t > 0, lr);
+_FLOW_STATE = ("task state", "  float tv, tp, sq;\n",
+               "  float tv, tp, sq;\n  long long* prof;\n  long long q[12];\n"
+               "  long long ck;\n")
+_FLOW_PROF = [("profile buffer", "  task.scratch = scratch;\n",
+               "  task.scratch = scratch;\n  task.prof = g_prof;\n"),
+              ("profile pointer", "template <int J>\ncudaError_t run(",
+               "long long* g_prof = nullptr;\n\ntemplate <int J>\ncudaError_t run(")]
+FLOW_BODY = {
+    "hb2st": ("hb2st_chase.cu", "slate_hb2st_f32", [
+        _FLOW_STATE,
+        ("early fetch", """    fetch(B, B + b * ld, ld, i0 - b, t > 0, lr);
     __syncthreads();
 """, """    fetch(B, B + b * ld, ld, i0 - b, t > 0, lr);
     __syncthreads();
-    """ + _k8f_mark(1, "") + "\n"),
-    ("column sums", """      sh.y[k] = w;
+    """ + _flow_mark(1, "") + "\n"),
+        ("column sums", """      sh.y[k] = w;
     }
     __syncthreads();
 """, """      sh.y[k] = w;
     }
     __syncthreads();
-    """ + _k8f_mark(4, "") + "\n"),
-    ("profile buffer", "  task.scratch = scratch;\n",
-     "  task.scratch = scratch;\n  task.prof = g_prof;\n"),
-    ("entry arguments", """extern "C" int slate_hb2st_f32(float* rib, int n, int b, float* V, float* tau, float* scratch,
+    """ + _flow_mark(4, "") + "\n"),
+        *_FLOW_PROF,
+        ("entry arguments", """extern "C" int slate_hb2st_f32(float* rib, int n, int b, float* V, float* tau, float* scratch,
                                int max_ctas, unsigned* cnt, void* stream) {""",
-     """extern "C" int slate_hb2st_f32(float* rib, int n, int b, float* V, float* tau, float* scratch,
+         """extern "C" int slate_hb2st_f32(float* rib, int n, int b, float* V, float* tau, float* scratch,
                                int max_ctas, unsigned* cnt, long long* prof, void* stream) {
   g_prof = prof;"""),
-    ("profile pointer", "template <int J>\ncudaError_t run(",
-     "long long* g_prof = nullptr;\n\ntemplate <int J>\ncudaError_t run("),
-]
+    ]),
+    "tb2bd": ("band_chase.cu", "slate_tb2bd_f32", [
+        _FLOW_STATE,
+        ("early fetch", """    fetch(B, B + b * ld, ld, t > 0);
+    __syncthreads();
+""", """    fetch(B, B + b * ld, ld, t > 0);
+    __syncthreads();
+    """ + _flow_mark(1, "") + "\n"),
+        ("v formed", """    __syncthreads();
+    tv = sh.sc[1];""", """    __syncthreads();
+    """ + _flow_mark(4, "") + """
+    tv = sh.sc[1];"""),
+        ("norm", """    if (lane == 0) sh.red[wp] = sq;
+    __syncthreads();
+""", """    if (lane == 0) sh.red[wp] = sq;
+    __syncthreads();
+    """ + _flow_mark(9, "") + "\n"),
+        *_FLOW_PROF,
+        ("entry arguments", """float* tauv, float* scratch, int max_ctas, unsigned* cnt,
+                               void* stream) {""",
+         """float* tauv, float* scratch, int max_ctas, unsigned* cnt,
+                               long long* prof, void* stream) {
+  g_prof = prof;"""),
+    ]),
+}
 
 
 def instrument(src: str, points, name: str) -> str:
@@ -819,65 +999,184 @@ def split_lu(root: Path, out: Path, label: str, smi: str) -> None:
         label=label, device=smi)), flush=True)
 
 
-def split_chase(root: Path, out: Path, label: str, smi: str) -> None:
-    """K8 in the design the checkout has: one launch per wave in a tree
-    whose ``band_chase.cu`` still holds ``hb2st_wave`` (a ``--root``
-    before K8's redesign: the baseline its split is measured against),
-    else the one-launch design (:func:`split_chase_flow`)."""
+def split_qr(root: Path, out: Path, label: str, smi: str) -> None:
+    """K6's column by phase at :data:`QR_SHAPES` (grid size G as given),
+    each run held to the tree's plain version within 1e-5 (relative
+    Frobenius)."""
+    import torch
+    from slate_tpu_torch.internal import kernels as K
+    csrc = root / "slate_tpu_torch/csrc"
+    src = (csrc / "panel_qr.cu").read_text()
+    design, names, points = QR_GRID if "grid.sync()" in src else QR_TAGGED
+    fn = build(instrument(src, points, "panel_qr"), out, "split_qr",
+               csrc).slate_qr_subpanel_f32
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for h, d0, G in QR_SHAPES:
+        a = torch.randn(h, 128, generator=gen, device="cuda")
+        prof = torch.zeros(G * 8, dtype=torch.int64, device="cuda")
+        tau = torch.empty(128, device="cuda")
+        if design == "grid":
+            fn.argtypes = (P, L, I, I, P, P, P, I, I, P, P)
+            maxc = -(-(h - d0) // 32)
+            bufs = [torch.empty(2 * maxc * 128, device="cuda"),
+                    torch.empty(2 * 128, device="cuda")]
+        else:
+            fn.argtypes = (P, L, I, I, P, P, I, ctypes.c_uint, P, P)
+            maxc = G
+            bufs = [torch.zeros(QR_WORDS(G), dtype=torch.int64,
+                                device="cuda")]
+        epoch = [0]
+
+        def run():
+            x = a.clone()
+            prof.zero_()
+            if design == "grid":
+                ex = (maxc, G)
+            else:
+                epoch[0] += 1
+                ex = (G, epoch[0])
+            rc = fn(P(x.data_ptr()), 128, h, d0, P(tau.data_ptr()),
+                    *(P(t.data_ptr()) for t in bufs), *ex, P(prof.data_ptr()),
+                    P(torch.cuda.current_stream().cuda_stream))
+            if rc:
+                raise SystemExit(f"kernel_split: K6 launch error {rc}")
+            return x
+        x = run()
+        ref = a.clone()
+        tau_p = K.panel_qr_plain(ref, d0)
+        err = max(float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref)),
+                  float(torch.linalg.norm(tau - tau_p)
+                        / torch.linalg.norm(tau_p)))
+        ms = events_ms(run)
+        run()
+        torch.cuda.synchronize()
+        R = max(32, -(-(h - d0) // G))
+        g = -(-(h - d0) // R)
+        p = prof.view(-1, 8)[:g, :len(names)].double().mean(0)
+        us_col = ms * 1e3 / 128
+        print(json.dumps(dict(
+            kernel="panel_qr", design=design, shape=[h, 128], d0=d0,
+            ctas=g, rows_per_cta=R, rel_err_to_plain=err, ms=ms,
+            us_per_column=us_col,
+            phases_us_per_column={n: float(v / p.sum()) * us_col
+                                  for n, v in zip(names, p)},
+            label=label, device=smi)), flush=True)
+
+# K6 (the tagged design) with other numbers of rows a warp updates at once
+QR_RB = {rb: [("rows at once", "constexpr int RB = 4;", f"constexpr int RB = {rb};")]
+         for rb in (2, 8)}
+
+
+def time_qr_variants(root: Path, out: Path, label: str, smi: str) -> None:
+    """K6 as committed beside copies that update 2 or 8 rows a warp at
+    once, at K6's three shapes on one CTA per SM, each within 1e-5 of the
+    plain version."""
+    import torch
+    from slate_tpu_torch.internal import kernels as K
+    csrc = root / "slate_tpu_torch/csrc"
+    src = (csrc / "panel_qr.cu").read_text()
+    if "constexpr int RB = 4;" not in src:
+        return
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fns = {}
+    for rb, points in QR_RB.items():
+        fn = build(instrument(src, points, "panel_qr"), out, f"qr_rb{rb}",
+                   csrc).slate_qr_subpanel_f32
+        fn.argtypes = (P, L, I, I, P, P, I, ctypes.c_uint, P)
+        fn.restype = I
+        fns[rb] = fn
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    scratch = torch.zeros(QR_WORDS(sms), dtype=torch.int64, device="cuda")
+    epoch = [0]
+    for h, d0 in ((16384, 0), (13312, 896), (384, 128)):
+        a = torch.randn(h, 128, generator=gen, device="cuda")
+        ref = a.clone()
+        K.panel_qr_plain(ref, d0)
+        x = a.clone()
+        row = dict(kernel="panel_qr", design="rows_at_once", shape=[h, 128],
+                   d0=d0, committed_rb=4,
+                   committed_ms=events_ms(lambda: (x.copy_(a),
+                                                   K.panel_qr(x, d0))))
+        for rb, fn in fns.items():
+            tau = torch.empty(128, device="cuda")
+
+            def run():
+                epoch[0] += 1
+                x.copy_(a)
+                rc = fn(P(x.data_ptr()), 128, h, d0, P(tau.data_ptr()),
+                        P(scratch.data_ptr()), sms, epoch[0],
+                        P(torch.cuda.current_stream().cuda_stream))
+                if rc:
+                    raise SystemExit(f"kernel_split: K6 launch error {rc}")
+            run()
+            row[f"rb{rb}_rel_err"] = float(torch.linalg.norm(x - ref)
+                                           / torch.linalg.norm(ref))
+            row[f"rb{rb}_ms"] = events_ms(run)
+        print(json.dumps(dict(**row, label=label, device=smi)), flush=True)
+
+def split_tb2bd_wave(root: Path, out: Path, label: str, smi: str) -> None:
+    """K9 in its former design of one launch per wave (a ``--root`` whose
+    ``band_chase.cu`` still holds ``tb2bd_wave``): each task's phases for
+    the tasks of the middle sweep and for the t = 0 tasks, the
+    instrumented copy's outputs held bit for bit to the committed
+    kernel's, and the gap between waves (the waves' span minus the sum of
+    their longest tasks, device clock) beside a copy whose tasks return
+    at once (the launches alone, same grids)."""
     import numpy as np
     import torch
     from slate_tpu_torch.internal import kernels as K
     csrc = root / "slate_tpu_torch/csrc"
     src = (csrc / "band_chase.cu").read_text()
-    if "hb2st_wave(" not in src:
-        split_chase_flow(root, out, label, smi)
-        return
     P, I = ctypes.c_void_p, ctypes.c_int
     fns = {}
-    for name, points in (("split", K8_POINTS), ("empty", K8_EMPTY)):
+    for name, points in (("split", K9_WAVE_POINTS), ("empty", K9_WAVE_EMPTY)):
         fn = build(instrument(src, points, "band_chase"), out,
-                   f"k8_{name}", csrc).slate_hb2st_f32
-        fn.argtypes = (P, I, I, P, P, P, I) + ((P,) if name == "split"
-                                              else ()) + (P,)
+                   f"k9_{name}", csrc).slate_tb2bd_f32
+        fn.argtypes = (P, I, I) + (P,) * 5 + (I,) + (
+            (P,) if name == "split" else ()) + (P,)
         fn.restype = I
         fns[name] = fn
-    gen = torch.Generator(device="cuda").manual_seed(8)
+    gen = torch.Generator(device="cuda").manual_seed(9)
     for n in (8192, 4096):
         b = 128
         S, T = n - 1, (n - 2) // b + 1
         ab = torch.randn(b + 1, n, generator=gen, device="cuda")
-        prof = torch.zeros(S * T * 10, dtype=torch.int64, device="cuda")
+        prof = torch.zeros(S * T * 12, dtype=torch.int64, device="cuda")
         scratch = torch.empty(1, device="cuda")
-        maxc = K._chase_ctas(n, b)
+        maxc = T // 2 + 2
 
         def run(name):
-            rib = K.band_bulge.ribbon(ab, upper=False)
-            V, tau = ab.new_zeros((S, T, b)), ab.new_zeros((S, T))
+            rib = K.band_bulge.ribbon(ab, upper=True)
+            packs = [ab.new_zeros(shape) for shape in
+                     ((S, T, b), (S, T), (S, T, b), (S, T))]
             extra = (P(prof.data_ptr()),) if name == "split" else ()
-            rc = fns[name](P(rib.data_ptr()), n, b, P(V.data_ptr()),
-                           P(tau.data_ptr()), P(scratch.data_ptr()), maxc,
-                           *extra, P(torch.cuda.current_stream().cuda_stream))
+            rc = fns[name](P(rib.data_ptr()), n, b,
+                           *(P(x.data_ptr()) for x in packs),
+                           P(scratch.data_ptr()), maxc, *extra,
+                           P(torch.cuda.current_stream().cuda_stream))
             if rc:
-                raise SystemExit(f"kernel_split: K8 launch error {rc}")
-            d, e = K.band_bulge.ribbon_diagonals(rib, n, b, upper=False)
-            return d, e, V, tau
+                raise SystemExit(f"kernel_split: K9 launch error {rc}")
+            d, e = K.band_bulge.ribbon_diagonals(rib, n, b, upper=True)
+            return (d, e, *packs)
         got = run("split")
-        want = K.hb2st_chase(ab)
+        want = K.tb2bd_chase(ab)[:6]
         same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
                    for x, y in zip(got, want))
         ms = events_ms(lambda: run("split"), reps=3)
-        committed_ms = events_ms(lambda: K.hb2st_chase(ab), reps=3)
+        committed_ms = events_ms(lambda: K.tb2bd_chase(ab), reps=3)
         empty_ms = events_ms(lambda: run("empty"), reps=3)
         prof.zero_()
         run("split")
         torch.cuda.synchronize()
-        pr = prof.view(S, T, 10).cpu().numpy().astype(np.float64)
+        pr = prof.view(S, T, 12).cpu().numpy().astype(np.float64)
         s_ix, t_ix = np.meshgrid(np.arange(S), np.arange(T), indexing="ij")
         live = (s_ix + 1 + t_ix * b) <= n - 1
-        start, end = pr[..., 8], pr[..., 9]
+        start, end = pr[..., 10], pr[..., 11]
         dur = end - start
         # cycles per ns of the SM clock, from the tasks' own spans
-        ghz = float(pr[..., :8][live].sum() / dur[live].sum())
+        ghz = float(pr[..., :10][live].sum() / dur[live].sum())
         wave = (2 * s_ix + t_ix)[live]
         nw = int(wave.max()) + 1
         w_lo = np.full(nw, np.inf)
@@ -890,119 +1189,146 @@ def split_chase(root: Path, out: Path, label: str, smi: str) -> None:
         w_lo, w_hi, w_long = w_lo[has], w_hi[has], w_long[has]
         span_us = float((w_hi[-1] - w_lo[0]) / 1e3)
         longest_us = float(w_long.sum() / 1e3)
-        gaps_us = float(np.clip(w_lo[1:] - w_hi[:-1], 0, None).sum() / 1e3)
         mid = S // 2
         row = live[mid] & (np.arange(T) >= 1)
-        t0 = live[:, 0]
 
         def phases(sel):
             return {k: float(v) / ghz / 1e3
-                    for k, v in zip(K8_PHASES, pr[..., :8][sel].mean(0))}
+                    for k, v in zip(K9_WAVE_PHASES, pr[..., :10][sel].mean(0))}
         print(json.dumps(dict(
-            kernel="hb2st", design="wave", shape=[n, b], waves=int(has.sum()),
+            kernel="tb2bd", design="wave", shape=[n, b], waves=int(has.sum()),
             bitwise_equal_to_committed=same, ms=ms, committed_ms=committed_ms,
             us_per_wave=committed_ms * 1e3 / nw, empty_tasks_ms=empty_ms,
-            empty_us_per_wave=empty_ms * 1e3 / nw, sm_clock_ghz=ghz,
-            span_us=span_us, sum_longest_task_us=longest_us,
-            gap_us=span_us - longest_us, gaps_between_waves_us=gaps_us,
-            mean_task_us=float(dur[live].mean() / 1e3),
+            sm_clock_ghz=ghz, span_us=span_us, sum_longest_task_us=longest_us,
+            gap_us=span_us - longest_us,
             middle_sweep_task_us=phases(
                 (s_ix == mid) & (t_ix >= 1) & live),
             middle_sweep_task_total_us=float(dur[mid][row].mean() / 1e3),
             t0_task_us=phases((t_ix == 0) & live),
-            t0_task_total_us=float(dur[:, 0][t0].mean() / 1e3),
+            t0_task_total_us=float(dur[:, 0][live[:, 0]].mean() / 1e3),
             label=label, device=smi)), flush=True)
         del prof, ab
 
 
 def split_chase_flow(root: Path, out: Path, label: str, smi: str) -> None:
-    """K8 in its one-launch design: each task's waits, passes and
+    """K8 and K9 in their one-launch design: each task's waits, parts and
     publishes (µs, the middle sweep's tasks with t ≥ 1 and the t = 0
     tasks), the time from a done[] publish to the start of the part that
     waits for it, and the lag between a sweep and the next at the middle
-    t."""
+    t; each instrumented copy's outputs held bit for bit to the committed
+    kernel's."""
     import numpy as np
     import torch
     from slate_tpu_torch.internal import kernels as K
     csrc = root / "slate_tpu_torch/csrc"
     (out / "chase_flow.cuh").write_text(instrument(
-        (csrc / "chase_flow.cuh").read_text(), K8F_LOOP, "chase_flow"))
-    fn = build(instrument((csrc / "hb2st_chase.cu").read_text(), K8F_BODY,
-                          "hb2st_chase"), out, "k8_flow", csrc).slate_hb2st_f32
+        (csrc / "chase_flow.cuh").read_text(), FLOW_LOOP, "chase_flow"))
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = (P, I, I, P, P, P, I, P, P, P)
-    fn.restype = I
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(8)
-    for n in (8192, 4096):
-        b = 128
-        S, T = n - 1, (n - 2) // b + 1
-        ab = torch.randn(b + 1, n, generator=gen, device="cuda")
-        prof = torch.zeros(S * T * 16, dtype=torch.int64, device="cuda")
-        scratch = torch.empty(1, device="cuda")
+    for which, (source, symbol, points) in FLOW_BODY.items():
+        upper = which == "tb2bd"
+        fn = getattr(build(instrument((csrc / source).read_text(), points,
+                                      source), out, f"flow_{which}", csrc),
+                     symbol)
+        npack = 4 if upper else 2
+        fn.argtypes = (P, I, I) + (P,) * (npack + 1) + (I, P, P, P)
+        fn.restype = I
+        committed = K.tb2bd_chase if upper else K.hb2st_chase
+        for n in (8192, 4096):
+            b = 128
+            S, T = n - 1, (n - 2) // b + 1
+            ab = torch.randn(b + 1, n, generator=gen, device="cuda")
+            prof = torch.zeros(S * T * 20, dtype=torch.int64, device="cuda")
+            scratch = torch.empty(1, device="cuda")
 
-        def run():
-            rib = K.band_bulge.ribbon(ab, upper=False)
-            V, tau = ab.new_zeros((S, T, b)), ab.new_zeros((S, T))
-            cnt = torch.zeros(2 * S, dtype=torch.int32, device="cuda")
-            rc = fn(P(rib.data_ptr()), n, b, P(V.data_ptr()),
-                    P(tau.data_ptr()), P(scratch.data_ptr()), sms,
-                    P(cnt.data_ptr()), P(prof.data_ptr()),
-                    P(torch.cuda.current_stream().cuda_stream))
-            if rc:
-                raise SystemExit(f"kernel_split: K8 launch error {rc}")
-            d, e = K.band_bulge.ribbon_diagonals(rib, n, b, upper=False)
-            return d, e, V, tau
-        got = run()
-        want = K.hb2st_chase(ab)
-        same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
-                   for x, y in zip(got, want))
-        ms = events_ms(run, reps=3)
-        committed_ms = events_ms(lambda: K.hb2st_chase(ab), reps=3)
-        prof.zero_()
-        run()
-        torch.cuda.synchronize()
-        pr = prof.view(S, T, 16).cpu().numpy().astype(np.float64)
-        s_ix, t_ix = np.meshgrid(np.arange(S), np.arange(T), indexing="ij")
-        live = (s_ix + 1 + t_ix * b) <= n - 1
-        g = pr[..., 10:15]
-        span = g[..., 4] - g[..., 0]
-        ghz = float(pr[..., :10][live].sum() / span[live].sum())
-        mid = S // 2
+            def run():
+                rib = K.band_bulge.ribbon(ab, upper=upper)
+                packs = [ab.new_zeros(shape) for shape in
+                         ((S, T, b), (S, T)) * (npack // 2)]
+                cnt = torch.zeros(2 * S, dtype=torch.int32, device="cuda")
+                rc = fn(P(rib.data_ptr()), n, b,
+                        *(P(x.data_ptr()) for x in packs),
+                        P(scratch.data_ptr()), sms, P(cnt.data_ptr()),
+                        P(prof.data_ptr()),
+                        P(torch.cuda.current_stream().cuda_stream))
+                if rc:
+                    raise SystemExit(f"kernel_split: {which} launch error {rc}")
+                d, e = K.band_bulge.ribbon_diagonals(rib, n, b, upper=upper)
+                return (d, e, *packs)
+            got = run()
+            want = committed(ab)
+            same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                       for x, y in zip(got, want))
+            ms = events_ms(run, reps=3)
+            committed_ms = events_ms(lambda: committed(ab), reps=3)
+            prof.zero_()
+            run()
+            torch.cuda.synchronize()
+            pr = prof.view(S, T, 20).cpu().numpy().astype(np.float64)
+            s_ix, t_ix = np.meshgrid(np.arange(S), np.arange(T), indexing="ij")
+            live = (s_ix + 1 + t_ix * b) <= n - 1
+            g = pr[..., 12:17]
+            span = g[..., 4] - g[..., 0]
+            ghz = float(pr[..., :12][live].sum() / span[live].sum())
+            mid = S // 2
+            names = FLOW_PHASES[which]
 
-        def phases(sel):
-            return {k: float(v) / ghz / 1e3
-                    for k, v in zip(K8F_PHASES, pr[..., :10][sel].mean(0))}
-        # (s, t) with s >= 1 whose (s - 1, t + 1) exists
-        s1, t1 = np.nonzero(live[1:, :-1] & live[:-1, 1:])
-        s1 = s1 + 1
-        lat1 = g[s1, t1, 1] - g[s1 - 1, t1, 4]
-        lat2 = g[s1, t1, 3] - g[s1 - 1, t1 + 1, 4]
-        t_mid = T // 2
-        sw = np.arange(1, S)
-        sw = sw[live[sw, t_mid]]
-        lag = np.diff(g[sw, t_mid, 1]) / 1e3
-        row = live[mid] & (np.arange(T) >= 1)
-        print(json.dumps(dict(
-            kernel="hb2st", design="dataflow", shape=[n, b],
-            bitwise_equal_to_committed=same, ms=ms, committed_ms=committed_ms,
-            sm_clock_ghz=ghz,
-            middle_sweep_task_us=phases((s_ix == mid) & (t_ix >= 1) & live),
-            middle_sweep_task_total_us=float(span[mid][row].mean() / 1e3),
-            t0_task_us=phases((t_ix == 0) & live),
-            done_t1_publish_to_early_start_us_median=float(
-                np.median(lat1) / 1e3),
-            done_t2_publish_to_stage2_start_us_median=float(
-                np.median(lat2) / 1e3),
-            sweep_lag_us_median=float(np.median(lag)),
-            label=label, device=smi)), flush=True)
-        del prof, ab
+            def phases(sel):
+                return {k: float(v) / ghz / 1e3
+                        for k, v in zip(names, pr[..., :12][sel].mean(0))
+                        if k != "-"}
+            # (s, t) with s >= 1 whose (s - 1, t + 1) exists
+            s1, t1 = np.nonzero(live[1:, :-1] & live[:-1, 1:])
+            s1 = s1 + 1
+            lat1 = g[s1, t1, 1] - g[s1 - 1, t1, 4]
+            lat2 = g[s1, t1, 3] - g[s1 - 1, t1 + 1, 4]
+            t_mid = T // 2
+            sw = np.arange(1, S)
+            sw = sw[live[sw, t_mid]]
+            lag = np.diff(g[sw, t_mid, 1]) / 1e3
+            row = live[mid] & (np.arange(T) >= 1)
+            print(json.dumps(dict(
+                kernel=which, design="dataflow", shape=[n, b],
+                bitwise_equal_to_committed=same, ms=ms,
+                committed_ms=committed_ms, sm_clock_ghz=ghz,
+                middle_sweep_task_us=phases((s_ix == mid) & (t_ix >= 1) & live),
+                middle_sweep_task_total_us=float(span[mid][row].mean() / 1e3),
+                t0_task_us=phases((t_ix == 0) & live),
+                done_t1_publish_to_early_start_us_median=float(
+                    np.median(lat1) / 1e3),
+                done_t2_publish_to_stage2_start_us_median=float(
+                    np.median(lat2) / 1e3),
+                sweep_lag_us_median=float(np.median(lag)),
+                label=label, device=smi)), flush=True)
+            del prof, ab
+
+
+def split_chase(root: Path, out: Path, label: str, smi: str) -> None:
+    """K9 in its former design where the checkout still has it (a tree
+    before K9's redesign), else both chasers in their one-launch design
+    (:func:`split_chase_flow`)."""
+    if "tb2bd_wave(" in (root / "slate_tpu_torch/csrc/band_chase.cu").read_text():
+        split_tb2bd_wave(root, out, label, smi)
+    else:
+        split_chase_flow(root, out, label, smi)
+
+
+def qr(root: Path, out: Path, label: str, smi: str) -> None:
+    split_qr(root, out, label, smi)
+    time_qr_variants(root, out, label, smi)
+
+
+PARTS = {"plu": split_plu, "k2": time_k2_variants, "swap": split_swap,
+         "lu": split_lu, "qr": qr, "chase": split_chase}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--label", default="tree")
+    ap.add_argument("--only", default=",".join(PARTS),
+                    help="comma-separated parts: " + ", ".join(PARTS))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1015,11 +1341,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    split_plu(root, out, args.label, smi)
-    time_k2_variants(root, out, args.label, smi)
-    split_swap(root, out, args.label, smi)
-    split_lu(root, out, args.label, smi)
-    split_chase(root, out, args.label, smi)
+    for part in args.only.split(","):
+        PARTS[part](root, out, args.label, smi)
     return 0
 
 
