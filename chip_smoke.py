@@ -24,10 +24,15 @@
    ``panel_unfold``) against their plain versions on the card: K4 on a
    folded [8, 1024, 2048] panel at blocks 0 and 7 with 3000 rows already
    inactive, the same shape block 0 on a tie, a NaN, a zero-column and a
-   half-inactive panel, flat at h=7424 and h=384, and through
+   half-inactive panel, flat at h=7424 and h=384, blocks 0 and 1 of the
+   flat branch's transposed [1, 256, 7424] panel, and through
    ``plu_subpanel(fold=True)`` at h=16384 (pivots, mask and ``info``
    equal, values bit for bit); K5 bitwise against
-   ``permute().contiguous()``. Times as in 2; the library call is
+   ``permute().contiguous()`` at its callers' shapes, the flat branch's
+   whole [8448, 256] panel window there and back, and ``unfold_panel``
+   and the back ``transpose_tiled`` into a window of a wider matrix in
+   place (the rest of it bit for bit unchanged), the forms the LU driver
+   runs and the ones timed. Times as in 2; the library call is
    ``torch.linalg.lu_factor`` on the [h, 128] subpanel for K4 and the
    ``permute().contiguous()`` copy for K5.
 2c. The QR and unpivoted-LU kernels against their plain versions on the
@@ -53,7 +58,9 @@
    prints ``getrf``/``gesv`` times, the peak memory of ``gesv`` and its
    ``torch.profiler`` breakdown.
 3c. The flat branch: ``gesv`` at n=8448, nb=256 (every panel window
-   height is 256 mod 1024), the same checks and its launch counts.
+   height is 256 mod 1024), the same checks and its launch counts (one
+   ``transpose_tiled`` each way a panel, K4 on each 128-row block of the
+   transposed panel).
 3d. The subpanel entry ``plu_panel(fold=True)`` at h=16384, the path of
    the folded subpanel kernel and its two transposes.
 3e. ``geqrf`` at f32, m=16384, n=4096, nb=1024 on a seeded Gaussian A
@@ -661,24 +668,44 @@ def time_plu(buf, act, blk, name):
                 library_ms=library_ms, bound=plu_bound(S * L, act))
 
 
-def check_transpose(name, fn, plain, x):
-    out = fn(x)
+def check_transpose(name, fn, plain, x, into=None):
+    """K5 through ``fn`` against its plain version, bitwise; with
+    ``into`` = (big, window index) it writes into that window of ``big``
+    in place (the LU driver's write-back), and every entry of ``big``
+    outside the window must keep its bits. Times the form checked."""
     ref = plain(x)
-    torch.cuda.synchronize()
-    ok = out.shape == ref.shape and torch.equal(out, ref)
-    say(f"  {name} {tuple(x.shape)} -> {tuple(out.shape)}: bitwise "
+    if into is None:
+        run = lambda: fn(x)  # noqa: E731
+        out = run()
+        torch.cuda.synchronize()
+        ok = out.shape == ref.shape and torch.equal(out, ref)
+    else:
+        big, sl = into
+        keep = big.clone()
+        run = lambda: fn(x, out=big[sl])  # noqa: E731
+        out = run()
+        torch.cuda.synchronize()
+        ok = (out.data_ptr() == big[sl].data_ptr()
+              and torch.equal(big[sl], ref))
+        big[sl] = keep[sl]
+        ok = ok and torch.equal(big, keep)
+        del keep
+    where = "" if into is None else " into a window, in place"
+    say(f"  {name} {tuple(x.shape)} -> {tuple(out.shape)}{where}: bitwise "
         f"{'equal ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} disagrees with permute().contiguous()")
-    return dict(max_abs_err=0.0, ms=time_ms(lambda: fn(x)),
+    return dict(max_abs_err=0.0, ms=time_ms(run),
                 plain_ms=time_ms(lambda: plain(x)),
-                library_ms=time_ms(lambda: plain_copy(x, out).contiguous()),
+                library_ms=time_ms(lambda: plain_copy(x, ref).contiguous()),
                 bound=bound(0, 2 * x.numel() * 4))
 
 
 def plain_copy(x, out):
     """The library call K5 is held to: one permute().contiguous() copy
     of x into out's layout."""
+    if x.dim() == 2 and out.dim() == 2:
+        return x.mT
     if x.dim() == 2:
         S = out.shape[0]
         return x.reshape(S, x.shape[0] // S, x.shape[1]).permute(0, 2, 1)
@@ -710,6 +737,15 @@ def phase_lu_kernels():
         check_plu(f"folded [8,1024,2048] block 0, {kind}", kb, ka, 0,
                   "plu_call_folded_block")
     del kb
+    # K4 on the flat branch's form: blocks 0 and 1 of a transposed
+    # [256, h] panel, in place
+    fb = torch.randn(1, FLAT_NB, PLU_FLAT_H, generator=gen, device="cuda")
+    fa = torch.ones(PLU_FLAT_H, device="cuda")
+    fa[torch.randperm(PLU_FLAT_H, generator=gen, device="cuda")[:999]] = 0.0
+    for blk in (0, 1):
+        check_plu(f"flat [1,{FLAT_NB},{PLU_FLAT_H}] block {blk}", fb, fa, blk,
+                  "plu_call")
+    del fb
     # K4, flat: [1, 128, h]
     for hf in (PLU_FLAT_H, 384):
         fb = torch.randn(1, 128, hf, generator=gen, device="cuda")
@@ -745,19 +781,37 @@ def phase_lu_kernels():
     pF = pp.transpose_fold(sub)
     rows["plu_call_folded"] = dict(max_abs_err=mx,
                                    **time_plu(pF, act, 0, "plu_call_folded"))
-    # K5, bitwise
+    # K5, bitwise; the panels go back into windows of a wider matrix in
+    # place, as the LU driver writes them
     a = torch.randn(N + 64, N, generator=gen, device="cuda")
     win = a[64:, :NB]                      # a strided column window
     rows["fold_panel"] = check_transpose(
         "fold_panel", pp.fold_panel, lambda x: K.panel_fold_plain(x, 8), win)
     pcf = pp.fold_panel(win)
+    check_transpose("unfold_panel", pp.unfold_panel, K.panel_unfold_plain,
+                    pcf)
     rows["unfold_panel"] = check_transpose(
-        "unfold_panel", pp.unfold_panel, K.panel_unfold_plain, pcf)
+        "unfold_panel", pp.unfold_panel, K.panel_unfold_plain, pcf,
+        into=(a, (slice(64, None), slice(NB, 2 * NB))))
     del a, win, pcf
+    check_transpose("transpose_tiled", pp.transpose_tiled,
+                    lambda x: K.panel_fold_plain(x, 1)[0],
+                    torch.randn(FLAT_N, 128, generator=gen, device="cuda"))
+    # the flat branch: the whole [8448, 256] panel window there, and back
+    # into its window in place
+    fl = torch.randn(FLAT_N, FLAT_N, generator=gen, device="cuda")
+    fwin = fl[:, FLAT_NB:2 * FLAT_NB]
     rows["transpose_tiled"] = check_transpose(
         "transpose_tiled", pp.transpose_tiled,
-        lambda x: K.panel_fold_plain(x, 1)[0],
-        torch.randn(FLAT_N, 128, generator=gen, device="cuda"))
+        lambda x: K.panel_fold_plain(x, 1)[0], fwin)
+    back = check_transpose(
+        "transpose_tiled", pp.transpose_tiled,
+        lambda x: K.panel_fold_plain(x, 1)[0], K.panel_fold_plain(fwin, 1)[0],
+        into=(fl, (slice(None), slice(0, FLAT_NB))))
+    say(f"  transpose_tiled [{FLAT_NB}, {FLAT_N}] back into its window: "
+        f"kernel_ms {back['ms']:.4f}, plain_ms {back['plain_ms']:.4f}, "
+        f"bound_ms {back['bound'][0]:.4f} ({back['bound'][1]})")
+    del fl, fwin
     rows["transpose_fold"] = check_transpose(
         "transpose_fold", pp.transpose_fold,
         lambda x: K.panel_fold_plain(x, 8), sub)
@@ -2039,8 +2093,8 @@ def main() -> int:
     ft = FLAT_N // FLAT_NB
     counts["gesv_flat"] = timed(
         "3c gesv flat", run_gesv, FLAT_N, FLAT_NB, 5,
-        {"plu_call": ft * FLAT_NB // 128, "transpose_tiled": 2 * ft * FLAT_NB
-         // 128, "trsm_left_lower": ft}, "LU flat branch")
+        {"plu_call": ft * FLAT_NB // 128, "transpose_tiled": 2 * ft,
+         "trsm_left_lower": ft}, "LU flat branch")
     counts["plu_panel"] = timed("3d plu_panel", phase_plu_panel)
     counts["geqrf"] = timed("3e geqrf", phase_geqrf)
     timed("3f gels", phase_gels)

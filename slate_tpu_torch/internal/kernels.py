@@ -610,55 +610,111 @@ def panel_plu_plain(buf: torch.Tensor, act: torch.Tensor,
 # K5: segmented panel transpose
 # ---------------------------------------------------------------------------
 
-def panel_fold(x: torch.Tensor, S: int, *, name: str) -> torch.Tensor:
+def _span(t: torch.Tensor) -> tuple[int, int]:
+    """The bytes [lo, hi) a tensor's elements lie in (non-negative
+    strides)."""
+    lo = t.data_ptr()
+    last = sum(max(n - 1, 0) * st for n, st in zip(t.shape, t.stride()))
+    return lo, lo + (last + 1) * t.element_size()
+
+
+def _check_out(name: str, src: torch.Tensor, out: torch.Tensor,
+               shape: tuple[int, ...]) -> None:
+    """A K5 destination: ``shape`` and ``src``'s dtype and device, unit
+    stride along its last axis, the other strides wide enough that no two
+    elements share memory, and a memory span apart from ``src``'s (a
+    window that interleaves with the source's rows without sharing an
+    element is refused as well)."""
+    st = out.stride()
+    rows_apart = all(st[i] >= st[i + 1] * out.shape[i + 1]
+                     for i in range(out.dim() - 1))
+    slate_error_if(tuple(out.shape) != shape or out.dtype != src.dtype
+                   or out.device != src.device or st[-1] != 1
+                   or not rows_apart,
+                   f"{name}: the destination must be {shape} {src.dtype} on "
+                   f"{src.device} with unit column stride and disjoint rows, "
+                   f"got {tuple(out.shape)} {out.dtype} on {out.device} with "
+                   f"strides {st}")
+    (a0, a1), (b0, b1) = _span(src), _span(out)
+    slate_error_if(a0 < b1 and b0 < a1,
+                   f"{name}: the destination overlaps the source (their "
+                   f"memory spans meet)")
+
+
+def panel_fold(x: torch.Tensor, S: int, *, name: str,
+               out: torch.Tensor | None = None) -> torch.Tensor:
     """[h, w] → segmented column-major [S, w, h/S] with
-    ``out[s, c, l] = x[s·(h/S) + l, c]``; a new tensor. ``x`` may be a
-    strided window of a larger matrix (unit column stride), which the
-    kernel reads in place. ``name`` is the Pallas function the call
-    stands for (:data:`TRANSPOSE_NAMES`).
+    ``out[s, c, l] = x[s·(h/S) + l, c]``. ``x`` may be a strided window
+    of a larger matrix (unit column stride), which the kernel reads in
+    place. The result goes to ``out`` where given ([S, w, h/S], unit
+    stride along its last axis, e.g. ``window[None]`` for S = 1: the
+    back transpose of the LU fast path's flat branch writes the panel
+    into the dense matrix so), else to a new tensor; it is returned.
+    ``name`` is the Pallas function the call stands for
+    (:data:`TRANSPOSE_NAMES`).
 
     Replaces ``transpose_tiled`` (panel_plu.py:321, S = 1),
     ``transpose_fold`` (:363) and ``fold_panel`` (:381), S = 8. Bound on
-    an H100: bytes, one read and one write of the panel. Design
-    (csrc/panel_transpose.cu): a 32×32 tile per CTA through shared
-    memory padded to 33 columns; both global sides coalesce.
+    an H100: bytes, one read and one write of the panel (0.040 ms at
+    [16384, 1024]). Design (csrc/panel_transpose.cu): 64×64 tiles through
+    shared memory stored in swizzled 16-byte chunks (neither the row-wise
+    fill nor the column-wise drain conflicts), 16-byte cp.async reads and
+    16-byte stores of 4×4 blocks transposed in registers; two tiles a
+    CTA, the second's reads in flight while it drains the first; element
+    by element under a mask where a pointer or a stride is not a multiple
+    of 4 floats and at the ragged edge. It runs at the card's copy rate:
+    [16384, 1024] takes about what ``Tensor.copy_`` of the same bytes
+    takes (PERF.md §6).
     """
     slate_error_if(name not in TRANSPOSE_NAMES,
                    f"panel_fold: unknown name {name!r}")
     h, w = x.shape
     slate_error_if(h % S != 0, f"{name}: height {h} is not a multiple of "
                    f"{S} segments")
+    L = h // S
+    if out is not None:
+        _check_out(name, x, out, (S, w, L))
     if not _route(name, x):
-        return panel_fold_plain(x, S)
+        y = panel_fold_plain(x, S)
+        return y if out is None else out.copy_(y)
     slate_error_if(x.dtype != torch.float32 or x.stride(1) != 1,
                    f"{name}: the kernel takes float32 rows of unit column "
                    f"stride, got {x.dtype} with strides {x.stride()}")
     slate_error_if(not supported("panel_transpose", x.dtype, h, x.device),
                    f"{name}: height {h} is outside the capability table")
-    L = h // S
-    out = torch.empty((S, w, L), dtype=x.dtype, device=x.device)
+    if out is None:
+        out = torch.empty((S, w, L), dtype=x.dtype, device=x.device)
     _launch("slate_panel_transpose_f32", x.device, _P(x.data_ptr()),
-            _P(out.data_ptr()), S, L, w, x.stride(0), L * x.stride(0), L,
-            w * L)
+            _P(out.data_ptr()), S, L, w, x.stride(0), L * x.stride(0),
+            out.stride(1), out.stride(0))
     LAUNCHES[name] += 1
     return out
 
 
-def panel_unfold(xf: torch.Tensor, *, name: str) -> torch.Tensor:
-    """Segmented [S, w, L] → [S·L, w], the inverse of :func:`panel_fold`;
-    a new tensor. Replaces ``unfold_panel`` (panel_plu.py:401) and
+def panel_unfold(xf: torch.Tensor, *, name: str,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """Segmented [S, w, L] → [S·L, w], the inverse of :func:`panel_fold`,
+    into ``out`` where given (an [S·L, w] window of a larger matrix, unit
+    column stride: the LU fast path's folded branch writes the panel back
+    into the dense matrix so, with no copy after it), else into a new
+    tensor; returns it. Replaces ``unfold_panel`` (panel_plu.py:401) and
     ``unfold_transpose`` (:419), and ``transpose_tiled`` on the way back
     (S = 1); the same kernel as :func:`panel_fold` with the roles of rows
     and columns swapped."""
     slate_error_if(name not in TRANSPOSE_NAMES,
                    f"panel_unfold: unknown name {name!r}")
     S, w, L = xf.shape
+    if out is not None:
+        _check_out(name, xf, out, (S * L, w))
     if not _route(name, xf):
-        return panel_unfold_plain(xf)
+        y = panel_unfold_plain(xf)
+        return y if out is None else out.copy_(y)
     _check_panel("panel_transpose", name, S * L, xf)
-    out = torch.empty((S * L, w), dtype=xf.dtype, device=xf.device)
+    if out is None:
+        out = torch.empty((S * L, w), dtype=xf.dtype, device=xf.device)
     _launch("slate_panel_transpose_f32", xf.device, _P(xf.data_ptr()),
-            _P(out.data_ptr()), S, w, L, L, w * L, w, L * w)
+            _P(out.data_ptr()), S, w, L, L, w * L, out.stride(0),
+            L * out.stride(0))
     LAUNCHES[name] += 1
     return out
 

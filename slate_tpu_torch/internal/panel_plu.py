@@ -15,7 +15,10 @@ functions, one for each, so every TPU kernel keeps its own launch count.
 The port keeps the JAX package's layouts: a flat subpanel is held
 transposed, [W, h], and a folded one as [8, W, h/8], row r at
 (r // (h/8), :, r % (h/8)). Both are column-major panels, which is also
-what the card's kernel wants: each column sweep is a coalesced read.
+what the card's kernel wants: each column sweep is a coalesced read. The
+driver's flat branch transposes a whole [h, nb] panel once, [nb, h], and
+factors its W-row blocks in place, as the folded branch does with its
+[8, nb, h/8] buffer.
 Unlike the JAX functions, the LU wrappers update the panel and the mask
 in place and return only ``(piv, info)``.
 """
@@ -45,9 +48,12 @@ def _fold_enabled() -> bool:
 # the layout kernels (B10–B14)
 # ---------------------------------------------------------------------------
 
-def transpose_tiled(x: torch.Tensor) -> torch.Tensor:
-    """[m, k] → [k, m] (B10, panel_plu.py:321)."""
-    return K.panel_fold(x, 1, name="transpose_tiled")[0]
+def transpose_tiled(x: torch.Tensor, out: torch.Tensor | None = None
+                    ) -> torch.Tensor:
+    """[m, k] → [k, m] (B10, panel_plu.py:321), into ``out`` where given
+    (a [k, m] window of a larger matrix, unit column stride)."""
+    return K.panel_fold(x, 1, name="transpose_tiled",
+                        out=None if out is None else out[None])[0]
 
 
 def transpose_fold(x: torch.Tensor) -> torch.Tensor:
@@ -62,10 +68,12 @@ def fold_panel(x: torch.Tensor) -> torch.Tensor:
     return K.panel_fold(x, 8, name="fold_panel")
 
 
-def unfold_panel(xf: torch.Tensor) -> torch.Tensor:
+def unfold_panel(xf: torch.Tensor, out: torch.Tensor | None = None
+                 ) -> torch.Tensor:
     """Folded [8, nb, L] → [8·L, nb], the inverse of :func:`fold_panel`
-    (B13, panel_plu.py:401)."""
-    return K.panel_unfold(xf, name="unfold_panel")
+    (B13, panel_plu.py:401), into ``out`` where given (the panel's window
+    of the dense matrix)."""
+    return K.panel_unfold(xf, name="unfold_panel", out=out)
 
 
 def unfold_transpose(xf: torch.Tensor) -> torch.Tensor:
@@ -91,9 +99,12 @@ def _plu_call_folded(pF: torch.Tensor, act_f: torch.Tensor):
     return K.panel_plu(pF, act_f, 0, name="plu_call_folded")
 
 
-def _plu_call(pT: torch.Tensor, act: torch.Tensor):
-    """The transposed [W, h] subpanel in place (B7, panel_plu.py:505)."""
-    return K.panel_plu(pT[None], act, 0, name="plu_call")
+def _plu_call(pT: torch.Tensor, act: torch.Tensor, blk: int = 0):
+    """W-column block ``blk`` of a transposed panel [nb, h] in place, and
+    the mask ``act`` [h] (B7, panel_plu.py:505: the JAX kernel takes one
+    [W, h] subpanel; the port's K4 addresses a block of the whole
+    transposed panel, as the folded branch does)."""
+    return K.panel_plu(pT[None], act, blk, name="plu_call")
 
 
 def plu_subpanel(sub: torch.Tensor, act: torch.Tensor, fold=None):

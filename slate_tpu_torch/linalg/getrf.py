@@ -160,25 +160,31 @@ def _getrf_fast_group_core(a, content, info, g0, gsz, nb, fold, tier):
                                         pcf[:, c0:c0 + W, :], 0.0)
                     with full_f32_matmul():
                         pcf[:, c0 + W:, :] -= torch.matmul(u.mT, lsubf)
-            a[done:, d_lo:d_hi] = panel_plu.unfold_panel(pcf)
+            # the kernel writes the panel back into its window of a
+            panel_plu.unfold_panel(pcf, out=a[done:, d_lo:d_hi])
         else:
-            pcols = a[done:, d_lo:d_hi]      # a view: updates land in a
+            # the folded branch's form with one segment: one transpose
+            # per panel, [hw, nb] -> pT [nb, hw]; each W-row block of pT
+            # is factored in place, the pivot rows are a column gather
+            # and the update within the panel runs on pT; one transpose
+            # writes the panel back into its window of a
+            pT = panel_plu.transpose_tiled(a[done:, d_lo:d_hi])
             for s in range(sb):
                 c0 = s * W
-                subf, piv_l, act, inf = panel_plu.plu_panel(
-                    pcols[:, c0:c0 + W], act, fold=fold)
-                pcols[:, c0:c0 + W] = subf
+                piv_l, inf = panel_plu._plu_call(pT, act, s)
                 info += inf
                 piv_l = piv_l.long().clamp_(max=hw - 1)
                 ordp[c0:c0 + W] = piv_l
                 if nb - (s + 1) * W > 0:
+                    rows = pT[c0:, piv_l].mT     # [W, nb − c0]
                     u = torch.linalg.solve_triangular(
-                        subf[piv_l], pcols[piv_l, c0 + W:], upper=False,
+                        rows[:, :W], rows[:, W:], upper=False,
                         unitriangular=True)
                     ubuf[c0:c0 + W, c0 + W:] = u
-                    lsub = torch.where(act[:, None] > 0, subf, 0.0)
+                    lsubT = torch.where(act > 0, pT[c0:c0 + W], 0.0)
                     with full_f32_matmul():
-                        pcols[:, c0 + W:] -= lsub @ u
+                        pT[c0 + W:] -= u.mT @ lsubT
+            panel_plu.transpose_tiled(pT, out=a[done:, d_lo:d_hi])
         ordg[d_lo - done:d_hi - done] = ordp
         upend[d_lo - done:d_hi - done, d_lo - done:d_hi - done] = ubuf
         # trailing update of the group's own remaining columns only

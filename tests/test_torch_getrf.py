@@ -37,9 +37,12 @@ from tests.conftest import rand  # noqa: E402
 
 CPU = pst.Grid(1, 1, device="cpu")
 # (n, nb, zero column): flat branch at 384/128; the folded branch at
-# 2048/1024 (hw = 2048 and 1024); two groups of flat panels at 1536/256
+# 2048/1024 (hw = 2048 and 1024); two groups of flat panels at 1536/256;
+# the flat branch's per-panel form (one transpose a panel, K4 on its two
+# 128-row blocks in place) at 768/256 and 1280/256, every window ≢ 0 mod
+# 1024 (768; 1280 and 256)
 FAST = [(384, 128, None), (2048, 1024, None), (1536, 256, None),
-        (384, 128, 200)]
+        (384, 128, 200), (768, 256, None), (1280, 256, None)]
 
 
 def fast_inputs(n, nb, zero_col):

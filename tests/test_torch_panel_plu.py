@@ -159,6 +159,67 @@ def test_unfold_kernels_bitwise(kernel, shape):
     assert np.array_equal(back.numpy(), xf)
 
 
+@pytest.mark.parametrize("kernel,shape", [
+    ("fold_panel", (1024, 256)),
+    ("unfold_panel", (8, 256, 128)),
+    ("transpose_tiled", (256, 384)),
+])
+def test_transposes_into_a_window_match_jax(kernel, shape):
+    """K5's destination form (``panel_fold``/``panel_unfold`` with
+    ``out``), which the LU driver writes panels back with: the
+    result lands in a window of a wider tensor (guard entries on both
+    sides of it), equals the JAX kernel in interpret mode bit for bit,
+    and every entry outside the window keeps its bits."""
+    x = np.random.default_rng(len(shape) + shape[-1]).standard_normal(
+        shape).astype(np.float32)
+    ref = np.asarray(getattr(jpp, kernel)(jnp.asarray(x), interpret=True))
+    if ref.ndim == 3:                        # [8, nb, L]: a middle window
+        big = torch.randn(8, ref.shape[1] + 24, ref.shape[2])
+        sl = (slice(None), slice(16, 16 + ref.shape[1]), slice(None))
+    else:                                    # [h, w]: a column window
+        big = torch.randn(ref.shape[0] + 5, ref.shape[1] + 200)
+        sl = (slice(5, None), slice(128, 128 + ref.shape[1]))
+    keep = big.clone()
+    win = big[sl]
+    if kernel == "fold_panel":
+        out = K.panel_fold(torch.from_numpy(x), 8, name=kernel, out=win)
+    else:
+        out = getattr(pp, kernel)(torch.from_numpy(x), out=win)
+    assert out.data_ptr() == win.data_ptr()
+    assert np.array_equal(big[sl].numpy(), ref)
+    big[sl] = keep[sl]
+    assert torch.equal(big, keep)
+
+
+def test_transpose_destination_is_checked():
+    """A destination that overlaps the source, has a column stride other
+    than 1, rows that share memory, another shape, dtype or device
+    raises; the source is left as it was."""
+    buf = torch.randn(8, 128, 64)
+    flat = torch.randn(512, 300)
+    keep = buf.clone()
+    bad = [
+        buf.view(-1)[:512 * 128].view(512, 128),          # overlaps xf
+        flat[:, :256:2],                                  # column stride 2
+        torch.randn(512 * 128).as_strided((512, 128), (64, 1)),  # rows share
+        flat[:, :127],                                    # shape
+        torch.zeros(512, 128, dtype=torch.float64),       # dtype
+        torch.zeros(512, 128, device="meta"),             # device
+    ]
+    for out in bad:
+        with pytest.raises(SlateError):
+            K.panel_unfold(buf, name="unfold_panel", out=out)
+    assert torch.equal(buf, keep)
+    big = torch.randn(600, 700)
+    x = big[:512, :128]
+    with pytest.raises(SlateError, match="overlaps"):
+        K.panel_fold(x, 1, name="transpose_tiled",
+                     out=big[None, :128, 64:576])   # shares x[:128, 64:]
+    with pytest.raises(SlateError):
+        pp.transpose_tiled(x, out=torch.zeros(512, 128).mT)  # column stride
+    assert torch.equal(big[:512, :128], x)
+
+
 def test_plu_panel_above_h_max_needs_the_tournament(monkeypatch):
     monkeypatch.setattr(pp, "H_MAX", 256)
     sub, act = subpanel(384, 1)

@@ -3,10 +3,11 @@
 physical-swap panel LU (K10) and of the Householder subpanel QR (K6), the
 block step of the unpivoted tile LU (K7) and the task of the two bulge
 chases (K8, K9) of ``slate_tpu_torch`` into phases, and time the right
-triangular solve (K2) against variants of its design, on one CUDA card.
+triangular solve (K2) and the panel transpose (K5) against variants of
+their designs, on one CUDA card.
 
     python3 tools/kernel_split.py [--root DIR] [--label NAME]
-                                  [--only plu,k2,swap,lu,qr,chase]
+                                  [--only plu,k2,swap,lu,qr,chase,k5]
 
 ``ncu`` does not run where the card is, so the split is taken inside the
 kernels: the script copies the sources of the checkout DIR (default: this
@@ -43,6 +44,12 @@ the design this one replaced:
   same shapes: each task's three waits, its parts and publishes, the time
   from a done[] publish to the part that waits for it, and the lag
   between a sweep and the next;
+* K5 (the panel transpose) beside copies that take one or four tiles a
+  CTA, walk many tiles a CTA on a grid of the CTAs that fit, use 32×128
+  or 128×32 tiles or streaming stores, at fold_panel's, unfold_panel's,
+  the flat branch's and transpose_fold's shapes, each bit for bit to the
+  plain version; beside a contiguous copy of the same bytes
+  (``Tensor.copy_`` and a 16-byte copy kernel) and an empty kernel;
 * K2's variants (its inverse formed at each tile task's start into a
   third shared buffer, the inverse tasks skipped; 64-row blocks at every
   m; 128-row blocks at every m) beside the committed K2 at the posv panel
@@ -1314,13 +1321,159 @@ def split_chase(root: Path, out: Path, label: str, smi: str) -> None:
         split_chase_flow(root, out, label, smi)
 
 
+# K5's design variants: (name, [(label, committed text, variant text)])
+K5_GRID = "  const int grid = static_cast<int>((total + PER_CTA - 1) / PER_CTA);"
+K5_VARIANTS = [
+    ("committed", []),
+    *[(f"{k} tile{'s' if k > 1 else ''} a CTA",
+       [("tiles", "constexpr int PER_CTA = 2;", f"constexpr int PER_CTA = {k};")])
+      for k in (1, 4)],
+    # every CTA that fits on the card at once, each walking many tiles
+    ("the CTAs that fit", [("grid", K5_GRID, """  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, panel_transpose, NT, 0);
+  const long long fit = static_cast<long long>(sms) * per_sm;
+  const long long each = (total + fit - 1) / fit;
+  const int grid = static_cast<int>((total + each - 1) / each);""")]),
+    ("32x128 tile", [("rows", "constexpr int TR = 64; ", "constexpr int TR = 32; "),
+                     ("cols", "constexpr int TC = 64; ", "constexpr int TC = 128; ")]),
+    ("128x32 tile", [("rows", "constexpr int TR = 64; ", "constexpr int TR = 128; "),
+                     ("cols", "constexpr int TC = 64; ", "constexpr int TC = 32; ")]),
+    ("streaming stores", [("store", "*reinterpret_cast<float4*>(dst) = make_float4(",
+                           "__stcs(reinterpret_cast<float4*>(dst), make_float4(")
+                          , ("store end", "o[j][3]);", "o[j][3]));")]),
+]
+
+
+def time_k5_variants(root: Path, out: Path, label: str, smi: str) -> None:
+    """K5 (csrc/panel_transpose.cu) beside copies of it that change one
+    part of its design, at fold_panel's [16384, 1024] window, unfold_panel's
+    [8, 1024, 2048], the flat branch's [8448, 256] window and
+    transpose_fold's [16384, 128], each checked bit for bit against the
+    plain version; and a contiguous copy of the same bytes
+    (``Tensor.copy_`` and a 16-byte copy kernel, :data:`COPY_SRC`), the
+    most a pass of one read and one write reaches on this card, and an
+    empty kernel, the floor of any launch so timed."""
+    import torch
+    from slate_tpu_torch.internal import kernels as K
+    src = (root / "slate_tpu_torch/csrc/panel_transpose.cu").read_text()
+    n, nb, fn_ = 16384, 1024, 8448
+    a = torch.randn(n + 64, n, device="cuda")
+    fl = torch.randn(fn_, fn_, device="cuda")
+    sub = torch.randn(n, 128, device="cuda")
+    win = a[64:, :nb]
+    cases = [  # (shape, x, S, R, C, xr, xb, out shape, plain)
+        ("fold_panel [16384, 1024] window", win, 8, n // 8, nb, win.stride(0),
+         n // 8 * win.stride(0), (8, nb, n // 8), K.panel_fold_plain(win, 8)),
+        ("transpose_tiled [8448, 256] window", fl[:, :256], 1, fn_, 256, fn_,
+         0, (256, fn_), K.panel_fold_plain(fl[:, :256], 1)[0]),
+        ("transpose_fold [16384, 128]", sub, 8, n // 8, 128, 128,
+         n // 8 * 128, (8, 128, n // 8), K.panel_fold_plain(sub, 8)),
+    ]
+    pcf = K.panel_fold_plain(win, 8)
+    cases.append(("unfold_panel [8, 1024, 2048]", pcf, 8, nb, n // 8, n // 8,
+                  nb * n // 8, (n, nb), K.panel_unfold_plain(pcf)))
+    for name, points in K5_VARIANTS:
+        lib = build(instrument(src, points, name), out,
+                    "k5_" + name.replace(" ", "_"),
+                    root / "slate_tpu_torch/csrc")
+        f = lib.slate_panel_transpose_f32
+        f.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int) + (ctypes.c_longlong,) * 4 \
+            + (ctypes.c_void_p,)
+        f.restype = ctypes.c_int
+        for shape, x, S, R, C, xr, xb, oshape, ref in cases:
+            y = torch.empty(oshape, device="cuda")
+            yr, yb = R, C * R
+
+            def run():
+                if f(x.data_ptr(), y.data_ptr(), S, R, C, xr, xb, yr, yb,
+                     torch.cuda.current_stream().cuda_stream):
+                    raise RuntimeError(f"K5 variant {name}: launch error")
+            run()
+            torch.cuda.synchronize()
+            ms = events_ms(run, reps=7)
+            print(json.dumps(dict(
+                kernel="panel_transpose", variant=name, shape=shape, ms=ms,
+                bound_ms=2 * x.numel() * 4 / 3.35e12 * 1e3,
+                bitwise=bool(torch.equal(y, ref)), label=label, device=smi)),
+                flush=True)
+    src_c = torch.randn(n, nb, device="cuda")
+    dst_c = torch.empty_like(src_c)
+    lib = build(COPY_SRC, out, "k5_copy", root / "slate_tpu_torch/csrc")
+    for fn_name in ("slate_copy16", "slate_empty"):
+        getattr(lib, fn_name).restype = ctypes.c_int
+    lib.slate_copy16.argtypes = (ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_void_p)
+    lib.slate_empty.argtypes = (ctypes.c_void_p,)
+
+    def copy16(per_sm):
+        if lib.slate_copy16(src_c.data_ptr(), dst_c.data_ptr(),
+                            src_c.numel() // 4, per_sm,
+                            torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("copy kernel: launch error")
+    runs = [("copy_", lambda: dst_c.copy_(src_c))]
+    runs += [(f"16-byte copy kernel, {k} CTAs an SM",
+              lambda k=k: copy16(k)) for k in (4, 8)]
+    runs.append(("empty kernel", lambda: lib.slate_empty(
+        torch.cuda.current_stream().cuda_stream)))
+    for what, fn in runs:
+        ms = events_ms(fn, reps=7)
+        if what.startswith("16-byte"):
+            assert torch.equal(dst_c, src_c)
+        print(json.dumps(dict(
+            kernel=what, shape=[n, nb], ms=ms,
+            bound_ms=2 * src_c.numel() * 4 / 3.35e12 * 1e3, label=label,
+            device=smi)), flush=True)
+
+
+# A contiguous copy in 16-byte words, four loads of a thread in flight
+# before its stores, on a grid of per_sm CTAs of 256 threads an SM; and an
+# empty kernel: the most a pass of one read and one write reaches on the
+# card, and what any launch costs, timed as K5 is.
+COPY_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void __launch_bounds__(256) copy16(const float4* __restrict__ x,
+                                              float4* __restrict__ y,
+                                              long long n4) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (; i + 3 * step < n4; i += 4 * step) {
+    float4 v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = x[i + k * step];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) y[i + k * step] = v[k];
+  }
+  for (; i < n4; i += step) y[i] = x[i];
+}
+__global__ void empty_kernel() {}
+extern "C" int slate_copy16(const void* x, void* y, long long n4, int per_sm,
+                            void* stream) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  copy16<<<sms * per_sm, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(x), static_cast<float4*>(y), n4);
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int slate_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
 def qr(root: Path, out: Path, label: str, smi: str) -> None:
     split_qr(root, out, label, smi)
     time_qr_variants(root, out, label, smi)
 
 
 PARTS = {"plu": split_plu, "k2": time_k2_variants, "swap": split_swap,
-         "lu": split_lu, "qr": qr, "chase": split_chase}
+         "lu": split_lu, "qr": qr, "chase": split_chase,
+         "k5": time_k5_variants}
 
 
 def main() -> int:

@@ -8,7 +8,7 @@ computes the same function, and time ``potrf``/``posv`` at the main
 path's shape (f32, n=16384, nb=1024, 8 right-hand sides).
 
     python3 tools/tile_kernel_times.py [--root DIR] [--label NAME] [--sweep]
-                                       [--only PARTS]
+                                       [--only PARTS] [--out DIR]
 
 ``--root`` is a checkout of the repository (default: this one) whose
 ``slate_tpu_torch`` is timed; the rows, times and bounds are those of this
@@ -34,8 +34,25 @@ from d0 = 0, a later subpanel's [13312, 128] from d0 = 896 and gels'
 [384, 128] from d0 = 128 beside ``torch.geqrf`` (cuSOLVER), with a digest
 of its output. K8 and K9 run at (n, band) = (8192, 128) and (4096, 128)
 with a digest of every output (d, e and the reflector packs), so equal
-digests mean equal bits. ``--only`` takes a comma-separated subset of
-k1k3, k2, k4, k7, k10, k11, k6, chase, posv.
+digests mean equal bits. ``chase_drift`` holds K8's and K9's reflectors
+(V and τ) at the short chains (n, band) = (12, 1), (50, 8), (40, 64) of
+``tests/test_torch_gpu.py::test_chase_kernels_match_plain`` to the plain
+version run in f64 on the card, at the test's seed and seven more: the
+kernel's largest distance from it beside the f32 plain version's on the
+card and on the CPU, and the backward error of each (the band rebuilt
+from d, e and the reflectors). K5 runs at its callers' shapes (B10
+``transpose_tiled`` at [8448, 128] both ways and at the whole [8448, 256]
+panel window both ways, B11 [16384, 128], B12 a [16384, 1024] window, B13
+[8, 1024, 2048], B14 [8, 128, 2048]) beside ``permute().contiguous()``,
+with a digest of its output, and where the checkout's K5 takes a
+destination, writing into a column window of a wider matrix. ``lu_prof``
+runs one ``gesv`` at n = 8448, nb = 256 (the flat branch) and one at
+16384/1024 (the folded one) under ``torch.profiler`` and prints every
+device kernel by name with its launches and time (as JSON files into
+``--out DIR`` where given), the K5 launches' mean
+device time, and the copy and elementwise kernels' count. ``--only``
+takes a comma-separated subset of k1k3, k2, k4, k5, k7, k10, k11, k6,
+chase, chase_drift, lu_prof, posv.
 ``--sweep`` also times K1, K3 and K7 alone at widths 64 … 1024 (K3 with
 8 columns: the time per 64-wide block step) and K3 at n = 1024 over
 m = 8 … 256 beside ``solve_triangular``.
@@ -49,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import importlib.util
 import json
 import subprocess
@@ -58,7 +76,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
 # what --only selects (all by default)
-PARTS = ("k1k3", "k2", "k4", "k7", "k10", "k11", "k6", "chase", "posv")
+PARTS = ("k1k3", "k2", "k4", "k5", "k7", "k10", "k11", "k6", "chase",
+         "chase_drift", "lu_prof", "posv")
 
 
 def digest(ts) -> str:
@@ -73,6 +92,181 @@ def dominant_tile(nb, gen):
             + nb * torch.eye(nb, device="cuda"))
 
 
+def k5_rows(cs, K, gen, emit):
+    """K5 at its callers' shapes: kernel and plain times (the plain
+    version is one permute().contiguous(), the library call as well), the
+    byte bound and a digest of the output; into a window of a wider
+    matrix where the checkout's wrappers take ``out``."""
+    import torch
+    into = "out" in inspect.signature(K.panel_unfold).parameters
+    N, NB, FN, FNB = cs.N, cs.NB, cs.FLAT_N, cs.FLAT_NB
+
+    def row(label, name, fn, plain, x, ref_out=None):
+        out = fn()
+        ref = plain()
+        torch.cuda.synchronize()
+        same = torch.equal(out if ref_out is None else ref_out, ref)
+        plain_ms = cs.time_ms(plain)
+        emit(f"panel_transpose/{name}", label, dict(
+            ms=cs.time_ms(fn), plain_ms=plain_ms, library_ms=plain_ms,
+            bitwise=same, sha256=digest([ref]),
+            bound=cs.bound(0, 2 * x.numel() * 4)))
+        if not same:
+            raise AssertionError(f"K5 {name} {label} differs from its plain "
+                                 "version")
+
+    fl = torch.randn(FN, FN, generator=gen, device="cuda")
+    for w in (128, FNB):
+        win = fl[:, :w]
+        row(f"[{FN}, {w}] window -> [{w}, {FN}]", "transpose_tiled",
+            lambda: K.panel_fold(win, 1, name="transpose_tiled")[0],
+            lambda: K.panel_fold_plain(win, 1)[0], win)
+        pT = K.panel_fold_plain(win, 1)
+        row(f"[{w}, {FN}] -> [{FN}, {w}]", "transpose_tiled",
+            lambda: K.panel_unfold(pT, name="transpose_tiled"),
+            lambda: K.panel_unfold_plain(pT), pT)
+        if into:
+            dst = fl[:, FN - w:]
+            row(f"[{w}, {FN}] -> [{FN}, {w}] window, in place",
+                "transpose_tiled",
+                lambda: K.panel_unfold(pT, name="transpose_tiled", out=dst),
+                lambda: K.panel_unfold_plain(pT), pT, dst)
+    x = torch.randn(FN, 128, generator=gen, device="cuda")
+    row(f"[{FN}, 128]", "transpose_tiled",
+        lambda: K.panel_fold(x, 1, name="transpose_tiled")[0],
+        lambda: K.panel_fold_plain(x, 1)[0], x)
+    del fl, x
+    sub = torch.randn(N, 128, generator=gen, device="cuda")
+    row(f"[{N}, 128]", "transpose_fold",
+        lambda: K.panel_fold(sub, 8, name="transpose_fold"),
+        lambda: K.panel_fold_plain(sub, 8), sub)
+    sf = K.panel_fold_plain(sub, 8)
+    row(f"[8, 128, {N // 8}]", "unfold_transpose",
+        lambda: K.panel_unfold(sf, name="unfold_transpose"),
+        lambda: K.panel_unfold_plain(sf), sf)
+    a = torch.randn(N + 64, N, generator=gen, device="cuda")
+    win = a[64:, :NB]
+    row(f"[{N}, {NB}] window", "fold_panel",
+        lambda: K.panel_fold(win, 8, name="fold_panel"),
+        lambda: K.panel_fold_plain(win, 8), win)
+    pcf = K.panel_fold_plain(win, 8)
+    row(f"[8, {NB}, {N // 8}]", "unfold_panel",
+        lambda: K.panel_unfold(pcf, name="unfold_panel"),
+        lambda: K.panel_unfold_plain(pcf), pcf)
+    if into:
+        dst = a[64:, NB:2 * NB]
+        row(f"[8, {NB}, {N // 8}] -> window, in place", "unfold_panel",
+            lambda: K.panel_unfold(pcf, name="unfold_panel", out=dst),
+            lambda: K.panel_unfold_plain(pcf), pcf, dst)
+
+
+def chase_drift(cs, st, K, emit_line):
+    """K8's and K9's reflectors against the f64 plain version on the card
+    at the short chains of test_chase_kernels_match_plain (the test's
+    band, seed n·band, and seven more seeds), beside the f32 plain
+    version's own distance on the card and on the CPU; and each result's
+    backward error: the band rebuilt in f64 from its d, e and reflectors
+    against the band, relative Frobenius."""
+    import numpy as np
+    import torch
+    from slate_tpu_torch.linalg.bulge import apply_bulge_reflectors
+    bb = st.internal.band_bulge
+
+    def rebuild_err(out, g, upper, b):
+        n = g.shape[1]
+        # the first min(b, n − 1) + 1 diagonals: those past the corner of
+        # a band wider than the matrix are empty
+        dense = cs.dense_band(g[:min(b, n - 1) + 1], upper)
+        eye = torch.eye(n, dtype=torch.float64, device="cuda")
+        o = [torch.as_tensor(x).double().cuda() for x in out[:6]]
+        mid = torch.diag(o[0]) + torch.diag(o[1], 1)
+        if upper:
+            U2 = apply_bulge_reflectors(o[2], o[3], eye, b)
+            V2 = apply_bulge_reflectors(o[4], o[5], eye, b)
+            rebuilt = U2 @ mid @ V2.T
+        else:
+            Q = apply_bulge_reflectors(o[2], o[3], eye, b)
+            rebuilt = Q @ (mid + torch.diag(o[1], -1)) @ Q.T
+        return float(torch.linalg.norm(rebuilt - dense)
+                     / torch.linalg.norm(dense))
+
+    for n, b in ((12, 1), (50, 8), (40, 64)):
+        for k in range(8):
+            seed = n * b + 1000 * k
+            ab = np.random.default_rng(seed).standard_normal(
+                (b + 1, n)).astype(np.float32)
+            g = torch.from_numpy(ab).cuda()
+            for which, fn, plain, names in (
+                    ("hb2st", K.hb2st_chase, bb.hb2st, ("V", "tau")),
+                    ("tb2bd", K.tb2bd_chase, bb.tb2bd,
+                     ("Vu", "tauu", "Vv", "tauv"))):
+                out = [x.cpu().numpy() for x in fn(g)]
+                ref = [x.cpu().numpy() for x in plain(g)]
+                cpu = [x.numpy() for x in plain(torch.from_numpy(ab))]
+                ref64 = [x.cpu().numpy() for x in plain(g.double())]
+                row = dict(kernel=f"{which}_drift", n=n, band=b, seed=seed,
+                           test_seed=k == 0)
+                for nm, x, y, c, z in zip(names, out[2:6], ref[2:6],
+                                          cpu[2:6], ref64[2:6]):
+                    row[nm] = dict(kernel=float(np.abs(x - z).max()),
+                                   plain_card=float(np.abs(y - z).max()),
+                                   plain_cpu=float(np.abs(c - z).max()))
+                upper = which == "tb2bd"
+                row["backward"] = dict(
+                    kernel=rebuild_err(out, g, upper, b),
+                    plain_card=rebuild_err(ref, g, upper, b),
+                    plain_f64=rebuild_err(ref64, g, upper, b))
+                emit_line(row)
+
+
+def lu_profile(cs, st, K, n, nb, seed, emit_line, out_dir):
+    """One gesv under torch.profiler (device activity only): every device
+    kernel by name with its launches and time; the K5 launches' mean; the
+    copy and elementwise kernels' count."""
+    import torch
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+    grid = st.Grid(1, 1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    A = st.Matrix.from_dense(torch.randn(n, n, generator=gen, device="cuda"),
+                             nb=nb, grid=grid)
+    B = st.Matrix.from_dense(torch.randn(n, cs.NRHS, generator=gen,
+                                         device="cuda"), nb=nb, grid=grid)
+    st.gesv(A, B)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        st.gesv(A, B)
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    names: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            r = names.setdefault(e.name, [0, 0.0])
+            r[0] += 1
+            r[1] += e.time_range.elapsed_us()
+    busy = sum(v[1] for v in names.values())
+    cats: dict[str, list] = {}
+    for nm, (c, us) in names.items():
+        r = cats.setdefault(cs._category(nm), [0, 0.0])
+        r[0] += c
+        r[1] += us
+    k5 = cats.get("panel transposes (K5)", [0, 0.0])
+    cp = cats.get("copies and elementwise (layout, guards, padding, gathers)",
+                  [0, 0.0])
+    rows = sorted(names.items(), key=lambda kv: -kv[1][1])
+    if out_dir is not None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / f"gesv_{n}_{nb}_kernels.json").write_text(json.dumps(
+            [dict(name=nm, category=cs._category(nm), launches=c, us=us)
+             for nm, (c, us) in rows], indent=0))
+    emit_line(dict(kernel="gesv_profile", n=n, nb=nb, busy_ms=busy / 1e3,
+                   launch_counts=launches, k5_launches=k5[0],
+                   k5_us_per_launch=k5[1] / k5[0] if k5[0] else None,
+                   copy_kernels=cp[0], copy_ms=cp[1] / 1e3,
+                   categories={c: dict(launches=v[0], ms=v[1] / 1e3)
+                               for c, v in cats.items()}))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE))
@@ -80,6 +274,8 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--only", default=",".join(PARTS),
                     help="comma-separated parts: " + ", ".join(PARTS))
+    ap.add_argument("--out", default=None,
+                    help="directory for lu_prof's per-kernel JSON files")
     args = ap.parse_args()
     want = set(args.only.split(","))
     import torch
@@ -106,6 +302,10 @@ def main() -> int:
                               ratio=(r["ms"] / r["library_ms"]
                                      if r["library_ms"] else None),
                               label=args.label, device=smi)), flush=True)
+
+    def emit_line(d):
+        print(json.dumps(dict(**d, label=args.label, device=smi)),
+              flush=True)
 
     for nb in (1024, 256) if "k1k3" in want else ():
         emit("potrf_tile", [nb, nb],
@@ -170,6 +370,9 @@ def main() -> int:
                                           label=args.label, device=smi)),
                           flush=True)
                 del buf, kb
+
+    if "k5" in want:
+        k5_rows(cs, K, torch.Generator(device="cuda").manual_seed(5), emit)
 
     if "k7" in want:
         # K7 on G + nb·I (gesv_nopiv's tile at 1024, smaller and ragged ones)
@@ -237,6 +440,15 @@ def main() -> int:
                     us_per_wave=ms / waves * 1e3, sha256=sha,
                     bound=cs.bound(*cs.chase_work(n, b, which))))
                 del ab
+
+    if "chase_drift" in want:
+        chase_drift(cs, st, K, emit_line)
+
+    if "lu_prof" in want:
+        out_dir = (Path(args.out) / f"lu_prof_{args.label}" if args.out
+                   else None)
+        for n, nb, seed in ((cs.FLAT_N, cs.FLAT_NB, 5), (cs.N, cs.NB, 3)):
+            lu_profile(cs, st, K, n, nb, seed, emit_line, out_dir)
 
     if args.sweep:
         for w in (64, 128, 256, 512, 1024):
