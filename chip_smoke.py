@@ -151,7 +151,41 @@ The Aasen and band LU slice (f32, ``Grid(1, 1)``):
    ``gbsv`` at n=512 agree between the two (equal pivots, X within the
    forward error bound n·2⁻²⁴·κ(A)).
 
-Each path of 3–3m runs with the launch counts set to 0 just before it
+The mixed-precision slice (``Grid(1, 1)``):
+
+2e. (extended) K11 at each precision tier (``mxu_bf16``, ``bf16_3x``,
+   ``bf16_6x``) at its three shapes against its plain version, and as a
+   pure product against the f64 one within (TIER_EPS + k·2⁻²⁴)·|A|·|B|
+   elementwise (mxu_bf16: 2·2⁻⁸ + 2⁻¹⁶ for its two rounded operands);
+   its time at the two timed shapes beside ``tier_addmm`` at that tier.
+2f. The tier products at [15360, 1024]·[1024, 15360]: ``tier_addmm_``
+   at each tier beside the FP32 ``addmm``, the max error relative to
+   |A|·|B| against f64, and at k = 1 each tier within its per-product
+   bound.
+3n. ``gesv_mixed`` f32 at the JAX bench's ``gesv_mixed_3x_16k`` (n=16384,
+   nb=1024, A = 0.01·G + √n·I, nrhs=1024), ``posv_mixed`` f32 on phase
+   3's matrix (nrhs=8), both at f64 (nrhs=8) and both GMRES-IR forms at
+   f64 (nrhs=1): ``iters``, time, backward error, no fallback, exact
+   launch counts (K1 16, K2 15 or K4 128, K5 16 + 16 per factorization,
+   K3 16 per ``potrs``/``getrs`` call, counted by wrapping them), the
+   full-precision solve's time; getrf and potrf alone at bf16_3x and
+   bf16_6x; one f64 residual gemm and the breakdown of an f64
+   ``gesv_mixed``.
+3o. ``norm`` of each kind on a general, a Lower Hermitian (junk above
+   the diagonal) and a triangular matrix at n=16384 against torch f64
+   within n·2⁻²⁴; ``potrf``/``getrf(health=True)`` growth within
+   [1 − 1e-4, 10]× the true rcond from ``torch.linalg.inv`` in f64;
+   ``hetrf(health=True)`` at n=4096, nb=256: K10 15, ``info`` 0.
+3p. ``getri`` and ``potri`` at n=16384 with LAPACK's ratio
+   ‖I − A·X‖₁/(n·‖A‖₁·‖X‖₁·ε) ≤ 30; K3 on trtri's [1024, 16384] identity
+   block row beside ``solve_triangular``.
+3q. ``potrf`` at n=32768, nb=1024 at bf16_3x and bf16_6x (the JAX
+   bench's ``potrf_3x_32k``): GFLOP/s at n³/3, the factors within 1e-3.
+4f. A non-SPD ``posv_mixed`` gives ``info`` > 0 and takes the fallback;
+   a singular ``gesv_mixed`` ``info`` > 0; ``potrf(health=True)`` on a
+   non-SPD matrix names the first bad tile and no growth.
+
+Each path of 3–3p runs with the launch counts set to 0 just before it
 and read just after. Any failure raises and the script exits non-zero.
 Without a CUDA card it exits with code 2 before doing anything. The last
 line is ``{"ok": true, "device": {...}}``.
@@ -1882,11 +1916,90 @@ def phase_swap_rank_k_kernels():
                     c, x, y, -1.0, 1.0)),
                 library_ms=lib, bound=rank_k_bound(m, n, k))
     rows["rank_k_tail_pallas"]["max_abs_err"] = mx
+    rank_k_tiers(gen)
     for name, r in rows.items():
         say(f"  {name}: kernel_ms {r['ms']:.4f}, plain_ms "
             f"{r['plain_ms']:.4f}, library_ms {r['library_ms']:.4f}, "
             f"bound_ms {r['bound'][0]:.6f} ({r['bound'][1]})")
     return rows
+
+
+def rank_k_tiers(gen):
+    """K11 at each precision tier at the three shapes of 2e: against its
+    plain version (α = −1, β = 1) and, as a pure product (α = 1, β = 0),
+    against the f64 product within (TIER_EPS + k·2⁻²⁴)·|A|·|B|
+    elementwise (mxu_bf16: 2·2⁻⁸ + 2⁻¹⁶ for its two rounded operands,
+    ``precision.product_bound``); at the two timed shapes its time
+    beside ``tier_addmm`` at the same tier."""
+    from slate_tpu_torch.internal import kernels as K
+    from slate_tpu_torch.internal import precision as P
+    for (m, n, k) in ((32, 96, 96), (4096, 4096, 64), (70, 130, 1)):
+        c = torch.randn(m, n, generator=gen, device="cuda")
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        y = torch.randn(k, n, generator=gen, device="cuda")
+        ref = x.double() @ y.double()
+        den = x.double().abs() @ y.double().abs()
+        for tier in P.TIERS:
+            check("rank_k_tail", lambda: K.rank_k_tail(c, x, y, -1.0, 1.0,
+                                                       tier),
+                  lambda: K.rank_k_tail_plain(c, x, y, -1.0, 1.0, tier),
+                  f"{tier} [{m},{k}]x[{k},{n}]")
+            prod = K.rank_k_tail(c, x, y, 1.0, 0.0, tier)
+            err = float(((prod.double() - ref).abs() / den).max())
+            lim = P.product_bound(tier, k)
+            say(f"  rank_k_tail {tier} [{m},{k}]x[{k},{n}] vs f64: max "
+                f"error / (|A||B|) {err:.3e} (bound {lim:.3e}) "
+                f"{'ok' if err <= lim else 'FAIL'}")
+            assert err <= lim, f"rank_k_tail {tier}: error {err} above {lim}"
+            if k == 1:
+                continue
+            ms = time_ms(lambda: K.rank_k_tail(c, x, y, -1.0, 1.0, tier))
+            lib = time_ms(lambda: P.tier_addmm(c, x, y, alpha=-1.0,
+                                               tier=tier))
+            say(f"  rank_k_tail {tier} [{m},{k}]x[{k},{n}]: kernel_ms "
+                f"{ms:.6f}, tier_addmm_ms {lib:.6f}")
+
+
+def phase_tier_products():
+    """2f: the three tiers' trailing product at [15360, 1024]·[1024,
+    15360] (the first posv step's syrk shape as one gemm): time of
+    ``tier_addmm_`` into C beside the FP32 ``addmm``, and the max error
+    relative to |A|·|B| against the f64 product; at k = 1 each tier
+    within its per-product bound (TIER_EPS for bf16_6x and bf16_3x,
+    2·2⁻⁸ + 2⁻¹⁶ for mxu_bf16's two rounded operands)."""
+    from slate_tpu_torch.internal import precision as P
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    m, k = N - NB, NB
+    a = torch.randn(m, k, generator=gen, device="cuda")
+    b = torch.randn(k, m, generator=gen, device="cuda")
+    c = torch.randn(m, m, generator=gen, device="cuda")
+    with _f32():
+        fp32_ms = time_ms(lambda: c.addmm_(a, b, alpha=-1.0), reps=5)
+    say(f"tier products [{m},{k}]x[{k},{m}]: FP32 addmm_ms {fp32_ms:.3f} "
+        f"({2 * m * m * k / fp32_ms / 1e9:.1f} TFLOP/s)")
+    ref = a.double() @ b.double()
+    den = a.double().abs() @ b.double().abs()
+    for tier in P.TIERS:
+        ms = time_ms(lambda: P.tier_addmm_(c, a, b, alpha=-1.0, tier=tier),
+                     reps=5)
+        err = float(((P.tier_mm(a, b, tier).double() - ref).abs()
+                     / den).max())
+        lim = P.product_bound(tier, k)
+        say(f"  {tier}: tier_addmm_ms {ms:.3f} ({2 * m * m * k / ms / 1e9:.1f}"
+            f" TFLOP/s, {fp32_ms / ms:.2f}x FP32), max error / (|A||B|) "
+            f"{err:.3e} at k={k} (bound {lim:.3e})")
+        assert err <= lim, f"{tier}: error {err} above {lim} at k={k}"
+    del ref, den
+    a1, b1 = a[:, :1].contiguous(), b[:1].contiguous()
+    ref = a1.double() @ b1.double()
+    den = a1.double().abs() @ b1.double().abs()
+    for tier in P.TIERS:
+        err = float(((P.tier_mm(a1, b1, tier).double() - ref).abs()
+                     / den).max())
+        lim = P.product_bound(tier, 0)
+        say(f"  {tier} at k=1: max error / (|a||b|) {err:.3e} (TIER_EPS "
+            f"{P.TIER_EPS[tier]:.3e}, per-product bound {lim:.3e})")
+        assert err <= lim, f"{tier}: error {err} above {lim} at k=1"
 
 
 def ldl_yardstick(a, b):
@@ -2061,6 +2174,355 @@ def phase_aasen_band_failure_report():
     assert ex <= tx and ey <= ty, (ex, ey)
 
 
+# ---------------------------------------------------------------------------
+# the mixed-precision slice
+# ---------------------------------------------------------------------------
+
+MIXED_NRHS = NB           # gesv_mixed_3x_16k's nrhs (bench.py:886-922)
+IR_ITERMAX = 30           # Option.MaxIterations' default
+
+
+def mixed_matrices():
+    """The matrices of 3n–3p at n = 16384, nb = 1024, f32 on the card:
+    A = 0.01·G + √n·I, the JAX bench's ``gesv_mixed_3x_16k`` matrix built
+    the same way (``scale``, ``_add_scaled_identity``), and the posv
+    matrix S = G·Gᵀ/n + I of phase 3 (``gemm``)."""
+    import slate_tpu_torch as st
+    from slate_tpu_torch.ops.elementwise import _add_scaled_identity
+    grid = st.Grid(1, 1)
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    G = st.Matrix.from_dense(torch.randn(N, N, generator=gen, device="cuda"),
+                             nb=NB, grid=grid)
+    A = _add_scaled_identity(st.scale(0.01, 1.0, G), N ** 0.5)
+    I = st.set_matrix(0.0, 1.0, st.Matrix.zeros(N, N, NB, grid))
+    C = st.gemm(1.0 / N, G, st.transpose(G), 1.0, I)
+    del G, I
+    S = st.HermitianMatrix(data=C.data, m=N, n=N, nb=NB, grid=grid)
+    return A, S
+
+
+def backward_error(M, X, B) -> float:
+    """‖M·X − B‖_F / (‖M‖_F·‖X‖_F) in f64 on the card."""
+    m, x, b = (T.to_dense().double() for T in (M, X, B))
+    return float(torch.linalg.norm(m @ x - b)
+                 / (torch.linalg.norm(m) * torch.linalg.norm(x)))
+
+
+def run_mixed(label, solver, M, B, full_solver, chol, warm=False):
+    """One mixed solve with the launch counts set to 0 just before it and
+    read just after: ``iters``, time, backward error, no fallback, and
+    the exact counts (K1 16 and K2 15, or K4 128 and K5 16 + 16, per
+    factorization, K3 16 per ``potrs``/``getrs`` call, counted by wrapping
+    the two functions); then the full-precision solve at the same shape
+    (one run)."""
+    from slate_tpu_torch.linalg import getrf as getrf_mod
+    from slate_tpu_torch.linalg import mixed
+    from slate_tpu_torch.linalg import potrf as potrf_mod
+    if warm:
+        solver(M, B)
+    calls = [0]
+    real = getrf_mod.getrs, potrf_mod.potrs
+
+    def counted(fn):
+        def run(*a, **kw):
+            calls[0] += 1
+            return fn(*a, **kw)
+        return run
+
+    getrf_mod.getrs, potrf_mod.potrs = (counted(f) for f in real)
+    try:
+        base, t0 = start_path()
+        X, iters, info = solver(M, B)
+        torch.cuda.synchronize()
+        nt = N // NB
+        expect = ({"potrf_tile": nt, "trsm_right_lower_t": nt - 1} if chol
+                  else {"plu_call_folded_block": nt * NB // 128,
+                        "fold_panel": nt, "unfold_panel": nt})
+        expect["trsm_left_lower"] = nt * calls[0]
+        ms, launches, peak_gib = end_path(base, t0, expect)
+    finally:
+        getrf_mod.getrs, potrf_mod.potrs = real
+    fell_back = mixed.used_fallback()
+    info = int(info)
+    eps = torch.finfo(B.dtype).eps
+    err = backward_error(M, X, B)
+    limit = 10 * N * eps / 2
+    t1 = time.perf_counter()
+    full_solver(M, B)
+    torch.cuda.synchronize()
+    full_ms = (time.perf_counter() - t1) * 1e3
+    say(f"  {label} {str(B.dtype)[6:]} nrhs={B.n}: iters {iters}, info {info}"
+        f", fallback {fell_back}, {calls[0]} solves, ms {ms:.3f}, backward "
+        f"error {err:.3e} (bound 10*n*eps/2 = {limit:.3e}); full-precision "
+        f"solve ms {full_ms:.3f}, peak device memory above its inputs "
+        f"{peak_gib:.3f} GiB")
+    assert info == 0 and not fell_back and iters < IR_ITERMAX, (
+        info, fell_back, iters)
+    assert tuple(X.shape) == tuple(B.shape) and X.dtype == B.dtype
+    assert bool(torch.isfinite(X.data).all()) and err <= limit, err
+    return launches
+
+
+def factor_tiers(A, S):
+    """The low leg's factorizations alone: getrf (fast path) and potrf
+    at n = 16384 at bf16_3x and bf16_6x, alternating, best of two."""
+    import slate_tpu_torch as st
+    best = {}
+    for tier in ("bf16_6x", "bf16_3x") * 2:
+        opts = {st.Option.TrailingPrecision: tier}
+        for name, fn in (("getrf", lambda: st.getrf(A, opts)),
+                         ("potrf", lambda: st.potrf(S, opts))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            info = fn()[-1]
+            torch.cuda.synchronize()
+            t = (time.perf_counter() - t0) * 1e3
+            assert int(info) == 0
+            best[name, tier] = min(best.get((name, tier), t), t)
+    for name, flops in (("getrf", 2 * N ** 3 / 3), ("potrf", N ** 3 / 3)):
+        say(f"  {name} n={N} by tier: " + ", ".join(
+            f"{t} {best[name, t]:.3f} ms ({flops / best[name, t] / 1e6:.1f}"
+            f" GFLOP/s)" for t in ("bf16_6x", "bf16_3x")))
+
+
+def phase_mixed():
+    """3n: gesv_mixed and posv_mixed at f32 (bf16_3x factorizations) and
+    f64 (f32 factorizations), and both GMRES-IR forms at f64, at
+    n = 16384, nb = 1024, through the package's entry points."""
+    import slate_tpu_torch as st
+    A, S = mixed_matrices()
+    grid = A.grid
+    gen = torch.Generator(device="cuda").manual_seed(41)
+
+    def rhs(k, dt):
+        return st.Matrix.from_dense(torch.randn(N, k, generator=gen,
+                                                device="cuda").to(dt),
+                                    nb=NB, grid=grid)
+
+    say(f"mixed solves n={N} nb={NB} Grid(1,1): A = 0.01*G + sqrt(n)*I, "
+        f"S = G*G^T/n + I")
+    counts = {}
+    B = rhs(MIXED_NRHS, torch.float32)
+    counts["gesv_mixed"] = run_mixed(
+        "gesv_mixed", st.gesv_mixed, A, B, lambda M, R: st.gesv(M, R),
+        chol=False, warm=True)
+    B8 = rhs(NRHS, torch.float32)
+    counts["posv_mixed"] = run_mixed(
+        "posv_mixed", st.posv_mixed, S, B8, lambda M, R: st.posv(M, R),
+        chol=True, warm=True)
+    factor_tiers(A, S)
+    A64, S64 = A.astype(torch.float64), S.astype(torch.float64)
+    del A, S
+    B8 = B8.astype(torch.float64)
+    B1 = rhs(1, torch.float64)
+    run_mixed("gesv_mixed", st.gesv_mixed, A64, B8,
+              lambda M, R: st.gesv(M, R), chol=False)
+    run_mixed("posv_mixed", st.posv_mixed, S64, B8,
+              lambda M, R: st.posv(M, R), chol=True)
+    run_mixed("gesv_mixed_gmres", st.gesv_mixed_gmres, A64, B1,
+              lambda M, R: st.gesv(M, R), chol=False)
+    run_mixed("posv_mixed_gmres", st.posv_mixed_gmres, S64, B1,
+              lambda M, R: st.posv(M, R), chol=True)
+    X, _, _ = st.gesv_mixed(A64, B8)
+    gemm_ms = time_ms(lambda: st.gemm(-1.0, A64, X, 1.0, B8), reps=3)
+    say(f"  one f64 residual B - A*X (nrhs={NRHS}): gemm_ms {gemm_ms:.3f}, "
+        f"the tiles-to-dense copy of A alone moves "
+        f"{2 * N * N * 8 / 2 ** 30:.1f} GiB "
+        f"({2 * N * N * 8 / HBM_RATE * 1e3:.3f} ms at the byte rate)")
+    phase_breakdown("f64 gesv_mixed", lambda: st.gesv_mixed(A64, B8))
+    return counts
+
+
+def phase_norms_health():
+    """3o: ``norm`` of each kind on a general, a Lower Hermitian (junk
+    above the diagonal) and a triangular matrix against torch in f64;
+    ``potrf``/``getrf(health=True)`` growth against the true rcond from
+    ``torch.linalg.inv`` in f64; ``hetrf(health=True)`` at n = 4096,
+    nb = 256 with its exact launch counts."""
+    import slate_tpu_torch as st
+    A, S = mixed_matrices()
+    grid = A.grid
+    a = A.to_dense().double()
+    s = S.to_dense()
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    junk = torch.randn(N, N, device="cuda", generator=gen)
+    H = st.HermitianMatrix.from_dense(torch.tril(s) + torch.triu(junk, 1),
+                                      nb=NB, grid=grid)
+    del junk
+    s = s.double()
+    h = torch.tril(s) + torch.tril(s, -1).mT
+    T = st.TriangularMatrix(data=A.data, m=N, n=N, nb=NB, grid=grid,
+                            uplo=st.Uplo.Lower)
+    refs = {"Max": lambda x: x.abs().max(),
+            "One": lambda x: x.abs().sum(0).max(),
+            "Inf": lambda x: x.abs().sum(1).max(),
+            "Fro": lambda x: torch.linalg.norm(x)}
+    limit = N * 2.0 ** -24
+    for label, M, dense in (("general", A, a), ("Lower Hermitian", H, h),
+                            ("lower triangular", T, torch.tril(a))):
+        errs = {}
+        for kind, ref in refs.items():
+            t0 = time.perf_counter()
+            out = st.norm(getattr(st.Norm, kind), M)
+            out = float(out)
+            ms = (time.perf_counter() - t0) * 1e3
+            r = float(ref(dense))
+            errs[kind] = (abs(out - r) / r, ms)
+        say(f"  norm {label} n={N}: " + ", ".join(
+            f"{k} rel_err {e:.2e} ({ms:.2f} ms)" for k, (e, ms)
+            in errs.items()) + f" (bound n*2^-24 = {limit:.2e})")
+        assert all(e <= limit for e, _ in errs.values()), errs
+    del H, h, T
+    for label, fn, M, dense in (
+            ("potrf", lambda: st.potrf(S, health=True), S, s),
+            ("getrf", lambda: st.getrf(A, health=True), A, a)):
+        t0 = time.perf_counter()
+        rep = fn()[-1]
+        ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        (st.potrf(S) if label == "potrf" else st.getrf(A))
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        inv = torch.linalg.inv(dense)
+        rcond = 1.0 / float(dense.abs().sum(0).max() * inv.abs().sum(0).max())
+        del inv
+        say(f"  {label}(health=True): info {rep.info}, growth (rcond "
+            f"estimate) {rep.growth:.6e}, true rcond {rcond:.6e} "
+            f"(ratio {rep.growth / rcond:.4f}, bounds [1 - 1e-4, 10]); "
+            f"{ms:.1f} ms against {plain_ms:.1f} ms without health")
+        assert rep.info == 0 and rep.first_bad_tile is None
+        assert rcond * (1 - 1e-4) <= rep.growth <= 10 * rcond
+    del A, S, a, s
+    n, nb = 4096, AASEN_NB
+    g = torch.randn(n, n, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(43))
+    Hs = st.HermitianMatrix.from_dense(torch.tril((g + g.T) / 2), nb=nb,
+                                       grid=grid)
+    base, t0 = start_path()
+    _, rep = st.hetrf(Hs, health=True)
+    ms, launches, _ = end_path(base, t0, {"panel_plu_pallas": n // nb - 1})
+    say(f"  hetrf(health=True) n={n} nb={nb}: info {rep.info}, ms {ms:.1f}")
+    assert isinstance(rep, st.HealthReport) and rep.info == 0 and rep.ok
+    return launches
+
+
+def inverse_ratio(a, x) -> float:
+    """LAPACK's test ratio ‖I − A·X‖₁ / (n·‖A‖₁·‖X‖₁·ε), ε = 2⁻²⁴, with
+    the product in full FP32."""
+    n = a.shape[0]
+    with _f32():
+        r = a @ x
+    r.diagonal().sub_(1.0)
+    one = (lambda t: float(t.abs().sum(0).max()))
+    return one(r) / (n * one(a) * one(x) * 2.0 ** -24)
+
+
+def phase_inverses():
+    """3p: getri and potri at n = 16384, f32, with LAPACK's test ratio,
+    and K3 on trtri's wide identity right-hand side ([1024, 16384])
+    beside ``solve_triangular``."""
+    import slate_tpu_torch as st
+    from slate_tpu_torch.internal import kernels as K
+    A, S = mixed_matrices()
+    for label in ("getri", "potri"):
+        if label == "getri":
+            LU, piv, info = st.getrf(A)
+            fn, M = (lambda: st.getri(LU, piv)), A
+        else:
+            L, info = st.potrf(S)
+            fn, M = (lambda: st.potri(L)), S
+        assert int(info) == 0
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        X = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ratio = inverse_ratio(M.to_dense(), X.to_dense())
+        say(f"  {label} n={N} nb={NB}: ms {ms:.3f}, ratio |I - A*X|_1/(n*|A|_1"
+            f"*|X|_1*eps) {ratio:.3e} (bound 30)")
+        assert ratio <= 30, f"{label} ratio {ratio}"
+        del X
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    l = lower_factor(NB, gen)
+    b = torch.zeros(NB, N, device="cuda")
+    b[:, :NB] = torch.eye(NB, device="cuda")
+    k3 = time_ms(lambda: K.trsm_left_lower(l, b), reps=5)
+    lib = time_ms(lambda: torch.linalg.solve_triangular(l, b, upper=False),
+                  reps=5)
+    bd = bound(NB * NB * N, (NB * (NB + 1) / 2 + 2 * NB * N) * 4)
+    say(f"  trsm_left_lower B=[{NB},{N}] (trtri's identity block row): "
+        f"kernel_ms {k3:.4f}, solve_triangular_ms {lib:.4f}, bound_ms "
+        f"{bd[0]:.4f} ({bd[1]})")
+
+
+def phase_potrf_32k():
+    """potrf at n = 32768, nb = 1024 at bf16_3x and bf16_6x, the port's
+    counterpart of the JAX bench's potrf_3x_32k: GFLOP/s at n³/3 (best
+    of two runs a tier, alternating), info 0, and the two factors within
+    1e-3 of each other."""
+    import slate_tpu_torch as st
+    n = 2 * N
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    a = torch.randn(n, n, generator=gen, device="cuda")
+    a = a.add_(a.mT.clone()).mul_(0.5)
+    a.diagonal().add_(3 * n ** 0.5)      # eigenvalues in [1.6√n, 4.4√n]
+    A = st.HermitianMatrix.from_dense(a, nb=NB, grid=st.Grid(1, 1))
+    del a
+    best, factors = {}, {}
+    for tier in ("bf16_6x", "bf16_3x") * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        L, info = st.potrf(A, {st.Option.TrailingPrecision: tier})
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        assert int(info) == 0, (tier, int(info))
+        best[tier] = min(best.get(tier, t), t)
+        factors[tier] = L.data
+        del L
+    diff = rel_err(factors["bf16_3x"], factors["bf16_6x"])
+    say(f"potrf n={n} nb={NB}: " + ", ".join(
+        f"{t} {best[t] * 1e3:.1f} ms ({n ** 3 / 3 / best[t] / 1e9:.1f} "
+        f"GFLOP/s at n^3/3)" for t in best) + f"; bf16_3x/bf16_6x "
+        f"{best['bf16_6x'] / best['bf16_3x']:.2f}x; factors rel_err "
+        f"{diff:.3e} (tol 1e-3)")
+    assert diff <= 1e-3
+
+
+def phase_mixed_failure_report():
+    """4f: a non-SPD posv_mixed reports info > 0 and the fallback; a
+    singular gesv_mixed info > 0; potrf(health=True) on a non-SPD
+    matrix names the first bad tile and no growth."""
+    import slate_tpu_torch as st
+    from slate_tpu_torch.linalg import mixed
+    n, nb = 512, 128
+    grid = st.Grid(1, 1)
+    rng = np.random.default_rng(46)
+    g = rng.standard_normal((n, n))
+    s = (g @ g.T / n + np.eye(n)).astype(np.float32)
+    s[300, 300] = -100.0                  # block column 2 (0-based) fails
+    b = rng.standard_normal((n, 2)).astype(np.float32)
+    B = st.Matrix.from_dense(b, nb=nb, grid=grid)
+    _, iters, info = st.posv_mixed(
+        st.HermitianMatrix.from_dense(s, nb=nb, grid=grid), B)
+    fell_back = mixed.used_fallback()
+    a = (rng.standard_normal((n, n)) + n ** 0.5 * np.eye(n)).astype(np.float32)
+    a[:, 17] = 0.0
+    _, giters, ginfo = st.gesv_mixed(st.Matrix.from_dense(a, nb=nb, grid=grid),
+                                     B)
+    _, rep = st.potrf(st.HermitianMatrix.from_dense(s, nb=nb, grid=grid),
+                      health=True)
+    say(f"mixed failure report n={n}: non-SPD posv_mixed info {int(info)}, "
+        f"iters {iters}, fallback {fell_back}; singular gesv_mixed info "
+        f"{int(ginfo)}, iters {giters}; potrf(health=True) info "
+        f"{rep.info}, first_bad_tile {rep.first_bad_tile}, growth "
+        f"{rep.growth}")
+    assert int(info) > 0 and fell_back and iters == IR_ITERMAX
+    assert int(ginfo) > 0
+    assert rep.info == 3 and rep.first_bad_tile == (2, 2)
+    assert rep.growth is None
+
+
 def timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2084,6 +2546,7 @@ def main() -> int:
     rows.update(timed("2d bulge-chase kernels", phase_chase_kernels))
     rows.update(timed("2e Aasen and band LU kernels",
                       phase_swap_rank_k_kernels))
+    timed("2f tier products", phase_tier_products)
     counts = {"posv": timed("3 posv", phase_main_path)}
     nt = N // NB
     counts["gesv"] = timed(
@@ -2105,12 +2568,18 @@ def main() -> int:
     timed("3k gesvd vectors", phase_gesvd_vectors)
     counts["hesv"] = timed("3l hesv", phase_hesv)
     counts["gbsv"] = timed("3m gbsv", phase_gbsv)
+    counts.update(timed("3n mixed solves", phase_mixed))
+    counts["hetrf_health"] = timed("3o norms, condest and health",
+                                   phase_norms_health)
+    timed("3p inverses", phase_inverses)
+    timed("3q potrf 32k by tier", phase_potrf_32k)
     timed("4 failure report", phase_failure_report)
     timed("4b LU failure report", phase_lu_failure_report)
     timed("4c QR and unpivoted-LU failure report",
           phase_qr_nopiv_failure_report)
     timed("4d eig/svd failure report", phase_eig_failure_report)
     timed("4e Aasen/band failure report", phase_aasen_band_failure_report)
+    timed("4f mixed-precision failure report", phase_mixed_failure_report)
     out = []
     for name, (source, replaces, path) in KERNELS.items():
         r = rows[name]

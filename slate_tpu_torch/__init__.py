@@ -7,11 +7,15 @@ with partial pivoting (``getrf`` → ``getrs`` → ``gesv``) and without
 through QR (``geqrf`` → ``unmqr`` → ``gels``, with ``gelqf``/``unmlq``
 and ``cholqr``), the band LU solve (``gbtrf`` → ``gbtrs`` → ``gbsv``),
 the symmetric-indefinite solve by Aasen (``hetrf`` → ``hetrs`` →
-``hesv``), and the two-stage symmetric eigensolver and SVD
+``hesv``), the two-stage symmetric eigensolver and SVD
 (``heev`` = ``he2hb`` → ``hb2st`` → ``sterf``/``stedc``, ``gesvd`` =
-``ge2tb`` → ``tb2bd`` → ``bdsqr``, with their back-transforms) on one
-device. Its tile, panel and bulge-chase ops run hand-written CUDA kernels
-for Hopper (sm_90a) on the card, built with ``nvcc`` at first use (``csrc/``), and
+``ge2tb`` → ``tb2bd`` → ``bdsqr``, with their back-transforms), the
+mixed-precision solves (``gesv_mixed``, ``posv_mixed`` and their
+GMRES-IR forms) with the three trailing-update precision tiers, norms,
+elementwise ops, condition estimates, ``health=True`` reports and the
+inverses (``trtri``, ``potri``, ``getri``) on one device. Its tile,
+panel and bulge-chase ops run hand-written CUDA kernels for Hopper
+(sm_90a) on the card, built with ``nvcc`` at first use (``csrc/``), and
 their plain PyTorch versions on the CPU.
 
 Entry points run on the CUDA card unless the caller asks for the CPU:
@@ -22,8 +26,8 @@ This package imports torch, numpy and the standard library only, never
 JAX or ``slate_tpu``.
 """
 
-from .types import (Op, Uplo, Diag, Side, Norm, Option, MethodLU,
-                    MethodGels, MethodEig, MethodSVD, get_option)
+from .types import (Op, Uplo, Diag, Side, Norm, NormScope, Option,
+                    MethodLU, MethodGels, MethodEig, MethodSVD, get_option)
 from .errors import SlateError, InfoError, slate_error_if, raise_if_info
 from .grid import Grid
 from .matrix import (
@@ -31,9 +35,12 @@ from .matrix import (
     transpose, conj_transpose, cdiv, bc_from_tiles, bc_to_tiles,
     dense_to_tiles, tiles_to_dense,
 )
-from .robust.guards import finite_guard, info_merge, zero_nonfinite
+from .robust.guards import (finite_guard, info_merge, zero_nonfinite,
+                            HealthReport, health_report, recent_reports)
 from .internal import kernels
 from .ops.blas import gemm, herk, syrk, trsm
+from .ops.norms import norm, col_norms
+from .ops.elementwise import add, copy, scale, scale_row_col, set_matrix
 from .linalg.potrf import potrf, potrs, posv
 from .linalg.getrf import (getrf, getrs, gesv, PivotOrder,
                            pivot_order_to_ipiv, getrf_nopiv, getrs_nopiv,
@@ -45,9 +52,15 @@ from .linalg.eig import heev, sterf, steqr, stedc
 from .linalg.he2hb import he2hb
 from .linalg.ge2tb import ge2tb
 from .linalg.svd import gesvd
+from .linalg.mixed import (gesv_mixed, posv_mixed, gesv_mixed_gmres,
+                           posv_mixed_gmres)
+from .linalg.condest import gecondest, pocondest, trcondest
+from .linalg.trtri import trtri, trtrm, potri, getri
 from .simplified import (multiply, chol_factor, chol_solve,
                          chol_solve_using_factor, lu_factor, lu_solve,
-                         lu_solve_using_factor, lu_factor_nopiv,
+                         lu_solve_using_factor, lu_inverse_using_factor,
+                         lu_inverse_using_factor_out_of_place,
+                         chol_inverse_using_factor, lu_factor_nopiv,
                          lu_solve_nopiv, lu_solve_using_factor_nopiv,
                          indefinite_factor, indefinite_solve,
                          indefinite_solve_using_factor, least_squares_solve, qr_factor, lq_factor,

@@ -1,5 +1,5 @@
 // The rank-k tail alpha * A * B + beta * C for a short contraction
-// (k = a.shape[1] below 128), in true FP32:
+// (k = a.shape[1] below 128), its product at a precision tier:
 //   slate_rank_k_tail_f32
 //
 // Replaces _rank_k_kernel behind rank_k_tail_pallas
@@ -38,7 +38,16 @@
 // replaces. No tensor cores: TF32 would keep 10 mantissa bits, below the
 // bf16_6x tier's 2^-24 contract. The shared-memory limit of the large
 // tile is set once per device, not at every launch.
+//
+// Tiers, as the Pallas kernel takes its caller's (trailing_dot_kwargs):
+// with bf16 set (mxu_bf16) A and B are rounded to bf16, to nearest even,
+// as they are stored to shared memory, and the same FP32 FMA loop runs
+// on them (each product of two bf16 values is exact in FP32). bf16_3x
+// and bf16_6x run the FP32 body: on CUDA cores a full FP32 product is the
+// cheapest way to meet bf16_3x's 2^-18, since a split would only add
+// passes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -79,20 +88,28 @@ struct Strip {
   }
 
   // s[r * ps + c] = window (r, c), or with TRANS s[c * ps + r], for the
-  // chunks with r < rmax and c < cmax
-  template <bool TRANS>
+  // chunks with r < rmax and c < cmax; with BF16 each value rounded to
+  // bf16 (to nearest even) on the way
+  template <bool TRANS, bool BF16>
   __device__ __forceinline__ void stash(float* s, int ps, int rmax, int cmax) const {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int e = threadIdx.x + u * NTH, r = e / C4, c = (e % C4) * 4;
       if (e >= ROWS * C4 || r >= rmax || c >= cmax) continue;
+      float4 x = v[u];
+      if (BF16) {
+        x.x = __bfloat162float(__float2bfloat16_rn(x.x));
+        x.y = __bfloat162float(__float2bfloat16_rn(x.y));
+        x.z = __bfloat162float(__float2bfloat16_rn(x.z));
+        x.w = __bfloat162float(__float2bfloat16_rn(x.w));
+      }
       if (TRANS) {
-        s[(c + 0) * ps + r] = v[u].x;
-        s[(c + 1) * ps + r] = v[u].y;
-        s[(c + 2) * ps + r] = v[u].z;
-        s[(c + 3) * ps + r] = v[u].w;
+        s[(c + 0) * ps + r] = x.x;
+        s[(c + 1) * ps + r] = x.y;
+        s[(c + 2) * ps + r] = x.z;
+        s[(c + 3) * ps + r] = x.w;
       } else {
-        *reinterpret_cast<float4*>(s + r * ps + c) = v[u];
+        *reinterpret_cast<float4*>(s + r * ps + c) = x;
       }
     }
   }
@@ -110,8 +127,8 @@ struct Tile {
   }
 };
 
-// KS: contraction rows staged a round
-template <int TM, int TN, int RM, int KS>
+// KS: contraction rows staged a round; BF16: operands rounded to bf16
+template <int TM, int TN, int RM, int KS, bool BF16>
 __global__ void __launch_bounds__(Tile<TM, TN, RM>::NTH)
 rank_k(const float* __restrict__ c, int ldc, const float* __restrict__ a, int lda,
        const float* __restrict__ b, int ldb, float* __restrict__ out, int m, int n,
@@ -153,8 +170,8 @@ rank_k(const float* __restrict__ c, int ldc, const float* __restrict__ a, int ld
     Strip<KS, TN / 4, P::NTH> sb;
     sa.fetch(a + static_cast<size_t>(i0) * lda + k0, lda, m - i0, kr, vec_a != 0);
     sb.fetch(b + static_cast<size_t>(k0) * ldb + j0, ldb, kr, n - j0, vec_b != 0);
-    sa.template stash<true>(As + k0 * P::AP, P::AP, TM, kr);
-    sb.template stash<false>(Bs + k0 * TN, TN, kr, TN);
+    sa.template stash<true, BF16>(As + k0 * P::AP, P::AP, TM, kr);
+    sb.template stash<false, BF16>(Bs + k0 * TN, TN, kr, TN);
   }
   __syncthreads();
 
@@ -205,43 +222,63 @@ using Large = Tile<64, 64, 4>;
 constexpr int MAX_DEVICES = 64;
 
 // The large tile's shared memory is above the 48 KB default: raise the
-// limit once for each device this process launches on.
+// limit once for each device this process launches on (both roundings).
 cudaError_t large_smem_once() {
   static bool done[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || (dev < MAX_DEVICES && done[dev])) return e;
-  e = cudaFuncSetAttribute(rank_k<64, 64, 4, 64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(Large::smem(KMAX)));
+  const int bytes = static_cast<int>(Large::smem(KMAX));
+  e = cudaFuncSetAttribute(rank_k<64, 64, 4, 64, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(rank_k<64, 64, 4, 64, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
   return e;
+}
+
+template <bool BF16>
+void launch(const float* c, int ldc, const float* a, int lda, const float* b, int ldb,
+            float* out, int m, int n, int k, float alpha, float beta, int vec_a, int vec_b,
+            int vec_c, int vec_o, bool large, cudaStream_t st) {
+  if (!large) {
+    const dim3 grid((n + 31) / 32, (m + 15) / 16);
+    rank_k<16, 32, 1, KMAX, BF16><<<grid, Small::NTH, Small::smem(k), st>>>(
+        c, ldc, a, lda, b, ldb, out, m, n, k, alpha, beta, vec_a, vec_b, vec_c, vec_o);
+  } else {
+    const dim3 grid((n + 63) / 64, (m + 63) / 64);
+    rank_k<64, 64, 4, 64, BF16><<<grid, Large::NTH, Large::smem(k), st>>>(
+        c, ldc, a, lda, b, ldb, out, m, n, k, alpha, beta, vec_a, vec_b, vec_c, vec_o);
+  }
 }
 
 }  // namespace
 
 // c: [m, n] (row stride ldc), a: [m, k] (lda), b: [k, n] (ldb), each with a
-// unit column stride; out: [m, n] contiguous, not aliasing c. Returns a CUDA
-// error code (0 on success); k outside 1..127 returns an error without
-// launching.
+// unit column stride; out: [m, n] contiguous, not aliasing c; bf16 != 0
+// rounds A and B to bf16 (the mxu_bf16 tier). Returns a CUDA error code (0
+// on success); k outside 1..127 returns an error without launching.
 extern "C" int slate_rank_k_tail_f32(const float* c, int ldc, const float* a, int lda,
                                      const float* b, int ldb, float* out, int m, int n,
-                                     int k, float alpha, float beta, void* stream) {
+                                     int k, float alpha, float beta, int bf16,
+                                     void* stream) {
   if (m <= 0 || n <= 0) return 0;
   if (k < 1 || k > 127) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int vec_a = aligned16(a) && lda % 4 == 0, vec_b = aligned16(b) && ldb % 4 == 0;
   const int vec_c = aligned16(c) && ldc % 4 == 0, vec_o = aligned16(out) && n % 4 == 0;
   const long long large_tiles = static_cast<long long>((m + 63) / 64) * ((n + 63) / 64);
-  if (large_tiles < 128) {
-    const dim3 grid((n + 31) / 32, (m + 15) / 16);
-    rank_k<16, 32, 1, KMAX><<<grid, Small::NTH, Small::smem(k), st>>>(
-        c, ldc, a, lda, b, ldb, out, m, n, k, alpha, beta, vec_a, vec_b, vec_c, vec_o);
-  } else {
+  const bool large = large_tiles >= 128;
+  if (large) {
     const cudaError_t e = large_smem_once();
     if (e != cudaSuccess) return static_cast<int>(e);
-    const dim3 grid((n + 63) / 64, (m + 63) / 64);
-    rank_k<64, 64, 4, 64><<<grid, Large::NTH, Large::smem(k), st>>>(
-        c, ldc, a, lda, b, ldb, out, m, n, k, alpha, beta, vec_a, vec_b, vec_c, vec_o);
   }
+  if (bf16)
+    launch<true>(c, ldc, a, lda, b, ldb, out, m, n, k, alpha, beta, vec_a, vec_b, vec_c,
+                 vec_o, large, st);
+  else
+    launch<false>(c, ldc, a, lda, b, ldb, out, m, n, k, alpha, beta, vec_a, vec_b, vec_c,
+                  vec_o, large, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -38,7 +38,7 @@ import torch
 
 from ..errors import SlateError, slate_error_if
 from . import band_bulge
-from .precision import full_f32_matmul
+from .precision import TIERS, full_f32_matmul, round_bf16
 
 # Task edge of the dataflow kernels K1, K2, K3 and K7 (BT in
 # csrc/dataflow.cuh): K1's and K7's tiles, K2's column blocks and K3's
@@ -165,7 +165,7 @@ _SIGNATURES = {
     "slate_panel_plu_swap_f32": ("panel_plu_swap", (_P,) * 6 + (_I,) * 3
                                  + (_P,)),
     "slate_rank_k_tail_f32": ("rank_k_tail", (_P, _I, _P, _I, _P, _I, _P)
-                              + (_I,) * 3 + (_F, _F, _P)),
+                              + (_I,) * 3 + (_F, _F, _I, _P)),
 }
 _FNS: dict = {}
 
@@ -1169,29 +1169,36 @@ def panel_plu_swap_plain(a: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 def rank_k_tail(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                alpha: float = -1.0, beta: float = 1.0) -> torch.Tensor:
-    """α·A·B + β·C with k = a.shape[1] in 1…127, in true FP32 (no TF32);
+                alpha: float = -1.0, beta: float = 1.0,
+                tier: str = "bf16_6x") -> torch.Tensor:
+    """α·A·B + β·C with k = a.shape[1] in 1…127, the product at ``tier``;
     a new tensor. Any m and n.
 
     Replaces ``rank_k_tail_pallas`` (pallas_kernels.py:644, body
     ``_rank_k_kernel`` :635-640), the sub-nb remainder of a trailing
-    update. Bound on an H100: bytes at large shapes (k/4 flops a byte
-    at most, against a ridge of ~20), latency at the band LU's [32, 96]·
-    [96, 96], a launch in a loop of 171. Design (csrc/rank_k_tail.cu): a
-    tiled SIMT product whose C tile is chosen by shape: 16×32 tiles for
-    small outputs (6 CTAs at [32, 96], none past m), 64×64 tiles with
-    4×4 micro-tiles otherwise; every CTA starts its C loads and its A
-    and B strips' loads (float4 where aligned) before it uses any, and
-    one fused α/β epilogue writes the output. One accumulator per
-    output, k ascending, so the bits do not depend on the tile.
+    update, which runs its contraction at the caller's tier. Bound on an
+    H100: bytes at large shapes (k/4 flops a byte at most, against a
+    ridge of ~20), latency at the band LU's [32, 96]·[96, 96], a launch
+    in a loop of 171. Design (csrc/rank_k_tail.cu): a tiled SIMT product
+    whose C tile is chosen by shape: 16×32 tiles for small outputs (6
+    CTAs at [32, 96], none past m), 64×64 tiles with 4×4 micro-tiles
+    otherwise; every CTA starts its C loads and its A and B strips'
+    loads (float4 where aligned) before it uses any, and one fused α/β
+    epilogue writes the output. One accumulator per output, k ascending,
+    so the bits do not depend on the tile. The tiers: ``mxu_bf16``
+    rounds A and B to bf16 (to nearest even) as they are staged in
+    shared memory, then runs the same FP32 FMA loop; ``bf16_3x`` and
+    ``bf16_6x`` run the FP32 body, the cheapest way on CUDA cores to
+    meet 2⁻¹⁸.
     """
     m, k = a.shape
     n = b.shape[1]
     slate_error_if(tuple(c.shape) != (m, n) or b.shape[0] != k,
                    f"rank_k_tail dims: C {tuple(c.shape)}, A {tuple(a.shape)}, "
                    f"B {tuple(b.shape)}")
+    slate_error_if(tier not in TIERS, f"rank_k_tail: unknown tier {tier!r}")
     if not _route("rank_k_tail_pallas", c):
-        return rank_k_tail_plain(c, a, b, alpha, beta)
+        return rank_k_tail_plain(c, a, b, alpha, beta, tier)
     _check("rank_k_tail", k, c, a, b)
     out = torch.empty((m, n), dtype=c.dtype, device=c.device)
     if m == 0 or n == 0:
@@ -1199,14 +1206,20 @@ def rank_k_tail(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     c, a, b = (t if t.stride(1) == 1 else t.contiguous() for t in (c, a, b))
     _launch("slate_rank_k_tail_f32", c.device, _P(c.data_ptr()), c.stride(0),
             _P(a.data_ptr()), a.stride(0), _P(b.data_ptr()), b.stride(0),
-            _P(out.data_ptr()), m, n, k, float(alpha), float(beta))
+            _P(out.data_ptr()), m, n, k, float(alpha), float(beta),
+            int(tier == "mxu_bf16"))
     LAUNCHES["rank_k_tail_pallas"] += 1
     return out
 
 
 def rank_k_tail_plain(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                      alpha: float = -1.0, beta: float = 1.0) -> torch.Tensor:
+                      alpha: float = -1.0, beta: float = 1.0,
+                      tier: str = "bf16_6x") -> torch.Tensor:
     """Plain PyTorch version of :func:`rank_k_tail`: the Pallas kernel's
-    ``alpha * (A @ B) + beta * C`` with the product in full FP32."""
+    ``alpha * (A @ B) + beta * C`` with the product in full FP32, its
+    operands rounded to bf16 first at ``mxu_bf16`` (f32 operands; an f64
+    product keeps its operands)."""
+    if tier == "mxu_bf16" and a.dtype == torch.float32:
+        a, b = round_bf16(a), round_bf16(b)
     with full_f32_matmul():
         return alpha * (a @ b) + beta * c

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .precision import full_f32_matmul, trailing_matmul
+from .precision import full_f32_matmul, tier_addmm
 
 
 def tile_gemm(alpha, a: torch.Tensor, b: torch.Tensor, beta,
@@ -20,16 +20,15 @@ def tile_gemm(alpha, a: torch.Tensor, b: torch.Tensor, beta,
     """alpha·a·b + beta·c; a new tensor. A contraction that
     :data:`kernels.CAPABILITY` admits for the rank-k tail (k below one
     128-lane tile) with Python-scalar alpha and beta goes to the port's
-    kernel K11 whatever the JAX package's ``rank_k`` rung says; anything
-    else is one ``addmm`` at ``tier``."""
+    kernel K11 at ``tier`` whatever the JAX package's ``rank_k`` rung
+    says; anything else is one ``addmm`` at ``tier``."""
     if (isinstance(alpha, (int, float)) and isinstance(beta, (int, float))
             and a.dim() == 2 and b.dim() == 2 and c.dim() == 2
             and kernels.supported("rank_k_tail", a.dtype, a.shape[1],
                                   a.device)):
         return kernels.rank_k_tail(c, a, b, alpha=float(alpha),
-                                   beta=float(beta))
-    with trailing_matmul(tier):
-        return torch.addmm(c, a, b, beta=beta, alpha=alpha)
+                                   beta=float(beta), tier=tier)
+    return tier_addmm(c, a, b, beta=beta, alpha=alpha, tier=tier)
 
 
 def _factor_dtype(dt: torch.dtype) -> torch.dtype:

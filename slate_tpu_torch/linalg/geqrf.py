@@ -31,8 +31,7 @@ import torch
 
 from ..errors import slate_error_if
 from ..internal import panel_qr
-from ..internal.precision import (full_f32_matmul, resolve_tier,
-                                  trailing_matmul)
+from ..internal.precision import full_f32_matmul, resolve_tier, tier_mm
 from ..internal.tile_kernels import (_factor_dtype, extract_v, larft,
                                      panel_qr_factor)
 from ..matrix import (HermitianMatrix, Matrix, TriangularMatrix,
@@ -155,12 +154,10 @@ def _geqrf_fast_core(A, panel_mode=None, tier="bf16_6x"):
         Ts.append(T)
         if r0 + w < n:
             C = a[r0:, r0 + w:]                      # a view of a
-            with trailing_matmul(tier):
-                W1 = V.mH @ C
+            W1 = tier_mm(V.mH, C, tier)
             with full_f32_matmul():
                 W2 = T.mH @ W1
-            with trailing_matmul(tier):
-                C.sub_(V @ W2)
+            C.sub_(tier_mm(V, W2, tier))
     T = torch.stack(Ts).to(A.dtype)
     tiles = dense_to_tiles(a.to(A.dtype), nb, A.mtl, A.ntl)
     return bc_from_tiles(tiles, 1, 1), T
@@ -186,12 +183,10 @@ def _geqrf_dense_1dev(A, tier):
         T[k] = larft(V, taus)
         if r0 + nb < A.nt * nb:
             C = a[r0:, r0 + nb:A.nt * nb]            # a view of a
-            with trailing_matmul(tier):
-                W1 = V.mH @ C
+            W1 = tier_mm(V.mH, C, tier)
             with full_f32_matmul():
                 W2 = T[k].mH @ W1
-            with trailing_matmul(tier):
-                C.sub_(V @ W2)
+            C.sub_(tier_mm(V, W2, tier))
     tiles = dense_to_tiles(a, nb, A.mtl, A.ntl)
     return bc_from_tiles(tiles, 1, 1), T
 

@@ -42,27 +42,34 @@ from ..errors import slate_error_if
 from . import band as _band
 from ..internal import panel_plu
 from ..internal.precision import (full_f32_matmul, resolve_tier,
-                                  trailing_matmul)
+                                  tier_addmm_, tier_mm)
 from ..matrix import (Matrix, TriangularMatrix, bc_from_tiles, bc_to_tiles,
                       cdiv, conj_transpose, dense_to_tiles, tiles_to_dense,
                       transpose)
 from ..internal.tile_kernels import lu_nopiv_block
 from ..ops.blas import trsm
-from ..types import Diag, MethodLU, Op, Side, Uplo
+from ..ops.norms import norm
+from ..robust.guards import health_report
+from ..types import Diag, MethodLU, Norm, Op, Side, Uplo
+from .condest import gecondest
 
 _FAST_W = 128            # subpanel width (= panel_plu.W)
 _FAST_GROUP = 4          # panels per compaction group
 
 
-def getrf(A: Matrix, opts=None):
+def getrf(A: Matrix, opts=None, health: bool = False):
     """LU with partial pivoting: P·A = L·U (reference src/getrf.cc).
 
     Returns ``(LU, piv, info)``: LU holds unit-lower L below the diagonal
     and U on and above it; ``piv`` is the LAPACK ipiv ``[kt, nb]`` int32
-    tensor; ``info`` the number of zero pivots. A is not modified."""
+    tensor; ``info`` the number of zero pivots. A is not modified.
+    ``health=True`` returns a :class:`~..robust.guards.HealthReport` in
+    the info slot: the same info and an rcond estimate by ``gecondest``
+    when the factor is nonsingular (host-synced)."""
     A = A.materialize()
     slate_error_if(A.dtype.is_complex,
                    "getrf: complex dtypes are not ported yet")
+    Anorm = float(norm(Norm.One, A)) if health else None
     tier = resolve_tier(opts)
     if _fast_path_mode(A, "partial") is not None:
         data, order, info = _getrf_fast_core(A, panel_plu._fold_enabled(),
@@ -70,7 +77,21 @@ def getrf(A: Matrix, opts=None):
         piv = pivot_order_to_ipiv(order)
     else:
         data, piv, info = _getrf_dense_1dev(A, tier)
-    return A._replace(data=data), piv, info
+    LU = A._replace(data=data)
+    if health:
+        return LU, piv, _getrf_health(LU, piv, info, Anorm, opts)
+    return LU, piv, info
+
+
+def _getrf_health(LU, piv, info, Anorm, opts):
+    """HealthReport for a finished getrf: info counts zero pivots (no
+    single bad tile); rcond by ``gecondest`` when the factor is
+    nonsingular and ‖A‖₁ is nonzero."""
+    i = int(info)
+    growth = None
+    if i == 0 and Anorm:
+        growth = float(gecondest(Norm.One, LU, piv, Anorm, opts))
+    return health_report("getrf", i, convention="count", growth=growth)
 
 
 def _fast_path_mode(A, piv_mode) -> str | None:
@@ -194,8 +215,7 @@ def _getrf_fast_group_core(a, content, info, g0, gsz, nb, fold, tier):
                 pcols[ordp], a[done:, d_hi:ge][ordp], upper=False,
                 unitriangular=True)
             lk = torch.where(act[:, None] > 0, pcols, 0.0)
-            with trailing_matmul(tier):
-                a[done:, d_hi:ge].addmm_(lk, un, alpha=-1)
+            tier_addmm_(a[done:, d_hi:ge], lk, un, alpha=-1, tier=tier)
             upend[d_lo - done:d_hi - done, d_hi - done:] = un
 
     o_g = content[done:][ordg]
@@ -230,8 +250,7 @@ def _getrf_fast_group_core(a, content, info, g0, gsz, nb, fold, tier):
                     a[r0:r0 + nb, r0:r0 + nb], acc, upper=False,
                     unitriangular=True))
         ugs = torch.cat(ug, dim=0)                       # [gnb, n − ge]
-        with trailing_matmul(tier):
-            a[ge:, ge:].addmm_(a[ge:, done:ge], ugs, alpha=-1)
+        tier_addmm_(a[ge:, ge:], a[ge:, done:ge], ugs, alpha=-1, tier=tier)
         a[done:ge, ge:] = ugs
     return o_g
 
@@ -315,8 +334,8 @@ def _getrf_dense_1dev(A, tier):
                 lu[:kw, :kw], right[:kw], upper=False, unitriangular=True)
             a[r0:r0 + kw, r0 + w:n] = urow
             if r0 + kw < m:
-                with trailing_matmul(tier):
-                    a[r0 + kw:m, r0 + w:n] = right[kw:] - lu[kw:, :kw] @ urow
+                a[r0 + kw:m, r0 + w:n] = right[kw:] - tier_mm(
+                    lu[kw:, :kw], urow, tier)
     piv = (torch.stack(pivs) if pivs
            else torch.zeros((0, nb), dtype=torch.int32, device=dev))
     tiles = dense_to_tiles(a, nb, A.mtl, A.ntl)
@@ -413,9 +432,8 @@ def _getrf_nopiv_dense_1dev(A, tier):
                 a[r0:r1, r1:] = torch.linalg.solve_triangular(
                     blk, a[r0:r1, r1:], upper=False, unitriangular=True)
                 if r1 < Mp:
-                    with trailing_matmul(tier):
-                        a[r1:, r1:].addmm_(a[r1:, r0:r1], a[r0:r1, r1:],
-                                           alpha=-1)
+                    tier_addmm_(a[r1:, r1:], a[r1:, r0:r1], a[r0:r1, r1:],
+                                alpha=-1, tier=tier)
     # the padding goes back to zero, the storage invariant of the port
     a[pad, pad] = 0.0
     tiles = dense_to_tiles(a, nb, A.mtl, A.ntl)

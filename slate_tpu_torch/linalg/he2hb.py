@@ -30,7 +30,7 @@ import torch
 from ..errors import SlateError, slate_error_if
 from ..internal import kernels
 from ..internal.band_wave import preferred_eig_band
-from ..internal.precision import full_f32_matmul, resolve_tier, trailing_matmul
+from ..internal.precision import full_f32_matmul, resolve_tier, tier_mm
 from ..internal.tile_kernels import extract_v, panel_qr_factor
 from ..matrix import (HermitianMatrix, Matrix, bc_from_tiles, dense_to_tiles,
                       tiles_to_dense)
@@ -75,13 +75,12 @@ def he2hb(A: HermitianMatrix, opts=None):
         V = extract_v(pan, start, n)[start:n]
         Ts[k] = T = panel_t(V, taus)
         A22 = a[start:n, start:n]                        # a view of a
-        with trailing_matmul(tier):
-            Y = torch.tril(A22) @ V + torch.tril(A22, -1).mT @ V
+        Y = (tier_mm(torch.tril(A22), V, tier)
+             + tier_mm(torch.tril(A22, -1).mT, V, tier))
         with full_f32_matmul():
             X = Y @ T
             W = X - 0.5 * (V @ (T.mT @ (V.mT @ X)))
-        with trailing_matmul(tier):
-            A22.sub_(W @ V.mT + V @ W.mT)
+        A22.sub_(tier_mm(W, V.mT, tier) + tier_mm(V, W.mT, tier))
     data = bc_from_tiles(dense_to_tiles(a, nb, A.mtl, A.ntl), 1, 1)
     out = HermitianMatrix(data=data, m=A.m, n=A.n, nb=nb, grid=A.grid,
                           uplo=Uplo.Lower)

@@ -45,6 +45,7 @@ from ..internal.tile_kernels import panel_lu_factor
 from ..matrix import (Matrix, TriangularMatrix, bc_from_tiles, bc_to_tiles,
                       cdiv, conj_transpose, dense_to_tiles, tiles_to_dense)
 from ..ops.blas import trsm
+from ..robust.guards import health_report
 from ..types import Diag, Op, Side, Uplo
 from . import band as _band
 from .getrf import _apply_pivots_matrix, gbtrs
@@ -59,15 +60,19 @@ def hetrf(A, opts=None, health: bool = False, times=None):
     panel LUs and the band LU of T (0 ⇒ nonsingular). ``times``, a dict,
     receives the stages' host-clock seconds (``aasen``: stage 1 with the
     mirror and L; ``gbtrf_T``: T's band LU), the device synchronised at
-    each boundary. Complex inputs and ``health=True`` are not ported and
+    each boundary. ``health=True`` returns a
+    :class:`~..robust.guards.HealthReport` in the info slot (the zero
+    pivot count, no growth estimate). Complex inputs are not ported and
     raise."""
     slate_error_if(A.dtype.is_complex,
                    "hetrf: complex dtypes are not ported yet")
-    slate_error_if(health, "hetrf: health=True is not ported yet")
     slate_error_if(A.op != Op.NoTrans, "mirror before transpose views")
     clock = _StageClock(times, A.grid.device)
     L, Td, Ts, piv, info_p = clock("aasen", _stage1, A)
     FT, info_t = clock("gbtrf_T", _stage2, Td, Ts, A.n, A.nb, opts)
+    if health:
+        return (L, FT, piv), health_report(
+            "hetrf", int(info_p) + int(info_t), convention="count")
     return (L, FT, piv), info_p + info_t
 
 

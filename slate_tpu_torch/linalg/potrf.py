@@ -18,29 +18,38 @@ from __future__ import annotations
 import torch
 
 from ..errors import slate_error_if
-from ..internal.precision import resolve_tier, trailing_matmul
+from ..internal.precision import (full_f32_matmul, resolve_tier,
+                                  tier_context, tier_lhs, tier_rhs)
 from ..internal.tile_kernels import (_factor_dtype, tile_potrf,
                                      tile_trsm_right_lower_t)
 from ..matrix import (HermitianMatrix, Matrix, TriangularMatrix,
                       bc_from_tiles, cdiv, conj_transpose, dense_to_tiles,
                       tiles_to_dense)
 from ..ops.blas import trsm
-from ..robust.guards import finite_guard
-from ..types import Diag, Side, Uplo
+from ..ops.norms import norm
+from ..robust.guards import finite_guard, health_report
+from ..types import Diag, Norm, Side, Uplo
+from .condest import pocondest
 
 
-def potrf(A: HermitianMatrix, opts=None):
+def potrf(A: HermitianMatrix, opts=None, health: bool = False):
     """Cholesky factor A = L·Lᴴ (lower) or Uᴴ·U (upper).
 
     Returns ``(L, info)``: a TriangularMatrix sharing A's geometry and
     an int32 scalar tensor (0 ⇒ success, else 1-based index of the first
     non-positive-definite block column). A is not modified.
+
+    ``health=True`` returns a :class:`~..robust.guards.HealthReport` in
+    the info slot: the same info, the first bad tile, and an rcond
+    estimate by ``pocondest`` when the factor succeeded (host-synced;
+    not for inner loops).
     """
     slate_error_if(A.m != A.n, "potrf needs a square matrix")
     slate_error_if(A.grid.size != 1,
                    "potrf: multi-device grids are not ported yet")
     slate_error_if(A.dtype.is_complex,
                    "potrf: complex dtypes are not ported yet")
+    Anorm = float(norm(Norm.One, A)) if health else None
     if A.uplo == Uplo.Upper:
         # Factor the mirrored lower problem; return the upper view.
         Alow = HermitianMatrix(data=_conj_transpose_data(A), m=A.m, n=A.n,
@@ -49,6 +58,8 @@ def potrf(A: HermitianMatrix, opts=None):
         U = TriangularMatrix(data=_conj_transpose_data(L), m=A.m, n=A.n,
                              nb=A.nb, grid=A.grid, uplo=Uplo.Upper,
                              diag=Diag.NonUnit)
+        if health:
+            return U, _potrf_health(U, info, Anorm, opts)
         return U, info
     tier = resolve_tier(opts)
     # On one device the port always takes the dense loop: the JAX
@@ -57,7 +68,20 @@ def potrf(A: HermitianMatrix, opts=None):
     data, info = _potrf_dense_1dev(A, tier)
     L = TriangularMatrix(data=data, m=A.m, n=A.n, nb=A.nb, grid=A.grid,
                          uplo=Uplo.Lower, diag=Diag.NonUnit)
+    if health:
+        return L, _potrf_health(L, info, Anorm, opts)
     return L, info
+
+
+def _potrf_health(L, info, Anorm, opts):
+    """HealthReport for a finished potrf: the first bad tile from the
+    first-failure convention; rcond by ``pocondest`` when the factor
+    succeeded and ‖A‖₁ is nonzero."""
+    i = int(info)
+    growth = None
+    if i == 0 and Anorm:
+        growth = float(pocondest(Norm.One, L, Anorm, opts))
+    return health_report("potrf", i, convention="first_block", growth=growth)
 
 
 def _conj_transpose_data(A):
@@ -67,24 +91,28 @@ def _conj_transpose_data(A):
     return conj_transpose(G).materialize().data
 
 
-def _syrk_update_inplace(a, r0, nsub, v, cutoff=2048):
+def _syrk_update_inplace(a, r0, nsub, vl, vr, cutoff=2048):
     """a[r0:r0+nsub, r0:r0+nsub] −= v·vᵀ in place, touching (mostly) only
     the lower-triangular blocks: recursive 2×2 split — the diagonal
     halves recurse, the off-diagonal quarter is one rectangular product.
     Saves ~45% of the flops a full square product would spend on the
-    (junk-by-contract) upper half."""
+    (junk-by-contract) upper half. ``vl`` and ``vr`` are v and vᵀ as the
+    tier multiplies them (:func:`~..internal.precision.tier_lhs`,
+    ``tier_rhs``), split once for the whole recursion; the caller holds
+    the tier's matmul setting."""
     if nsub <= cutoff:
-        a[r0:r0 + nsub, r0:r0 + nsub].addmm_(v, v.mT, alpha=-1)
+        a[r0:r0 + nsub, r0:r0 + nsub].addmm_(vl, vr, alpha=-1)
         return
     h = nsub // 2
-    _syrk_update_inplace(a, r0, h, v[:h], cutoff)
-    a[r0 + h:r0 + nsub, r0:r0 + h].addmm_(v[h:], v[:h].mT, alpha=-1)
-    _syrk_update_inplace(a, r0 + h, nsub - h, v[h:], cutoff)
+    _syrk_update_inplace(a, r0, h, vl[:h], vr[:, :h], cutoff)
+    a[r0 + h:r0 + nsub, r0:r0 + h].addmm_(vl[h:], vr[:, :h], alpha=-1)
+    _syrk_update_inplace(a, r0 + h, nsub - h, vl[h:], vr[:, h:], cutoff)
 
 
 def _potrf_dense_loop(a, nb, n, Mp, tier):
     """Blocked Cholesky in place on a dense [Mp, ≥Mp] tensor (rows ≥ n
-    padded with an identity diagonal by the caller); returns ``info``."""
+    padded with an identity diagonal by the caller); returns ``info``.
+    The panels run at full FP32, the trailing update at ``tier``."""
     nt = cdiv(n, nb)
     info = torch.zeros((), dtype=torch.int32, device=a.device)
     fd = _factor_dtype(a.dtype)
@@ -96,12 +124,14 @@ def _potrf_dense_loop(a, nb, n, Mp, tier):
         lkk, info = finite_guard(tile_potrf(akk), info, k + 1, diag=True)
         a[r0:r0 + nb, r0:r0 + nb] = lkk.tril()
         if r0 + nb < Mp:
-            pan = tile_trsm_right_lower_t(
-                lkk.to(fd), a[r0 + nb:, r0:r0 + nb].to(fd)).to(a.dtype)
+            with full_f32_matmul():
+                pan = tile_trsm_right_lower_t(
+                    lkk.to(fd), a[r0 + nb:, r0:r0 + nb].to(fd)).to(a.dtype)
             pan, info = finite_guard(pan, info, k + 1)
             a[r0 + nb:, r0:r0 + nb] = pan          # panel write-back
-            with trailing_matmul(tier):
-                _syrk_update_inplace(a, r0 + nb, Mp - r0 - nb, pan)
+            vl, vr = tier_lhs(pan, tier), tier_rhs(pan.mT, tier)
+            with tier_context(tier, a.dtype):
+                _syrk_update_inplace(a, r0 + nb, Mp - r0 - nb, vl, vr)
     return info
 
 

@@ -1,0 +1,80 @@
+"""Inverses: trtri (triangular), trtrm, potri (SPD) and getri (general)
+(reference src/trtri.cc, src/trtrm.cc, src/potri.cc, src/getri.cc;
+counterpart of ``slate_tpu/linalg/trtri.py``).
+
+trtri solves against the identity (X = A⁻¹ ⇔ A·X = I) with the port's
+trsm, so a lower factor goes through the left-solve kernel K3 on a
+right-hand side as wide as the matrix. getri follows the reference's
+algorithm: U⁻¹ by trtri, then X·L = U⁻¹ (a right unit-lower solve) and
+the column swaps in reverse order (A⁻¹ = U⁻¹·L⁻¹·P), 4n³/3 flops. potri
+forms L⁻ᴴ·L⁻¹ with one product, the reference's trtrm step.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..internal import masks
+from ..matrix import (HermitianMatrix, Matrix, TriangularMatrix,
+                      conj_transpose, transpose)
+from ..ops.blas import gemm, trsm
+from ..ops.elementwise import set_matrix
+from ..types import Diag, Side, Uplo
+
+
+def _identity_like(A) -> Matrix:
+    I = Matrix.zeros(A.n, A.n, A.nb, A.grid, dtype=A.dtype)
+    return set_matrix(0.0, 1.0, I)
+
+
+def trtri(A: TriangularMatrix, opts=None) -> TriangularMatrix:
+    """A⁻¹ of a triangular matrix (reference src/trtri.cc)."""
+    X = trsm(Side.Left, 1.0, A, _identity_like(A), opts)
+    return TriangularMatrix(data=X.data, m=A.m, n=A.n, nb=A.nb,
+                            grid=A.grid, uplo=A.uplo, diag=A.diag)
+
+
+def _extract_triangle(A) -> Matrix:
+    """A's stored triangle as a general matrix, the rest zero; a unit
+    diagonal is written as ones."""
+    A = A.materialize()
+    tri = masks.uplo_mask(A.mtl, A.ntl, A.nb, A.uplo == Uplo.Lower,
+                          device=A.data.device)
+    out = torch.where(tri, A.data, 0)
+    if A.diag == Diag.Unit:
+        er, ec = masks.elem_index(A.mtl, A.ntl, A.nb, A.data.device)
+        out = torch.where((er == ec) & (er < A.m), 1, out).to(A.dtype)
+    return Matrix(data=out, m=A.m, n=A.n, nb=A.nb, grid=A.grid)
+
+
+def trtrm(A: TriangularMatrix, opts=None) -> HermitianMatrix:
+    """Aᴴ·A for triangular A (reference src/trtrm.cc, the second half of
+    potri), both triangles stored."""
+    At = _extract_triangle(A)
+    C = Matrix.zeros(A.n, A.n, A.nb, A.grid, dtype=A.dtype)
+    C = gemm(1.0, conj_transpose(At), At, 0.0, C)
+    return HermitianMatrix(data=C.data, m=A.n, n=A.n, nb=A.nb,
+                           grid=A.grid, uplo=A.uplo)
+
+
+def potri(L: TriangularMatrix, opts=None) -> HermitianMatrix:
+    """A⁻¹ from the Cholesky factor: A⁻¹ = L⁻ᴴ·L⁻¹ (src/potri.cc)."""
+    return trtrm(trtri(L, opts), opts)
+
+
+def getri(LU: Matrix, piv, opts=None) -> Matrix:
+    """A⁻¹ from getrf factors (reference src/getri.cc): U⁻¹ by trtri,
+    then X·L = U⁻¹ and the column permutation (A⁻¹ = U⁻¹·L⁻¹·P)."""
+    from .getrf import _apply_pivots_matrix
+    n = LU.n
+    U = TriangularMatrix(data=LU.data, m=n, n=n, nb=LU.nb, grid=LU.grid,
+                         uplo=Uplo.Upper, diag=Diag.NonUnit)
+    Uinv = trtri(U, opts)
+    L = TriangularMatrix(data=LU.data, m=n, n=n, nb=LU.nb, grid=LU.grid,
+                         uplo=Uplo.Lower, diag=Diag.Unit)
+    X = trsm(Side.Right, 1.0, L, Matrix(data=Uinv.data, m=n, n=n,
+                                        nb=LU.nb, grid=LU.grid), opts)
+    # A⁻¹ = X·P: the swaps in reverse order on the columns, i.e. on the
+    # rows of Xᵀ (LAPACK dgetri's trailing column sweep)
+    Xp = _apply_pivots_matrix(transpose(X).materialize(), piv, forward=False)
+    return transpose(Xp).materialize()

@@ -11,7 +11,7 @@ import torch
 
 from ..errors import slate_error_if
 from ..internal.masks import tile_diag_pad_identity
-from ..internal.precision import full_f32_matmul, resolve_tier, trailing_matmul
+from ..internal.precision import full_f32_matmul, resolve_tier, tier_addmm
 from ..internal.tile_kernels import tile_trsm_left_lower
 from ..matrix import Matrix, cdiv, tiles_to_dense, dense_to_tiles
 from ..types import Diag, Op, Side, Uplo
@@ -49,8 +49,7 @@ def gemm(alpha, A: Matrix, B: Matrix, beta, C: Matrix,
     a = tiles_to_dense(A.data[0, 0], mtl * nb, kt * nb)
     b = tiles_to_dense(B.data[0, 0], kt * nb, ntl * nb)
     c = tiles_to_dense(C.data[0, 0], mtl * nb, ntl * nb)
-    with trailing_matmul(tier):
-        c = torch.addmm(c, a, b, beta=beta, alpha=alpha)
+    c = tier_addmm(c, a, b, beta=beta, alpha=alpha, tier=tier)
     data = dense_to_tiles(c, nb, mtl, ntl)[None, None]
     return C._replace(data=data)
 
@@ -81,8 +80,8 @@ def _rank_k(alpha, A, beta, C, conj: bool, opts=None):
     nb = C.nb
     a = tiles_to_dense(A.data[0, 0], A.mtl * nb, A.ntl * nb)
     c = tiles_to_dense(C.data[0, 0], C.mtl * nb, C.ntl * nb)
-    with trailing_matmul(tier):
-        c = torch.addmm(c, a, a.mH if conj else a.mT, beta=beta, alpha=alpha)
+    c = tier_addmm(c, a, a.mH if conj else a.mT, beta=beta, alpha=alpha,
+                   tier=tier)
     data = dense_to_tiles(c, nb, C.mtl, C.ntl)[None, None]
     return C._replace(data=data)
 

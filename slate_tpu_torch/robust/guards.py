@@ -1,14 +1,22 @@
-"""Finite guards: the ``info`` side of numerical failure.
+"""Finite guards and health reports: the ``info`` side of numerical
+failure (counterpart of ``slate_tpu/robust/guards.py``).
 
 A driver reports numerical failure through an ``info`` scalar, the
 LAPACK first-failure convention: ``info`` is the 1-based index of the
 first failing block column, 0 on success. ``info`` stays a 0-dim int32
 tensor on the matrix's device, so a factorization runs to its end
-without a host synchronisation per block column.
+without a host synchronisation per block column. On request
+(``health=True``) a driver returns a :class:`HealthReport` in its place,
+and the last reports are kept in a bounded log.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
+import threading
+
+import numpy as np
 import torch
 
 
@@ -44,3 +52,125 @@ def finite_guard(x: torch.Tensor, info: torch.Tensor, code: int, *,
     new = torch.where(bad, torch.full_like(info, code),
                       torch.zeros_like(info))
     return zero_nonfinite(x), info_merge(info, new)
+
+
+# ---------------------------------------------------------------------------
+# host-side twin
+# ---------------------------------------------------------------------------
+
+def host_info_from_diag(diag, nb: int) -> int:
+    """LAPACK first-failure info from a host-side factor diagonal: the
+    1-based block column of the first non-finite entry, 0 when the whole
+    diagonal is finite (the numpy twin of ``finite_guard(diag=True)``)."""
+    diag = np.asarray(diag)
+    bad = ~np.isfinite(diag.real if np.iscomplexobj(diag) else diag)
+    if not bad.any():
+        return 0
+    return int(np.argmax(bad)) // nb + 1
+
+
+# ---------------------------------------------------------------------------
+# HealthReport, the driver-level report
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HealthReport:
+    """Numerical-health record a factorization returns on request.
+
+    ``info`` follows the routine's LAPACK convention; ``first_bad_tile``
+    locates the failure in block coordinates when the convention names
+    one; ``growth`` is the reciprocal-condition estimate from
+    ``condest`` (None when the factorization failed); ``demotions`` and
+    ``notes`` carry backend demotions and free text. ``request_id`` (a
+    serving layer's correlation stamp) stays "" and ``verified`` and
+    ``checksum_resid`` (checksum verification) stay None in the port,
+    which has neither layer yet.
+    """
+
+    routine: str
+    info: int
+    first_bad_tile: tuple[int, int] | None = None
+    growth: float | None = None
+    demotions: tuple = ()
+    notes: str = ""
+    request_id: str = ""
+    verified: bool | None = None
+    checksum_resid: float | None = None
+
+    @property
+    def ok(self) -> bool:
+        return self.info == 0
+
+    def __int__(self) -> int:
+        return self.info
+
+    def as_dict(self) -> dict:
+        return {
+            "routine": self.routine,
+            "info": self.info,
+            "first_bad_tile": self.first_bad_tile,
+            "growth": self.growth,
+            "demotions": tuple(str(d) for d in self.demotions),
+            "notes": self.notes,
+            "request_id": self.request_id,
+            "verified": self.verified,
+            "checksum_resid": self.checksum_resid,
+        }
+
+
+def health_report(routine: str, info, *, convention: str = "first_block",
+                  growth: float | None = None, demotions=(),
+                  notes: str = "") -> HealthReport:
+    """Build a :class:`HealthReport` from a driver's ``info`` and record
+    it in the report log. ``convention`` decodes ``info``:
+
+    * ``"first_block"`` (potrf): positive info is the 1-based index of
+      the first failing block column, so the bad tile is the diagonal
+      block ``(info-1, info-1)``;
+    * ``"count"`` (getrf, hetrf): info counts zero pivots, and no single
+      coordinate exists.
+    """
+    i = int(info)
+    first_bad = (i - 1, i - 1) if i > 0 and convention == "first_block" \
+        else None
+    r = HealthReport(routine=routine, info=i, first_bad_tile=first_bad,
+                     growth=growth, demotions=tuple(demotions), notes=notes)
+    _record_report(r)
+    return r
+
+
+# ---------------------------------------------------------------------------
+# the report log
+# ---------------------------------------------------------------------------
+
+_REPORT_LOG_CAP = 64
+_reports: collections.deque = collections.deque(maxlen=_REPORT_LOG_CAP)
+_bad_total = 0
+_report_lock = threading.Lock()
+
+
+def _record_report(r: HealthReport) -> None:
+    global _bad_total
+    with _report_lock:
+        _reports.append(r)
+        if not r.ok:
+            _bad_total += 1
+
+
+def recent_reports() -> tuple[HealthReport, ...]:
+    """The last ``_REPORT_LOG_CAP`` reports built, oldest first."""
+    with _report_lock:
+        return tuple(_reports)
+
+
+def bad_report_total() -> int:
+    """Count of nonzero-``info`` reports over the process lifetime."""
+    with _report_lock:
+        return _bad_total
+
+
+def reset_report_log() -> None:
+    global _bad_total
+    with _report_lock:
+        _reports.clear()
+        _bad_total = 0

@@ -1,6 +1,7 @@
 """Simplified verb-named API (reference include/slate/simplified_api.hh):
 multiply → gemm, chol_factor → potrf, chol_solve → posv, lu_factor →
-getrf, lu_solve → gesv, the unpivoted LU verbs, indefinite_factor /
+getrf, lu_solve → gesv, the inverse verbs → getri / potri, the
+unpivoted LU verbs, indefinite_factor /
 indefinite_solve → hetrf / hesv, least_squares_solve → gels, the QR/LQ
 verbs, and eig_vals/eig → heev, svd_vals/svd → gesvd."""
 
@@ -14,6 +15,7 @@ from .linalg.getrf import (gesv, gesv_nopiv, getrf, getrf_nopiv, getrs,
 from .linalg.hetrf import hesv, hetrf, hetrs
 from .linalg.potrf import posv, potrf, potrs
 from .linalg.svd import gesvd
+from .linalg.trtri import getri, potri
 from .matrix import HermitianMatrix, TriangularMatrix
 from .ops.blas import gemm
 from .types import Op
@@ -43,6 +45,11 @@ def chol_solve_using_factor(L, B, opts=None):
     return potrs(L, B, opts)
 
 
+def chol_inverse_using_factor(L, opts=None):
+    """A⁻¹ from chol_factor's output (potri)."""
+    return potri(L, opts)
+
+
 def lu_factor(A, opts=None):
     return getrf(A, opts)
 
@@ -55,6 +62,18 @@ def lu_solve(A, B, opts=None):
 
 def lu_solve_using_factor(LU, piv, B, opts=None):
     return getrs(LU, piv, B, Op.NoTrans, opts)
+
+
+def lu_inverse_using_factor(LU, piv, opts=None):
+    """A⁻¹ from lu_factor's output (getri)."""
+    return getri(LU, piv, opts)
+
+
+def lu_inverse_using_factor_out_of_place(LU, piv, opts=None):
+    """Out-of-place inverse (reference getriOOP): the same algorithm;
+    the port's drivers never update their inputs, so it is the in-place
+    verb on a new result."""
+    return getri(LU, piv, opts)
 
 
 def lu_factor_nopiv(A, opts=None):

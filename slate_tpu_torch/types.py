@@ -46,6 +46,14 @@ class Norm(enum.Enum):
     Max = "m"
 
 
+class NormScope(enum.Enum):
+    """Norm over the whole matrix or per column (reference
+    enums.hh NormScope)."""
+    Matrix = "m"
+    Columns = "c"
+    Rows = "r"
+
+
 class Option(enum.Enum):
     """Option keys (reference enums.hh:69-101)."""
     ChunkSize = enum.auto()

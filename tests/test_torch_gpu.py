@@ -806,3 +806,84 @@ def test_hesv_on_card_matches_cpu(cuda):
     assert out[0][3] == -(-n // nb) - 1 and out[1][3] == 0
     assert torch.equal(out[0][1], out[1][1]) and out[0][2] == out[1][2] == 0
     assert rel(out[0][0], out[1][0]) < n * 2.0 ** -24 * np.linalg.cond(a)
+
+
+# ---------------------------------------------------------------------------
+# precision tiers and mixed-precision solves
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tier", ["mxu_bf16", "bf16_3x", "bf16_6x"])
+@pytest.mark.parametrize("m,n,k", [(32, 96, 96), (4096, 4096, 64),
+                                   (70, 130, 1)])
+def test_rank_k_tail_kernel_at_tier(cuda, tier, m, n, k):
+    """K11 at each tier against its plain version (the same rounding of
+    the operands at mxu_bf16) and, at β = 0, against the f64 product
+    within the tier's product bound (TIER_EPS-based, plus k·2⁻²⁴)."""
+    from slate_tpu_torch.internal.precision import product_bound
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    c = torch.randn(m, n, generator=gen, device=cuda)
+    a = torch.randn(m, k, generator=gen, device=cuda)
+    b = torch.randn(k, n, generator=gen, device=cuda)
+    before = K.LAUNCHES["rank_k_tail_pallas"]
+    out = K.rank_k_tail(c, a, b, -1.0, 1.0, tier)
+    assert rel(out, K.rank_k_tail_plain(c, a, b, -1.0, 1.0, tier)) < TOL
+    prod = K.rank_k_tail(c, a, b, 1.0, 0.0, tier)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["rank_k_tail_pallas"] == before + 2
+    ref = a.double() @ b.double()
+    err = ((prod.double() - ref).abs() / (a.double().abs()
+                                          @ b.double().abs())).max()
+    assert float(err) <= product_bound(tier, k)
+
+
+@pytest.mark.parametrize("tier", ["mxu_bf16", "bf16_3x", "bf16_6x"])
+def test_tier_product_bound_on_card(cuda, tier):
+    """Each tier's product on the card against the f64 one, at k = 1 and
+    k = 512, out of place and in place into a view (TF32 left as the
+    caller had it)."""
+    from slate_tpu_torch.internal import precision as P
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    for k in (1, 512):
+        a = torch.randn(1024, k, generator=gen, device=cuda)
+        b = torch.randn(k, 768, generator=gen, device=cuda)
+        ref = a.double() @ b.double()
+        den = a.double().abs() @ b.double().abs()
+        out = torch.zeros(1024, 800, device=cuda)
+        P.tier_addmm_(out[:, 16:784], a, b, beta=0.0, tier=tier)
+        for x in (P.tier_mm(a, b, tier), out[:, 16:784]):
+            err = float(((x.double() - ref).abs() / den).max())
+            assert err <= P.product_bound(tier, k), (k, err)
+        assert not out[:, :16].any() and not out[:, 784:].any()
+    assert torch.backends.cuda.matmul.allow_tf32 == prev
+
+
+@pytest.mark.parametrize("solver", ["gesv_mixed", "posv_mixed"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_mixed_solve_on_card(cuda, solver, dt):
+    """gesv_mixed / posv_mixed at n = 512 on the card: info 0, no
+    fallback, iters below MaxIterations, the backward error at the
+    working precision (f32: 100·ε; f64: residual/‖b‖ ≤ 1e-12)."""
+    from slate_tpu_torch.linalg import mixed
+    n, nb = 512, 128
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    g = torch.randn(n, n, generator=gen, device=cuda, dtype=torch.float64)
+    a = (g @ g.T / n + torch.eye(n, device=cuda, dtype=torch.float64)
+         if solver == "posv_mixed" else 0.01 * g
+         + n ** 0.5 * torch.eye(n, device=cuda, dtype=torch.float64)).to(dt)
+    b = torch.randn(n, 4, generator=gen, device=cuda,
+                    dtype=torch.float64).to(dt)
+    grid = st.Grid(1, 1, device=cuda)
+    cls = st.HermitianMatrix if solver == "posv_mixed" else st.Matrix
+    X, iters, info = getattr(st, solver)(
+        cls.from_dense(a, nb=nb, grid=grid),
+        st.Matrix.from_dense(b, nb=nb, grid=grid))
+    assert int(info) == 0 and not mixed.used_fallback() and iters < 30
+    x = X.to_dense().double()
+    a64, b64 = a.double(), b.double()
+    r = torch.linalg.norm(a64 @ x - b64)
+    if dt == torch.float64:
+        assert float(r / torch.linalg.norm(b64)) < 1e-12
+    else:
+        err = r / (torch.linalg.norm(a64) * torch.linalg.norm(x) * n)
+        assert float(err) < 100 * 2.0 ** -23

@@ -161,7 +161,7 @@ def test_hetrs_on_carried_factors(jax_refs):
 
 def test_hesv_upper_mirror_verbs_and_refusals():
     """Upper storage through the mirror gives the Lower result; the verbs
-    wrap hetrf/hesv/hetrs; complex input and health=True raise."""
+    wrap hetrf/hesv/hetrs; complex input raises; health=True reports."""
     n, nb = 61, 8
     _, _, (X, factors, _) = port_hesv(n, nb, np.float64, False)
     a, B, (Xu, _, info) = port_hesv(n, nb, np.float64, False, st.Uplo.Upper)
@@ -178,5 +178,5 @@ def test_hesv_upper_mirror_verbs_and_refusals():
     with pytest.raises(st.SlateError, match="complex"):
         st.hetrf(st.HermitianMatrix.from_dense(
             np.tril(a).astype(np.complex128), nb=nb, grid=g))
-    with pytest.raises(st.SlateError, match="health"):
-        st.hetrf(A, health=True)
+    _, rep = st.hetrf(A, health=True)
+    assert isinstance(rep, st.HealthReport) and rep.info == 0 and rep.ok

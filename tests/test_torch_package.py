@@ -102,7 +102,15 @@ def test_exports():
                  "hetrf", "hetrs", "hesv", "indefinite_factor",
                  "indefinite_solve", "indefinite_solve_using_factor",
                  "band_lu_from_reference", "band_lu_to_reference",
-                 "hetrf_from_reference", "hetrf_to_reference"):
+                 "hetrf_from_reference", "hetrf_to_reference",
+                 "gesv_mixed", "posv_mixed", "gesv_mixed_gmres",
+                 "posv_mixed_gmres", "norm", "col_norms", "NormScope", "add",
+                 "copy", "scale", "scale_row_col", "set_matrix", "gecondest",
+                 "pocondest", "trcondest", "trtri", "trtrm", "potri", "getri",
+                 "lu_inverse_using_factor",
+                 "lu_inverse_using_factor_out_of_place",
+                 "chol_inverse_using_factor", "HealthReport",
+                 "health_report", "recent_reports"):
         assert hasattr(pst, name), name
 
 
