@@ -13,13 +13,15 @@
    kernel's time, the plain version's time, the ``torch.linalg`` call's
    time (CUDA events, median of 7 runs after a warm-up) and the least
    time the card could take (FP32 operations or bytes). K1 at nb = 1024,
-   256, 200, 65 and 1; K2 at B = [15360, 1024] and [300, 200], unit and
-   not, and [1024, 1024], timed at the largest and smallest ``posv``
-   panel heights (15360, 1024) beside ``solve_triangular``; K3 at B =
-   [1024, 8] and [256, 8] (its callers'
+   512, 256, 200, 65, 32 and 1; K2 at B = [15360, 1024] and [300, 200],
+   unit and not, and [1024, 1024], timed at the largest and smallest
+   ``posv`` panel heights (15360, 1024) beside ``solve_triangular``, and
+   at 3r's shapes, [32, 32] (pbtrf) and [3584, 512] (hegv's potrf of B),
+   unit and not; K3 at B = [1024, 8] and [256, 8] (its callers'
    real columns: posv, gesv, gesv_nopiv, gels LQ; hesv), [1024, 1024]
    and [200, 37], unit and not, timed at the first three beside
-   ``solve_triangular``.
+   ``solve_triangular``, and at 3r's shapes, [32, 8] (pbtrs, tbsm) and
+   [512, 4096] (hegst's block rows), unit and not.
 2b. The LU panel kernels (K4 ``panel_plu``, K5 ``panel_fold`` /
    ``panel_unfold``) against their plain versions on the card: K4 on a
    folded [8, 1024, 2048] panel at blocks 0 and 7 with 3000 rows already
@@ -185,7 +187,39 @@ The mixed-precision slice (``Grid(1, 1)``):
    a singular ``gesv_mixed`` ``info`` > 0; ``potrf(health=True)`` on a
    non-SPD matrix names the first bad tile and no growth.
 
-Each path of 3–3p runs with the launch counts set to 0 just before it
+The Level-3 BLAS, band BLAS, band Cholesky and hegv slice (f32,
+``Grid(1, 1)``):
+
+3r. ``hemm`` and ``symm`` (both sides, both ``uplo``s, junk in the other
+   half), ``her2k``, ``syr2k`` and ``trmm`` (both sides, Lower/Upper,
+   unit and not) at n=16384, nb=1024 against [16384, 1024] operands:
+   ‖C − C64‖_F/‖C64‖_F within 10·k·2⁻²⁴ (k the contraction) of the f64
+   product formed on the card and within 16·√k·2⁻²⁴ (a TF32 or bf16
+   product, 2⁻¹¹ or coarser, lands above it), no kernel launched, each
+   timed beside
+   ``torch.matmul`` (TF32 off) on the mirrored dense operands. At 3m's
+   band (n=16384, kl = ku = 32, storage nb=256, nrhs=8): ``gbmm`` and
+   ``hbmm`` on both sides within 10·(2kd + 1)·2⁻²⁴ of the f64 product;
+   ``tbsm`` Left/Right × Lower/Upper and Left Lower with pivots, the
+   residual ‖T·X − B‖_F/(‖T‖_F·‖X‖_F) within 10·n·2⁻²⁴ and within 2⁻²⁴
+   (a stable FP32 solve gives about 2⁻²⁴/√n, a TF32 or bf16 one 2⁻¹¹/√n
+   or more), K3 512 on each Lower Left solve and no kernel on the
+   others. ``pbsv`` at n=16384, kd=32 (band block 32), nrhs=8, an SPD
+   band by diagonal dominance: ``info`` 0, the residual within
+   10·n·2⁻²⁴ and 2⁻²⁴, K1 512, K2 512, K3 512; ``pbtrf_ms``, ``pbsv_ms``
+   beside the dense ``cholesky`` + ``cholesky_solve``. ``hegv``
+   itype 1, 2, 3 at 3i's shape (n=4096, nb=512, DC heev re-blocked to
+   128), A = (G + Gᵀ)/2, B = G₂·G₂ᵀ/n + I (G·Gᵀ + n·I scaled by 1/n, so
+   λ_min(B) ≥ 1): λ and ‖R‖_F/‖Z‖_F (R = A·Z − B·Z·Λ, A·B·Z − Z·Λ or
+   B·A·Z − Z·Λ) within 10·n·2⁻²⁴·‖A‖₂·κ(B) of the f64 reference formed on
+   the card and within √n·2⁻²⁴·‖A‖₂·κ(B) (a TF32 or bf16 solve errs by
+   2⁻¹¹·‖A‖₂ or more); K1 8, K2 7, K3 8 (itype 1 only), K8 1.
+4g. A band that is not positive definite at band block 22 gives ``pbtrf``
+   ``info`` 22 and, with ``health=True``, a report naming tile (21, 21);
+   a B that is not positive definite at block column 3 gives ``hegv``
+   ``info`` 3 with NaN λ and Z; card and CPU agree.
+
+Each path of 3–3r runs with the launch counts set to 0 just before it
 and read just after. Any failure raises and the script exits non-zero.
 Without a CUDA card it exits with code 2 before doing anything. The last
 line is ``{"ok": true, "device": {...}}``.
@@ -278,6 +312,8 @@ KERNELS = {
 WAVE_US_BEFORE = {"hb2st": 42.55, "tb2bd": 41.53}
 AASEN_NB = 256            # hesv's block: the top of B6's width range
 BAND_KL = BAND_KU = 32    # gbsv's band: block 2kl + ku = 96 < 128
+PB_KD = 32                # pbsv's band: band block 32, K1/K2/K3 at 32
+HEGV_N, HEGV_NB = 4096, 512   # 3i's shape (EigBand 128)
 
 
 def say(*a):
@@ -486,7 +522,7 @@ def phase_kernels():
     rows = {}
 
     say("kernel checks (kernel vs plain on the card):")
-    for nb in (NB, AASEN_NB, 200, 65, 1):
+    for nb in (NB, HEGV_NB, AASEN_NB, 200, 65, PB_KD, 1):
         a = spd_tile(nb, gen)
         mx = check("potrf_tile", lambda: K.potrf_tile(a),
                    lambda: K.potrf_tile_plain(a), f"nb={nb}")
@@ -494,7 +530,8 @@ def phase_kernels():
         if nb == NB:
             rows["potrf_tile"] = dict(max_abs_err=mx, **potrf_tile_row(a))
 
-    for (m, n) in ((N - NB, NB), (300, 200)):
+    for (m, n) in ((N - NB, NB), (300, 200), (PB_KD, PB_KD),
+                   (HEGV_N - HEGV_NB, HEGV_NB)):
         for unit in (False, True):
             l = lower_factor(n, gen, unit)
             b = torch.randn(m, n, generator=gen, device="cuda")
@@ -519,9 +556,11 @@ def phase_kernels():
 
     # K3 at its callers' shapes (the nrhs = 8 real columns of a block row
     # against a 1024 tile in posv, gesv, gesv_nopiv and gels LQ, a 256
-    # tile in hesv), wide and ragged; the [NB, NRHS] row is the main path's
+    # tile in hesv), wide and ragged, and 3r's (a band block of pbtrs and
+    # tbsm, a block row of hegst); the [NB, NRHS] row is the main path's
     thin = {}
-    for (n, m) in ((NB, NRHS), (AASEN_NB, NRHS), (NB, NB), (200, 37)):
+    for (n, m) in ((NB, NRHS), (AASEN_NB, NRHS), (NB, NB), (200, 37),
+                   (PB_KD, NRHS), (HEGV_NB, HEGV_N)):
         for unit in (False, True):
             l = lower_factor(n, gen, unit)
             b = torch.randn(n, m, generator=gen, device="cuda")
@@ -529,7 +568,7 @@ def phase_kernels():
                        lambda: K.trsm_left_lower(l, b, unit),
                        lambda: K.trsm_left_lower_plain(l, b, unit),
                        f"B=[{n},{m}] unit={unit}")
-            if n != 200 and not unit:
+            if n in (NB, AASEN_NB) and not unit:
                 thin[(n, m)] = dict(max_abs_err=mx, **trsm_left_row(l, b))
     for (n, m), r in thin.items():
         say(f"  trsm_left_lower B=[{n},{m}]: kernel_ms {r['ms']:.4f}, "
@@ -2523,6 +2562,366 @@ def phase_mixed_failure_report():
     assert rep.growth is None
 
 
+# ---------------------------------------------------------------------------
+# the Level-3 BLAS, band BLAS, band Cholesky and hegv slice
+# ---------------------------------------------------------------------------
+
+def quiet_path(fn):
+    """``fn()`` with the launch counts set to 0 just before it; none of
+    the port's kernels may run."""
+    from slate_tpu_torch.internal import kernels as K
+    torch.cuda.synchronize()
+    K.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    ran = {k: v for k, v in K.LAUNCHES.items() if v}
+    assert not ran, f"no kernel expected, launched {ran}"
+    return out
+
+
+def check_product(label, fn, ref64, k, lib):
+    """One product on the card: error relative to the f64 product
+    ‖C − C64‖_F/‖C64‖_F within 10·k·2⁻²⁴ (k the contraction) and within
+    16·√k·2⁻²⁴, its time and the time of the library expression ``lib``
+    (TF32 off) on the mirrored dense operands (medians of 3). The second
+    bound: rounding errors of random sign grow as √k, so an FP32 product
+    stays well inside it, while rounding the operands to TF32 or bf16
+    alone costs 2⁻¹¹ or more of relative error."""
+    out = quiet_path(fn).to_dense()
+    err = rel_err(out, ref64)
+    limit = 10 * k * 2.0 ** -24
+    tight = 16 * k ** 0.5 * 2.0 ** -24
+    ms = time_ms(fn, reps=3)
+    with _f32():
+        lib_ms = time_ms(lib, reps=3)
+    say(f"  {label}: ms {ms:.3f}, matmul_ms {lib_ms:.3f}, rel_err {err:.3e} "
+        f"(bound {limit:.3e}, tight {tight:.3e})")
+    assert bool(torch.isfinite(out).all()) and err <= min(limit, tight), \
+        (label, err)
+
+
+def phase_blas3():
+    """3r (dense): hemm and symm on both sides and both uplos, her2k and
+    syr2k, trmm on both sides, Lower/Upper, unit and not, f32 at
+    n = 16384, nb = 1024 against [n, 1024] operands."""
+    import slate_tpu_torch as st
+    grid = st.Grid(1, 1)
+    n, nb, k = N, NB, NB
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    a = torch.randn(n, n, generator=gen, device="cuda")
+    b = torch.randn(n, k, generator=gen, device="cuda")
+    b2 = torch.randn(n, k, generator=gen, device="cuda")
+    bt = b.T.contiguous()
+    a64, b64, b2_64, bt64 = a.double(), b.double(), b2.double(), bt.double()
+    B, B2, Bt = (st.Matrix.from_dense(x, nb=nb, grid=grid) for x in (b, b2, bt))
+    C, Ct = st.Matrix.zeros(n, k, nb, grid), st.Matrix.zeros(k, n, nb, grid)
+    say(f"Level-3 BLAS f32 n={n} nb={nb} Grid(1,1), B [{n}, {k}] (Right: "
+        f"its transpose); error against the f64 product formed on the card")
+    for uplo in ("Lower", "Upper"):
+        lower = uplo == "Lower"
+        half = a64.tril() if lower else a64.triu()
+        full64 = half + (half.tril(-1) if lower else half.triu(1)).T
+        full = full64.float()
+        for cls, fn in ((st.HermitianMatrix, st.hemm),
+                        (st.SymmetricMatrix, st.symm)):
+            A = cls.from_dense(a, nb=nb, grid=grid, uplo=st.Uplo[uplo])
+            check_product(f"{fn.__name__} Left {uplo}",
+                          lambda: fn(st.Side.Left, 1.0, A, B, 0.0, C),
+                          full64 @ b64, n, lambda: full @ b)
+            check_product(f"{fn.__name__} Right {uplo}",
+                          lambda: fn(st.Side.Right, 1.0, A, Bt, 0.0, Ct),
+                          bt64 @ full64, n, lambda: bt @ full)
+            del A
+        del half, full64, full
+    ref = b64 @ b2_64.T
+    ref += b2_64 @ b64.T
+    for cls, fn in ((st.HermitianMatrix, st.her2k), (st.SymmetricMatrix,
+                                                     st.syr2k)):
+        G = cls.zeros(n, n, nb, grid)
+        check_product(fn.__name__, lambda: fn(1.0, B, B2, 0.0, G), ref, k,
+                      lambda: torch.addmm(b @ b2.T, b2, b.T))
+        del G
+    del ref
+    for uplo in ("Lower", "Upper"):
+        for diag in ("NonUnit", "Unit"):
+            t64 = a64.tril() if uplo == "Lower" else a64.triu()
+            if diag == "Unit":
+                t64.fill_diagonal_(1.0)
+            t = t64.float()
+            T = st.TriangularMatrix.from_dense(a, nb=nb, grid=grid,
+                                               uplo=st.Uplo[uplo],
+                                               diag=st.Diag[diag])
+            check_product(f"trmm Left {uplo} {diag}",
+                          lambda: st.trmm(st.Side.Left, 1.0, T, B),
+                          t64 @ b64, n, lambda: t @ b)
+            check_product(f"trmm Right {uplo} {diag}",
+                          lambda: st.trmm(st.Side.Right, 1.0, T, Bt),
+                          bt64 @ t64, n, lambda: bt @ t)
+            del T, t, t64
+
+
+def band_solve_residual(t64, x, b, right=False) -> float:
+    """‖T·X − B‖_F/(‖T‖_F·‖X‖_F) (X·T on the right) in f64 on the card."""
+    x64, b64 = x.double(), b.double()
+    r = (x64 @ t64 if right else t64 @ x64) - b64
+    return float(torch.linalg.norm(r) / (torch.linalg.norm(t64)
+                                         * torch.linalg.norm(x64)))
+
+
+def phase_band_blas():
+    """3r (band): gbmm, hbmm on both sides and tbsm on both sides, lower
+    and upper, and with pivots, at 3m's band (n = 16384, kl = ku = 32,
+    storage nb = 256, nrhs = 8)."""
+    import slate_tpu_torch as st
+    grid = st.Grid(1, 1)
+    n, kd, nb = N, BAND_KL, AASEN_NB
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    a = band_matrix(n, kd, kd, 52)
+    h = (a + a.T) / 2
+    t = a.tril()
+    t.diagonal().copy_(t.abs().sum(1) + 1.0)   # diagonally dominant
+    b = torch.randn(n, NRHS, generator=gen, device="cuda")
+    bt = b.T.contiguous()
+    piv = torch.clamp(torch.arange(n, device="cuda") + torch.randint(
+        0, kd + 1, (n,), generator=gen, device="cuda"), max=n - 1)
+    piv = piv.int().reshape(n // nb, nb)
+    a64, h64, t64, b64, bt64 = (x.double() for x in (a, h, t, b, bt))
+    A = st.BandMatrix.from_dense(a, nb=nb, grid=grid, kl=kd, ku=kd)
+    H = st.HermitianBandMatrix.from_dense(h.tril(), nb=nb, grid=grid, kl=kd,
+                                          ku=kd)
+    T = st.TriangularBandMatrix.from_dense(t, nb=nb, grid=grid, kl=kd, ku=0)
+    U = st.TriangularBandMatrix.from_dense(t.T.contiguous(), nb=nb,
+                                           grid=grid, kl=0, ku=kd,
+                                           uplo=st.Uplo.Upper)
+    B, Bt = (st.Matrix.from_dense(x, nb=nb, grid=grid) for x in (b, bt))
+    C, Ct = (st.Matrix.zeros(n, NRHS, nb, grid),
+             st.Matrix.zeros(NRHS, n, nb, grid))
+    say(f"band BLAS f32 n={n} kl=ku={kd} nb={nb} nrhs={NRHS} Grid(1,1)")
+    with _f32():
+        dense_ms = time_ms(lambda: a @ b, reps=3)
+    say(f"  dense matmul of the band as [n, n] (yardstick) {dense_ms:.3f} ms")
+    limit = 10 * (2 * kd + 1) * 2.0 ** -24
+    for label, fn, ref in (
+            ("gbmm", lambda: st.gbmm(1.0, A, B, 0.0, C), a64 @ b64),
+            ("hbmm Left", lambda: st.hbmm(st.Side.Left, 1.0, H, B, 0.0, C),
+             h64 @ b64),
+            ("hbmm Right", lambda: st.hbmm(st.Side.Right, 1.0, H, Bt, 0.0,
+                                           Ct), bt64 @ h64)):
+        out = quiet_path(fn).to_dense()
+        err = rel_err(out, ref)
+        ms = time_ms(fn, reps=3)
+        say(f"  {label}: ms {ms:.3f}, rel_err {err:.3e} (bound {limit:.3e})")
+        assert bool(torch.isfinite(out).all()) and err <= limit, (label, err)
+    counts = {}
+    nbw = 32                                     # the band block of kd = 32
+    k3 = {"trsm_left_lower": n // nbw}
+    limit, tight = 10 * n * 2.0 ** -24, 2.0 ** -24
+    pb = b[_sim_perm_host(piv, n)]
+    for label, fn, t_ref, rhs, right, expect in (
+            ("tbsm Left Lower", lambda: st.tbsm(st.Side.Left, 1.0, T, B),
+             t64, b, False, k3),
+            ("tbsm Left Upper", lambda: st.tbsm(st.Side.Left, 1.0, U, B),
+             t64.T, b, False, {}),
+            ("tbsm Right Lower", lambda: st.tbsm(st.Side.Right, 1.0, T, Bt),
+             t64, bt, True, {}),
+            ("tbsm Right Upper", lambda: st.tbsm(st.Side.Right, 1.0, U, Bt),
+             t64.T, bt, True, {}),
+            ("tbsm Left Lower pivots", lambda: st.tbsm(
+                st.Side.Left, 1.0, T, B, pivots=piv), t64, pb, False, k3)):
+        fn()                                     # warm-up
+        base, t0 = start_path()
+        X = fn()
+        ms, launches, _ = end_path(base, t0, expect)
+        counts[label] = launches
+        r = band_solve_residual(t_ref, X.to_dense(), rhs, right)
+        say(f"  {label}: ms {ms:.3f}, |TX - B|/(|T||X|) {r:.3e} (bound "
+            f"{limit:.3e}, tight {tight:.3e})")
+        assert r <= min(limit, tight), (label, r)
+    return counts
+
+
+def _sim_perm_host(piv, n):
+    """The row order that LAPACK swaps ``piv`` (0-based, in order) give:
+    B's row i after them is row ``perm[i]`` before."""
+    perm = list(range(n))
+    for i, p in enumerate(piv.reshape(-1).tolist()[:n]):
+        perm[i], perm[p] = perm[p], perm[i]
+    return torch.tensor(perm, device="cuda")
+
+
+def spd_band(n, kd, seed):
+    """A symmetric band of half-width kd, Gaussian off the diagonal, its
+    diagonal 1 + its row's absolute sum: SPD by diagonal dominance."""
+    s = band_matrix(n, kd, kd, seed)
+    s = (s + s.T) / 2
+    s.diagonal().copy_(s.abs().sum(1) + 1.0)
+    return s
+
+
+def phase_pbsv():
+    """3r (pbsv): band Cholesky at n = 16384, kd = 32, nrhs = 8: info 0,
+    the residual within 10·n·2⁻²⁴ and 2⁻²⁴, K1, K2 and K3 once a band
+    block (512 each), ``pbtrf_ms``, ``pbsv_ms`` beside the dense
+    cholesky + cholesky_solve of the same matrix."""
+    import slate_tpu_torch as st
+    grid = st.Grid(1, 1)
+    n, kd, nb = N, PB_KD, AASEN_NB
+    s = spd_band(n, kd, 53)
+    b = torch.randn(n, NRHS, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(54))
+    A = st.HermitianBandMatrix.from_dense(s.tril(), nb=nb, grid=grid, kl=kd,
+                                          ku=kd)
+    B = st.Matrix.from_dense(b, nb=nb, grid=grid)
+    st.pbsv(st.HermitianBandMatrix.from_dense(s[:1024, :1024].tril(), nb=nb,
+                                              grid=grid, kl=kd, ku=kd),
+            st.Matrix.from_dense(b[:1024], nb=nb, grid=grid))   # warm-up
+    blocks = n // 32                             # the band block of kd = 32
+    base, t0 = start_path()
+    X, L, info = st.pbsv(A, B)
+    ms, launches, peak_gib = end_path(base, t0, {
+        "potrf_tile": blocks, "trsm_right_lower_t": blocks,
+        "trsm_left_lower": blocks})
+    t1 = time.perf_counter()
+    st.pbtrf(A)
+    torch.cuda.synchronize()
+    pbtrf_ms = (time.perf_counter() - t1) * 1e3
+    with _f32():
+        torch.linalg.cholesky(s[:1024, :1024])          # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lc = torch.linalg.cholesky(s)
+        torch.cholesky_solve(b, lc)
+        torch.cuda.synchronize()
+        dense_ms = (time.perf_counter() - t1) * 1e3
+    del lc
+    info = int(info)
+    x = X.to_dense()
+    r = band_solve_residual(s.double(), x, b)
+    limit, tight = 10 * n * 2.0 ** -24, 2.0 ** -24
+    say(f"band Cholesky: pbsv f32 n={n} kd={kd} (band block 32, {blocks} "
+        f"blocks) nrhs={NRHS} Grid(1,1): info {info}, |AX - B|/(|A||X|) "
+        f"{r:.3e} (bound {limit:.3e}, tight {tight:.3e})")
+    say(f"  pbtrf_ms {pbtrf_ms:.3f}, pbsv_ms {ms:.3f}, peak device memory "
+        f"above its inputs {peak_gib:.3f} GiB; dense cholesky + "
+        f"cholesky_solve f32 (yardstick) {dense_ms:.3f} ms")
+    assert info == 0 and tuple(x.shape) == (n, NRHS)
+    assert bool(torch.isfinite(x).all()) and r <= min(limit, tight), r
+    return launches
+
+
+def phase_hegv():
+    """3r (hegv): itype 1, 2, 3 at 3i's shape (n = 4096, nb = 512, DC heev
+    re-blocked to 128), A = (G + Gᵀ)/2, B = G₂·G₂ᵀ/n + I: λ and the
+    generalised residual ‖R‖_F/‖Z‖_F within 10·n·2⁻²⁴·‖A‖₂·κ(B) of an
+    f64 reference formed on the card, and within √n·2⁻²⁴·‖A‖₂·κ(B),
+    which a TF32 or bf16 solve (2⁻¹¹·‖A‖₂ or more) exceeds; K1 8, K2 7
+    (potrf of B), K3 8 (itype 1: hegst's left solve), K8 1."""
+    import slate_tpu_torch as st
+    grid = st.Grid(1, 1)
+    n, nb = HEGV_N, HEGV_NB
+    a = sym_matrix(n, 55)
+    g = torch.randn(n, n, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(56))
+    with _f32():
+        bm = g @ g.T / n + torch.eye(n, device="cuda")
+    del g
+    A = st.HermitianMatrix.from_dense(a, nb=nb, grid=grid)
+    Bh = st.HermitianMatrix.from_dense(bm, nb=nb, grid=grid)
+    opts = {st.Option.MethodEig: st.MethodEig.DC}
+    a64, b64 = a.double(), bm.double()
+    l64 = torch.linalg.cholesky(b64)
+    ev_b = torch.linalg.eigvalsh(b64)
+    norm_a = float(torch.linalg.eigvalsh(a64).abs().max())
+    kappa = float(ev_b[-1] / ev_b[0])
+    limit = 10 * n * 2.0 ** -24 * norm_a * kappa
+    tight = n ** 0.5 * 2.0 ** -24 * norm_a * kappa
+    st.hegv(1, st.HermitianMatrix.from_dense(a[:512, :512], nb=128,
+                                             grid=grid),
+            st.HermitianMatrix.from_dense(bm[:512, :512], nb=128, grid=grid),
+            opts)                                 # warm-up
+    say(f"hegv f32 n={n} nb={nb} DC Grid(1,1): |A|_2 {norm_a:.3f}, "
+        f"kappa(B) {kappa:.3f}; bound 10*n*2^-24*|A|_2*kappa(B) = "
+        f"{limit:.3e}, tight sqrt(n)*2^-24*|A|_2*kappa(B) = {tight:.3e}")
+    counts = {}
+    nt = n // nb
+    for itype in (1, 2, 3):
+        expect = {"potrf_tile": nt, "trsm_right_lower_t": nt - 1,
+                  "hb2st_vmem": 1}
+        if itype == 1:
+            expect["trsm_left_lower"] = nt
+        base, t0 = start_path()
+        lam, Z, info = st.hegv(itype, A, Bh, opts)
+        ms, launches, peak_gib = end_path(base, t0, expect)
+        counts[f"hegv{itype}"] = launches
+        if itype == 1:
+            y = torch.linalg.solve_triangular(l64, a64, upper=False)
+            c64 = torch.linalg.solve_triangular(l64, y.T, upper=False)
+        else:
+            c64 = l64.T @ a64 @ l64
+        ref = torch.linalg.eigvalsh(c64)
+        err = float((lam.double() - ref).abs().max())
+        z = Z.to_dense().double()
+        lam64 = lam.double()
+        if itype == 1:
+            r = a64 @ z - (b64 @ z) * lam64
+        else:
+            r = (a64 @ (b64 @ z) if itype == 2 else b64 @ (a64 @ z)) \
+                - z * lam64
+        res = float(torch.linalg.norm(r) / torch.linalg.norm(z))
+        say(f"  itype {itype}: info {int(info)}, hegv_ms {ms:.3f}, "
+            f"max|lam - lam_ref| {err:.3e}, |R|_F/|Z|_F {res:.3e}, peak "
+            f"device memory above its inputs {peak_gib:.3f} GiB")
+        assert int(info) == 0 and tuple(z.shape) == (n, n)
+        assert bool(torch.isfinite(z).all()), itype
+        assert max(err, res) <= min(limit, tight), (itype, err, res)
+    return counts
+
+
+def phase_blas_band_hegv():
+    """3r: the dense Level-3 BLAS, the band BLAS, pbsv and hegv."""
+    phase_blas3()
+    counts = phase_band_blas()
+    counts["pbsv"] = phase_pbsv()
+    counts.update(phase_hegv())
+    return counts
+
+
+def phase_band_hegv_failure_report():
+    """4g: a band that is not positive definite gives pbtrf's info and,
+    with ``health=True``, a report naming its first bad block; a B that
+    is not positive definite gives hegv's info with NaN λ and Z; the
+    card and the CPU agree."""
+    import slate_tpu_torch as st
+    n, kd, nb = 2048, PB_KD, AASEN_NB
+    s = spd_band(n, kd, 57)
+    s[700, 700] = -1e3                   # band block 700 // 32 + 1 = 22
+    m = 512
+    rng = np.random.default_rng(58)
+    g = rng.standard_normal((m, m))
+    a = ((g + g.T) / 2).astype(np.float32)
+    bm = (g @ g.T / m + np.eye(m)).astype(np.float32)
+    bm[300, 300] = -100.0                # block column 300 // 128 + 1 = 3
+    out = {}
+    for dev in ("cuda", "cpu"):
+        grid = st.Grid(1, 1, device=dev)
+        A = st.HermitianBandMatrix.from_dense(s.tril().to(dev), nb=nb,
+                                              grid=grid, kl=kd, ku=kd)
+        F, info = st.pbtrf(A)
+        _, rep = st.pbtrf(A, health=True)
+        lam, Z, hinfo = st.hegv(1, st.HermitianMatrix.from_dense(
+            a, nb=128, grid=grid), st.HermitianMatrix.from_dense(
+            bm, nb=128, grid=grid))
+        out[dev] = (int(info), rep.info, rep.first_bad_tile, rep.growth,
+                    bool(torch.isfinite(F.ab).all()), int(hinfo),
+                    bool(torch.isnan(lam).all()),
+                    bool(torch.isnan(Z.to_dense()).all()))
+    say(f"band Cholesky/hegv failure report: pbtrf info, health info, "
+        f"first bad tile, growth, factor finite, hegv info, lam NaN, Z NaN: "
+        f"card {out['cuda']}, CPU {out['cpu']}")
+    assert out["cuda"] == out["cpu"] == (22, 22, (21, 21), None, True, 3,
+                                         True, True)
+
+
 def timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2573,6 +2972,8 @@ def main() -> int:
                                    phase_norms_health)
     timed("3p inverses", phase_inverses)
     timed("3q potrf 32k by tier", phase_potrf_32k)
+    counts.update(timed("3r BLAS, band BLAS, pbsv and hegv",
+                        phase_blas_band_hegv))
     timed("4 failure report", phase_failure_report)
     timed("4b LU failure report", phase_lu_failure_report)
     timed("4c QR and unpivoted-LU failure report",
@@ -2580,6 +2981,8 @@ def main() -> int:
     timed("4d eig/svd failure report", phase_eig_failure_report)
     timed("4e Aasen/band failure report", phase_aasen_band_failure_report)
     timed("4f mixed-precision failure report", phase_mixed_failure_report)
+    timed("4g band Cholesky and hegv failure report",
+          phase_band_hegv_failure_report)
     out = []
     for name, (source, replaces, path) in KERNELS.items():
         r = rows[name]

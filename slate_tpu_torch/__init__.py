@@ -13,7 +13,11 @@ the symmetric-indefinite solve by Aasen (``hetrf`` → ``hetrs`` →
 mixed-precision solves (``gesv_mixed``, ``posv_mixed`` and their
 GMRES-IR forms) with the three trailing-update precision tiers, norms,
 elementwise ops, condition estimates, ``health=True`` reports and the
-inverses (``trtri``, ``potri``, ``getri``) on one device. Its tile,
+inverses (``trtri``, ``potri``, ``getri``), the rest of Level-3 BLAS
+(``hemm``, ``symm``, ``her2k``, ``syr2k``, ``trmm``), the band BLAS
+(``gbmm``, ``hbmm``, ``tbsm``), the band Cholesky (``pbtrf`` → ``pbtrs``
+→ ``pbsv``) and the generalised eigensolver (``hegst``, ``hegv``) on one
+device. Its tile,
 panel and bulge-chase ops run hand-written CUDA kernels for Hopper
 (sm_90a) on the card, built with ``nvcc`` at first use (``csrc/``), and
 their plain PyTorch versions on the CPU.
@@ -32,23 +36,25 @@ from .errors import SlateError, InfoError, slate_error_if, raise_if_info
 from .grid import Grid
 from .matrix import (
     BaseTiledMatrix, Matrix, HermitianMatrix, TriangularMatrix, BandMatrix,
-    transpose, conj_transpose, cdiv, bc_from_tiles, bc_to_tiles,
+    TrapezoidMatrix, SymmetricMatrix, TriangularBandMatrix,
+    HermitianBandMatrix, transpose, conj_transpose, cdiv, bc_from_tiles, bc_to_tiles,
     dense_to_tiles, tiles_to_dense,
 )
 from .robust.guards import (finite_guard, info_merge, zero_nonfinite,
                             HealthReport, health_report, recent_reports)
 from .internal import kernels
-from .ops.blas import gemm, herk, syrk, trsm
+from .ops.blas import (gemm, herk, syrk, trsm, her2k, syr2k, hemm, symm,
+                       trmm, gbmm, hbmm, tbsm)
 from .ops.norms import norm, col_norms
 from .ops.elementwise import add, copy, scale, scale_row_col, set_matrix
-from .linalg.potrf import potrf, potrs, posv
+from .linalg.potrf import potrf, potrs, posv, pbtrf, pbtrs, pbsv
 from .linalg.getrf import (getrf, getrs, gesv, PivotOrder,
                            pivot_order_to_ipiv, getrf_nopiv, getrs_nopiv,
                            gesv_nopiv, gbtrf, gbtrs, gbsv)
-from .linalg.band import BandLUFactor
+from .linalg.band import BandLUFactor, BandCholFactor
 from .linalg.hetrf import hetrf, hetrs, hesv
 from .linalg.geqrf import geqrf, unmqr, gelqf, unmlq, cholqr, gels
-from .linalg.eig import heev, sterf, steqr, stedc
+from .linalg.eig import heev, hegst, hegv, sterf, steqr, stedc
 from .linalg.he2hb import he2hb
 from .linalg.ge2tb import ge2tb
 from .linalg.svd import gesvd
@@ -56,7 +62,8 @@ from .linalg.mixed import (gesv_mixed, posv_mixed, gesv_mixed_gmres,
                            posv_mixed_gmres)
 from .linalg.condest import gecondest, pocondest, trcondest
 from .linalg.trtri import trtri, trtrm, potri, getri
-from .simplified import (multiply, chol_factor, chol_solve,
+from .simplified import (multiply, triangular_multiply, triangular_solve,
+                         rank_k_update, rank_2k_update, chol_factor, chol_solve,
                          chol_solve_using_factor, lu_factor, lu_solve,
                          lu_solve_using_factor, lu_inverse_using_factor,
                          lu_inverse_using_factor_out_of_place,
@@ -72,4 +79,5 @@ from .interop import (from_reference, to_reference, pivots_from_reference,
                       band_to_reference, reflectors_from_reference,
                       reflectors_to_reference, band_lu_from_reference,
                       band_lu_to_reference, hetrf_from_reference,
-                      hetrf_to_reference)
+                      hetrf_to_reference, band_chol_from_reference,
+                      band_chol_to_reference)

@@ -14,7 +14,9 @@ array. The two-stage eig/SVD's compact bands (``ab``/``ub``
 back-transform can run on the other's stage-1 and stage-2 output. A band
 LU factor crosses as a dict of numpy arrays and ints, and the hetrf
 factors ``(L, T band LU factor, piv)`` as a dict of the three, so either
-package's ``gbtrs``/``hetrs`` can run on the other's factors.
+package's ``gbtrs``/``hetrs`` can run on the other's factors, and a band
+Cholesky factor as a dict of its packed ``ab`` and its ints, for either
+package's ``pbtrs``.
 """
 
 from __future__ import annotations
@@ -24,14 +26,17 @@ import torch
 
 from .errors import slate_error_if
 from .grid import Grid
-from .linalg.band import BandLUFactor
+from .linalg.band import BandCholFactor, BandLUFactor
 from .linalg.getrf import PivotOrder
-from .matrix import (BandMatrix, BaseTiledMatrix, HermitianMatrix, Matrix,
-                     TriangularMatrix)
+from .matrix import (BandMatrix, BaseTiledMatrix, HermitianBandMatrix,
+                     HermitianMatrix, Matrix, SymmetricMatrix,
+                     TrapezoidMatrix, TriangularBandMatrix, TriangularMatrix)
 from .types import Diag, Op, Uplo
 
 _KINDS = {cls.__name__: cls
-          for cls in (Matrix, HermitianMatrix, TriangularMatrix, BandMatrix)}
+          for cls in (Matrix, HermitianMatrix, TriangularMatrix, BandMatrix,
+                      TrapezoidMatrix, SymmetricMatrix, TriangularBandMatrix,
+                      HermitianBandMatrix)}
 
 
 def from_reference(data: np.ndarray, *, kind: str, m: int, n: int, nb: int,
@@ -158,6 +163,25 @@ def band_lu_to_reference(F: BandLUFactor) -> dict:
             "lpan": F.lpan.detach().cpu().numpy(),
             "piv": F.piv.detach().cpu().numpy().astype(np.int32),
             **{k: getattr(F, k) for k in _BAND_INTS}}
+
+
+def band_chol_from_reference(ab, *, n: int, kd: int, uplo: str = "Lower",
+                             device=None) -> BandCholFactor:
+    """The port's band Cholesky factor from a JAX ``BandCholFactor``'s
+    fields: ``np.asarray`` of its packed ``ab [kd + 1, ncols]``, its
+    ``n``, ``kd`` and the name of its ``uplo``."""
+    ab = np.asarray(ab)
+    slate_error_if(ab.ndim != 2 or ab.shape[0] != kd + 1 or ab.shape[1] < n,
+                   f"a band Cholesky factor is ab [kd + 1, >= n] = "
+                   f"[{kd + 1}, >= {n}], got {ab.shape}")
+    return BandCholFactor(_tensor(ab, device), n, kd, Uplo[uplo])
+
+
+def band_chol_to_reference(F: BandCholFactor) -> dict:
+    """The fields of :func:`band_chol_from_reference` for ``F``, for the
+    JAX ``BandCholFactor(ab, n, kd, uplo)``."""
+    return {"ab": F.ab.detach().cpu().numpy(), "n": F.n, "kd": F.kd,
+            "uplo": F.uplo.name}
 
 
 def hetrf_from_reference(L: dict, T: dict, piv, *, device=None):

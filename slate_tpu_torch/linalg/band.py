@@ -1,7 +1,9 @@
-"""Packed band storage and the band LU (reference src/gbtrf.cc,
-src/gbtrs.cc; counterpart of ``slate_tpu/linalg/band.py``).
+"""The band LU and band Cholesky on packed storage (reference
+src/gbtrf.cc, src/gbtrs.cc, src/pbtrf.cc, src/pbtrs.cc; counterpart of
+the factorization half of ``slate_tpu/linalg/band.py``).
 
-LAPACK-style packed band storage, ``ab[ku + i - j, j] = A[i, j]``. The
+The storage, ``ab[ku + i - j, j] = A[i, j]``, its windows and the
+fixed-band products and solves are in ``internal/band_packed.py``. The
 band LU follows dgbtrf's storage contract: U (with its fill-in, upper
 bandwidth kl + ku) stays in the packed array; each panel's unit-lower
 multipliers are kept, with only that panel's row interchanges applied,
@@ -16,7 +18,14 @@ they are built once per call, and each step moves its window with one
 gather and one scatter. The trailing update of each panel, whose
 contraction is the band block (below 128 for 2kl + ku < 128), goes
 through ``tile_kernels.tile_gemm`` and so to the rank-k tail kernel K11.
-pbtrf/pbtrs, tbsm and the band products are not ported (ROADMAP A9).
+
+The band Cholesky (``band.py:136-233``) takes the same windows over the
+lower packed layout: each diagonal block goes through
+``tile_kernels.tile_potrf`` (K1), its L21 through
+``tile_trsm_right_lower_t`` (K2) and the forward solve of pbtrs through
+``tile_trsm_left_lower`` (K3), where the JAX package calls XLA's
+``cholesky`` and ``triangular_solve``. pbtrs gathers all its windows at
+once.
 """
 
 from __future__ import annotations
@@ -27,17 +36,27 @@ import numpy as np
 import torch
 
 from .. import runtime
+from ..internal.band_packed import _get, _get_all, _put, _window, band_unpack
 from ..internal.precision import full_f32_matmul
-from ..internal.tile_kernels import _factor_dtype, tile_gemm
-from ..matrix import (BaseTiledMatrix, bc_from_tiles, bc_to_tiles, cdiv,
-                      dense_to_tiles, tiles_to_dense)
-from ..types import Op
+from ..internal.tile_kernels import (_factor_dtype, tile_gemm, tile_potrf,
+                                     tile_trsm_left_lower,
+                                     tile_trsm_right_lower_t)
+from ..matrix import cdiv
+from ..robust.guards import finite_guard
+from ..types import Op, Uplo
 
 
-def _band_block(n: int, kd: int) -> int:
-    """Working block size: wide enough to amortize the window moves,
-    never wider than the band is deep (``band.py:48-52``)."""
-    return max(8, min(128, ((kd + 7) // 8) * 8, ((n + 7) // 8) * 8))
+class BandCholFactor(NamedTuple):
+    """Packed band Cholesky factor: ``ab[d, j] = L[j + d, j]``,
+    d = 0 … kd, over at least n columns (``band.py:60-75``)."""
+    ab: torch.Tensor
+    n: int
+    kd: int
+    uplo: Uplo = Uplo.Lower
+
+    def to_dense(self) -> torch.Tensor:
+        """The dense lower factor L [n, n]."""
+        return band_unpack(self.ab, self.n, self.n, self.kd, 0)
 
 
 class BandLUFactor(NamedTuple):
@@ -61,76 +80,69 @@ class BandLUFactor(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# pack / unpack between dense and packed band layout
+# band Cholesky (pbtrf / pbtrs) on packed lower storage
 # ---------------------------------------------------------------------------
 
-def band_pack(a: torch.Tensor, kl: int, ku: int, ncols: int | None = None,
-              unit_pad_diag: bool = True) -> torch.Tensor:
-    """Dense [m, n] → packed ``ab[kl + ku + 1, ncols]`` with
-    ``ab[ku + i - j, j] = a[i, j]``. Columns ≥ n get an identity diagonal
-    so factorization windows that overhang the matrix stay nonsingular."""
-    m, n = a.shape
-    nc = n if ncols is None else ncols
-    dev = a.device
-    dd = torch.arange(kl + ku + 1, device=dev)[:, None]
-    jj = torch.arange(nc, device=dev)[None, :]
-    ii = jj + dd - ku
-    valid = (ii >= 0) & (ii < m) & (jj < n)
-    ab = torch.where(valid, a[ii.clamp(0, m - 1), jj.clamp(0, n - 1)], 0.0)
-    if unit_pad_diag:
-        ab = torch.where((jj >= n) & (dd == ku), 1.0, ab)
-    return ab.to(a.dtype)
+def pbtrf_packed(ab: torch.Tensor, n: int, kd: int, nb: int):
+    """Factor an SPD band A (lower packed, ``ab[kd + 1, ≥ nt·nb + nb +
+    kd]``) into L·Lᵀ in place (``band.py:160-193``). Returns
+    ``(ab, info)``: info the 1-based index of the first non-SPD block
+    column, 0 on success, a 0-dim int32 tensor on ab's device.
 
-
-def band_unpack(ab: torch.Tensor, m: int, n: int, kl: int,
-                ku: int) -> torch.Tensor:
-    """Packed ``ab[kl + ku + 1, ·]`` → dense [m, n]."""
+    Per block column: the dense [nb + kd, nb + kd] window, the diagonal
+    block mirrored from its lower half and factored by ``tile_potrf``
+    (K1), L21 = A21·L11⁻ᵀ by ``tile_trsm_right_lower_t`` (K2), the
+    trailing band block updated by one product, the window's lower band
+    written back. A failed block is reported by ``finite_guard`` and
+    zero-filled, so the loop runs to its end."""
+    nt = cdiv(n, nb)
+    h = nb + kd
     dev = ab.device
-    ii = torch.arange(m, device=dev)[:, None]
-    jj = torch.arange(n, device=dev)[None, :]
-    d = ku + ii - jj
-    valid = (d >= 0) & (d <= kl + ku)
-    return torch.where(valid, ab[d.clamp(0, kl + ku),
-                                 jj.clamp(0, ab.shape[1] - 1)], 0.0)
+    fd = _factor_dtype(ab.dtype)
+    win = _window(kd + 1, ab.shape[1], h, h, 0, dev)
+    info = torch.zeros((), dtype=torch.int32, device=dev)
+    with full_f32_matmul():
+        for k in range(nt):
+            c0 = k * nb
+            D = _get(ab, win, c0)                    # lower band valid only
+            akk = D[:nb, :nb]
+            akk = akk.tril() + akk.tril(-1).mT
+            lkk, info = finite_guard(tile_potrf(akk), info, k + 1, diag=True)
+            D[:nb, :nb] = lkk.tril()
+            if kd:
+                l21 = tile_trsm_right_lower_t(lkk.to(fd),
+                                              D[nb:, :nb].to(fd))
+                l21, info = finite_guard(l21.to(ab.dtype), info, k + 1)
+                D[nb:, :nb] = l21
+                D[nb:, nb:] -= l21 @ l21.mT
+            _put(ab, win, c0, D)
+    return ab, info
 
 
-class _Window(NamedTuple):
-    """Precomputed moves of one [hr, hc] dense window of a packed array
-    with ``ldab`` rows, band offset ``ku``, from column c0 — the port's
-    form of ``_win_to_dense``/``_dense_to_win`` (``band.py:136-152``):
-    ``gather`` flat indices into the packed array at c0 = 0 (valid where
-    ``valid``), ``dst``/``src`` the packed and dense flat indices the
-    scatter writes back (the entries whose global row lies inside the
-    window; the others keep their packed value)."""
-    gather: torch.Tensor
-    valid: torch.Tensor
-    dst: torch.Tensor
-    src: torch.Tensor
-
-
-def _window(ldab: int, ncols: int, hr: int, hc: int, ku: int,
-            device) -> _Window:
-    ii = torch.arange(hr, device=device)[:, None]
-    jj = torch.arange(hc, device=device)[None, :]
-    d = ku + ii - jj
-    valid = (d >= 0) & (d <= ldab - 1)
-    gather = d.clamp(0, ldab - 1) * ncols + jj
-    dd = torch.arange(ldab, device=device)[:, None]
-    wi = jj + dd - ku                                # dense row of each slot
-    inside = ((wi >= 0) & (wi < hr)).expand(ldab, hc)
-    dst = (dd * ncols + jj).expand(ldab, hc)[inside]
-    src = (wi.clamp(0, hr - 1) * hc + jj).expand(ldab, hc)[inside]
-    return _Window(gather, valid, dst, src)
-
-
-def _get(ab: torch.Tensor, w: _Window, c0: int) -> torch.Tensor:
-    """The dense window from column c0 (out-of-band entries 0)."""
-    return torch.where(w.valid, ab.view(-1)[w.gather + c0], 0.0)
-
-
-def _put(ab: torch.Tensor, w: _Window, c0: int, dense: torch.Tensor) -> None:
-    """Write a dense window back from column c0, in place."""
-    ab.view(-1)[w.dst + c0] = dense.reshape(-1)[w.src]
+def pbtrs_packed(abL: torch.Tensor, b: torch.Tensor, n: int, kd: int,
+                 nb: int) -> torch.Tensor:
+    """Solve L·Lᵀ·x = b from :func:`pbtrf_packed`'s factor
+    (``band.py:196-233``). ``b`` is dense [≥ nt·nb + kd, nrhs] (rows ≥ n
+    zero); a new tensor comes back. The forward solve of each diagonal
+    block goes through ``tile_trsm_left_lower`` (K3), the backward one
+    with L11ᵀ to ``torch.linalg``."""
+    nt = cdiv(n, nb)
+    h = nb + kd
+    b = b.clone()
+    blocks = _get_all(abL, _window(kd + 1, abL.shape[1], h, nb, 0,
+                                   abL.device), nb, nt)
+    lkk, l21 = blocks[:, :nb].tril(), blocks[:, nb:]
+    with full_f32_matmul():
+        for k in range(nt):
+            c0 = k * nb
+            y1 = tile_trsm_left_lower(lkk[k], b[c0:c0 + nb])
+            b[c0:c0 + nb] = y1
+            b[c0 + nb:c0 + h] -= l21[k] @ y1
+        for k in reversed(range(nt)):
+            c0 = k * nb
+            rhs = b[c0:c0 + nb] - l21[k].mT @ b[c0 + nb:c0 + h]
+            b[c0:c0 + nb] = tile_trsm_left_lower(lkk[k], rhs, trans=True)
+    return b
 
 
 # ---------------------------------------------------------------------------
@@ -253,42 +265,3 @@ def gbtrs_packed(ab: torch.Tensor, lpan: torch.Tensor, piv: torch.Tensor,
                 l11.mT, rhs, upper=True, unitriangular=True)
             b[c0:c0 + hr][perms[k]] = W
         return b
-
-
-# ---------------------------------------------------------------------------
-# tiled matrices ⇄ packed bands and dense right-hand sides
-# ---------------------------------------------------------------------------
-
-def pack_tiled(A: BaseTiledMatrix, kl: int, ku: int, ncols: int,
-               band: tuple | None = None) -> torch.Tensor:
-    """Tiled matrix → packed band [kl + ku + 1, ncols] (``band.py:455-484``,
-    its "full" mode). ``band=(bkl, bku)`` zeroes storage outside the true
-    band first, so gbtrf's fill-in diagonals start zero even where
-    band-straddling tiles hold out-of-band values. A must be
-    materialized (op resolved)."""
-    tiles = bc_to_tiles(A.data)
-    mt_p, nt_p, nb, _ = tiles.shape
-    dense = tiles_to_dense(tiles, mt_p * nb, nt_p * nb)[:A.m, :A.n]
-    if band is not None:
-        bkl, bku = band
-        ii = torch.arange(A.m, device=dense.device)[:, None]
-        jj = torch.arange(A.n, device=dense.device)[None, :]
-        dense = torch.where((jj - ii <= bku) & (ii - jj <= bkl), dense, 0.0)
-    return band_pack(dense, kl, ku, ncols)
-
-
-def _b_to_dense(B: BaseTiledMatrix, pad_rows: int) -> torch.Tensor:
-    tiles = bc_to_tiles(B.data)
-    mt_p, nt_p, nb, _ = tiles.shape
-    dense = tiles_to_dense(tiles, mt_p * nb, nt_p * nb)
-    if pad_rows > dense.shape[0]:
-        dense = torch.cat([dense, dense.new_zeros(
-            (pad_rows - dense.shape[0], dense.shape[1]))])
-    return dense
-
-
-def _dense_to_b(dense: torch.Tensor, B: BaseTiledMatrix) -> BaseTiledMatrix:
-    tiles = bc_to_tiles(B.data)
-    mt_p, nt_p, nb, _ = tiles.shape
-    tiles = dense_to_tiles(dense[:mt_p * nb, :nt_p * nb], nb, mt_p, nt_p)
-    return B._replace(data=bc_from_tiles(tiles, B.grid.p, B.grid.q))

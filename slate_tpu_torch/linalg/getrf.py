@@ -40,6 +40,7 @@ import torch
 from .. import runtime
 from ..errors import slate_error_if
 from . import band as _band
+from ..internal import band_packed as _bp
 from ..internal import panel_plu
 from ..internal.precision import (full_f32_matmul, resolve_tier,
                                   tier_addmm_, tier_mm)
@@ -515,10 +516,10 @@ def gbtrf(A, opts=None):
                    "gbtrf: complex dtypes are not ported yet")
     kl, ku = Am.kl, Am.ku
     kuf = kl + ku
-    nbw = _band._band_block(min(Am.m, Am.n), kl + kuf)
+    nbw = _bp._band_block(min(Am.m, Am.n), kl + kuf)
     nt = cdiv(min(Am.m, Am.n), nbw)
     ncols = nt * nbw + nbw + kl + kuf
-    ab = _band.pack_tiled(Am, kl, kuf, ncols, band=(kl, ku))
+    ab = _bp.pack_tiled(Am, kl, kuf, ncols, band=(kl, ku))
     ab, lpan, piv, info = _band.gbtrf_packed(ab, Am.m, Am.n, kl, ku, nbw,
                                              resolve_tier(opts))
     return (_band.BandLUFactor(ab, lpan, piv, Am.m, Am.n, kl, ku, nbw),
@@ -534,10 +535,10 @@ def gbtrs(F, piv=None, B: Matrix = None, trans: Op = Op.NoTrans,
     B = B.materialize()
     pv = F.piv if piv is None else piv
     pad = cdiv(min(F.m, F.n), F.nb) * F.nb + F.kl + F.kl + F.ku
-    b = _band._b_to_dense(B, pad)
+    b = _bp._b_to_dense(B, pad)
     x = _band.gbtrs_packed(F.ab, F.lpan, pv, b, F.m, F.n, F.kl, F.ku, F.nb,
                            trans)
-    return _band._dense_to_b(x, B)
+    return _bp._dense_to_b(x, B)
 
 
 def gbsv(A, B: Matrix, opts=None):

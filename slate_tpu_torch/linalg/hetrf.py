@@ -39,6 +39,7 @@ import torch
 
 from .. import runtime
 from ..errors import slate_error_if
+from ..internal import band_packed as _bp
 from ..internal.masks import tile_diag_pad_identity
 from ..internal.precision import full_f32_matmul, resolve_tier
 from ..internal.tile_kernels import panel_lu_factor
@@ -110,7 +111,7 @@ def _stage2(Td, Ts, n: int, nb: int, opts):
     """Stage 2: the band LU of the block-tridiagonal T (bandwidth
     2nb − 1): ``(BandLUFactor, info)``."""
     kd = 2 * nb - 1
-    nbt = _band._band_block(n, 3 * kd)
+    nbt = _bp._band_block(n, 3 * kd)
     ncols = cdiv(n, nbt) * nbt + nbt + 3 * kd
     abT = _pack_blocktridiag(Td, Ts, n, nb, kd, ncols)
     abT, lpanT, pivT, info = _band.gbtrf_packed(abT, n, n, kd, kd, nbt,

@@ -1,5 +1,7 @@
-"""Cholesky: potrf / potrs / posv on one device (reference src/potrf.cc,
-src/potrs.cc, src/posv.cc; counterpart of ``slate_tpu/linalg/potrf.py``).
+"""Cholesky: potrf / potrs / posv and the band Cholesky pbtrf / pbtrs /
+pbsv on one device (reference src/potrf.cc, src/potrs.cc, src/posv.cc,
+src/pbtrf.cc, src/pbtrs.cc, src/pbsv.cc; counterpart of
+``slate_tpu/linalg/potrf.py``).
 
 The factorization is the right-looking blocked loop over the block
 columns of the dense matrix: symmetrise and factor the diagonal tile,
@@ -18,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..errors import slate_error_if
+from ..internal import band_packed as _bp
 from ..internal.precision import (full_f32_matmul, resolve_tier,
                                   tier_context, tier_lhs, tier_rhs)
 from ..internal.tile_kernels import (_factor_dtype, tile_potrf,
@@ -29,6 +32,7 @@ from ..ops.blas import trsm
 from ..ops.norms import norm
 from ..robust.guards import finite_guard, health_report
 from ..types import Diag, Norm, Side, Uplo
+from . import band as _band
 from .condest import pocondest
 
 
@@ -175,4 +179,54 @@ def posv(A: HermitianMatrix, B: Matrix, opts=None):
     Returns (X, L, info)."""
     L, info = potrf(A, opts)
     X = potrs(L, B, opts)
+    return X, L, info
+
+
+# ---------------------------------------------------------------------------
+# band Cholesky (``potrf.py:877-926``): packed lower band storage, a
+# sliding dense window per block column (``linalg/band.py``)
+# ---------------------------------------------------------------------------
+
+def pbtrf(A, opts=None, health: bool = False):
+    """Band Cholesky of a Hermitian band A (reference src/pbtrf.cc).
+    Returns ``(BandCholFactor, info)``: the packed lower factor
+    (``.to_dense()`` gives L) and info as :func:`potrf`'s, the 1-based
+    first non-SPD block column of the band block. ``health=True`` returns
+    a :class:`~..robust.guards.HealthReport` in the info slot, with the
+    same first-block convention."""
+    Am = A.materialize()          # resolves op views; flips uplo, kl, ku
+    slate_error_if(Am.m != Am.n, "pbtrf needs a square matrix")
+    slate_error_if(Am.dtype.is_complex,
+                   "pbtrf: complex dtypes are not ported yet")
+    upper = Am.uplo == Uplo.Upper
+    kd = Am.ku if upper else Am.kl
+    nbw = _bp._band_block(Am.n, kd)
+    ncols = cdiv(Am.n, nbw) * nbw + nbw + kd
+    ab = _bp.pack_tiled(Am, kd, 0, ncols,
+                          mode="mirror_upper" if upper else "full")
+    ab, info = _band.pbtrf_packed(ab, Am.n, kd, nbw)
+    F = _band.BandCholFactor(ab, Am.n, kd)
+    if health:
+        return F, health_report("pbtrf", int(info), convention="first_block")
+    return F, info
+
+
+def pbtrs(L, B: Matrix, opts=None) -> Matrix:
+    """Solve A·X = B from :func:`pbtrf`'s factor (reference
+    src/pbtrs.cc)."""
+    slate_error_if(L.n != B.m, "pbtrs dims")
+    slate_error_if(L.ab.dtype.is_complex,
+                   "pbtrs: complex dtypes are not ported yet")
+    Bm = B.materialize()
+    nbw = _bp._band_block(L.n, L.kd)
+    b = _bp._b_to_dense(Bm, cdiv(L.n, nbw) * nbw + L.kd)
+    x = _band.pbtrs_packed(L.ab, b, L.n, L.kd, nbw)
+    return _bp._dense_to_b(x, Bm)
+
+
+def pbsv(A, B: Matrix, opts=None):
+    """Solve A·X = B by band Cholesky (reference src/pbsv.cc). Returns
+    ``(X, L, info)``."""
+    L, info = pbtrf(A, opts)
+    X = pbtrs(L, B, opts)
     return X, L, info

@@ -12,12 +12,9 @@ forms L⁻ᴴ·L⁻¹ with one product, the reference's trtrm step.
 
 from __future__ import annotations
 
-import torch
-
-from ..internal import masks
 from ..matrix import (HermitianMatrix, Matrix, TriangularMatrix,
                       conj_transpose, transpose)
-from ..ops.blas import gemm, trsm
+from ..ops.blas import _extract_triangle, gemm, trsm
 from ..ops.elementwise import set_matrix
 from ..types import Diag, Side, Uplo
 
@@ -32,19 +29,6 @@ def trtri(A: TriangularMatrix, opts=None) -> TriangularMatrix:
     X = trsm(Side.Left, 1.0, A, _identity_like(A), opts)
     return TriangularMatrix(data=X.data, m=A.m, n=A.n, nb=A.nb,
                             grid=A.grid, uplo=A.uplo, diag=A.diag)
-
-
-def _extract_triangle(A) -> Matrix:
-    """A's stored triangle as a general matrix, the rest zero; a unit
-    diagonal is written as ones."""
-    A = A.materialize()
-    tri = masks.uplo_mask(A.mtl, A.ntl, A.nb, A.uplo == Uplo.Lower,
-                          device=A.data.device)
-    out = torch.where(tri, A.data, 0)
-    if A.diag == Diag.Unit:
-        er, ec = masks.elem_index(A.mtl, A.ntl, A.nb, A.data.device)
-        out = torch.where((er == ec) & (er < A.m), 1, out).to(A.dtype)
-    return Matrix(data=out, m=A.m, n=A.n, nb=A.nb, grid=A.grid)
 
 
 def trtrm(A: TriangularMatrix, opts=None) -> HermitianMatrix:

@@ -257,8 +257,24 @@ class Matrix(BaseTiledMatrix):
     """General m×n matrix (reference Matrix.hh:26)."""
 
 
+class TrapezoidMatrix(BaseTiledMatrix):
+    """Upper or lower trapezoid (reference TrapezoidMatrix.hh): the full
+    tile stack is stored; only the ``uplo`` triangle is significant."""
+    def __init__(self, *a, **kw):
+        kw.setdefault("uplo", Uplo.Lower)
+        super().__init__(*a, **kw)
+
+
 class TriangularMatrix(BaseTiledMatrix):
     """Square triangular matrix (reference TriangularMatrix.hh)."""
+    def __init__(self, *a, **kw):
+        kw.setdefault("uplo", Uplo.Lower)
+        super().__init__(*a, **kw)
+
+
+class SymmetricMatrix(BaseTiledMatrix):
+    """Symmetric: only the ``uplo`` half is significant
+    (SymmetricMatrix.hh); the other half is junk by contract."""
     def __init__(self, *a, **kw):
         kw.setdefault("uplo", Uplo.Lower)
         super().__init__(*a, **kw)
@@ -276,6 +292,22 @@ class BandMatrix(BaseTiledMatrix):
     """General band matrix with bandwidths (kl, ku) (reference
     BandMatrix.hh). As in the JAX package's v1, the band is stored in the
     dense tile stack; the band drivers pack it."""
+
+
+class TriangularBandMatrix(BandMatrix):
+    """Triangular band matrix (reference TriangularBandMatrix.hh): the
+    ``uplo`` triangle of the (kl, ku) band is significant."""
+    def __init__(self, *a, **kw):
+        kw.setdefault("uplo", Uplo.Lower)
+        super().__init__(*a, **kw)
+
+
+class HermitianBandMatrix(BandMatrix):
+    """Hermitian band matrix (reference HermitianBandMatrix.hh): the
+    ``uplo`` half of the band is significant."""
+    def __init__(self, *a, **kw):
+        kw.setdefault("uplo", Uplo.Lower)
+        super().__init__(*a, **kw)
 
 
 # ---------------------------------------------------------------------------

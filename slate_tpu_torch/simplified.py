@@ -1,5 +1,7 @@
 """Simplified verb-named API (reference include/slate/simplified_api.hh):
-multiply → gemm, chol_factor → potrf, chol_solve → posv, lu_factor →
+multiply → gemm/hemm/symm, triangular_multiply → trmm, triangular_solve
+→ trsm, rank_k_update → herk/syrk, rank_2k_update → her2k/syr2k,
+chol_factor → potrf, chol_solve → posv, lu_factor →
 getrf, lu_solve → gesv, the inverse verbs → getri / potri, the
 unpivoted LU verbs, indefinite_factor /
 indefinite_solve → hetrf / hesv, least_squares_solve → gels, the QR/LQ
@@ -7,7 +9,7 @@ verbs, and eig_vals/eig → heev, svd_vals/svd → gesvd."""
 
 from __future__ import annotations
 
-from .errors import raise_if_info, slate_error_if
+from .errors import raise_if_info
 from .linalg.eig import heev
 from .linalg.geqrf import gelqf, gels, geqrf, unmlq, unmqr
 from .linalg.getrf import (gesv, gesv_nopiv, getrf, getrf_nopiv, getrs,
@@ -16,19 +18,51 @@ from .linalg.hetrf import hesv, hetrf, hetrs
 from .linalg.potrf import posv, potrf, potrs
 from .linalg.svd import gesvd
 from .linalg.trtri import getri, potri
-from .matrix import HermitianMatrix, TriangularMatrix
-from .ops.blas import gemm
-from .types import Op
+from .matrix import HermitianMatrix, SymmetricMatrix
+from .ops.blas import (gemm, hemm, her2k, herk, symm, syr2k, syrk, trmm,
+                       trsm)
+from .types import Op, Side
 
 
 def multiply(alpha, A, B, beta, C, opts=None):
-    """C = alpha·A·B + beta·C for general A and B (hemm/symm are not
-    ported yet, so a Hermitian or triangular operand raises)."""
-    slate_error_if(
-        isinstance(A, (HermitianMatrix, TriangularMatrix))
-        or isinstance(B, (HermitianMatrix, TriangularMatrix)),
-        "multiply: only general matrices are ported (no hemm/symm/trmm)")
+    """C = alpha·A·B + beta·C (simplified_api's gemm/hemm/symm dispatch,
+    ``simplified.py:14-24``): a Hermitian or symmetric A goes to
+    hemm/symm on the left, such a B to hemm/symm on the right, anything
+    else to gemm."""
+    if isinstance(A, HermitianMatrix):
+        return hemm(Side.Left, alpha, A, B, beta, C, opts)
+    if isinstance(A, SymmetricMatrix):
+        return symm(Side.Left, alpha, A, B, beta, C, opts)
+    if isinstance(B, HermitianMatrix):
+        return hemm(Side.Right, alpha, B, A, beta, C, opts)
+    if isinstance(B, SymmetricMatrix):
+        return symm(Side.Right, alpha, B, A, beta, C, opts)
     return gemm(alpha, A, B, beta, C, opts)
+
+
+def triangular_multiply(alpha, A, B, opts=None, side: Side = Side.Left):
+    """B ← alpha·A·B (or alpha·B·A on the right), A triangular (trmm)."""
+    return trmm(side, alpha, A, B, opts)
+
+
+def triangular_solve(alpha, A, B, opts=None, side: Side = Side.Left):
+    """Solve A·X = alpha·B (or X·A on the right), A triangular (trsm)."""
+    return trsm(side, alpha, A, B, opts)
+
+
+def rank_k_update(alpha, A, beta, C, opts=None):
+    """C ← alpha·A·Aᴴ + beta·C: herk on a Hermitian C, syrk otherwise."""
+    if isinstance(C, HermitianMatrix):
+        return herk(alpha, A, beta, C, opts)
+    return syrk(alpha, A, beta, C, opts)
+
+
+def rank_2k_update(alpha, A, B, beta, C, opts=None):
+    """C ← alpha·A·Bᴴ + conj(alpha)·B·Aᴴ + beta·C: her2k on a Hermitian
+    C, syr2k otherwise."""
+    if isinstance(C, HermitianMatrix):
+        return her2k(alpha, A, B, beta, C, opts)
+    return syr2k(alpha, A, B, beta, C, opts)
 
 
 def chol_factor(A, opts=None):

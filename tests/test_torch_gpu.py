@@ -887,3 +887,154 @@ def test_mixed_solve_on_card(cuda, solver, dt):
     else:
         err = r / (torch.linalg.norm(a64) * torch.linalg.norm(x) * n)
         assert float(err) < 100 * 2.0 ** -23
+
+
+# ---------------------------------------------------------------------------
+# Level-3 and band BLAS, band Cholesky, hegv
+# ---------------------------------------------------------------------------
+
+def _launch_delta(before):
+    torch.cuda.synchronize()
+    return {k: v - before[k] for k, v in K.LAUNCHES.items() if v != before[k]}
+
+
+@pytest.mark.parametrize("uplo", ["Lower", "Upper"])
+def test_pbsv_on_card_matches_cpu(cuda, uplo):
+    """pbsv at n = 1000, kd = 32 (band block 32, 32 block columns): K1
+    and K2 once a block column, K3 once a block of the forward solve on
+    the card and none on the CPU; equal info, X within 1e-5 of the
+    CPU's, the residual within 10·n·2⁻²⁴."""
+    n, kd = 1000, 32
+    rng = np.random.default_rng(21)
+    g = rng.standard_normal((n, n))
+    i, j = np.indices((n, n))
+    band = np.where(np.abs(i - j) <= kd, g @ g.T / n, 0) + 3 * np.eye(n)
+    stored = (np.tril(band) if uplo == "Lower" else np.triu(band))
+    b = rng.standard_normal((n, 8)).astype(np.float32)
+    out = []
+    for dev in (cuda, "cpu"):
+        grid = st.Grid(1, 1, device=dev)
+        before = dict(K.LAUNCHES)
+        X, L, info = st.pbsv(st.HermitianBandMatrix.from_dense(
+            stored.astype(np.float32), nb=256, grid=grid, kl=kd, ku=kd,
+            uplo=st.Uplo[uplo]), st.Matrix.from_dense(b, nb=256, grid=grid))
+        out.append((X.to_dense().cpu(), int(info), _launch_delta(before)))
+    nt = -(-n // 32)
+    assert out[0][2] == {"potrf_tile": nt, "trsm_right_lower_t": nt,
+                         "trsm_left_lower": nt} and out[1][2] == {}
+    assert out[0][1] == out[1][1] == 0
+    assert rel(out[0][0], out[1][0]) < TOL
+    x = out[0][0].double().numpy()
+    assert (np.linalg.norm(band @ x - b) / (np.linalg.norm(band)
+                                           * np.linalg.norm(x))
+            <= 10 * n * 2.0 ** -24)
+
+
+def test_band_blas_on_card_matches_cpu(cuda):
+    """gbmm, hbmm on both sides and tbsm on both sides (lower, upper and
+    with pivots) at n = 700, kl = ku = 16, storage nb = 128: card and CPU
+    within 1e-5; the lower left tbsm takes K3 once a band block."""
+    n, kd, nrhs, nb = 700, 16, 8, 128
+    rng = np.random.default_rng(22)
+    i, j = np.indices((n, n))
+    a = np.where(np.abs(i - j) <= kd, rng.standard_normal((n, n)), 0)
+    h = (a + a.T) / 2
+    t = np.where((i - j >= 0) & (i - j <= kd), a, 0) + n * np.eye(n)
+    b = rng.standard_normal((n, nrhs))
+    piv = np.minimum(np.arange(n) + rng.integers(0, 3, n), n - 1)
+    out = []
+    for dev in (cuda, "cpu"):
+        grid = st.Grid(1, 1, device=dev)
+
+        def M(x, cls=st.Matrix, **kw):
+            return cls.from_dense(x.astype(np.float32), nb=nb, grid=grid,
+                                  **kw)
+
+        A = M(a, st.BandMatrix, kl=kd, ku=kd)
+        H = M(np.tril(h), st.HermitianBandMatrix, kl=kd, ku=kd)
+        T = M(t, st.TriangularBandMatrix, kl=kd, ku=0)
+        U = M(t.T.copy(), st.TriangularBandMatrix, kl=0, ku=kd,
+              uplo=st.Uplo.Upper)
+        B, Bt = M(b), M(b.T.copy())
+        p = torch.from_numpy(piv.astype(np.int32)).reshape(-1, 1).to(dev)
+        C, Ct = (st.Matrix.zeros(n, nrhs, nb, grid),
+                 st.Matrix.zeros(nrhs, n, nb, grid))
+        before = dict(K.LAUNCHES)
+        res = [st.gbmm(1.0, A, B, 0.0, C),
+               st.hbmm(st.Side.Left, 1.0, H, B, 0.0, C),
+               st.hbmm(st.Side.Right, 1.0, H, Bt, 0.0, Ct),
+               st.tbsm(st.Side.Left, 1.0, T, B),
+               st.tbsm(st.Side.Left, 1.0, U, B),
+               st.tbsm(st.Side.Right, 1.0, T, Bt),
+               st.tbsm(st.Side.Left, 1.0, T, B, pivots=p)]
+        out.append(([r.to_dense().cpu() for r in res], _launch_delta(before)))
+    assert out[0][1] == {"trsm_left_lower": 2 * -(-n // 16)}
+    assert out[1][1] == {}
+    for x, y in zip(out[0][0], out[1][0]):
+        assert rel(x, y) < TOL
+
+
+def test_blas3_on_card_matches_cpu(cuda):
+    """hemm, symm, her2k, syr2k and trmm at n = 600, nb = 256 on the card
+    against the CPU within 1e-5; no kernel of the port runs (one gemm
+    each)."""
+    n, k, nb = 600, 40, 256
+    rng = np.random.default_rng(23)
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    b = rng.standard_normal((n, k)).astype(np.float32)
+    out = []
+    for dev in (cuda, "cpu"):
+        grid = st.Grid(1, 1, device=dev)
+        B = st.Matrix.from_dense(b, nb=nb, grid=grid)
+        Bt = st.Matrix.from_dense(b.T.copy(), nb=nb, grid=grid)
+        C = st.Matrix.zeros(n, k, nb, grid)
+        Ct = st.Matrix.zeros(k, n, nb, grid)
+        H = st.HermitianMatrix.from_dense(a, nb=nb, grid=grid,
+                                          uplo=st.Uplo.Upper)
+        S = st.SymmetricMatrix.from_dense(a, nb=nb, grid=grid)
+        T = st.TriangularMatrix.from_dense(a, nb=nb, grid=grid,
+                                           diag=st.Diag.Unit)
+        G = st.HermitianMatrix.zeros(n, n, nb, grid)
+        before = dict(K.LAUNCHES)
+        res = [st.hemm(st.Side.Left, 1.0, H, B, 0.0, C),
+               st.symm(st.Side.Right, 1.0, S, Bt, 0.0, Ct),
+               st.her2k(1.0, B, B, 0.0, G),
+               st.syr2k(1.0, B, B, 0.0, G),
+               st.trmm(st.Side.Left, 1.0, T, B),
+               st.trmm(st.Side.Right, 1.0, st.transpose(T), Bt)]
+        out.append(([r.to_dense().cpu() for r in res], _launch_delta(before)))
+    assert out[0][1] == out[1][1] == {}
+    for x, y in zip(out[0][0], out[1][0]):
+        assert rel(x, y) < TOL
+
+
+@pytest.mark.parametrize("itype", [1, 2, 3])
+def test_hegv_on_card_matches_cpu(cuda, itype):
+    """hegv at n = 384, nb = 128 by the two-stage DC heev (EigBand 32) on
+    the card against the CPU: λ within 10·n·2⁻²⁴·‖A‖₂·κ(B), equal info;
+    K1 3 and K2 2 (potrf of B), K3 3 for itype 1 (hegst's left solve),
+    K8 once."""
+    n, nb = 384, 128
+    rng = np.random.default_rng(24 + itype)
+    g = rng.standard_normal((n, n))
+    a = ((g + g.T) / 2).astype(np.float32)
+    g2 = rng.standard_normal((n, n))
+    bm = (g2 @ g2.T / n + np.eye(n)).astype(np.float32)
+    opts = {st.Option.MethodEig: st.MethodEig.DC, st.Option.EigBand: 32}
+    out = []
+    for dev in (cuda, "cpu"):
+        grid = st.Grid(1, 1, device=dev)
+        before = dict(K.LAUNCHES)
+        lam, Z, info = st.hegv(itype, st.HermitianMatrix.from_dense(
+            a, nb=nb, grid=grid), st.HermitianMatrix.from_dense(
+            bm, nb=nb, grid=grid), opts)
+        out.append((lam.cpu().double(), int(info), _launch_delta(before)))
+    expect = {"potrf_tile": 3, "trsm_right_lower_t": 2, "hb2st_vmem": 1}
+    if itype == 1:
+        expect["trsm_left_lower"] = 3
+    assert out[0][2] == expect and out[1][2] == {}
+    assert out[0][1] == out[1][1] == 0
+    a64, b64 = a.astype(np.float64), bm.astype(np.float64)
+    bound = (10 * n * 2.0 ** -24 * np.linalg.norm(a64, 2)
+             * np.linalg.cond(b64))
+    assert float((out[0][0] - out[1][0]).abs().max()) <= bound

@@ -211,7 +211,7 @@ def test_heev_two_stage_f32(n, nb, opts):
     assert np.linalg.norm(z.T @ z - np.eye(n)) / n <= bound
 
 
-def test_heev_auto_dense_below_threshold_and_qr_gate():
+def test_heev_auto_dense_below_threshold_and_qr_gate(grid11):
     a = sym(40, seed=2)
     A = pst.HermitianMatrix.from_dense(a, nb=8, grid=CPU)
     lam, _ = pst.heev(A)
@@ -222,8 +222,15 @@ def test_heev_auto_dense_below_threshold_and_qr_gate():
     with pytest.raises(pst.SlateError, match="complex"):
         pst.heev(A.astype(torch.complex128),
                  {pst.Option.MethodEig: pst.MethodEig.TwoStage})
-    with pytest.raises(pst.SlateError, match="not ported"):
-        pst.linalg.eig.hegv(1, A, A)
+    # hegv runs; this A is indefinite, so B = A fails potrf at block
+    # column 1 and λ and Z come out NaN, as the JAX package's do
+    lam, Z, info = pst.linalg.eig.hegv(1, A, A)
+    JA = jst.HermitianMatrix.from_dense(a, nb=8, grid=grid11)
+    jlam, JZ, jinfo = jst.hegv(1, JA, JA)
+    assert int(info) == int(jinfo) == 1
+    assert np.isnan(lam.numpy()).all() and np.isnan(np.asarray(jlam)).all()
+    assert np.isnan(Z.to_dense().numpy()).all()
+    assert np.isnan(np.asarray(JZ.to_dense())).all()
 
 
 @pytest.mark.parametrize("nb,new", [(32, 8), (48, 16), (16, 16)])

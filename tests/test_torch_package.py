@@ -110,7 +110,13 @@ def test_exports():
                  "lu_inverse_using_factor",
                  "lu_inverse_using_factor_out_of_place",
                  "chol_inverse_using_factor", "HealthReport",
-                 "health_report", "recent_reports"):
+                 "health_report", "recent_reports", "TrapezoidMatrix",
+                 "SymmetricMatrix", "TriangularBandMatrix",
+                 "HermitianBandMatrix", "her2k", "syr2k", "hemm", "symm",
+                 "trmm", "gbmm", "hbmm", "tbsm", "pbtrf", "pbtrs", "pbsv",
+                 "hegst", "hegv", "triangular_multiply", "triangular_solve",
+                 "rank_k_update", "rank_2k_update", "BandCholFactor",
+                 "band_chol_from_reference", "band_chol_to_reference"):
         assert hasattr(pst, name), name
 
 

@@ -183,8 +183,11 @@ def test_simplified_verbs():
     C = pst.multiply(1.0, G, B, 0.0, pst.Matrix.zeros(n, 2, nb, CPU,
                                                       dtype=torch.float64))
     assert np.abs(C.to_dense().numpy() - a @ b).max() < 1e-12
-    with pytest.raises(pst.SlateError):
-        pst.multiply(1.0, A, B, 0.0, C)
+    # a Hermitian A goes to hemm, as the JAX package's multiply sends it
+    H = pst.multiply(1.0, A, B, 0.0, C)
+    assert torch.equal(H.data, pst.hemm(pst.Side.Left, 1.0, A, B, 0.0,
+                                        C).data)
+    assert np.abs(H.to_dense().numpy() - a @ b).max() < 1e-12
 
 
 def test_unported_options_raise():

@@ -50,9 +50,13 @@ runs one ``gesv`` at n = 8448, nb = 256 (the flat branch) and one at
 16384/1024 (the folded one) under ``torch.profiler`` and prints every
 device kernel by name with its launches and time (as JSON files into
 ``--out DIR`` where given), the K5 launches' mean
-device time, and the copy and elementwise kernels' count. ``--only``
-takes a comma-separated subset of k1k3, k2, k4, k5, k7, k10, k11, k6,
-chase, chase_drift, lu_prof, posv.
+device time, and the copy and elementwise kernels' count. ``pbsv_prof``
+runs one ``pbsv`` at ``chip_smoke.py`` 3r's shape (f32, n = 16384,
+kd = 32, 8 right-hand sides) under ``torch.profiler`` and prints
+``chip_smoke.phase_breakdown``'s lines: wall and device busy time, the
+device time by category and the six host ops with the most self time.
+``--only`` takes a comma-separated subset of k1k3, k2, k4, k5, k7, k10,
+k11, k6, chase, chase_drift, lu_prof, pbsv_prof, posv.
 ``--sweep`` also times K1, K3 and K7 alone at widths 64 … 1024 (K3 with
 8 columns: the time per 64-wide block step) and K3 at n = 1024 over
 m = 8 … 256 beside ``solve_triangular``.
@@ -77,7 +81,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 # what --only selects (all by default)
 PARTS = ("k1k3", "k2", "k4", "k5", "k7", "k10", "k11", "k6", "chase",
-         "chase_drift", "lu_prof", "posv")
+         "chase_drift", "lu_prof", "pbsv_prof", "posv")
 
 
 def digest(ts) -> str:
@@ -449,6 +453,19 @@ def main() -> int:
                    else None)
         for n, nb, seed in ((cs.FLAT_N, cs.FLAT_NB, 5), (cs.N, cs.NB, 3)):
             lu_profile(cs, st, K, n, nb, seed, emit_line, out_dir)
+
+    if "pbsv_prof" in want:
+        grid = st.Grid(1, 1)
+        s = cs.spd_band(cs.N, cs.PB_KD, 53)
+        b = torch.randn(cs.N, cs.NRHS, generator=gen, device="cuda")
+        A = st.HermitianBandMatrix.from_dense(s.tril(), nb=cs.AASEN_NB,
+                                              grid=grid, kl=cs.PB_KD,
+                                              ku=cs.PB_KD)
+        B = st.Matrix.from_dense(b, nb=cs.AASEN_NB, grid=grid)
+        st.pbsv(A, B)                                   # warm-up
+        torch.cuda.synchronize()
+        print(f"pbsv_prof {args.label} on {smi}", flush=True)
+        cs.phase_breakdown("pbsv", lambda: st.pbsv(A, B), host_top=6)
 
     if args.sweep:
         for w in (64, 128, 256, 512, 1024):
