@@ -219,7 +219,37 @@ The Level-3 BLAS, band BLAS, band Cholesky and hegv slice (f32,
    a B that is not positive definite at block column 3 gives ``hegv``
    ``info`` 3 with NaN λ and Z; card and CPU agree.
 
-Each path of 3–3r runs with the launch counts set to 0 just before it
+The LAPACK API, stein and CALU slice (``Grid(1, 1)``):
+
+2g. K12 (``stein``, the batched tridiagonal inverse iteration that stands
+   for the JAX package's ``lax.scan``) against its plain version on the
+   card at n = k = 1024, f32 and f64, on a random and a clustered
+   tridiagonal (relative error within 1e-5); its time at n = k = 8192
+   beside the plain version's (one run) and its bound.
+3s. (a) The LAPACK shims on numpy input: ``slate_sgesv``, ``slate_sposv``,
+   ``slate_spotrf`` + ``slate_spotrs``, ``slate_sgetrf`` + ``slate_sgetrs``
+   (the pivot round trip) at n = 16384 (nb 512 by ``_default_nb``),
+   ``slate_dgesv`` at 8192, ``slate_sgels`` at 16384×4096, ``slate_sgemm``
+   and ``slate_strsm`` at 16384 against [16384, 1024], ``slate_slange``
+   of each kind, ``slate_sgesvd('N', 'N')`` at 4096: ``info``, the bounds
+   of the routine each wraps, exact launch counts, each shim's ms beside
+   the Matrix-API call it wraps. (b) ``heev`` with ``MethodEig.QR`` at
+   n = 8192, nb = 128: λ within 10·n·2⁻²⁴·‖A‖₂ of ``eigvalsh`` f64,
+   ‖A·Z − Z·Λ‖_F/‖A‖_F and ‖ZᵀZ − I‖_F/n within 10·n·2⁻²⁴, K8 1 and K12
+   1, the stage split (stein beside sterf); ``slate_ssyev('N')`` on the
+   same matrix. (c) ``gesv`` at n = 32768, nb = 1024 (the fast path, on by
+   itself; its first groups' subpanels take the CALU tournament), then
+   ``getrf_dense_inplace`` and ``potrf_dense_inplace`` at n = 65536,
+   nb = 1024 on a 17.2 GB array: GFLOP/s, the peak memory they add (at
+   most a quarter of the array's bytes), exact K4/K5 or K1/K2 counts,
+   ‖P·A − L·U‖/(n‖A‖) ≤ 1e-5 and ‖A·X − B‖/(‖A‖·‖X‖) ≤ 10·n·2⁻²⁴.
+4h. A singular ``slate_sgesv`` (n = 512, nb = 128, the fast path forced)
+   gives the same ``info`` on the card and the CPU; a complex shim raises; ``slate_sgetrs`` with another pivot
+   blocking raises; ``plu_panel``'s tournament (h = 18432) on a panel with
+   a zero column gives the same pivots, ``info`` and zero multipliers on
+   the card and the CPU.
+
+Each path of 3–3s runs with the launch counts set to 0 just before it
 and read just after. Any failure raises and the script exits non-zero.
 Without a CUDA card it exits with code 2 before doing anything. The last
 line is ``{"ok": true, "device": {...}}``.
@@ -306,6 +336,8 @@ KERNELS = {
     "rank_k_tail_pallas": ("slate_tpu_torch/csrc/rank_k_tail.cu",
                            "slate_tpu/internal/pallas_kernels.py:644",
                            "gbsv"),
+    "stein": ("slate_tpu_torch/csrc/stein_tridiag.cu",
+              "slate_tpu/linalg/stein.py:49 (lax.scan)", "heev_qr"),
 }
 # K8 and K9 a wave-equivalent at (8192, 128) in their former design of one
 # launch per wave (commits 6498b2e and 274cf77; NVIDIA H100 80GB HBM3, 700 W)
@@ -898,9 +930,10 @@ def phase_lu_kernels():
     return rows
 
 
-def check_lu(a, LU, piv, X, b, label):
+def check_lu(a, LU, piv, X, b, label, calu=False):
     """info-independent checks of one LU solve on the card: residual,
-    ‖P·A − L·U‖ / (n‖A‖) and max|L|."""
+    ‖P·A − L·U‖ / (n‖A‖) and max|L| (printed only where ``calu``: a
+    tournament's |L| may exceed 1, tests/test_getrf.py:225)."""
     from slate_tpu_torch import runtime
     n = a.shape[0]
     lu = LU.to_dense()
@@ -917,14 +950,16 @@ def check_lu(a, LU, piv, X, b, label):
     lmax = float(l.abs().max())
     limit = 10 * n * 2.0 ** -24
     say(f"  {label}: residual {r:.3e} (bound {limit:.3e}), |PA-LU|/(n|A|) "
-        f"{f:.3e} (bound 1e-5), max|L| {lmax:.6f} (bound 1+1e-5)")
+        f"{f:.3e} (bound 1e-5), max|L| {lmax:.6f} "
+        f"({'CALU, no bound' if calu else 'bound 1+1e-5'})")
     assert bool(torch.isfinite(x).all()) and tuple(x.shape) == tuple(b.shape)
     assert r <= limit, f"{label}: residual {r} above {limit}"
     assert f <= 1e-5, f"{label}: |PA-LU| {f} above 1e-5"
-    assert lmax <= 1.0 + 1e-5, f"{label}: max|L| {lmax}"
+    assert calu or lmax <= 1.0 + 1e-5, f"{label}: max|L| {lmax}"
 
 
-def run_gesv(n, nb, seed, expect_nonzero, label, breakdown=False):
+def run_gesv(n, nb, seed, expect_nonzero, label, breakdown=False,
+             calu=False):
     """One LU solve path on the card: gesv on a seeded Gaussian A with
     the launch counts set to 0 just before and read just after."""
     import slate_tpu_torch as st
@@ -958,7 +993,7 @@ def run_gesv(n, nb, seed, expect_nonzero, label, breakdown=False):
         f"memory above its inputs {peak_gib:.3f} GiB")
     say(f"  kernels: {json.dumps(launches)}")
     assert info == 0, f"gesv info {info}"
-    check_lu(a, LU, piv, X, b, label)
+    check_lu(a, LU, piv, X, b, label, calu)
     expect = {**dict.fromkeys(K.LAUNCHES, 0), **expect_nonzero}
     assert launches == expect, f"launches {launches}, expected {expect}"
     if breakdown:
@@ -2922,6 +2957,532 @@ def phase_band_hegv_failure_report():
                                          True, True)
 
 
+# ---------------------------------------------------------------------------
+# the LAPACK API, stein and CALU slice
+# ---------------------------------------------------------------------------
+
+STEIN_N = EIG_N           # K12 timed at heev's n = k = 8192
+STEIN_CHECK_N = 1024      # K12 held to its plain version at n = k = 1024
+SHIM_NB = 512             # lapack_api._default_nb at n = 16384
+CALU_N = 32768            # the fast path's top, two-chunk tournaments
+DENSE_N = 65536           # BASELINE.json's headline size (17.2 GB f32)
+
+
+def stein_inputs(n, kind, dt, seed):
+    """A symmetric tridiagonal (random, or clusters of 16 eigenvalues
+    within ~1e-5 of each integer), its perturbed shifts and a start
+    uniform in [0.5, 1), on the card."""
+    from slate_tpu_torch.linalg import eig, stein
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        d, e = rng.standard_normal(n), rng.standard_normal(n - 1)
+    else:
+        d = np.floor(np.arange(n) / 16.0) + 1e-7 * rng.standard_normal(n)
+        e = 1e-5 * rng.standard_normal(n - 1)
+    lam_p, _, _ = stein.shifts(d, e, eig.sterf(d, e), dt)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x0 = torch.empty((n, n), dtype=dt, device="cuda").uniform_(
+        0.5, 1.0, generator=gen)
+    return [torch.tensor(v, dtype=dt, device="cuda") for v in (d, e, lam_p)
+            ] + [x0]
+
+
+def stein_bound(n, k, iters=2):
+    """K12's least time: its inputs (X0, d, e, λ) read once and X written
+    once, or its operations (a forward row ~11, a back row ~6, the
+    renormalisation 2 a sweep; the 2-norm and sign 6), the larger."""
+    flops = (iters * (11 + 6 + 2) + 6) * n * k
+    return bound(flops, (2 * n * k + 3 * n) * 4)
+
+
+def phase_stein_kernel():
+    """2g: K12 against its plain version on the card at n = k = 1024, f32
+    and f64, on a random and a clustered tridiagonal, and at n = k = 8192
+    (f32, heev's shape; its max_abs_err is the row's); its time there
+    beside the plain version's (one run: ~25 launches a row) and its
+    bound."""
+    from slate_tpu_torch.internal import kernels as K
+    say("stein kernel (K12, batched inverse iteration) vs plain on the card:")
+    for dt in (torch.float32, torch.float64):
+        for kind in ("random", "clustered"):
+            args = stein_inputs(STEIN_CHECK_N, kind, dt, 70)
+            check("stein", lambda: K.stein_iter(*args, 2),
+                  lambda: K.stein_iter_plain(*args, 2),
+                  f"n=k={STEIN_CHECK_N} {str(dt)[6:]} {kind}")
+    args = stein_inputs(STEIN_N, "random", torch.float32, 71)
+    ms = time_ms(lambda: K.stein_iter(*args, 2))
+    plain = {}
+
+    def plain_run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain["out"] = K.stein_iter_plain(*args, 2)
+        torch.cuda.synchronize()
+        plain["ms"] = (time.perf_counter() - t0) * 1e3
+        return plain["out"]
+    # the main path's shape (heev QR at 8192): the kernel held to the
+    # plain version's one run, which is also its time
+    mx = check("stein", lambda: K.stein_iter(*args, 2), plain_run,
+               f"n=k={STEIN_N} float32 random")
+    plain_ms = plain["ms"]
+    bnd = stein_bound(STEIN_N, STEIN_N)
+    traffic = 28 * STEIN_N * STEIN_N * 4 / HBM_RATE * 1e3
+    say(f"  stein n=k={STEIN_N} f32: kernel_ms {ms:.4f}, plain_ms "
+        f"{plain_ms:.1f} (one run), bound_ms {bnd[0]:.4f} ({bnd[1]}); the "
+        f"design's own traffic (28·n·k·4 B: fill rows written and read "
+        f"back, two sweeps) over 3.35 TB/s {traffic:.4f} ms")
+    return {"stein": dict(max_abs_err=mx, ms=ms, plain_ms=plain_ms,
+                          library_ms=None, bound=bnd)}
+
+
+def lu_fast_counts(n, nb, hmax=16384, w=128, group=4):
+    """The K4/K5 launches of the pivoting-by-index LU at n, nb
+    (``linalg/getrf._getrf_fast_group_core``): per group, subpanels
+    taller than H_MAX through plu_panel's tournament (a folded
+    plu_subpanel per H_MAX chunk and one final round on the winners),
+    the folded branch where the window is a multiple of 1024 rows, the
+    flat branch otherwise."""
+    c = dict.fromkeys(("plu_call", "plu_call_folded", "plu_call_folded_block",
+                       "transpose_tiled", "transpose_fold", "fold_panel",
+                       "unfold_panel", "unfold_transpose"), 0)
+
+    def subpanel(h, times):
+        if h % 1024 == 0:
+            for k in ("transpose_fold", "plu_call_folded",
+                      "unfold_transpose"):
+                c[k] += times
+        else:
+            c["transpose_tiled"] += 2 * times
+            c["plu_call"] += times
+
+    kt = n // nb
+    for g0 in range(0, kt, group):
+        gsz = min(group, kt - g0)
+        hw = n - g0 * nb
+        subs = gsz * (nb // w)
+        if hw > hmax:
+            nch = -(-hw // hmax)
+            subpanel(hmax, subs * nch)
+            subpanel(max(nch * w, 8), subs)
+        elif hw % 1024 == 0:
+            c["fold_panel"] += gsz
+            c["unfold_panel"] += gsz
+            c["plu_call_folded_block"] += subs
+        else:
+            c["transpose_tiled"] += 2 * gsz
+            c["plu_call"] += subs
+    return {k: v for k, v in c.items() if v}
+
+
+def solve_residual(a, x, b):
+    """‖A·X − B‖_F/(‖A‖_F·‖X‖_F), FP32 products on the card."""
+    with _f32():
+        return float(torch.linalg.norm(a @ x - b)
+                     / (torch.linalg.norm(a) * torch.linalg.norm(x)))
+
+
+def shim_call(label, api, shim, expect):
+    """The Matrix-API call (a warm-up, then timed, not counted), then the
+    shim on numpy (timed, launch counts exact); prints both times."""
+    api()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    api()
+    torch.cuda.synchronize()
+    api_ms = (time.perf_counter() - t0) * 1e3
+    base, t0 = start_path()
+    out = shim()
+    ms, launches, _ = end_path(base, t0, expect)
+    say(f"  {label}: shim_ms {ms:.3f} (numpy in and out), Matrix API "
+        f"{api_ms:.3f} ms")
+    return out, launches
+
+
+def phase_lapack_shims():
+    """3s (a): the LAPACK shims on numpy input at full width, each beside
+    the Matrix-API call it wraps, with exact launch counts and the bounds
+    of the routine it wraps."""
+    import slate_tpu_torch as st
+    from slate_tpu_torch import lapack_api as la
+    grid = st.Grid(1, 1)
+    n, nb, nt = N, SHIM_NB, N // SHIM_NB
+    gen = torch.Generator(device="cuda").manual_seed(72)
+    g = torch.randn(n, n, generator=gen, device="cuda")
+    with _f32():
+        s = g @ g.T / n + torch.eye(n, device="cuda")
+    b = torch.randn(n, NRHS, generator=gen, device="cuda")
+    g_np, s_np, b_np = g.cpu().numpy(), s.cpu().numpy(), b.cpu().numpy()
+    A = st.Matrix.from_dense(g, nb=nb, grid=grid)
+    S = st.HermitianMatrix.from_dense(s, nb=nb, grid=grid)
+    B = st.Matrix.from_dense(b, nb=nb, grid=grid)
+    limit = 10 * n * 2.0 ** -24
+    lu = lu_fast_counts(n, nb)
+    chol = {"potrf_tile": nt, "trsm_right_lower_t": nt - 1}
+    say(f"LAPACK API: shims on numpy f32 n={n} (nb {nb} by _default_nb), "
+        f"nrhs={NRHS}, on Grid(1,1):")
+    counts = {}
+    res = {}
+    (x, info), counts["sgesv"] = shim_call(
+        "slate_sgesv", lambda: st.gesv(A, B),
+        lambda: la.slate_sgesv(g_np, b_np), {**lu, "trsm_left_lower": nt})
+    res["sgesv"] = (info, solve_residual(g, torch.from_numpy(x).cuda(), b))
+    (x, info), counts["sposv"] = shim_call(
+        "slate_sposv", lambda: st.posv(S, B),
+        lambda: la.slate_sposv("L", s_np, b_np),
+        {**chol, "trsm_left_lower": nt})
+    res["sposv"] = (info, solve_residual(s, torch.from_numpy(x).cuda(), b))
+    (l, info), counts["spotrf"] = shim_call(
+        "slate_spotrf", lambda: st.potrf(S),
+        lambda: la.slate_spotrf("L", s_np), chol)
+    L = st.potrf(S)[0]
+    x, counts["spotrs"] = shim_call(
+        "slate_spotrs", lambda: st.potrs(L, B),
+        lambda: la.slate_spotrs("L", l, b_np), {"trsm_left_lower": nt})
+    res["spotrf+spotrs"] = (info, solve_residual(
+        s, torch.from_numpy(x).cuda(), b))
+    (lu_np, piv, info), counts["sgetrf"] = shim_call(
+        "slate_sgetrf", lambda: st.getrf(A), lambda: la.slate_sgetrf(g_np),
+        lu)
+    assert piv.shape == (nt, nb) and piv.dtype == np.int32
+    LU, piv_t, _ = st.getrf(A)
+    assert np.array_equal(piv, piv_t.cpu().numpy()), "sgetrf pivots"
+    x, counts["sgetrs"] = shim_call(
+        "slate_sgetrs", lambda: st.getrs(LU, piv_t, B),
+        lambda: la.slate_sgetrs("n", lu_np, piv.reshape(-1), b_np),
+        {"trsm_left_lower": nt})
+    res["sgetrf+sgetrs"] = (info, solve_residual(
+        g, torch.from_numpy(x).cuda(), b))
+    for name, (info, r) in res.items():
+        say(f"  {name}: info {info}, |AX - B|/(|A||X|) {r:.3e} (bound "
+            f"{limit:.3e})")
+        assert info == 0 and r <= limit, (name, info, r)
+    del S, L, LU, s, s_np, lu_np
+
+    nd = n // 2                                  # dgesv at 8192
+    a64 = g[:nd, :nd].double()
+    a64_np, b64_np = a64.cpu().numpy(), b[:nd].double().cpu().numpy()
+    A64 = st.Matrix.from_dense(a64, nb=nb, grid=grid)
+    B64 = st.Matrix.from_dense(b[:nd].double(), nb=nb, grid=grid)
+    (x, info), counts["dgesv"] = shim_call(
+        f"slate_dgesv n={nd}", lambda: st.gesv(A64, B64),
+        lambda: la.slate_dgesv(a64_np, b64_np), {})
+    r = float(torch.linalg.norm(a64 @ torch.from_numpy(x).cuda()
+                                - b[:nd].double())
+              / (torch.linalg.norm(a64) * np.linalg.norm(x)))
+    lim64 = 10 * nd * 2.0 ** -53
+    say(f"  slate_dgesv: info {info}, |AX - B|/(|A||X|) {r:.3e} (bound "
+        f"{lim64:.3e})")
+    assert info == 0 and r <= lim64, r
+    del A64, B64, a64
+
+    m, k = n, n // 4                             # gels 16384 x 4096
+    at = g[:, :k].contiguous()
+    At = st.Matrix.from_dense(at, nb=nb, grid=grid)
+    x, counts["sgels"] = shim_call(
+        f"slate_sgels {m}x{k}", lambda: st.gels(At, B),
+        lambda: la.slate_sgels(g_np[:, :k], b_np),
+        {"potrf_tile": k // nb, "trsm_right_lower_t": k // nb - 1})
+    r = normal_residual(at, torch.from_numpy(x).cuda(), b)
+    lim = 10 * m * 2.0 ** -24
+    say(f"  slate_sgels (CholQR, m >= 2n): |A^T(AX - B)|/(|A|(|A||X| + "
+        f"|B|)) {r:.3e} (bound {lim:.3e})")
+    assert tuple(x.shape) == (k, NRHS) and r <= lim, r
+    del At, at
+
+    w = NB                                       # [16384, 1024] operands
+    c = torch.randn(n, w, generator=gen, device="cuda")
+    c_np = c.cpu().numpy()
+    C = st.Matrix.from_dense(c, nb=nb, grid=grid)
+    Z0 = st.Matrix.zeros(n, w, nb, grid)
+    out, counts["sgemm"] = shim_call(
+        f"slate_sgemm [{n},{n}]x[{n},{w}]",
+        lambda: st.gemm(1.0, A, C, 0.0, Z0),
+        lambda: la.slate_sgemm("n", "n", 1.0, g_np, c_np, 0.0,
+                               np.zeros((n, w), np.float32)), {})
+    ref = g.double() @ c.double()
+    err = float(torch.linalg.norm(torch.from_numpy(out).cuda().double() - ref)
+                / torch.linalg.norm(ref))
+    lim, tight = 10 * n * 2.0 ** -24, 16 * n ** 0.5 * 2.0 ** -24
+    say(f"  slate_sgemm: |C - C64|/|C64| {err:.3e} (bounds {lim:.3e}, tight "
+        f"{tight:.3e})")
+    assert err <= min(lim, tight), err
+    del ref
+    t = torch.tril(g) / n
+    t.diagonal().add_(1.0)
+    t_np = t.cpu().numpy()
+    T = st.TriangularMatrix.from_dense(t, nb=nb, grid=grid)
+    x, counts["strsm"] = shim_call(
+        f"slate_strsm [{n},{n}] \\ [{n},{w}]",
+        lambda: st.trsm(st.Side.Left, 1.0, T, C),
+        lambda: la.slate_strsm("L", "L", "N", "N", 1.0, t_np, c_np),
+        {"trsm_left_lower": nt})
+    r = solve_residual(t, torch.from_numpy(x).cuda(), c)
+    say(f"  slate_strsm: |TX - B|/(|T||X|) {r:.3e} (bound {limit:.3e})")
+    assert r <= limit, r
+    del T, t, t_np, C, c, c_np
+
+    g64 = g.double()
+    for kind, ref in (("F", torch.linalg.norm(g64)),
+                      ("1", g64.abs().sum(0).max()),
+                      ("I", g64.abs().sum(1).max()),
+                      ("M", g64.abs().max())):
+        v, counts[f"slange {kind}"] = shim_call(
+            f"slate_slange '{kind}'", lambda: st.norm(
+                {"F": st.Norm.Fro, "1": st.Norm.One, "I": st.Norm.Inf,
+                 "M": st.Norm.Max}[kind], A),
+            lambda: la.slate_slange(kind, g_np), {})
+        e = abs(v - float(ref)) / float(ref)
+        say(f"    rel. error {e:.3e} (bound {n * 2.0 ** -24:.3e})")
+        assert e <= n * 2.0 ** -24, (kind, e)
+    del g64
+
+    q = n // 4                                   # gesvd values 4096
+    gq = g[:q, :q].contiguous()
+    sv, counts["sgesvd"] = shim_call(
+        f"slate_sgesvd('N','N') n={q}",
+        lambda: st.gesvd(st.Matrix.from_dense(gq, nb=nb, grid=grid)),
+        lambda: la.slate_sgesvd("N", "N", gq.cpu().numpy()), {})
+    ref = torch.linalg.svdvals(gq.double())
+    err = float((torch.from_numpy(sv[0]).cuda().double() - ref).abs().max()
+                / ref[0])
+    lim = 10 * q * 2.0 ** -24
+    say(f"  slate_sgesvd: max|s - s_ref|/s_max {err:.3e} (bound {lim:.3e}), "
+        f"info {sv[3]}")
+    assert sv[1] is None and sv[2] is None and sv[3] == 0 and err <= lim
+    return counts
+
+
+def phase_heev_qr():
+    """3s (b): heev with MethodEig.QR at n = 8192, nb = 128 (3h's shape,
+    now with vectors): values by host QR iteration, vectors by K12 and
+    the cluster QR; λ within 10·n·2⁻²⁴·‖A‖₂ of eigvalsh f64, residual
+    and orthogonality within 10·n·2⁻²⁴; K8 1, K12 1. Then slate_ssyev('N')
+    on the same matrix."""
+    import slate_tpu_torch as st
+    from slate_tpu_torch import lapack_api as la
+    grid = st.Grid(1, 1)
+    n, nb = EIG_N, EIG_NB
+    a = sym_matrix(n, 73)
+    A = st.HermitianMatrix.from_dense(a, nb=nb, grid=grid)
+    opts = {st.Option.MethodEig: st.MethodEig.QR}
+    st.heev(st.HermitianMatrix.from_dense(a[:1024, :1024], nb=nb, grid=grid),
+            opts)                                    # warm-up
+    base, t0 = start_path()
+    (lam, Z), times, split = timed_stages(lambda t: st.heev(A, opts, True, t))
+    ms, launches, peak_gib = end_path(base, t0, {"hb2st_vmem": 1,
+                                                 "stein": 1})
+    a64 = a.double()
+    ref = torch.linalg.eigvalsh(a64)
+    norm2 = float(ref.abs().max())
+    z = Z.to_dense().double()
+    lam64 = lam.double()
+    err = float((lam64 - ref).abs().max())
+    res = float(torch.linalg.norm(a64 @ z - z * lam64)
+                / torch.linalg.norm(a64))
+    orth = float(torch.linalg.norm(z.T @ z - torch.eye(
+        n, dtype=torch.float64, device="cuda")) / n)
+    limit = 10 * n * 2.0 ** -24
+    say(f"heev QR with vectors f32 n={n} nb={nb} Grid(1,1): max|lam - "
+        f"lam_ref| {err:.3e} (bound {limit * norm2:.3e}), |AZ - ZL|_F/|A|_F "
+        f"{res:.3e}, |Z^T Z - I|_F/n {orth:.3e} (bound {limit:.3e} each)")
+    say(f"  heev_qr_ms {ms:.3f} (stage clock on), peak device memory above "
+        f"its inputs {peak_gib:.3f} GiB; stage split ms: {split}; stein "
+        f"{times['stein'] * 1e3:.3f} beside sterf {times['sterf'] * 1e3:.3f}")
+    assert tuple(z.shape) == (n, n) and bool(torch.isfinite(z).all())
+    assert err <= limit * norm2 and max(res, orth) <= limit, (err, res, orth)
+    del z, Z
+    a_np = a.cpu().numpy()
+    (w, zz, info), _ = shim_call(
+        f"slate_ssyev('N') n={n}", lambda: st.heev(
+            st.HermitianMatrix.from_dense(a, nb=SHIM_NB, grid=grid),
+            want_vectors=False), lambda: la.slate_ssyev("N", "L", a_np), {})
+    e = float((torch.from_numpy(w).cuda().double() - ref).abs().max())
+    say(f"  slate_ssyev: max|lam - lam_ref| {e:.3e} (bound "
+        f"{limit * norm2:.3e}), info {info}")
+    assert zz is None and info == 0 and e <= limit * norm2, e
+    return launches
+
+
+def lu_factor_error(a, lu, piv, rows=4096):
+    """‖P·A − L·U‖_F/(n‖A‖_F) of a dense in-place LU, formed a block of
+    ``rows`` rows at a time in FP32 (L·U is never held whole)."""
+    from slate_tpu_torch import runtime
+    n = a.shape[0]
+    perm = torch.from_numpy(runtime.resolve_pivots(piv.cpu().numpy(), n)
+                            ).to(a.device)
+    sq = 0.0
+    with _f32():
+        for r0 in range(0, n, rows):
+            r1 = min(r0 + rows, n)
+            l = torch.tril(lu[r0:r1, :r1], r0 - 1)
+            l[:, r0:r1].diagonal().fill_(1.0)
+            d = a[perm[r0:r1]].clone()
+            for k0 in range(0, r1, rows):
+                k1 = min(k0 + rows, r1)
+                u = lu[k0:k1].clone()
+                u[:, :k1].copy_(torch.triu(u[:, :k1], k0))
+                d.addmm_(l[:, k0:k1], u, alpha=-1)
+                del u
+            sq += float(torch.linalg.norm(d)) ** 2
+            del l, d
+        an = float(torch.linalg.norm(a))
+    return sq ** 0.5 / (n * an)
+
+
+def run_dense_entry(kind):
+    """getrf_dense_inplace or potrf_dense_inplace at n = 65536, nb = 1024
+    on the caller's 17.2 GB array: GFLOP/s, the peak memory added (at most
+    a quarter of the array's bytes), exact launch counts, and the bounds:
+    ‖P·A − L·U‖/(n‖A‖) ≤ 1e-5 (getrf) and ‖A·X − B‖/(‖A‖·‖X‖) ≤ 10·n·2⁻²⁴
+    (X by two triangular solves on the factor, a copy of A kept)."""
+    import slate_tpu_torch as st
+    from slate_tpu_torch import runtime
+    n, nb = DENSE_N, NB
+    gen = torch.Generator(device="cuda").manual_seed(74)
+    a = torch.empty(n, n, device="cuda")
+    a.normal_(generator=gen)
+    if kind == "potrf":
+        # symmetric, SPD by diagonal dominance (off-diagonal row sums
+        # ~0.8·√n against a diagonal of 2·√n)
+        a.mul_(n ** -0.5)
+        for i in range(0, n, nb):
+            blk = a[i:i + nb, i:i + nb]
+            blk.copy_(blk.tril() + blk.tril(-1).T)
+            a[i:i + nb, i + nb:] = a[i + nb:, i:i + nb].T
+        a.diagonal().add_(2.0 * n ** 0.5)
+    a0 = a.clone()
+    b = torch.randn(n, NRHS, generator=gen, device="cuda")
+    nbytes = a.numel() * 4
+    expect = (lu_fast_counts(n, nb) if kind == "getrf" else
+              {"potrf_tile": n // nb, "trsm_right_lower_t": n // nb - 1})
+    base, t0 = start_path()
+    ptr = a.data_ptr()
+    if kind == "getrf":
+        out, piv, info = st.getrf_dense_inplace(a, nb=nb)
+        flops = 2 * n ** 3 / 3
+    else:
+        out, info = st.potrf_dense_inplace(a, nb=nb)
+        flops = n ** 3 / 3
+    ms, launches, _ = end_path(base, t0, expect)
+    peak = torch.cuda.max_memory_allocated() - base
+    info = int(info)
+    assert out.data_ptr() == ptr and info == 0, info
+    say(f"{kind}_dense_inplace f32 n={n} nb={nb}: info {info}, "
+        f"{kind}_dense_ms {ms:.1f} ({flops / ms / 1e6:.1f} GFLOP/s), peak "
+        f"device memory added {peak / 2 ** 30:.3f} GiB beside the array's "
+        f"{nbytes / 2 ** 30:.3f} GiB ({peak / nbytes:.4f}; bound 0.25)")
+    assert peak <= 0.25 * nbytes, peak / nbytes
+    with _f32():
+        if kind == "getrf":
+            perm = torch.from_numpy(runtime.resolve_pivots(
+                piv.cpu().numpy(), n)).to(a.device)
+            y = torch.linalg.solve_triangular(out, b[perm], upper=False,
+                                              unitriangular=True)
+            x = torch.linalg.solve_triangular(out, y, upper=True)
+        else:
+            y = torch.linalg.solve_triangular(out, b, upper=False)
+            x = torch.linalg.solve_triangular(out.mT, y, upper=True)
+        r = solve_residual(a0, x, b)
+    limit = 10 * n * 2.0 ** -24
+    msg = f"  |AX - B|/(|A||X|) {r:.3e} (bound {limit:.3e})"
+    if kind == "getrf":
+        f = lu_factor_error(a0, out, piv)
+        lmax = float(torch.tril(out, -1).abs().max())
+        msg += (f", |PA-LU|/(n|A|) {f:.3e} (bound 1e-5), max|L| {lmax:.6f} "
+                f"(CALU, no bound)")
+        assert f <= 1e-5, f
+    say(msg)
+    assert bool(torch.isfinite(x).all()) and r <= limit, r
+    return launches
+
+
+def phase_calu_dense():
+    """3s (c): gesv at n = 32768, nb = 1024 on the tiled fast path (on by
+    itself up to 32768; its first groups' subpanels take the two-chunk
+    tournament), then the donated dense entries at n = 65536."""
+    counts = {"gesv_32k": run_gesv(
+        CALU_N, NB, 75, {**lu_fast_counts(CALU_N, NB),
+                         "trsm_left_lower": CALU_N // NB},
+        "CALU fast path", calu=True)}
+    torch.cuda.empty_cache()
+    for kind in ("getrf", "potrf"):
+        counts[f"{kind}_dense"] = run_dense_entry(kind)
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_lapack_stein_calu():
+    """3s: the LAPACK shims, heev QR through stein, CALU and the dense
+    entries."""
+    counts = timed("3s (a) LAPACK shims", phase_lapack_shims)
+    counts["heev_qr"] = timed("3s (b) heev QR with stein", phase_heev_qr)
+    counts.update(timed("3s (c) CALU and the dense entries",
+                        phase_calu_dense))
+    return counts
+
+
+def phase_lapack_calu_failure_report():
+    """4h: a singular slate_sgesv (n = 512) gives the same info on the
+    card and the CPU, at the shim's default nb = 64 (the dense path) and
+    at nb = 128 with the fast path forced on both devices; a complex
+    shim raises;
+    slate_sgetrs with another ipiv blocking raises; plu_panel's tournament
+    (h = 18432 > H_MAX, two chunks) on a panel with a zero column gives
+    the same pivots, info and zero multipliers on the card and the CPU."""
+    import slate_tpu_torch as st
+    from slate_tpu_torch import lapack_api as la
+    from slate_tpu_torch.internal import panel_plu as pp
+    rng = np.random.default_rng(76)
+    n = 512
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    a[:, 100] = 0.0
+    b = rng.standard_normal((n, 2)).astype(np.float32)
+    dense = {dev: la.slate_sgesv(a, b, grid=st.Grid(1, 1, device=dev))[1]
+             for dev in ("cuda", "cpu")}
+    os.environ["SLATE_LU_FAST"] = "1"
+    try:
+        infos = {dev: la.slate_sgesv(a, b, 128,
+                                     grid=st.Grid(1, 1, device=dev))[1]
+                 for dev in ("cuda", "cpu")}
+    finally:
+        os.environ.pop("SLATE_LU_FAST")
+    raised = []
+    try:
+        la.slate_zgesv(a, b)
+    except st.SlateError as e:
+        raised.append("complex" in str(e))
+    lu, piv, _ = la.slate_sgetrf(a + np.eye(n, dtype=np.float32), nb=64)
+    try:
+        la.slate_sgetrs("n", lu, piv, b, nb=128)
+    except st.SlateError as e:
+        raised.append("pivot blocking" in str(e))
+    h = pp.H_MAX + 2048
+    sub = rng.standard_normal((h, pp.W)).astype(np.float32)
+    sub[:, 7] = 0.0
+    out = {}
+    for dev in ("cuda", "cpu"):
+        res = pp.plu_panel(torch.tensor(sub, device=dev),
+                           torch.ones(h, device=dev))
+        o, p_, act, info = (r.cpu() for r in res)
+        zcol = torch.diagonal(o[p_.long()].triu()) == 0
+        zero_mult = bool((o[act > 0][:, zcol] == 0).all())
+        out[dev] = (o, p_, int(info), int(zcol.sum()), zero_mult)
+    same = torch.equal(out["cuda"][1], out["cpu"][1])
+    err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    say(f"LAPACK/CALU failure report: singular sgesv info card "
+        f"{dense['cuda']}, CPU {dense['cpu']} (dense path, nb 64), card "
+        f"{infos['cuda']}, CPU {infos['cpu']} (fast path, nb 128); "
+        f"complex shim and ipiv "
+        f"blocking raise {raised}; tournament h={h} zero column: pivots "
+        f"equal {same}, info card {out['cuda'][2]} CPU {out['cpu'][2]}, zero "
+        f"pivots {out['cuda'][3]}, zero multipliers {out['cuda'][4]}, max "
+        f"|card - CPU| {err:.3e}")
+    assert dense["cuda"] == dense["cpu"] == 1
+    assert infos["cuda"] == infos["cpu"] == 1 and raised == [True, True]
+    assert same and out["cuda"][2:] == out["cpu"][2:] == (1, 1, True)
+    assert err <= LU_ATOL
+
+
 def timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2946,6 +3507,7 @@ def main() -> int:
     rows.update(timed("2e Aasen and band LU kernels",
                       phase_swap_rank_k_kernels))
     timed("2f tier products", phase_tier_products)
+    rows.update(timed("2g stein kernel", phase_stein_kernel))
     counts = {"posv": timed("3 posv", phase_main_path)}
     nt = N // NB
     counts["gesv"] = timed(
@@ -2974,6 +3536,8 @@ def main() -> int:
     timed("3q potrf 32k by tier", phase_potrf_32k)
     counts.update(timed("3r BLAS, band BLAS, pbsv and hegv",
                         phase_blas_band_hegv))
+    counts.update(timed("3s LAPACK API, stein, CALU and the dense entries",
+                        phase_lapack_stein_calu))
     timed("4 failure report", phase_failure_report)
     timed("4b LU failure report", phase_lu_failure_report)
     timed("4c QR and unpivoted-LU failure report",
@@ -2983,6 +3547,8 @@ def main() -> int:
     timed("4f mixed-precision failure report", phase_mixed_failure_report)
     timed("4g band Cholesky and hegv failure report",
           phase_band_hegv_failure_report)
+    timed("4h LAPACK API and CALU failure report",
+          phase_lapack_calu_failure_report)
     out = []
     for name, (source, replaces, path) in KERNELS.items():
         r = rows[name]

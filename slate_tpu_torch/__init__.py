@@ -33,7 +33,7 @@ JAX or ``slate_tpu``.
 from .types import (Op, Uplo, Diag, Side, Norm, NormScope, Option,
                     MethodLU, MethodGels, MethodEig, MethodSVD, get_option)
 from .errors import SlateError, InfoError, slate_error_if, raise_if_info
-from .grid import Grid
+from .grid import Grid, default_grid
 from .matrix import (
     BaseTiledMatrix, Matrix, HermitianMatrix, TriangularMatrix, BandMatrix,
     TrapezoidMatrix, SymmetricMatrix, TriangularBandMatrix,
@@ -47,10 +47,12 @@ from .ops.blas import (gemm, herk, syrk, trsm, her2k, syr2k, hemm, symm,
                        trmm, gbmm, hbmm, tbsm)
 from .ops.norms import norm, col_norms
 from .ops.elementwise import add, copy, scale, scale_row_col, set_matrix
-from .linalg.potrf import potrf, potrs, posv, pbtrf, pbtrs, pbsv
+from .linalg.potrf import (potrf, potrs, posv, pbtrf, pbtrs, pbsv,
+                           potrf_dense_inplace)
 from .linalg.getrf import (getrf, getrs, gesv, PivotOrder,
                            pivot_order_to_ipiv, getrf_nopiv, getrs_nopiv,
-                           gesv_nopiv, gbtrf, gbtrs, gbsv)
+                           gesv_nopiv, gbtrf, gbtrs, gbsv, getrf_tntpiv,
+                           getrf_dense_inplace)
 from .linalg.band import BandLUFactor, BandCholFactor
 from .linalg.hetrf import hetrf, hetrs, hesv
 from .linalg.geqrf import geqrf, unmqr, gelqf, unmlq, cholqr, gels
@@ -81,3 +83,4 @@ from .interop import (from_reference, to_reference, pivots_from_reference,
                       band_lu_to_reference, hetrf_from_reference,
                       hetrf_to_reference, band_chol_from_reference,
                       band_chol_to_reference)
+from . import lapack_api

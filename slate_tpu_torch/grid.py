@@ -60,3 +60,11 @@ class Grid:
 
     def __hash__(self):
         return hash((self.p, self.q, str(self.device)))
+
+
+def default_grid() -> Grid:
+    """The grid an entry point uses when its caller names none (the
+    counterpart of ``slate_tpu/grid.py:198``): ``Grid(1, 1)`` on the CUDA
+    card, which raises :class:`SlateError` when there is no card, as
+    ``Grid()`` does."""
+    return Grid(1, 1)

@@ -7,7 +7,7 @@ Each kernel has three parts here:
 * a wrapper (``potrf_tile``, ``trsm_right_lower_t``, ``trsm_left_lower``,
   ``panel_plu``, ``panel_fold``, ``panel_unfold``, ``panel_qr``,
   ``lu_nopiv_tile``, ``hb2st_chase``, ``tb2bd_chase``, ``panel_plu_swap``,
-  ``rank_k_tail``) that launches the
+  ``rank_k_tail``, ``stein_iter``) that launches the
   kernel of ``csrc/`` for a CUDA tensor and counts the launch in
   :data:`LAUNCHES`, runs the plain version for a CPU tensor, and raises
   for anything else. There is no fallback from a failed build or launch;
@@ -26,7 +26,9 @@ panel kernels the range is that of the panel height h (the JAX
 package's ``H_MAX``); the LU and QR kernels' block width is always
 :data:`W`. For the two bulge chasers it is the band width; for the
 physical-swap panel LU the panel width (its height has its own limit,
-:data:`SWAP_H_MAX` on the card); for the rank-k tail the contraction k.
+:data:`SWAP_H_MAX` on the card); for the rank-k tail the contraction k;
+for the batched inverse iteration (K12, which stands for a ``lax.scan``
+of ``slate_tpu/linalg/stein.py``, not a Pallas kernel) the order n.
 """
 
 from __future__ import annotations
@@ -69,6 +71,8 @@ _ANY_BAND = (1, 1 << 30, 1)
 # ``rank_k`` row: below one 128-lane tile)
 _SWAP_SPAN = (128, 256, 128)
 _RANK_K_SPAN = (1, 127, 1)
+# orders of the tridiagonal that the batched inverse iteration takes
+_STEIN_SPAN = (1, 1 << 30, 1)
 # Tallest panel the physical-swap kernel takes: its rows are spread over
 # one CTA per SM in shared memory (csrc/panel_plu_swap.cu), 187 rows of
 # 1 KB each at w = 256 on 132 SMs beside the 32 pivot rows of a column
@@ -86,6 +90,7 @@ _CAPS_CUDA = {
     "tb2bd_vmem": {"float32": _BAND_SPAN},
     "panel_plu_swap": {"float32": _SWAP_SPAN},
     "rank_k_tail": {"float32": _RANK_K_SPAN},
+    "stein": {"float32": _STEIN_SPAN, "float64": _STEIN_SPAN},
 }
 _CAPS_CPU = {
     "potrf_tile": {"float32": _SPAN, "float64": _SPAN},
@@ -99,6 +104,7 @@ _CAPS_CPU = {
     "tb2bd_vmem": {"float32": _ANY_BAND, "float64": _ANY_BAND},
     "panel_plu_swap": {"float32": _SWAP_SPAN, "float64": _SWAP_SPAN},
     "rank_k_tail": {"float32": _RANK_K_SPAN, "float64": _RANK_K_SPAN},
+    "stein": {"float32": _STEIN_SPAN, "float64": _STEIN_SPAN},
 }
 CAPABILITY = {"cuda": _CAPS_CUDA, "cpu": _CAPS_CPU}
 
@@ -113,11 +119,13 @@ TRANSPOSE_NAMES = ("transpose_tiled", "transpose_fold", "fold_panel",
 # adds one where it launches its kernel, and nowhere else. The QR kernel,
 # the two bulge chasers, the physical-swap panel LU and the rank-k tail
 # count under the names of the Pallas functions they stand for
-# (``hb2st_vmem``, ``tb2bd_vmem``: one launch per chase).
+# (``hb2st_vmem``, ``tb2bd_vmem``: one launch per chase); the batched
+# inverse iteration counts as ``stein``.
 LAUNCHES = {"potrf_tile": 0, "trsm_right_lower_t": 0, "trsm_left_lower": 0,
             **{k: 0 for k in PLU_NAMES + TRANSPOSE_NAMES},
             "qr_call": 0, "lu_nopiv_tile": 0, "hb2st_vmem": 0,
-            "tb2bd_vmem": 0, "panel_plu_pallas": 0, "rank_k_tail_pallas": 0}
+            "tb2bd_vmem": 0, "panel_plu_pallas": 0, "rank_k_tail_pallas": 0,
+            "stein": 0}
 
 
 def reset_launches() -> None:
@@ -166,6 +174,8 @@ _SIGNATURES = {
                                  + (_P,)),
     "slate_rank_k_tail_f32": ("rank_k_tail", (_P, _I, _P, _I, _P, _I, _P)
                               + (_I,) * 3 + (_F, _F, _I, _P)),
+    "slate_stein_f32": ("stein_tridiag", (_P,) * 8 + (_I,) * 3 + (_P,)),
+    "slate_stein_f64": ("stein_tridiag", (_P,) * 8 + (_I,) * 3 + (_P,)),
 }
 _FNS: dict = {}
 
@@ -1223,3 +1233,143 @@ def rank_k_tail_plain(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         a, b = round_bf16(a), round_bf16(b)
     with full_f32_matmul():
         return alpha * (a @ b) + beta * c
+
+
+# ---------------------------------------------------------------------------
+# K12: batched tridiagonal inverse iteration
+# ---------------------------------------------------------------------------
+
+_STEIN_SYMBOLS = {torch.float32: "slate_stein_f32",
+                  torch.float64: "slate_stein_f64"}
+
+
+def stein_iter(dm: torch.Tensor, du: torch.Tensor, lam: torch.Tensor,
+               x0: torch.Tensor, iters: int = 2) -> torch.Tensor:
+    """``iters`` sweeps of inverse iteration on the k systems
+    (T − lam_j·I)·x_j = b_j of the symmetric tridiagonal T = (dm [n],
+    du [n − 1]) from the columns of ``x0`` [n, k], each sweep followed by
+    a max-renormalisation of every column; then every column at unit
+    2-norm with its largest entry positive. A new [n, k] tensor of x0's
+    dtype (float32 or float64).
+
+    Stands for the ``lax.scan`` loops that XLA runs on the device in the
+    JAX package (``_solve_batch`` and ``_stein_iter_core``,
+    slate_tpu/linalg/stein.py:49-141), not for a Pallas kernel. Bound on
+    an H100: the bytes of the [n, k] arrays, and below them the chain of
+    n dependent rows each system walks a pass. Design
+    (csrc/stein_tridiag.cu): one thread a system, the elimination with
+    2-row partial pivoting (LAPACK dlagtf) in registers, the fill rows in
+    [n, k] arrays with k contiguous (coalesced), each row's inputs loaded
+    one step ahead; every step one IEEE operation in the plain version's
+    order, so up to the final 2-norm the result is the plain version's
+    bit for bit. A back-substitution that overflows (a pivot replaced by
+    4·FLT_MIN, where the JAX package's column turns to NaN) is run again
+    with R scaled by 2⁻⁶⁴, up to three times; the renormalisation removes
+    the scale.
+    """
+    n, k = x0.shape
+    slate_error_if(dm.shape != (n,) or du.shape != (max(n - 1, 0),)
+                   or lam.shape != (k,),
+                   f"stein_iter dims: d {tuple(dm.shape)}, e "
+                   f"{tuple(du.shape)}, lam {tuple(lam.shape)}, X0 "
+                   f"{tuple(x0.shape)}")
+    if not _route("stein", x0):
+        return stein_iter_plain(dm, du, lam, x0, iters)
+    dt = x0.dtype
+    slate_error_if(dt not in _STEIN_SYMBOLS or not supported(
+        "stein", dt, n, x0.device), f"stein_iter: no kernel for {dt}")
+    for t in (dm, du, lam):
+        slate_error_if(t.device != x0.device or t.dtype != dt,
+                       "stein_iter: d, e, lam and X0 must share a CUDA "
+                       "device and a dtype")
+    dmc, duc, lamc = (t.contiguous() for t in (dm, du, lam))
+    x = x0.clone(memory_format=torch.contiguous_format)
+    fill = torch.empty((4, n, k), dtype=dt, device=x0.device)
+    _launch(_STEIN_SYMBOLS[dt], x0.device, *(_P(t.data_ptr()) for t in (
+        dmc, duc if n > 1 else dmc, lamc, x, *fill)), n, k, int(iters))
+    LAUNCHES["stein"] += 1
+    return x
+
+
+def _stein_solve_plain(dm, du, lam, b):
+    """(T − lam_j·I)·x_j = b_j for every column j: the row loop of
+    ``_solve_batch`` (stein.py:49-118), one row at a time over [k]
+    vectors."""
+    n, k = b.shape
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    a = dm[0] - lam
+    if n == 1:
+        return (b[0] / torch.where(a == 0, one, a))[None]
+    bb = du[0].expand(k)
+    c = torch.zeros(k, dtype=b.dtype, device=b.device)
+    r = b[0]
+    U = torch.empty_like(b)
+    V = torch.empty_like(b)
+    Wf = torch.empty_like(b)
+    R = torch.empty_like(b)
+    for i in range(1, n):
+        dui = du[i] if i < n - 1 else zero
+        dli = du[i - 1]
+        an = dm[i] - lam
+        swap = dli.abs() > a.abs()
+        pa = torch.where(swap, dli, a)
+        pb = torch.where(swap, an, bb)
+        pc = torch.where(swap, dui, c)
+        pr = torch.where(swap, b[i], r)
+        qa = torch.where(swap, a, dli)
+        qb = torch.where(swap, bb, an)
+        qc = torch.where(swap, c, dui)
+        qr = torch.where(swap, r, b[i])
+        m = torch.where(pa == 0, zero, qa / torch.where(pa == 0, one, pa))
+        U[i - 1], V[i - 1], Wf[i - 1], R[i - 1] = pa, pb, pc, pr
+        a = qb - m * pb
+        bb = qc - m * pc
+        c = torch.zeros_like(c)
+        r = qr - m * pr
+    U[n - 1], V[n - 1], Wf[n - 1], R[n - 1] = a, zero, zero, r
+    tiny = torch.tensor(float(torch.finfo(torch.float32).tiny) * 4,
+                        dtype=b.dtype, device=b.device)
+    U = torch.where(U.abs() < tiny, torch.where(U < 0, -tiny, tiny), U)
+    x = _stein_back_plain(U, V, Wf, R)
+    # a column that overflows is solved again from R scaled by 2^-64, up
+    # to three times (the kernel's rule)
+    scale = one
+    for _ in range(3):
+        bad = ~torch.isfinite(x).all(dim=0)
+        if not bool(bad.any()):
+            break
+        scale = scale * 2.0 ** -64
+        xs = _stein_back_plain(U[:, bad], V[:, bad], Wf[:, bad],
+                               R[:, bad] * scale)
+        x[:, bad] = xs
+    return x
+
+
+def _stein_back_plain(U, V, Wf, R):
+    """x_i = (r_i − v_i·x_{i+1} − w_i·x_{i+2}) / u_i, bottom row first."""
+    n, k = R.shape
+    x = torch.empty_like(R)
+    x1 = torch.zeros(k, dtype=R.dtype, device=R.device)
+    x2 = torch.zeros_like(x1)
+    for i in range(n - 1, -1, -1):
+        xi = (R[i] - V[i] * x1 - Wf[i] * x2) / U[i]
+        x[i] = xi
+        x1, x2 = xi, x1
+    return x
+
+
+def stein_iter_plain(dm: torch.Tensor, du: torch.Tensor, lam: torch.Tensor,
+                     x0: torch.Tensor, iters: int = 2) -> torch.Tensor:
+    """Plain PyTorch version of :func:`stein_iter`: ``_stein_iter_core``
+    (stein.py:121-141) with the row loop of ``_solve_batch``."""
+    x = x0
+    for _ in range(iters):
+        x = _stein_solve_plain(dm, du, lam, x)
+        s = x.abs().amax(dim=0, keepdim=True)
+        x = x / torch.where(s == 0, torch.ones_like(s), s)
+    nrm = torch.sqrt((x * x).sum(dim=0, keepdim=True))
+    x = x / torch.where(nrm == 0, torch.ones_like(nrm), nrm)
+    imax = x.abs().argmax(dim=0)
+    sgn = torch.sign(x[imax, torch.arange(x.shape[1], device=x.device)])
+    return x * torch.where(sgn == 0, torch.ones_like(sgn), sgn)[None, :]

@@ -29,7 +29,7 @@ import os
 
 import torch
 
-from ..errors import SlateError, slate_error_if
+from ..errors import slate_error_if
 from . import kernels as K
 
 W = K.W           # subpanel width
@@ -133,12 +133,66 @@ def plu_subpanel(sub: torch.Tensor, act: torch.Tensor, fold=None):
 
 
 def plu_panel(sub: torch.Tensor, act: torch.Tensor, fold=None):
-    """Pivoted LU of an [h, W] subpanel: one kernel call for h ≤ H_MAX.
-    Taller panels need the CALU tournament over H_MAX-row chunks
-    (panel_plu.py:563-616), which is not ported yet."""
-    if sub.shape[0] > H_MAX:
-        raise SlateError(
-            f"plu_panel: a {sub.shape[0]}-row subpanel is taller than "
-            f"H_MAX = {H_MAX} and needs the CALU tournament of "
-            f"panel_plu.plu_panel, which a later slice of the port adds")
-    return plu_subpanel(sub, act, fold=fold)
+    """Pivoted LU of an [h, W] subpanel for any h, with the contract of
+    :func:`plu_subpanel`: one kernel call for h ≤ H_MAX, above it a CALU
+    tournament (reference src/getrf_tntpiv.cc; panel_plu.py:563-616)
+    over H_MAX-row chunks:
+
+    1. each chunk elects W winner rows with :func:`plu_subpanel` (K4);
+    2. the winners' original rows meet in a final :func:`plu_subpanel`
+       (only those that are active may pivot), whose LU fixes the pivot
+       order and the [W, W] diagonal factor;
+    3. every other active row gets its multipliers L = A·U₁₁⁻¹ from one
+       ``torch.linalg.solve_triangular``, the counterpart of
+       ``lax.linalg.triangular_solve``; the winners' LU rows go to their
+       rows (no row moves). A zero on U₁₁'s diagonal is solved against 1
+       and its column of multipliers is zero, as the kernel and LAPACK
+       leave it.
+    """
+    h, w = sub.shape
+    hmax = H_MAX
+    if h <= hmax:
+        return plu_subpanel(sub, act, fold=fold)
+    nch = -(-h // hmax)
+    hp = nch * hmax
+    # a padded copy: every chunk is a contiguous [H_MAX, W] block
+    subp = sub.new_zeros((hp, w))
+    subp[:h] = sub
+    actp = act.new_zeros(hp)
+    actp[:h] = act.reshape(h)
+    winners = []
+    for c in range(nch):
+        rows = slice(c * hmax, (c + 1) * hmax)
+        _, piv_c, _, _ = plu_subpanel(subp[rows], actp[rows], fold=fold)
+        winners.append(piv_c.long() + c * hmax)
+    wins = torch.cat(winners)                            # [nch·W]
+    # a chunk with fewer than W active rows (or a NaN column) selects no
+    # row for its last columns (piv = H_MAX); such a slot, and any winner
+    # that is not active, stays inactive in the final round. The JAX
+    # package marks every candidate active, so a row already eliminated
+    # can be elected again there (ROADMAP §C).
+    chunk_end = (torch.arange(nch, device=wins.device) + 1).repeat_interleave(
+        W) * hmax
+    real = wins < chunk_end
+    wins = torch.where(real, wins, 0)
+    candh = nch * W
+    pad_to = max(candh, 8)
+    cand = sub.new_zeros((pad_to, w))
+    cand[:candh] = subp[wins]                            # original rows
+    cact = act.new_zeros(pad_to)
+    cact[:candh] = torch.where(real, actp[wins], 0.0)
+    final, piv_f, _, info = plu_subpanel(cand, cact, fold=fold)
+    piv_f = piv_f.long().clamp_(max=pad_to - 1)
+    piv = wins[piv_f]                                    # global rows
+    lu_rows = final[piv_f]                               # [W, W] LU
+    u11 = lu_rows.triu()
+    zero_diag = torch.diagonal(u11) == 0
+    safe_u = u11 + torch.diag(zero_diag.to(u11.dtype))
+    act_new = actp.clone()
+    act_new[piv] = 0.0
+    lall = torch.linalg.solve_triangular(safe_u, subp, upper=True,
+                                         left=False)
+    lall = torch.where(zero_diag[None, :], 0.0, lall)
+    out = torch.where((act_new > 0)[:, None], lall, subp)
+    out[piv] = lu_rows
+    return out[:h], piv.int(), act_new[:h], info

@@ -116,7 +116,8 @@ def lu_nopiv_block(a: torch.Tensor, ib: int = 32):
 # tile_kernels.py:147-207)
 # ---------------------------------------------------------------------------
 
-def panel_lu_factor(panel: torch.Tensor, start: int, m: int):
+def panel_lu_factor(panel: torch.Tensor, start: int, m: int,
+                    max_rows: int | None = None):
     """Pivoted LU of the window [start, max(m, start + nb)) of a
     full-height panel [M, nb] (global row i at index i; the caller put an
     identity on padded diagonal entries, so padding self-pivots).
@@ -132,10 +133,15 @@ def panel_lu_factor(panel: torch.Tensor, start: int, m: int):
     plain version on the CPU, whatever the JAX package's ``panel_plu``
     rung says; any other to ``torch.linalg.lu_factor_ex``, the
     counterpart of ``lax.linalg.lu``. A pivot past the window (a NaN
-    column) becomes a self-swap, as in the JAX package. The CALU
-    tournament the JAX package takes above ``LU_PANEL_MAX_ROWS`` on a TPU
-    is not ported (ROADMAP A4)."""
+    column) becomes a self-swap, as in the JAX package.
+
+    ``max_rows``: a panel of more than ``max_rows`` rows takes the CALU
+    tournament (:func:`_panel_lu_tournament`) instead, as the JAX package
+    does where one ``lu`` call is limited by the TPU's scoped VMEM; no
+    caller on one card sets it."""
     M, nb = panel.shape
+    if max_rows is not None and M > max_rows:
+        return _panel_lu_tournament(panel, start, m, max_rows)
     hi = max(m, start + nb)
     win = panel[start:hi]
     h = win.shape[0]
@@ -153,6 +159,99 @@ def panel_lu_factor(panel: torch.Tensor, start: int, m: int):
     slot = torch.arange(nb, device=panel.device)
     piv = torch.where(piv_r < h, piv_r + start, slot + start).int()
     return out, piv, info
+
+
+def _panel_lu_tournament(panel: torch.Tensor, start: int, m: int,
+                         max_rows: int):
+    """Tournament-pivot LU of a tall panel (CALU, reference
+    src/getrf_tntpiv.cc; tile_kernels.py:210-300), with the contract of
+    :func:`panel_lu_factor`.
+
+    Each round splits the candidate rows into chunks of ``max_rows`` and
+    keeps each chunk's nb winners by one batched
+    ``torch.linalg.lu_factor_ex`` (the counterpart of the vmapped
+    ``lax.linalg.lu``), until one chunk is left; a final LU of the
+    survivors fixes the nb pivot rows and their elimination order. The
+    window is then permuted by the LAPACK sequential-swap permutation,
+    the winners' LU is its top block, and the rows below get
+    L21 = A21·U11⁻¹ from one triangular solve. Pivot choices are CALU's,
+    so |L| may exceed 1."""
+    M, nb = panel.shape
+    dev = panel.device
+    fd = _factor_dtype(panel.dtype)
+    hi = max(m, start + nb)
+    h = hi - start
+    win = panel[start:hi].to(fd)                 # the active window
+
+    # phase A: tournament pivot selection over M candidates, as in the JAX
+    # package (the window, then zero rows, so that the chunks are its
+    # chunks); an index ≥ h marks a zero row, which loses every real round
+    # (a win, in an all-zero column, resolves to a self-swap below)
+    cand = win.new_zeros((M, nb))
+    cand[:h] = win
+    cand_idx = torch.arange(M, device=dev)
+    R = M
+    while R > max_rows:
+        c = -(-R // max_rows)
+        pad = c * max_rows - R
+        cand = torch.cat([cand, cand.new_zeros((pad, nb))])
+        cand_idx = torch.cat([cand_idx, torch.full((pad,), M, device=dev)])
+        chunks = cand.reshape(c, max_rows, nb)
+        _, ipiv, _ = torch.linalg.lu_factor_ex(chunks)
+        sel = _ipiv_to_perm(ipiv.long() - 1, max_rows)[:, :nb]  # [c, nb]
+        cand = torch.gather(chunks, 1, sel[:, :, None].expand(c, nb, nb))
+        cand = cand.reshape(c * nb, nb)
+        cand_idx = torch.gather(cand_idx.reshape(c, max_rows), 1,
+                                sel).reshape(c * nb)
+        R = c * nb
+    lu_f, ipiv_f, _ = torch.linalg.lu_factor_ex(cand)
+    perm_f = _ipiv_to_perm((ipiv_f.long() - 1)[None], R)[0]
+    win_rows = cand_idx[perm_f[:nb]].tolist()   # winners, elim. order
+    lu_top = lu_f[:nb]                          # LU of the permuted top
+    info = (torch.diagonal(lu_f)[:nb] == 0).sum().int()
+
+    # phase B: the LAPACK sequential-swap permutation. piv[j] is the slot
+    # of winner j once swaps 0 … j−1 are applied; content[i] the original
+    # window row whose data sits at slot i
+    content = list(range(h))
+    locof = list(range(h))
+    piv_r = []
+    for j in range(nb):
+        t = win_rows[j]
+        if t >= h:                   # pad winner (all-zero column)
+            t = content[j]
+        loc = locof[t]
+        piv_r.append(loc)
+        cj = content[j]
+        content[j], content[loc] = t, cj
+        locof[t], locof[cj] = j, loc
+    permuted = win[torch.tensor(content, device=dev)]
+
+    # the top block is done; the rows below get L21
+    u11 = lu_top.triu()
+    safe_u = u11 + torch.diag((torch.diagonal(u11) == 0).to(fd))
+    l21 = torch.linalg.solve_triangular(safe_u, permuted[nb:], upper=True,
+                                        left=False)
+    out = panel.clone()
+    out[start:start + nb] = lu_top.to(panel.dtype)
+    out[start + nb:hi] = l21.to(panel.dtype)
+    piv = (start + torch.tensor(piv_r, device=dev)).int()
+    return out, piv, info
+
+
+def _ipiv_to_perm(ipiv: torch.Tensor, rows: int) -> torch.Tensor:
+    """Row permutations [c, rows] of a batch of 0-based LAPACK ipivs
+    [c, r]: ``perm[b, i]`` is the original row at position i after the
+    swaps, the ``permutation`` output of ``lax.linalg.lu``."""
+    c, r = ipiv.shape
+    perm = torch.arange(rows, device=ipiv.device).repeat(c, 1)
+    bidx = torch.arange(c, device=ipiv.device)
+    for j in range(r):
+        p = ipiv[:, j]
+        pj = perm[:, j].clone()
+        perm[:, j] = perm[bidx, p]
+        perm[bidx, p] = pj
+    return perm
 
 
 # ---------------------------------------------------------------------------

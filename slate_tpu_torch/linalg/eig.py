@@ -39,7 +39,8 @@ def heev(A: HermitianMatrix, opts=None, want_vectors: bool = True,
     device; Z a Matrix, or None without vectors. ``times``, a dict,
     receives the two-stage pipeline's stage seconds (``he2hb``,
     ``gather``, ``hb2st``, ``sterf`` or ``stedc``/``steqr``, the
-    back-transforms); the Dense method records none."""
+    back-transforms; ``steqr`` above n = 512 also its ``sterf`` and
+    ``stein``); the Dense method records none."""
     slate_error_if(A.m != A.n, "heev needs square")
     method = get_option(opts, Option.MethodEig, MethodEig.Auto)
     if method == MethodEig.Auto:
@@ -141,11 +142,23 @@ def sterf(d, e) -> np.ndarray:
     return eigvalsh_tridiagonal(_host(d), _host(e))
 
 
-def steqr(d, e, want_vectors: bool = True):
-    """Tridiagonal QR iteration with vectors on the host (reference
-    src/steqr2.cc): ``(lam, Z | None)`` as float64 numpy arrays. The JAX
-    package's device inverse iteration (``stein``), which it takes with a
-    grid, is not ported yet."""
+def steqr(d, e, want_vectors: bool = True, device=None, dtype=None,
+          times=None):
+    """Tridiagonal QR iteration (reference src/steqr2.cc): ``(lam, Z |
+    None)``, lam ascending as a float64 numpy array. Without ``device``,
+    Z comes from the host's LAPACK as a float64 numpy array. With a
+    ``device`` and vectors, the JAX package's device branch (its
+    ``steqr(..., grid=)``): the eigenvalues by host QR iteration
+    (:func:`sterf`, O(n) memory) and Z, a ``dtype`` tensor on ``device``,
+    by batched inverse iteration there (``linalg/stein.py``). ``times``,
+    a dict, receives that branch's ``sterf`` and ``stein`` seconds."""
+    if device is not None and want_vectors:
+        from .he2hb import _StageClock
+        from .stein import stein_vectors
+        clock = _StageClock(times, device)
+        lam = clock("sterf", sterf, d, e)
+        return lam, clock("stein", stein_vectors, _host(d), _host(e), lam,
+                          device, dtype)
     from scipy.linalg import eigh_tridiagonal
     d, e = _host(d), _host(e)
     if want_vectors:

@@ -56,6 +56,13 @@ from .condest import gecondest
 
 _FAST_W = 128            # subpanel width (= panel_plu.W)
 _FAST_GROUP = 4          # panels per compaction group
+# Largest n whose compaction gathers the whole trailing window at once (a
+# second window-sized temporary); above it the gather runs in place over
+# column blocks of _COMPACT_CB, so the temporary is [hw, _COMPACT_CB].
+# The JAX package's values (getrf.py:319-336); the column-chunked leg is
+# what keeps getrf_dense_inplace within a fraction of the matrix's bytes.
+_COMPACT_TAKE_MAX_N = 24576
+_COMPACT_CB = 2048
 
 
 def getrf(A: Matrix, opts=None, health: bool = False):
@@ -101,15 +108,15 @@ def _fast_path_mode(A, piv_mode) -> str | None:
 
     Requirements, as in the JAX package: partial pivoting, f32, square
     with no padding (m == n == kt·nb), nb a multiple of 128. It turns on
-    by itself on a CUDA card for 8192 ≤ n ≤ 16384. The JAX package goes
-    up to 32768 on a TPU; the port stops at ``panel_plu.H_MAX`` because
-    above it the first groups' panel windows are taller than one
-    subpanel kernel call takes and need the CALU tournament of
-    ``plu_panel``, a later slice. SLATE_LU_FAST=1 forces the path on any
-    device (on the CPU it runs the kernels' plain versions, the
-    counterpart of Pallas interpret mode); =0 turns it off. The JAX
-    package's cap of 64 block columns bounds its trace-time unrolling;
-    an eager loop has none, so the port does not keep it."""
+    by itself on a CUDA card for 8192 ≤ n ≤ 32768, the JAX package's
+    range; above ``panel_plu.H_MAX`` rows the first groups' subpanels go
+    through ``plu_panel``'s CALU tournament. Larger matrices take
+    :func:`getrf_dense_inplace`, which skips the tiles ⇄ dense copies.
+    SLATE_LU_FAST=1 forces the path on any device (on the CPU it runs the
+    kernels' plain versions, the counterpart of Pallas interpret mode);
+    =0 turns it off. The JAX package's cap of 64 block columns bounds its
+    trace-time unrolling; an eager loop has none, so the port does not
+    keep it."""
     flag = os.environ.get("SLATE_LU_FAST", "")
     if flag == "0":
         return None
@@ -122,7 +129,15 @@ def _fast_path_mode(A, piv_mode) -> str | None:
     dev = A.grid.device.type
     if flag == "1":
         return dev
-    return dev if dev == "cuda" and 8192 <= A.n <= panel_plu.H_MAX else None
+    return dev if dev == "cuda" and 8192 <= A.n <= 32768 else None
+
+
+def getrf_tntpiv(A: Matrix, opts=None):
+    """CALU tournament-pivot LU (reference src/getrf_tntpiv.cc): on one
+    device :func:`getrf`, whose fast path runs the real chunked tournament
+    for subpanels taller than ``panel_plu.H_MAX`` (``plu_panel``), as the
+    JAX package's ``getrf_tntpiv`` is its ``getrf``."""
+    return getrf(A, opts)
 
 
 # ---------------------------------------------------------------------------
@@ -148,13 +163,36 @@ def _getrf_fast_group_core(a, content, info, g0, gsz, nb, fold, tier):
     act = torch.ones(hw, dtype=a.dtype, device=dev)
     upend = torch.zeros((gnb, gnb), dtype=a.dtype, device=dev)
     ordg = torch.zeros(gnb, dtype=torch.int64, device=dev)
-    folded = fold and hw % 1024 == 0 and hw <= panel_plu.H_MAX
+    tall = hw > panel_plu.H_MAX
+    folded = fold and hw % 1024 == 0 and not tall
     Lf = hw // 8
     for kk in range(gsz):
         d_lo, d_hi = done + kk * nb, done + (kk + 1) * nb
         ubuf = torch.zeros((nb, nb), dtype=a.dtype, device=dev)
         ordp = torch.zeros(nb, dtype=torch.int64, device=dev)
-        if folded:
+        if tall:
+            # taller than one kernel call: the JAX package's per-subpanel
+            # form, each [hw, W] subpanel through plu_panel's CALU
+            # tournament, the panel updated in its window of a
+            pcols = a[done:, d_lo:d_hi]
+            for s in range(sb):
+                c0 = s * W
+                subf, piv_l, act, inf = panel_plu.plu_panel(
+                    pcols[:, c0:c0 + W], act, fold=fold)
+                pcols[:, c0:c0 + W] = subf
+                info += inf
+                piv_l = piv_l.long().clamp_(max=hw - 1)
+                ordp[c0:c0 + W] = piv_l
+                if nb - (s + 1) * W > 0:
+                    rows = pcols[piv_l, c0:]     # [W, nb − c0]
+                    u = torch.linalg.solve_triangular(
+                        rows[:, :W], rows[:, W:], upper=False,
+                        unitriangular=True)
+                    ubuf[c0:c0 + W, c0 + W:] = u
+                    lsub = torch.where(act[:, None] > 0, subf, 0.0)
+                    with full_f32_matmul():
+                        pcols[:, c0 + W:] -= lsub @ u
+        elif folded:
             # one fold per panel; each block of the folded buffer is
             # factored in place, and the mask is updated in place
             pcf = panel_plu.fold_panel(a[done:, d_lo:d_hi])
@@ -227,9 +265,14 @@ def _getrf_fast_group_core(a, content, info, g0, gsz, nb, fold, tier):
     rank[ordg] = torch.arange(gnb, device=dev)
     key = torch.where(act > 0, gnb + torch.arange(hw, device=dev), rank)
     perm = torch.argsort(key)
-    # one full-window gather (the JAX package's form up to n = 24576; the
-    # port's fast path stops at 16384)
-    a[done:] = a[done:].index_select(0, perm)
+    if n <= _COMPACT_TAKE_MAX_N:
+        # one full-window gather, with a window-sized temporary
+        a[done:] = a[done:].index_select(0, perm)
+    else:
+        # column-chunked, in place: the temporary is [hw, _COMPACT_CB]
+        for c0 in range(0, n, _COMPACT_CB):
+            blk = a[done:, c0:c0 + _COMPACT_CB]
+            blk.copy_(blk.index_select(0, perm))
     content[done:] = content[done:][perm]
     i_g = torch.arange(gnb, device=dev)
     sub_end = (i_g // W + 1) * W
@@ -239,18 +282,17 @@ def _getrf_fast_group_core(a, content, info, g0, gsz, nb, fold, tier):
     # cross-group trailing: the group's U block rows by blocked forward
     # substitution on the compacted pivot rows, then one product
     if ge < n:
-        ug = []
+        ugs = a.new_empty((gnb, n - ge))                 # the U block rows
         with full_f32_matmul():
             for kk in range(gsz):
                 r0 = done + kk * nb
                 acc = a[r0:r0 + nb, ge:].clone()
                 for p in range(kk):
                     c = done + p * nb
-                    acc -= a[r0:r0 + nb, c:c + nb] @ ug[p]
-                ug.append(torch.linalg.solve_triangular(
+                    acc -= a[r0:r0 + nb, c:c + nb] @ ugs[p * nb:(p + 1) * nb]
+                ugs[kk * nb:(kk + 1) * nb] = torch.linalg.solve_triangular(
                     a[r0:r0 + nb, r0:r0 + nb], acc, upper=False,
-                    unitriangular=True))
-        ugs = torch.cat(ug, dim=0)                       # [gnb, n − ge]
+                    unitriangular=True)
         tier_addmm_(a[ge:, ge:], a[ge:, done:ge], ugs, alpha=-1, tier=tier)
         a[done:ge, ge:] = ugs
     return o_g
@@ -262,8 +304,17 @@ def _getrf_fast_core(A, fold: bool = True, tier="bf16_6x"):
     ``order [kt, nb]`` int32 is the original row eliminated at each step
     (wrap it in :class:`PivotOrder` for ``getrs``)."""
     nb, n = A.nb, A.n
-    kt = n // nb
     a = tiles_to_dense(A.data[0, 0], n, n)    # a new tensor, updated in place
+    order, info = _getrf_fast_dense(a, nb, fold, tier)
+    tiles = dense_to_tiles(a, nb, A.mtl, A.ntl)
+    return bc_from_tiles(tiles, 1, 1), order, info
+
+
+def _getrf_fast_dense(a, nb, fold, tier):
+    """The groups of :func:`_getrf_fast_group_core` over a dense square
+    tensor, in place. Returns ``(order [kt, nb] int32, info)``."""
+    n = a.shape[0]
+    kt = n // nb
     content = torch.arange(n, device=a.device)
     info = torch.zeros((), dtype=torch.int32, device=a.device)
     o_parts = []
@@ -271,9 +322,34 @@ def _getrf_fast_core(A, fold: bool = True, tier="bf16_6x"):
         gsz = min(_FAST_GROUP, kt - g0)
         o_parts.append(_getrf_fast_group_core(a, content, info, g0, gsz,
                                               nb, fold, tier))
-    order = torch.cat(o_parts).reshape(kt, nb).int()
-    tiles = dense_to_tiles(a, nb, A.mtl, A.ntl)
-    return bc_from_tiles(tiles, 1, 1), order, info
+    return torch.cat(o_parts).reshape(kt, nb).int(), info
+
+
+def getrf_dense_inplace(a: torch.Tensor, nb: int = 1024, opts=None):
+    """LU with partial pivoting of a dense square float32 tensor, in place
+    (the JAX package's donated large-n entry, getrf.py:603-643). The tiled
+    fast path copies tiles ⇄ dense (about three times the matrix); this
+    entry runs the same groups (:func:`_getrf_fast_dense`) on the
+    caller's storage, so the peak is the matrix, the column-chunked
+    compaction's [hw, _COMPACT_CB] block and a group's U rows. Subpanels
+    taller than ``panel_plu.H_MAX`` take ``plu_panel``'s CALU
+    tournament. n must be a multiple of nb, nb of 128. Returns ``(a, piv
+    [kt, nb] LAPACK ipiv int32, info)``: ``a``, the same storage, holds
+    unit-lower L and U; ``info`` counts zero pivots."""
+    slate_error_if(not isinstance(a, torch.Tensor) or a.dim() != 2
+                   or a.shape[0] != a.shape[1],
+                   "getrf_dense_inplace needs a square 2-D tensor")
+    slate_error_if(a.dtype != torch.float32 or not a.is_contiguous(),
+                   "getrf_dense_inplace needs a contiguous float32 tensor "
+                   "(its storage is factored in place)")
+    n = a.shape[0]
+    slate_error_if(n % nb != 0,
+                   "getrf_dense_inplace: n must be a multiple of nb")
+    slate_error_if(nb % _FAST_W != 0,
+                   f"getrf_dense_inplace: nb must be a multiple of {_FAST_W}")
+    order, info = _getrf_fast_dense(a, nb, panel_plu._fold_enabled(),
+                                    resolve_tier(opts))
+    return a, pivot_order_to_ipiv(order), info
 
 
 class PivotOrder(NamedTuple):
@@ -317,9 +393,12 @@ def _getrf_dense_1dev(A, tier):
         w = min(nb, n - r0)              # real panel width
         h = m - r0                       # real panel height
         kw = min(h, w)                   # pivots of this panel
-        lu, ipiv, _ = torch.linalg.lu_factor_ex(a[r0:m, r0:r0 + w])
+        lu, ipiv, zp = torch.linalg.lu_factor_ex(a[r0:m, r0:r0 + w])
+        if int(zp) > 0:                  # an exact zero pivot in the panel
+            lu, piv_l = _panel_getf2(a[r0:m, r0:r0 + w].clone())
+        else:
+            piv_l = ipiv.long() - 1      # LAPACK's 1-based ipiv
         a[r0:m, r0:r0 + w] = lu
-        piv_l = ipiv.long() - 1          # LAPACK's 1-based ipiv
         perm = torch.from_numpy(
             runtime.resolve_pivots(piv_l.cpu().numpy(), h)).to(dev)
         if r0 > 0:                       # swap rows of the factored left part
@@ -341,6 +420,27 @@ def _getrf_dense_1dev(A, tier):
            else torch.zeros((0, nb), dtype=torch.int32, device=dev))
     tiles = dense_to_tiles(a, nb, A.mtl, A.ntl)
     return bc_from_tiles(tiles, 1, 1), piv, info
+
+
+def _panel_getf2(p):
+    """LAPACK's unblocked LU (dgetf2) of a panel p [h, w], in place, for a
+    panel in which the solver met an exact zero pivot. At such a pivot
+    dgetf2 neither swaps nor scales and goes on; cuSOLVER's getrf goes on
+    otherwise, so taking the solver's factor past that pivot would make
+    the factor, and the zero pivots counted from it, differ between the
+    card and the CPU. Returns ``(p, ipiv)``, ipiv 0-based [min(h, w)]."""
+    kw = min(p.shape)
+    piv = torch.empty(kw, dtype=torch.int64, device=p.device)
+    for j in range(kw):
+        q = j + torch.argmax(p[j:, j].abs())     # the first of equal maxima
+        piv[j] = q
+        rows = torch.stack([q.new_tensor(j), q])
+        p[rows] = p[rows.flip(0)]
+        d = p[j, j]
+        # below a zero pivot the column is zero: dividing by 1 leaves it
+        p[j + 1:, j] /= torch.where(d != 0, d, torch.ones_like(d))
+        p[j + 1:, j + 1:] -= torch.outer(p[j + 1:, j], p[j, j + 1:])
+    return p, piv
 
 
 # ---------------------------------------------------------------------------

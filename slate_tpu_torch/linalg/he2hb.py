@@ -184,12 +184,15 @@ def heev_two_stage(A: HermitianMatrix, opts=None, want_vectors=True,
         lam = clock("sterf", sterf, d, e)
         return torch.as_tensor(lam).to(A.grid.device, A.dtype), None
     if method == MethodEig.QR or (method != MethodEig.DC and A.n <= 128):
-        slate_error_if(A.n > 512,
-                       "heev: MethodEig.QR above n = 512 needs the device "
-                       "inverse iteration (stein), not ported yet; use "
-                       "MethodEig.DC")
-        lam, ztri = clock("steqr", steqr, d, e)
-        ztri = torch.from_numpy(ztri).to(A.grid.device, A.dtype)
+        if A.n > 512:
+            # values by host QR iteration, vectors by batched inverse
+            # iteration on the device (linalg/stein.py), as the JAX
+            # package's steqr with a grid
+            lam, ztri = clock("steqr", steqr, d, e, True, A.grid.device,
+                              A.dtype, times)
+        else:
+            lam, ztri = clock("steqr", steqr, d, e)
+            ztri = torch.from_numpy(ztri).to(A.grid.device, A.dtype)
     else:
         lam, ztri = clock("stedc", stedc, d, e, True, A.grid.device,
                           A.dtype)

@@ -139,6 +139,32 @@ def _potrf_dense_loop(a, nb, n, Mp, tier):
     return info
 
 
+def potrf_dense_inplace(a: torch.Tensor, nb: int = 1024, group: int = 16,
+                        opts=None):
+    """Lower Cholesky factor of a dense square tensor, in place (the JAX
+    package's donated large-n entry, potrf.py:395-425): the blocked loop
+    of :func:`_potrf_dense_loop` on the caller's storage, with none of
+    the tiles ⇄ dense copies of :func:`potrf`, so the peak is the matrix
+    and one panel. ``group`` is kept for the JAX signature, where it
+    bounds the block columns of one jit program; an eager loop has no
+    such limit, so it has no effect here. The lower
+    triangle is read and the factor's is the only meaningful one (the
+    trailing updates write part of the upper). n must be a multiple of
+    nb. Returns ``(a, info)``: ``a`` the same
+    storage, ``info`` the 1-based first failing block column (0 =
+    success)."""
+    slate_error_if(not isinstance(a, torch.Tensor) or a.dim() != 2
+                   or a.shape[0] != a.shape[1],
+                   "potrf_dense_inplace needs a square 2-D tensor")
+    slate_error_if(not a.is_floating_point() or not a.is_contiguous(),
+                   "potrf_dense_inplace needs a contiguous real floating "
+                   "tensor (its storage is factored in place)")
+    n = a.shape[0]
+    slate_error_if(n % nb != 0,
+                   "potrf_dense_inplace: n must be a multiple of nb")
+    return a, _potrf_dense_loop(a, nb, n, n, resolve_tier(opts))
+
+
 def _potrf_dense_1dev(A, tier):
     """Single-device path: blocked Cholesky of the dense (padded)
     matrix, then back to tiles."""

@@ -32,17 +32,23 @@ def trtri(A: TriangularMatrix, opts=None) -> TriangularMatrix:
 
 
 def trtrm(A: TriangularMatrix, opts=None) -> HermitianMatrix:
-    """Aᴴ·A for triangular A (reference src/trtrm.cc, the second half of
-    potri), both triangles stored."""
+    """Lᴴ·L for lower A = L, U·Uᴴ for upper A = U (reference
+    src/trtrm.cc, LAPACK lauum; the second half of potri), both triangles
+    stored. The JAX package forms Aᴴ·A for either, which for an upper
+    factor is not the inverse potri needs."""
     At = _extract_triangle(A)
     C = Matrix.zeros(A.n, A.n, A.nb, A.grid, dtype=A.dtype)
-    C = gemm(1.0, conj_transpose(At), At, 0.0, C)
+    if A.uplo == Uplo.Upper:
+        C = gemm(1.0, At, conj_transpose(At), 0.0, C)
+    else:
+        C = gemm(1.0, conj_transpose(At), At, 0.0, C)
     return HermitianMatrix(data=C.data, m=A.n, n=A.n, nb=A.nb,
                            grid=A.grid, uplo=A.uplo)
 
 
 def potri(L: TriangularMatrix, opts=None) -> HermitianMatrix:
-    """A⁻¹ from the Cholesky factor: A⁻¹ = L⁻ᴴ·L⁻¹ (src/potri.cc)."""
+    """A⁻¹ from the Cholesky factor: A⁻¹ = L⁻ᴴ·L⁻¹, or U⁻¹·U⁻ᴴ for an
+    upper factor (src/potri.cc)."""
     return trtrm(trtri(L, opts), opts)
 
 

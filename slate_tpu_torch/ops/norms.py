@@ -3,8 +3,8 @@ counterpart of ``slate_tpu/ops/norms.py``).
 
 Max/One/Inf/Fro for general, triangular, Hermitian and band shapes, and
 ``NormScope.Columns`` (colNorms): masked reductions over the tile stack.
-A Hermitian matrix is reduced over its stored triangle, and the mirrored
-off-diagonal contribution is added, so the junk half is never read (the
+A Hermitian or symmetric matrix is reduced over its stored triangle, and
+the mirrored off-diagonal contribution is added, so the junk half is never read (the
 reference's henorm/synorm semantics).
 """
 
@@ -14,7 +14,7 @@ import torch
 
 from ..errors import SlateError, slate_error_if
 from ..internal import masks
-from ..matrix import BaseTiledMatrix, HermitianMatrix
+from ..matrix import BaseTiledMatrix, HermitianMatrix, SymmetricMatrix
 from ..types import Norm, NormScope
 
 
@@ -27,7 +27,7 @@ def norm(norm_kind: Norm, A: BaseTiledMatrix,
     if scope == NormScope.Columns:
         return col_norms(norm_kind, A, opts)
     A = A.materialize()
-    sym = isinstance(A, HermitianMatrix)
+    sym = isinstance(A, (HermitianMatrix, SymmetricMatrix))
     a = A.data[0, 0]
     valid = masks.shape_mask(A)
     absa = torch.where(valid, a.abs(), 0)

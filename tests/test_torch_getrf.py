@@ -207,6 +207,31 @@ def test_dense_path_matches_jax(grid11, monkeypatch, dt):
         check_x(X.to_dense().numpy(), jx, a, b)
 
 
+@pytest.mark.parametrize("zero_cols", [(11,), (11, 12), (0, 40)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_dense_path_after_a_zero_pivot(grid11, monkeypatch, zero_cols):
+    """A panel in which the solver meets an exact zero pivot is factored
+    again by dgetf2 (``_panel_getf2``): LAPACK's pivots, its factor within
+    atol 1e-5, one zero pivot per zero column; the dense path's getrf then
+    gives the JAX package's pivots and info (n=256 ragged by nb=96)."""
+    h, w = 160, 48
+    p = rand(h, w, np.float32, seed=21)
+    p[:, list(zero_cols)] = 0.0
+    ref, ipiv, _ = torch.linalg.lu_factor_ex(torch.from_numpy(p))
+    lu, piv = pgetrf._panel_getf2(torch.from_numpy(p.copy()))
+    assert torch.equal(piv, ipiv.long() - 1)
+    assert float((lu - ref).abs().max()) < 1e-5
+    assert int((torch.diagonal(lu) == 0).sum()) == len(zero_cols)
+    monkeypatch.setenv("SLATE_LU_FAST", "0")
+    n, nb = 256, 96
+    a = rand(n, n, np.float32, seed=22)
+    a[:, [c + 90 for c in zero_cols]] = 0.0     # in the first two panels
+    JLU, jpiv, jinfo = jst.getrf(jst.Matrix.from_dense(a, nb=nb, grid=grid11))
+    LU, piv, info = pst.getrf(pst.Matrix.from_dense(a, nb=nb, grid=CPU))
+    assert np.array_equal(piv.numpy(), np.asarray(jpiv))
+    assert int(info) == int(jinfo) == len(zero_cols)
+
+
 def test_gesv_nan_input_runs_to_its_end(monkeypatch):
     """A NaN in A on the fast path: the port finishes with non-finite X,
     ``info`` 0 and in-range pivots, and reads no index out of range (a
@@ -259,8 +284,10 @@ def test_lu_verbs_and_method(monkeypatch):
 
 
 def test_fast_path_gate(monkeypatch):
-    """Auto-on only on a CUDA card for 8192 ≤ n ≤ H_MAX; forced anywhere
-    by SLATE_LU_FAST=1 for exact f32 shapes; off with =0."""
+    """Auto-on only on a CUDA card for 8192 ≤ n ≤ 32768, the JAX
+    package's range (above H_MAX rows the subpanels take plu_panel's CALU
+    tournament); forced anywhere by SLATE_LU_FAST=1 for exact f32 shapes;
+    off with =0."""
     A = pst.Matrix.zeros(256, 256, 128, CPU)
     monkeypatch.delenv("SLATE_LU_FAST", raising=False)
     assert pgetrf._fast_path_mode(A, "partial") is None      # CPU

@@ -1038,3 +1038,188 @@ def test_hegv_on_card_matches_cpu(cuda, itype):
     bound = (10 * n * 2.0 ** -24 * np.linalg.norm(a64, 2)
              * np.linalg.cond(b64))
     assert float((out[0][0] - out[1][0]).abs().max()) <= bound
+
+
+def _tridiag(n, kind, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return rng.standard_normal(n), rng.standard_normal(n - 1)
+    d = np.floor(np.arange(n) / 16.0) + 1e-7 * rng.standard_normal(n)
+    return d, 1e-5 * rng.standard_normal(n - 1)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind,n", [("random", 300), ("clustered", 256),
+                                    ("random", 1)])
+def test_stein_kernel_matches_plain(cuda, dt, kind, n):
+    """K12 against its plain version on the card: equal bits up to the
+    final 2-norm (summed in double by the kernel, in the working type by
+    torch), so within 16 units of the last place after it; one launch a
+    call; the overflow rescue (an exact eigenvalue as a shift, rows of
+    100s) gives the plain version's finite column."""
+    from slate_tpu_torch.linalg import stein as S
+    from slate_tpu_torch.linalg.eig import sterf
+    d, e = _tridiag(max(n, 2), kind, n)
+    d, e = d[:n], e[:n - 1]
+    lam = sterf(d, e) if n > 1 else d.copy()
+    lam_p, _, _ = S.shifts(d, e, lam, dt)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x0 = torch.empty((n, n), dtype=dt, device=cuda).uniform_(
+        0.5, 1.0, generator=gen)
+    args = [torch.tensor(v, dtype=dt, device=cuda) for v in (d, e, lam_p)]
+    before = dict(K.LAUNCHES)
+    out = K.stein_iter(*args, x0, 2)
+    torch.cuda.synchronize()
+    assert _launch_delta(before) == {"stein": 1}
+    ref = K.stein_iter_plain(*args, x0, 2)
+    eps = torch.finfo(dt).eps
+    assert float((out - ref).abs().max()) <= 16 * eps
+    t = [torch.tensor(v, dtype=dt, device=cuda) for v in ([2.0, 2.0], [1.0],
+                                                           [1.0, 3.0])]
+    xb = torch.tensor([[100.0, 0.75], [300.0, 0.5]], dtype=dt, device=cuda)
+    kb, pb = K.stein_iter(*t, xb, 2), K.stein_iter_plain(*t, xb, 2)
+    assert bool(torch.isfinite(kb).all())
+    assert float((kb - pb).abs().max()) <= 16 * eps
+
+
+def test_heev_qr_stein_on_card_matches_cpu(cuda):
+    """heev(MethodEig.QR) at n = 640, EigBand 64 on the card: K8 and K12
+    once each; λ within 10·n·2⁻²⁴·‖A‖₂ of the CPU's, Z's residual and
+    orthogonality within 10·n·2⁻²⁴."""
+    n = 640
+    rng = np.random.default_rng(31)
+    g = rng.standard_normal((n, n))
+    a = ((g + g.T) / 2).astype(np.float32)
+    opts = {st.Option.MethodEig: st.MethodEig.QR, st.Option.EigBand: 64}
+    out = []
+    for dev in (cuda, "cpu"):
+        before = dict(K.LAUNCHES)
+        lam, Z = st.heev(st.HermitianMatrix.from_dense(
+            a, nb=64, grid=st.Grid(1, 1, device=dev)), opts)
+        out.append((lam.cpu().double().numpy(),
+                    Z.to_dense().cpu().double().numpy(),
+                    _launch_delta(before)))
+    assert out[0][2] == {"hb2st_vmem": 1, "stein": 1} and out[1][2] == {}
+    bound = 10 * n * 2.0 ** -24
+    a64 = a.astype(np.float64)
+    assert np.abs(out[0][0] - out[1][0]).max() <= bound * np.linalg.norm(
+        a64, 2)
+    lam, z = out[0][:2]
+    assert np.linalg.norm(a64 @ z - z * lam) / np.linalg.norm(a64) <= bound
+    assert np.linalg.norm(z.T @ z - np.eye(n)) / n <= bound
+
+
+def test_plu_panel_tournament_on_card_matches_cpu(cuda, monkeypatch):
+    """plu_panel above H_MAX (shrunk to 1024) on the card: K4 on each
+    1024-row chunk and on the final round, against the CPU's plain
+    versions: equal pivots, mask and info, values within 1e-4; a zero
+    column gives the same info and zero multipliers."""
+    from slate_tpu_torch.internal import panel_plu as pp
+    monkeypatch.setattr(pp, "H_MAX", 1024)
+    rng = np.random.default_rng(32)
+    h = 2560
+    sub = rng.standard_normal((h, pp.W)).astype(np.float32)
+    sub[:, 9] = 0.0
+    act = np.ones(h, np.float32)
+    act[rng.choice(h, 300, replace=False)] = 0.0
+    out = []
+    for dev in (cuda, "cpu"):
+        before = dict(K.LAUNCHES)
+        res = pp.plu_panel(torch.tensor(sub, device=dev),
+                           torch.tensor(act, device=dev))
+        out.append([r.cpu() for r in res] + [_launch_delta(before)])
+    assert out[0][4] == {"plu_call_folded": 3, "transpose_fold": 3,
+                         "unfold_transpose": 3, "plu_call": 1,
+                         "transpose_tiled": 2}
+    assert out[1][4] == {}
+    for i in (1, 2, 3):
+        assert torch.equal(out[0][i], out[1][i])
+    assert int(out[0][3]) == 1
+    assert float((out[0][0] - out[1][0]).abs().max()) < 1e-4
+    lu_rows = out[0][0][out[0][1].long()]
+    zcol = (torch.diagonal(lu_rows.triu()) == 0).nonzero().flatten()
+    rows = out[0][2] > 0
+    assert zcol.numel() == 1 and bool((out[0][0][rows][:, zcol] == 0).all())
+
+
+def test_dense_inplace_on_card_matches_cpu(cuda):
+    """getrf_dense_inplace and potrf_dense_inplace at n = 1024, nb = 256 on
+    the card against the CPU: the same storage back, equal pivots and
+    info, factors within 1e-4 relative."""
+    n, nb = 1024, 256
+    rng = np.random.default_rng(33)
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    s = (a @ a.T / n + np.eye(n)).astype(np.float32)
+    out = []
+    for dev in (cuda, "cpu"):
+        t = torch.tensor(a, device=dev)
+        lu, piv, info = st.getrf_dense_inplace(t, nb=nb)
+        c = torch.tensor(s, device=dev)
+        l, cinfo = st.potrf_dense_inplace(c, nb=nb)
+        assert lu is t and l is c
+        out.append((lu.cpu(), piv.cpu(), int(info), l.tril().cpu(),
+                    int(cinfo)))
+    assert torch.equal(out[0][1], out[1][1])
+    assert out[0][2] == out[1][2] == 0 and out[0][4] == out[1][4] == 0
+    assert rel(out[0][0], out[1][0]) < 1e-4 and rel(out[0][3], out[1][3]) < TOL
+
+
+def test_lapack_shims_on_card_match_cpu(cuda):
+    """One shim a family on the card (``default_grid()``) against the
+    same shim on the CPU: equal info and pivots, results within 1e-4
+    relative (float32) or 1e-10 (float64)."""
+    from slate_tpu_torch import lapack_api as la
+    cpu = st.Grid(1, 1, device="cpu")
+    n, nb = 256, 64
+    rng = np.random.default_rng(34)
+    a = rng.standard_normal((n, n))
+    s = a @ a.T / n + np.eye(n)
+    b = rng.standard_normal((n, 4))
+    tall = rng.standard_normal((2 * n, n // 2))
+    calls = {
+        "sgesv": lambda **k: la.slate_sgesv(a, b, nb, **k),
+        "dposv": lambda **k: la.slate_dposv("L", s, b, nb, **k),
+        "sgetrf": lambda **k: la.slate_sgetrf(a, nb, **k),
+        "sgels": lambda **k: la.slate_sgels(tall, tall[:, :3], nb, **k),
+        "dgemm": lambda **k: la.slate_dgemm("n", "t", 1.0, a, a, 0.5, s, nb,
+                                            **k),
+        "slange": lambda **k: la.slate_slange("F", a, nb, **k),
+        "ssyev": lambda **k: la.slate_ssyev("N", "L", s, nb, **k),
+        "sgesvd": lambda **k: la.slate_sgesvd("N", "N", tall, nb, **k),
+        "dgesv_mixed": lambda **k: la.slate_dgesv_mixed(s, b, nb, **k),
+    }
+    for name, call in calls.items():
+        got, want = call(), call(grid=cpu)
+        tol = 1e-10 if name[0] == "d" else 1e-4
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for x, y in zip(got, want):
+            if isinstance(x, np.ndarray) and x.dtype.kind == "f":
+                assert rel(torch.from_numpy(x),
+                           torch.from_numpy(y)) < tol, name
+            elif isinstance(x, float):
+                assert abs(x - y) <= tol * abs(y), name
+            else:
+                assert np.array_equal(x, y), name
+
+
+@pytest.mark.parametrize("zero_cols", [(100,), (100, 101), (0, 300)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_singular_dense_getrf_on_card_matches_cpu(cuda, zero_cols):
+    """The dense path (n = 512, nb = 64, the shim's default) on a matrix
+    with zero columns: the same info, one a zero column, and the same
+    pivots on the card and the CPU (a panel with an exact zero pivot is
+    factored again by dgetf2, whatever the solver did after it)."""
+    from slate_tpu_torch import lapack_api as la
+    rng = np.random.default_rng(35)
+    a = rng.standard_normal((512, 512)).astype(np.float32)
+    a[:, list(zero_cols)] = 0.0
+    b = rng.standard_normal((512, 2)).astype(np.float32)
+    cpu = st.Grid(1, 1, device="cpu")
+    assert la.slate_sgesv(a, b)[1] == la.slate_sgesv(a, b, grid=cpu)[1] \
+        == len(zero_cols)
+    lu, piv, info = la.slate_sgetrf(a)
+    lu_c, piv_c, info_c = la.slate_sgetrf(a, grid=cpu)
+    assert info == info_c == len(zero_cols)
+    assert np.array_equal(piv, piv_c)
+    assert rel(torch.from_numpy(lu), torch.from_numpy(lu_c)) < 1e-4

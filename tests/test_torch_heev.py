@@ -216,9 +216,17 @@ def test_heev_auto_dense_below_threshold_and_qr_gate(grid11):
     A = pst.HermitianMatrix.from_dense(a, nb=8, grid=CPU)
     lam, _ = pst.heev(A)
     assert np.abs(lam.numpy() - np.linalg.eigvalsh(a)).max() < 1e-12
+    # QR above n = 512 takes the device inverse iteration (stein), as the
+    # JAX package does: on the zero matrix λ = 0 and Z is orthonormal
+    qr = {pst.Option.MethodEig: pst.MethodEig.QR}
     big = pst.HermitianMatrix.zeros(600, 600, 64, CPU, dtype=torch.float64)
-    with pytest.raises(pst.SlateError, match="stein"):
-        pst.heev(big, {pst.Option.MethodEig: pst.MethodEig.QR})
+    jlam, JZ = jst.heev(jst.HermitianMatrix.from_dense(
+        np.zeros((600, 600)), nb=64, grid=grid11),
+        {jst.Option.MethodEig: jst.MethodEig.QR})
+    blam, BZ = pst.heev(big, qr)
+    np.testing.assert_array_equal(blam.numpy(), np.asarray(jlam))
+    for z in (BZ.to_dense().numpy(), np.asarray(JZ.to_dense())):
+        assert np.linalg.norm(z.T @ z - np.eye(600)) < 1e-12
     with pytest.raises(pst.SlateError, match="complex"):
         pst.heev(A.astype(torch.complex128),
                  {pst.Option.MethodEig: pst.MethodEig.TwoStage})

@@ -56,8 +56,8 @@ def test_kernel_sources_and_build_key():
     assert names == ["band_chase.cu", "hb2st_chase.cu", "lu_nopiv_tile.cu",
                      "panel_plu.cu",
                      "panel_plu_swap.cu", "panel_qr.cu", "panel_transpose.cu",
-                     "potrf_tile.cu", "rank_k_tail.cu", "trsm_left.cu",
-                     "trsm_lower.cu"]
+                     "potrf_tile.cu", "rank_k_tail.cu", "stein_tridiag.cu",
+                     "trsm_left.cu", "trsm_lower.cu"]
     for src in _build._sources():
         text = src.read_text()
         assert "extern \"C\" int slate_" in text
@@ -116,7 +116,9 @@ def test_exports():
                  "trmm", "gbmm", "hbmm", "tbsm", "pbtrf", "pbtrs", "pbsv",
                  "hegst", "hegv", "triangular_multiply", "triangular_solve",
                  "rank_k_update", "rank_2k_update", "BandCholFactor",
-                 "band_chol_from_reference", "band_chol_to_reference"):
+                 "band_chol_from_reference", "band_chol_to_reference",
+                 "lapack_api", "default_grid", "getrf_tntpiv",
+                 "getrf_dense_inplace", "potrf_dense_inplace"):
         assert hasattr(pst, name), name
 
 

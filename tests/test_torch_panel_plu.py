@@ -221,10 +221,20 @@ def test_transpose_destination_is_checked():
 
 
 def test_plu_panel_above_h_max_needs_the_tournament(monkeypatch):
+    """Above H_MAX (shrunk to 256 in both packages) plu_panel runs the
+    CALU tournament: the JAX package's pivots, mask and info, its values
+    within ATOL."""
     monkeypatch.setattr(pp, "H_MAX", 256)
-    sub, act = subpanel(384, 1)
-    with pytest.raises(SlateError, match="tournament"):
-        pp.plu_panel(torch.from_numpy(sub), torch.from_numpy(act))
+    monkeypatch.setattr(jpp, "H_MAX", 256)
+    sub, act = subpanel(512, 1)
+    jout, jpiv, jact, jinfo = (np.asarray(x) for x in jpp.plu_panel(
+        jnp.asarray(sub), jnp.asarray(act), interpret=True))
+    out, piv, a, info = pp.plu_panel(torch.from_numpy(sub),
+                                     torch.from_numpy(act))
+    assert np.array_equal(piv.numpy(), jpiv)
+    assert np.array_equal(a.numpy(), jact)
+    assert int(info) == int(jinfo) == 1               # the zero column
+    assert np.abs(out.numpy() - jout).max() < ATOL
 
 
 def test_panel_kernel_contracts():

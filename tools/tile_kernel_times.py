@@ -55,8 +55,15 @@ runs one ``pbsv`` at ``chip_smoke.py`` 3r's shape (f32, n = 16384,
 kd = 32, 8 right-hand sides) under ``torch.profiler`` and prints
 ``chip_smoke.phase_breakdown``'s lines: wall and device busy time, the
 device time by category and the six host ops with the most self time.
+``lu_gate`` times ``gesv`` (f32, 8 right-hand sides) at n = 20480, 24576
+and 32768, nb = 512 (the LAPACK shims' default there) and 1024, on the
+dense route (SLATE_LU_FAST=0: ``lu_factor`` per panel) and on the
+default one (the pivoting-by-index fast path, CALU above 16384 rows),
+in the order dense, fast, fast, dense, dense, fast after a warm-up of
+each (the median of three a route), with ``info`` and the backward
+error of each route.
 ``--only`` takes a comma-separated subset of k1k3, k2, k4, k5, k7, k10,
-k11, k6, chase, chase_drift, lu_prof, pbsv_prof, posv.
+k11, k6, chase, chase_drift, lu_prof, pbsv_prof, posv, lu_gate.
 ``--sweep`` also times K1, K3 and K7 alone at widths 64 … 1024 (K3 with
 8 columns: the time per 64-wide block step) and K3 at n = 1024 over
 m = 8 … 256 beside ``solve_triangular``.
@@ -81,7 +88,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 # what --only selects (all by default)
 PARTS = ("k1k3", "k2", "k4", "k5", "k7", "k10", "k11", "k6", "chase",
-         "chase_drift", "lu_prof", "pbsv_prof", "posv")
+         "chase_drift", "lu_prof", "pbsv_prof", "posv", "lu_gate")
 
 
 def digest(ts) -> str:
@@ -269,6 +276,55 @@ def lu_profile(cs, st, K, n, nb, seed, emit_line, out_dir):
                    copy_kernels=cp[0], copy_ms=cp[1] / 1e3,
                    categories={c: dict(launches=v[0], ms=v[1] / 1e3)
                                for c, v in cats.items()}))
+
+
+def lu_gate(cs, st, gen, emit_line):
+    """gesv on the dense route and on the default route above 16384 (see
+    the module docstring): each route's three wall times, their median,
+    info and ‖A·X − B‖/(‖A‖·‖X‖)."""
+    import os
+    import torch
+    grid = st.Grid(1, 1)
+    for n in (20480, 24576, 32768):
+        a = torch.randn(n, n, generator=gen, device="cuda")
+        b = torch.randn(n, cs.NRHS, generator=gen, device="cuda")
+        for nb in (512, 1024):
+            A = st.Matrix.from_dense(a, nb=nb, grid=grid)
+            B = st.Matrix.from_dense(b, nb=nb, grid=grid)
+            ts = {"dense": [], "fast": []}
+            res = {}
+
+            def run(route, keep):
+                os.environ["SLATE_LU_FAST"] = "0" if route == "dense" else ""
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                X, _, _, info = st.gesv(A, B)
+                torch.cuda.synchronize()
+                if keep:
+                    ts[route].append((time.perf_counter() - t0) * 1e3)
+                res[route] = (int(info), cs.solve_residual(
+                    a, X.to_dense(), b))
+                del X
+            try:
+                for route in ("dense", "fast"):
+                    run(route, False)                         # warm-up
+                for route in ("dense", "fast", "fast", "dense",
+                              "dense", "fast"):
+                    run(route, True)
+            finally:
+                os.environ.pop("SLATE_LU_FAST")
+            emit_line(dict(kernel="gesv_gate", n=n, nb=nb, nrhs=cs.NRHS,
+                           dense_ms=ts["dense"], fast_ms=ts["fast"],
+                           dense_median_ms=sorted(ts["dense"])[1],
+                           fast_median_ms=sorted(ts["fast"])[1],
+                           info_dense=res["dense"][0],
+                           info_fast=res["fast"][0],
+                           residual_dense=res["dense"][1],
+                           residual_fast=res["fast"][1]))
+            del A, B
+            torch.cuda.empty_cache()
+        del a, b
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -466,6 +522,9 @@ def main() -> int:
         torch.cuda.synchronize()
         print(f"pbsv_prof {args.label} on {smi}", flush=True)
         cs.phase_breakdown("pbsv", lambda: st.pbsv(A, B), host_top=6)
+
+    if "lu_gate" in want:
+        lu_gate(cs, st, gen, emit_line)
 
     if args.sweep:
         for w in (64, 128, 256, 512, 1024):
