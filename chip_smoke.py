@@ -244,10 +244,39 @@ The LAPACK API, stein and CALU slice (``Grid(1, 1)``):
    most a quarter of the array's bytes), exact K4/K5 or K1/K2 counts,
    ‖P·A − L·U‖/(n‖A‖) ≤ 1e-5 and ‖A·X − B‖/(‖A‖·‖X‖) ≤ 10·n·2⁻²⁴.
 4h. A singular ``slate_sgesv`` (n = 512, nb = 128, the fast path forced)
-   gives the same ``info`` on the card and the CPU; a complex shim raises; ``slate_sgetrs`` with another pivot
+   gives the same ``info`` on the card and the CPU; ``slate_zheev`` (the
+   complex two-stage eigensolver) raises; ``slate_sgetrs`` with another pivot
    blocking raises; ``plu_panel``'s tournament (h = 18432) on a panel with
    a zero column gives the same pivots, ``info`` and zero multipliers on
    the card and the CPU.
+
+The complex solvers and utils slice (``Grid(1, 1)``):
+
+2h. ``generate_matrix``: every formula and random kind at 4096/256 (the
+   structured kinds svd, heev, poev, spd at 2048: their cost is host
+   numpy QR) on the card and on the CPU: the uniform and binary random
+   kinds and the structured kinds bit for bit equal, randn and the
+   formula kinds within 8·2⁻²⁴ of the largest entry; ``randn`` at
+   16384/1024 timed beside ``torch.randn`` and its byte bound.
+3t. The complex solvers with the caller's TF32 on, complex64 unless
+   marked: the port's ``gemm`` at [16384, 16384]·[16384, 1024] within
+   16·√k·2⁻²⁴ of the complex128 product formed on the card (beside
+   ``torch.matmul`` with TF32 on and off); ``posv``, ``gesv``,
+   ``gesv_nopiv`` at n=16384, nb=1024, nrhs=8; ``gels`` at 16384×4096
+   (Householder, B = A·X₀, with ‖A − Q·R‖_F/‖A‖_F ≤ 10·m·2⁻²⁴);
+   ``hesv`` at 8192/256; ``gbsv`` and ``pbsv`` at 16384 with
+   kl = ku = kd = 32; ``hegst`` itype 1 at 4096/512 (‖L·C·Lᴴ − A‖ as the
+   residual); ``gesv_mixed`` and ``posv_mixed`` in complex128 at 16384
+   (``iters``, no fallback); the shims ``slate_cgesv``, ``slate_zposv``,
+   ``slate_cgels`` and ``slate_cgemm`` at 8192. Each path: no kernel
+   launched (the counts set to 0 just before it), ``info`` 0, its ms and
+   ‖A·X − B‖/(‖A‖·‖X‖) ≤ 10·n·u (u = 2⁻²⁴ complex64, 2⁻⁵³ complex128).
+   Every complex64 solve is also held to a second bound of its own
+   (``TF32_TIGHT``), which a TF32 result fails: it runs again with the
+   port's FP32 pins removed, and that control must land above the bound.
+4i. Card = CPU for complex at n=512, nb=128: a non-HPD ``potrf``'s
+   ``info`` (3), a singular ``gesv``'s (1); ``unmqr`` with ``Op.Trans``
+   raises on both; ``slate_cheev`` and ``slate_cgesvd`` raise.
 
 Each path of 3–3s runs with the launch counts set to 0 just before it
 and read just after. Any failure raises and the script exits non-zero.
@@ -257,6 +286,7 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -3425,7 +3455,7 @@ def phase_lapack_calu_failure_report():
     """4h: a singular slate_sgesv (n = 512) gives the same info on the
     card and the CPU, at the shim's default nb = 64 (the dense path) and
     at nb = 128 with the fast path forced on both devices; a complex
-    shim raises;
+    two-stage shim (slate_zheev) raises;
     slate_sgetrs with another ipiv blocking raises; plu_panel's tournament
     (h = 18432 > H_MAX, two chunks) on a panel with a zero column gives
     the same pivots, info and zero multipliers on the card and the CPU."""
@@ -3448,7 +3478,7 @@ def phase_lapack_calu_failure_report():
         os.environ.pop("SLATE_LU_FAST")
     raised = []
     try:
-        la.slate_zgesv(a, b)
+        la.slate_zheev("N", "L", a)
     except st.SlateError as e:
         raised.append("complex" in str(e))
     lu, piv, _ = la.slate_sgetrf(a + np.eye(n, dtype=np.float32), nb=64)
@@ -3472,7 +3502,7 @@ def phase_lapack_calu_failure_report():
     say(f"LAPACK/CALU failure report: singular sgesv info card "
         f"{dense['cuda']}, CPU {dense['cpu']} (dense path, nb 64), card "
         f"{infos['cuda']}, CPU {infos['cpu']} (fast path, nb 128); "
-        f"complex shim and ipiv "
+        f"slate_zheev and ipiv "
         f"blocking raise {raised}; tournament h={h} zero column: pivots "
         f"equal {same}, info card {out['cuda'][2]} CPU {out['cpu'][2]}, zero "
         f"pivots {out['cuda'][3]}, zero multipliers {out['cuda'][4]}, max "
@@ -3481,6 +3511,404 @@ def phase_lapack_calu_failure_report():
     assert infos["cuda"] == infos["cpu"] == 1 and raised == [True, True]
     assert same and out["cuda"][2:] == out["cpu"][2:] == (1, 1, True)
     assert err <= LU_ATOL
+
+
+# ---------------------------------------------------------------------------
+# the complex solvers and utils slice
+# ---------------------------------------------------------------------------
+
+CPLX_U = {torch.complex64: 2.0 ** -24, torch.complex128: 2.0 ** -53}
+GEN_N, GEN_NB = 4096, 256     # 2h: every kind on the card and on the CPU
+GEN_STRUCT_N = 2048           # 2h: the structured kinds (host numpy QR)
+GEN_TOL = 8 * 2.0 ** -24      # 2h: randn and formula kinds, card vs CPU
+HESV_C_N = 8192               # 3t: hesv at 8192/256
+SHIM_C_N = 8192               # 3t: the c/z shims
+
+
+def crandn(gen, *shape, dtype=torch.complex64):
+    """Complex Gaussian on the card, O(1) real and imaginary parts."""
+    return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+
+
+def crel_err(x, ref) -> float:
+    """‖x − ref‖_F/‖ref‖_F in complex128 (``rel_err`` takes real parts)."""
+    x, ref = x.to(torch.complex128), ref.to(torch.complex128)
+    return float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref))
+
+
+def cresidual(a, x, b) -> float:
+    """‖A·X − B‖_F/(‖A‖_F·‖X‖_F) in complex128 on the card."""
+    a, x, b = (t.to(torch.complex128) for t in (a, x, b))
+    return float(torch.linalg.norm(a @ x - b)
+                 / (torch.linalg.norm(a) * torch.linalg.norm(x)))
+
+
+def solution_info(out):
+    """``(X, info)`` of a driver's ``(X, …, info)``."""
+    return out[0], out[-1]
+
+
+# 3t's second bound: a complex64 path's ‖A·X − B‖/(‖A‖·‖X‖) stays within
+# TF32_TIGHT[path]. Each bound sits near the geometric mean of two readings
+# on an H100 (NVIDIA H100 80GB HBM3, 700 W): the path at full FP32, which
+# read 3.4–21× below it, and the same path with the port's FP32 pins
+# removed, which read 4.4–32× above it and which 3t runs beside it as the
+# control. The first bound, 10·n·u, passes a TF32 result.
+TF32_TIGHT = {"posv": 2e-8, "gesv": 3e-5, "gesv_nopiv": 4e-9,
+              "gels": 4e-7, "hesv": 6e-4, "gbsv": 1e-7, "pbsv": 8e-9,
+              "hegst": 7e-10, "slate_cgesv": 2e-5, "slate_cgels": 6e-7}
+
+
+@contextlib.contextmanager
+def fp32_pins_removed():
+    """The control of 3t's second bound: every FP32 pin of the port
+    (``precision.full_f32_matmul``, which the tier contexts use too)
+    leaves TF32 on, so a complex64 product inside one runs in TF32."""
+    from slate_tpu_torch.internal import precision
+    pin = precision._tf32_flag
+    precision._tf32_flag = lambda on: pin(True)
+    try:
+        yield
+    finally:
+        precision._tf32_flag = pin
+
+
+def hold_second_bound(key, res, res_control):
+    """The pinned reading within TF32_TIGHT[key], the control above it."""
+    tight = TF32_TIGHT[key]
+    say(f"    second bound {tight:.1e}: pinned {res:.3e}, pins removed "
+        f"{res_control:.3e} ({res_control / tight:.1f}x the bound)")
+    assert res <= tight < res_control, (key, res, tight, res_control)
+
+
+def complex_path(label, fn, dtype, n, check, key=None):
+    """One complex path on the card: the launch counts set to 0 just
+    before it and none of K1–K12 launched just after; its time (one run),
+    ``info`` and ‖A·X − B‖/(‖A‖·‖X‖) ≤ 10·n·u (u the dtype's unit
+    roundoff). ``fn`` returns ``(out, info)``; ``check(out)`` the
+    residual and any extra bound as ``(res, extra_text)``. A complex64
+    path with a ``key`` runs again with the FP32 pins removed, and
+    :func:`hold_second_bound` holds both residuals to TF32_TIGHT[key]."""
+    base, t0 = start_path()
+    out, info = fn()
+    ms, _, peak_gib = end_path(base, t0, {})
+    info = int(info)
+    res, extra = check(out)
+    limit = 10 * n * CPLX_U[dtype]
+    say(f"  {label} {str(dtype)[6:]}: ms {ms:.3f}, info {info}, residual "
+        f"{res:.3e} (bound 10*n*u = {limit:.3e}; {res / CPLX_U[dtype]:.1f} u)"
+        f"{extra}, peak device memory above its inputs {peak_gib:.3f} GiB")
+    assert info == 0 and res <= limit, (label, info, res)
+    if key is not None:
+        with fp32_pins_removed():
+            control, _ = fn()
+        hold_second_bound(key, res, check(control)[0])
+    return out
+
+
+def phase_complex_product():
+    """3t (the second bound): the port's complex64 ``gemm`` at
+    [16384, 16384]·[16384, 1024] with TF32 turned on by the caller, held
+    to 16·√k·2⁻²⁴ of the complex128 product formed on the card (a TF32
+    product, 2⁻¹¹ a rounding, lands above it); no kernel launched; beside
+    it ``torch.matmul`` of the same complex64 operands with TF32 on and
+    off, whose errors show whether cuBLAS takes TF32 for complex64."""
+    import slate_tpu_torch as st
+    from slate_tpu_torch.internal.precision import tf32_matmul
+    grid = st.Grid(1, 1)
+    gen = torch.Generator(device="cuda").manual_seed(90)
+    a, b = crandn(gen, N, N), crandn(gen, N, NB)
+    ref = a.to(torch.complex128) @ b.to(torch.complex128)
+    A, B = (st.Matrix.from_dense(t, nb=NB, grid=grid) for t in (a, b))
+    C = st.Matrix.zeros(N, NB, NB, grid, dtype=torch.complex64)
+    tight = 16 * N ** 0.5 * 2.0 ** -24
+    with tf32_matmul():
+        out = quiet_path(lambda: st.gemm(1.0, A, B, 0.0, C)).to_dense()
+        ms = time_ms(lambda: st.gemm(1.0, A, B, 0.0, C), reps=3)
+        lib_tf32 = crel_err(a @ b, ref)
+    with _f32():
+        lib_ms = time_ms(lambda: a @ b, reps=3)
+        lib_fp32 = crel_err(a @ b, ref)
+    err = crel_err(out, ref)
+    say(f"  complex64 gemm [{N}, {N}]x[{N}, {NB}], caller's TF32 on: ms "
+        f"{ms:.3f}, rel_err {err:.3e} (bound 16*sqrt(k)*2^-24 = {tight:.3e})"
+        f"; torch.matmul ms {lib_ms:.3f}, rel_err TF32 off {lib_fp32:.3e}, "
+        f"TF32 on {lib_tf32:.3e}")
+    assert bool(torch.isfinite(out).all()) and err <= tight, err
+
+
+def phase_complex_solvers():
+    """3t: the complex solvers at full width on the card (complex64 unless
+    marked), every path with the caller's TF32 on."""
+    import slate_tpu_torch as st
+    from slate_tpu_torch import lapack_api as la
+    from slate_tpu_torch.internal.precision import tf32_matmul
+    from slate_tpu_torch.linalg import mixed
+    grid = st.Grid(1, 1)
+    c64, c128 = torch.complex64, torch.complex128
+    gen = torch.Generator(device="cuda").manual_seed(91)
+    M = lambda t, cls=st.Matrix, nb=NB, **kw: cls.from_dense(
+        t, nb=nb, grid=grid, **kw)
+    eye = torch.eye(N, device="cuda")
+    say(f"complex solvers on Grid(1,1), n={N} nb={NB} nrhs={NRHS} unless "
+        f"given; the caller's TF32 on; A·X − B against 10·n·u")
+    phase_complex_product()
+    with tf32_matmul():
+        g = crandn(gen, N, N)
+        h = (g + g.mH) / 2
+        hpd = h + 4 * N ** 0.5 * eye          # κ ≈ 2.2
+        b = crandn(gen, N, NRHS)
+        B = M(b)
+        S = M(hpd, st.HermitianMatrix)
+        complex_path("posv", lambda: solution_info(st.posv(S, B)), c64, N,
+                     lambda X: (cresidual(hpd, X.to_dense(), b), ""),
+                     "posv")
+        del S
+        A = M(g)
+        complex_path("gesv", lambda: solution_info(st.gesv(A, B)),
+                     c64, N, lambda X: (cresidual(g, X.to_dense(), b), ""),
+                     "gesv")
+        del A
+        dom = g + N * eye
+        D = M(dom)
+        complex_path("gesv_nopiv",
+                     lambda: solution_info(st.gesv_nopiv(D, B)), c64, N,
+                     lambda X: (cresidual(dom, X.to_dense(), b), ""),
+                     "gesv_nopiv")
+        del D, dom, h
+        m, n = QR_M, QR_N
+        a = g[:, :n].contiguous()
+        x0 = crandn(gen, n, NRHS)
+        b0 = (a.to(c128) @ x0.to(c128)).to(c64)
+        A, Bq = M(a), M(b0)
+        qr_opts = {st.Option.MethodGels: st.MethodGels.Geqrf}
+
+        def qr_check(X):
+            QR, T = st.geqrf(A)
+            R = torch.zeros(m, n, dtype=c64, device="cuda")
+            R[:n] = QR.to_dense()[:n].triu()
+            QRp = st.unmqr(st.Side.Left, st.Op.NoTrans, QR, T,
+                           M(R)).to_dense()
+            err = crel_err(QRp, a)
+            assert err <= 10 * m * 2.0 ** -24, err
+            return (cresidual(a, X.to_dense(), b0),
+                    f", |A - QR|_F/|A|_F {err:.3e} (bound 10*m*2^-24)")
+        complex_path(f"gels {m}x{n} (Householder, B = A·X0)",
+                     lambda: (st.gels(A, Bq, qr_opts), 0), c64, m,
+                     qr_check, "gels")
+        del A, Bq, a, g
+        nh = HESV_C_N
+        gh = crandn(gen, nh, nh)
+        hh = (gh + gh.mH) / 2
+        bh = crandn(gen, nh, NRHS)
+        Hh = M(hh.tril(), st.HermitianMatrix, nb=AASEN_NB)
+        complex_path(f"hesv n={nh} nb={AASEN_NB}",
+                     lambda: solution_info(st.hesv(Hh, M(bh, nb=AASEN_NB))),
+                     c64, nh,
+                     lambda X: (cresidual(hh, X.to_dense(), bh), ""),
+                     "hesv")
+        del Hh, gh
+        i = torch.arange(N, device="cuda")
+        inband = (i[None, :] - i[:, None]).abs() <= BAND_KL
+        band = torch.where(inband, crandn(gen, N, N), 0)
+        Bb = M(b, nb=AASEN_NB)
+        complex_path(f"gbsv kl=ku={BAND_KL}",
+                     lambda: solution_info(st.gbsv(
+                         M(band, st.BandMatrix, nb=AASEN_NB, kl=BAND_KL,
+                           ku=BAND_KU), Bb)),
+                     c64, N, lambda X: (cresidual(band, X.to_dense(), b), ""),
+                     "gbsv")
+        hb = (band + band.mH) / 2 + 4 * (2 * PB_KD + 1) * eye
+        hb = torch.where((i[None, :] - i[:, None]).abs() <= PB_KD, hb, 0)
+        complex_path(f"pbsv kd={PB_KD}",
+                     lambda: solution_info(st.pbsv(
+                         M(hb.tril(), st.HermitianBandMatrix, nb=AASEN_NB,
+                           kl=PB_KD, ku=PB_KD), Bb)),
+                     c64, N, lambda X: (cresidual(hb, X.to_dense(), b), ""),
+                     "pbsv")
+        del band, hb, Bb
+        ng, nbg = HEGV_N, HEGV_NB
+        ga, gb = crandn(gen, ng, ng), crandn(gen, ng, ng)
+        ha = (ga + ga.mH) / 2
+        hbm = (gb + gb.mH) / 2 + 4 * ng ** 0.5 * torch.eye(ng, device="cuda")
+        L, info = st.potrf(M(hbm, st.HermitianMatrix, nb=nbg))
+        assert int(info) == 0
+        l = L.to_dense().tril()
+
+        def hegst_check(C):
+            # L·C·Lᴴ = A, held as A·X = B with X = C
+            c = C.to_dense()
+            lc = l.to(c128) @ c.to(c128)
+            return (float(torch.linalg.norm(lc @ l.mH.to(c128) - ha)
+                          / (torch.linalg.norm(l) ** 2
+                             * torch.linalg.norm(c))), "")
+        complex_path(f"hegst itype 1 n={ng} nb={nbg}",
+                     lambda: (st.hegst(1, M(ha, st.HermitianMatrix, nb=nbg),
+                                       L), 0), c64, ng, hegst_check,
+                     "hegst")
+        del ga, gb, ha, hbm, L, l
+        g2 = crandn(gen, N, N, dtype=c128)
+        am = 0.01 * g2 + N ** 0.5 * torch.eye(N, device="cuda", dtype=c128)
+        b2 = crandn(gen, N, NRHS, dtype=c128)
+        for name, mat, cls in (("gesv_mixed", am, st.Matrix),
+                               ("posv_mixed", (g2 + g2.mH) / 2
+                                + 4 * N ** 0.5 * torch.eye(
+                                    N, device="cuda", dtype=c128),
+                                st.HermitianMatrix)):
+            Am, Bm = M(mat, cls), M(b2)
+
+            def run_mixed_c(fn=getattr(st, name), Am=Am, Bm=Bm):
+                X, iters, info = fn(Am, Bm)
+                say(f"    {name} complex128: iters {iters}, fallback "
+                    f"{mixed.used_fallback()}")
+                assert not mixed.used_fallback() and iters < IR_ITERMAX
+                return X, info
+            complex_path(name, run_mixed_c, c128, N,
+                         lambda X, mat=mat: (cresidual(mat, X.to_dense(),
+                                                       b2), ""))
+            del Am, mat
+        del g2, am, b2
+        ns = SHIM_C_N
+        gs = crandn(gen, ns, ns)
+        bs = crandn(gen, ns, NRHS)
+        an, bn = gs.cpu().numpy(), bs.cpu().numpy()
+
+        def shim(label, dtype, call, a_, b_, key=None):
+            def fn():
+                out = call()
+                return out[0], out[1] if isinstance(out, tuple) else 0
+            complex_path(label, fn, dtype, ns,
+                         lambda x: (cresidual(a_, torch.from_numpy(x).cuda(),
+                                              b_), ""), key)
+        shim("slate_cgesv", c64, lambda: la.slate_cgesv(an, bn), gs, bs,
+             "slate_cgesv")
+        sp = ((gs + gs.mH) / 2).to(c128) + 4 * ns ** 0.5 * torch.eye(
+            ns, device="cuda", dtype=c128)
+        shim("slate_zposv", c128,
+             lambda: la.slate_zposv("L", sp.cpu().numpy(),
+                                    bs.to(c128).cpu().numpy()),
+             sp, bs.to(c128))
+        del sp
+        at = gs[:, :ns // 2].contiguous()
+        x0 = crandn(gen, ns // 2, NRHS)
+        bt = (at.to(c128) @ x0.to(c128)).to(c64)
+        shim(f"slate_cgels {ns}x{ns // 2} (B = A·X0)", c64,
+             lambda: (la.slate_cgels(at.cpu().numpy(), bt.cpu().numpy()), 0),
+             at, bt, "slate_cgels")
+        ref = gs.to(c128) @ gs.mH.to(c128)
+        base, t0 = start_path()
+        cm = la.slate_cgemm("n", "c", 1.0, an, an, 0.0,
+                            np.zeros((ns, ns), np.complex64))
+        ms, _, _ = end_path(base, t0, {})
+        err = crel_err(torch.from_numpy(cm).cuda(), ref)
+        tight = 16 * ns ** 0.5 * 2.0 ** -24
+        say(f"  slate_cgemm n, c at {ns}: ms {ms:.3f}, rel_err {err:.3e} "
+            f"(bound 16*sqrt(k)*2^-24 = {tight:.3e})")
+        assert err <= tight, err
+
+
+def phase_generator():
+    """2h: every kind of ``generate_matrix`` at 4096/256 (the structured
+    kinds, whose cost is host numpy QR, at 2048) on the card and on the
+    CPU: the uniform and binary random kinds and the structured kinds bit
+    for bit equal, randn and the formula kinds within 8·2⁻²⁴ of the
+    largest entry; ``randn`` at 16384/1024 timed beside ``torch.randn``
+    on the card and the bytes it writes."""
+    import slate_tpu_torch as st
+    from slate_tpu_torch.utils import generator as gen_mod
+    cards = st.Grid(1, 1)
+    cpu = st.Grid(1, 1, device="cpu")
+    exact = ("rand", "randu", "rands", "randb", "randr", "svd", "heev",
+             "poev", "spd")
+    kinds = gen_mod.FORMULA_KINDS + gen_mod._RANDOM_KINDS + \
+        gen_mod._STRUCTURED_KINDS
+    worst = {}
+    for kind in kinds:
+        n = GEN_STRUCT_N if kind in gen_mod._STRUCTURED_KINDS else GEN_N
+        on = {}
+        for g in (cards, cpu):
+            A = st.generate_matrix(kind, n, nb=GEN_NB, grid=g, seed=5,
+                                   dist="geo")
+            on[g.device.type] = A.to_dense().cpu()
+        x, y = on["cuda"], on["cpu"]
+        assert bool(torch.isfinite(x).all()), kind
+        if kind in exact:
+            assert torch.equal(x, y), kind
+            worst[kind] = 0.0
+        else:
+            d = float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+            worst[kind] = d
+            assert d <= GEN_TOL, (kind, d)
+    say(f"generator {GEN_N}/{GEN_NB} (structured {GEN_STRUCT_N}) card vs CPU"
+        f": bitwise {list(exact)}; max |card - CPU|/max|CPU| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()
+                    if k not in exact)
+        + f" (bound 8*2^-24 = {GEN_TOL:.3e})")
+
+    def draw():
+        st.generate_matrix("randn", N, nb=NB, grid=cards, seed=5)
+    ms = time_ms(draw, reps=3)
+    lib = time_ms(lambda: torch.randn(N, N, device="cuda"), reps=3)
+    bms = bound(0.0, 4.0 * N * N)[0]
+    say(f"  randn {N}/{NB} on the card: ms {ms:.3f}, torch.randn ms "
+        f"{lib:.3f}, bound_ms {bms:.4f} (bytes)")
+
+
+def phase_complex_failure_report():
+    """4i: card = CPU for complex: a non-HPD complex64 potrf's info, a
+    singular complex64 gesv's info; unmqr with Op.Trans on complex
+    raises on both; slate_cheev and slate_cgesvd raise."""
+    import slate_tpu_torch as st
+    from slate_tpu_torch import lapack_api as la
+    rng = np.random.default_rng(92)
+    n, nb = 512, 128
+    g = (rng.standard_normal((n, n))
+         + 1j * rng.standard_normal((n, n))).astype(np.complex64)
+    hpd = (g + g.conj().T) / 2 + 4 * n ** 0.5 * np.eye(n, dtype=np.float32)
+    hpd[300, 300] = -1000.0
+    b = (rng.standard_normal((n, 2))
+         + 1j * rng.standard_normal((n, 2))).astype(np.complex64)
+    sing = g.copy()
+    sing[:, 100] = 0.0
+    out = {}
+    for dev in ("cuda", "cpu"):
+        grid = st.Grid(1, 1, device=dev)
+        _, pinfo = st.potrf(st.HermitianMatrix.from_dense(hpd, nb=nb,
+                                                          grid=grid))
+        _, _, piv, ginfo = st.gesv(st.Matrix.from_dense(sing, nb=nb,
+                                                        grid=grid),
+                                   st.Matrix.from_dense(b, nb=nb, grid=grid))
+        QR, T = st.geqrf(st.Matrix.from_dense(g, nb=nb, grid=grid))
+        try:
+            st.unmqr(st.Side.Left, st.Op.Trans, QR, T,
+                     st.Matrix.from_dense(b, nb=nb, grid=grid))
+            raised = False
+        except st.SlateError as e:
+            raised = "ConjTrans" in str(e)
+        out[dev] = (int(pinfo), int(ginfo), raised, piv.cpu())
+    shims = []
+    for name, args in (("slate_cheev", ("N", "L", hpd)),
+                       ("slate_cgesvd", ("N", "N", g))):
+        try:
+            getattr(la, name)(*args)
+            shims.append(False)
+        except st.SlateError as e:
+            shims.append("complex" in str(e))
+    same_piv = torch.equal(out["cuda"][3], out["cpu"][3])
+    say(f"complex failure report n={n} nb={nb}: non-HPD potrf info card "
+        f"{out['cuda'][0]}, CPU {out['cpu'][0]}; singular gesv info card "
+        f"{out['cuda'][1]}, CPU {out['cpu'][1]} (pivots equal {same_piv}); "
+        f"unmqr Op.Trans raises card {out['cuda'][2]}, CPU {out['cpu'][2]}; "
+        f"slate_cheev, slate_cgesvd raise {shims}")
+    assert out["cuda"][:3] == out["cpu"][:3] == (3, 1, True)
+    assert shims == [True, True]
+
+
+def phase_complex_utils():
+    """2h, 3t and 4i."""
+    timed("2h generator", phase_generator)
+    timed("3t complex solvers", phase_complex_solvers)
+    timed("4i complex failure report", phase_complex_failure_report)
 
 
 def timed(label, fn, *args):
@@ -3549,6 +3977,7 @@ def main() -> int:
           phase_band_hegv_failure_report)
     timed("4h LAPACK API and CALU failure report",
           phase_lapack_calu_failure_report)
+    phase_complex_utils()
     out = []
     for name, (source, replaces, path) in KERNELS.items():
         r = rows[name]

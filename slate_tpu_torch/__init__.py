@@ -22,13 +22,25 @@ panel and bulge-chase ops run hand-written CUDA kernels for Hopper
 (sm_90a) on the card, built with ``nvcc`` at first use (``csrc/``), and
 their plain PyTorch versions on the CPU.
 
+The solvers take float32, float64, complex64 and complex128. No kernel
+takes complex, as no Pallas kernel of the JAX package does: the
+capability table sends complex to the ``torch.linalg``, cuBLAS and
+cuSOLVER ops, as the JAX package sends it to XLA. The two-stage
+eigensolver and SVD (``he2hb``, ``ge2tb`` and so ``heev`` two-stage,
+``gesvd`` and ``hegv``) take real dtypes only so far.
+
 Entry points run on the CUDA card unless the caller asks for the CPU:
 ``Grid(1, 1)`` means ``torch.device("cuda")`` and raises without one;
 ``Grid(1, 1, device="cpu")`` runs on the CPU.
 
+The test-matrix generator, printing and debug aids are in ``utils/``
+and the version stamp in ``version.py``, as in the JAX package.
+
 This package imports torch, numpy and the standard library only, never
 JAX or ``slate_tpu``.
 """
+
+from .version import __version__, version, id  # noqa: A004
 
 from .types import (Op, Uplo, Diag, Side, Norm, NormScope, Option,
                     MethodLU, MethodGels, MethodEig, MethodSVD, get_option)
@@ -84,3 +96,5 @@ from .interop import (from_reference, to_reference, pivots_from_reference,
                       hetrf_to_reference, band_chol_from_reference,
                       band_chol_to_reference)
 from . import lapack_api
+from .utils.generator import generate_matrix, random_matrix, random_spd
+from .utils.printing import print_matrix

@@ -39,6 +39,17 @@ def _factor_dtype(dt: torch.dtype) -> torch.dtype:
     return dt
 
 
+def hermitian_tile(akk: torch.Tensor) -> torch.Tensor:
+    """The full Hermitian tile from its lower half (the upper half is
+    junk): the strict lower triangle mirrored conjugated and the real
+    part of the diagonal, the only part LAPACK's potrf reads (the
+    trailing updates leave rounding-level imaginary parts there). For a
+    real tile this is tril + tril(-1)ᵀ, bit for bit."""
+    low = akk.tril(-1)
+    return low + low.mH + torch.diag_embed(
+        torch.diagonal(akk).real.to(akk.dtype))
+
+
 def tile_potrf(a: torch.Tensor) -> torch.Tensor:
     """Cholesky of one [nb, nb] tile → lower factor, upper zeroed. A
     failed factorization yields non-finite entries on the diagonal, as
@@ -55,24 +66,23 @@ def tile_potrf(a: torch.Tensor) -> torch.Tensor:
 def tile_trsm_left_lower(l: torch.Tensor, b: torch.Tensor,
                          unit: bool = False,
                          trans: bool = False) -> torch.Tensor:
-    """op(L)⁻¹·B with L lower and op = identity or transpose."""
+    """op(L)⁻¹·B with L lower and op = identity or (``trans``) the
+    conjugate transpose, which is the transpose for a real L."""
     if not trans and kernels.supported("trsm_left_lower", l.dtype,
                                        l.shape[0], l.device):
         return kernels.trsm_left_lower(l, b, unit=unit)
-    return torch.linalg.solve_triangular(l.mT if trans else l, b,
+    return torch.linalg.solve_triangular(l.mH if trans else l, b,
                                          upper=trans, left=True,
                                          unitriangular=unit)
 
 
 def tile_trsm_right_lower_t(l: torch.Tensor, b: torch.Tensor,
-                            unit: bool = False,
-                            conj: bool = False) -> torch.Tensor:
-    """B·op(L)⁻¹ with op = (conj-)transpose — the potrf panel op."""
-    if not conj and kernels.supported("trsm_right_lower_t", l.dtype,
-                                      l.shape[0], l.device):
+                            unit: bool = False) -> torch.Tensor:
+    """B·L⁻ᴴ (B·L⁻ᵀ for a real L) — the potrf panel op."""
+    if kernels.supported("trsm_right_lower_t", l.dtype, l.shape[0],
+                         l.device):
         return kernels.trsm_right_lower_t(l, b, unit=unit)
-    return torch.linalg.solve_triangular(l.mH if conj else l.mT, b,
-                                         upper=True, left=False,
+    return torch.linalg.solve_triangular(l.mH, b, upper=True, left=False,
                                          unitriangular=unit)
 
 

@@ -13,8 +13,9 @@ Each shim takes a keyword ``grid=None``: the matrices go to
 :func:`~.grid.default_grid`, ``Grid(1, 1)`` on the CUDA card (which raises
 without one), unless the caller names another, e.g. ``Grid(1, 1,
 device="cpu")``. No shim falls back to the CPU by itself. The c/z shims
-are registered and raise :class:`~.errors.SlateError`: the port's drivers
-take real dtypes only.
+run the drivers in complex64/complex128, except ``slate_{c,z}heev`` and
+``slate_{c,z}gesvd``, which raise :class:`~.errors.SlateError`: the
+complex two-stage reductions they take are not ported yet.
 
 Like the reference's shims, these trade speed for drop-in convenience
 (every call copies numpy to the device and back); callers of the port
@@ -103,14 +104,21 @@ def _piv2d(piv, nb, n=None):
     return piv.reshape(-1, nb)
 
 
+# complex shims whose drivers take the complex two-stage reductions
+# (he2hb, ge2tb and their bulge chases), which are not ported yet
+_COMPLEX_TWO_STAGE = ("heev", "gesvd")
+
+
 def _shim(pre, name, fn):
-    """Name ``fn`` ``slate_<pre><name>``; for the complex prefixes, a
-    function of the same name that raises."""
-    if pre in "cz":
+    """Name ``fn`` ``slate_<pre><name>``; for a complex prefix and a
+    family of :data:`_COMPLEX_TWO_STAGE`, a function of the same name
+    that raises."""
+    if pre in "cz" and name in _COMPLEX_TWO_STAGE:
         @functools.wraps(fn)
         def complex_shim(*args, **kwargs):
             raise SlateError(
-                f"slate_{pre}{name}: complex dtypes are not ported yet "
+                f"slate_{pre}{name}: the complex two-stage eigensolver and "
+                f"SVD are not ported yet "
                 f"({np.dtype(_PREFIX_DTYPE[pre]).name})")
         fn = complex_shim
     fn.__name__ = fn.__qualname__ = f"slate_{pre}{name}"

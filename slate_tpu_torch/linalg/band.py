@@ -38,7 +38,8 @@ import torch
 from .. import runtime
 from ..internal.band_packed import _get, _get_all, _put, _window, band_unpack
 from ..internal.precision import full_f32_matmul
-from ..internal.tile_kernels import (_factor_dtype, tile_gemm, tile_potrf,
+from ..internal.tile_kernels import (_factor_dtype, hermitian_tile,
+                                     tile_gemm, tile_potrf,
                                      tile_trsm_left_lower,
                                      tile_trsm_right_lower_t)
 from ..matrix import cdiv
@@ -84,14 +85,14 @@ class BandLUFactor(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def pbtrf_packed(ab: torch.Tensor, n: int, kd: int, nb: int):
-    """Factor an SPD band A (lower packed, ``ab[kd + 1, ≥ nt·nb + nb +
-    kd]``) into L·Lᵀ in place (``band.py:160-193``). Returns
+    """Factor an HPD band A (lower packed, ``ab[kd + 1, ≥ nt·nb + nb +
+    kd]``) into L·Lᴴ in place (``band.py:160-193``). Returns
     ``(ab, info)``: info the 1-based index of the first non-SPD block
     column, 0 on success, a 0-dim int32 tensor on ab's device.
 
     Per block column: the dense [nb + kd, nb + kd] window, the diagonal
     block mirrored from its lower half and factored by ``tile_potrf``
-    (K1), L21 = A21·L11⁻ᵀ by ``tile_trsm_right_lower_t`` (K2), the
+    (K1), L21 = A21·L11⁻ᴴ by ``tile_trsm_right_lower_t`` (K2), the
     trailing band block updated by one product, the window's lower band
     written back. A failed block is reported by ``finite_guard`` and
     zero-filled, so the loop runs to its end."""
@@ -99,33 +100,34 @@ def pbtrf_packed(ab: torch.Tensor, n: int, kd: int, nb: int):
     h = nb + kd
     dev = ab.device
     fd = _factor_dtype(ab.dtype)
+    cplx = ab.dtype.is_complex
     win = _window(kd + 1, ab.shape[1], h, h, 0, dev)
     info = torch.zeros((), dtype=torch.int32, device=dev)
     with full_f32_matmul():
         for k in range(nt):
             c0 = k * nb
             D = _get(ab, win, c0)                    # lower band valid only
-            akk = D[:nb, :nb]
-            akk = akk.tril() + akk.tril(-1).mT
-            lkk, info = finite_guard(tile_potrf(akk), info, k + 1, diag=True)
+            akk = hermitian_tile(D[:nb, :nb])
+            lkk, info = finite_guard(tile_potrf(akk), info, k + 1, diag=True,
+                                     cplx=cplx)
             D[:nb, :nb] = lkk.tril()
             if kd:
-                l21 = tile_trsm_right_lower_t(lkk.to(fd),
-                                              D[nb:, :nb].to(fd))
-                l21, info = finite_guard(l21.to(ab.dtype), info, k + 1)
+                l21 = tile_trsm_right_lower_t(lkk.to(fd), D[nb:, :nb].to(fd))
+                l21, info = finite_guard(l21.to(ab.dtype), info, k + 1,
+                                         cplx=cplx)
                 D[nb:, :nb] = l21
-                D[nb:, nb:] -= l21 @ l21.mT
+                D[nb:, nb:] -= l21 @ l21.mH
             _put(ab, win, c0, D)
     return ab, info
 
 
 def pbtrs_packed(abL: torch.Tensor, b: torch.Tensor, n: int, kd: int,
                  nb: int) -> torch.Tensor:
-    """Solve L·Lᵀ·x = b from :func:`pbtrf_packed`'s factor
+    """Solve L·Lᴴ·x = b from :func:`pbtrf_packed`'s factor
     (``band.py:196-233``). ``b`` is dense [≥ nt·nb + kd, nrhs] (rows ≥ n
     zero); a new tensor comes back. The forward solve of each diagonal
     block goes through ``tile_trsm_left_lower`` (K3), the backward one
-    with L11ᵀ to ``torch.linalg``."""
+    with L11ᴴ to ``torch.linalg``."""
     nt = cdiv(n, nb)
     h = nb + kd
     b = b.clone()
@@ -140,7 +142,7 @@ def pbtrs_packed(abL: torch.Tensor, b: torch.Tensor, n: int, kd: int,
             b[c0 + nb:c0 + h] -= l21[k] @ y1
         for k in reversed(range(nt)):
             c0 = k * nb
-            rhs = b[c0:c0 + nb] - l21[k].mT @ b[c0 + nb:c0 + h]
+            rhs = b[c0:c0 + nb] - l21[k].mH @ b[c0 + nb:c0 + h]
             b[c0:c0 + nb] = tile_trsm_left_lower(lkk[k], rhs, trans=True)
     return b
 
@@ -179,7 +181,8 @@ def gbtrf_packed(ab: torch.Tensor, m: int, n: int, kl: int, ku: int,
             lu, ipiv, _ = torch.linalg.lu_factor_ex(D[:, :nb].to(fd))
             lu = lu.to(ab.dtype)
             P, _, _ = torch.lu_unpack(lu, ipiv, unpack_data=False)
-            perm = P.argmax(dim=0)                   # LU = A[perm]
+            # LU = A[perm]
+            perm = (P.real if P.is_complex() else P).argmax(dim=0)
             info += (torch.diagonal(lu[:nb]) == 0).sum().int()
             right = D[:, nb:][perm]
             u12 = torch.linalg.solve_triangular(
@@ -216,7 +219,8 @@ def gbtrs_packed(ab: torch.Tensor, lpan: torch.Tensor, piv: torch.Tensor,
     """Solve op(A)·x = b from :func:`gbtrf_packed` factors
     (``band.py:304-389``). ``b`` is dense [≥ nt·nb + kl + kl + ku, nrhs],
     rows ≥ n zero; a new tensor comes back. L's panel permutations are
-    applied on the fly. ConjTrans is Trans: the port's band LU is real."""
+    applied on the fly. ConjTrans conjugates the factors of Trans
+    (``band.py:318-319``)."""
     kuf = kl + ku
     ldab = kl + kuf + 1
     nt = cdiv(min(m, n), nb)
@@ -226,6 +230,8 @@ def gbtrs_packed(ab: torch.Tensor, lpan: torch.Tensor, piv: torch.Tensor,
     win = _window(ldab, ab.shape[1], nb, hu, kuf, dev)
     eye = torch.eye(nb, dtype=ab.dtype, device=dev)
     perms = _panel_perms(piv, nb, hr)
+    # op(X) of the transposed solves: Xᵀ, or Xᴴ for ConjTrans
+    cj = torch.conj if trans == Op.ConjTrans else (lambda x: x)
 
     def u_block(k):
         D = _get(ab, win, k * nb)
@@ -249,19 +255,19 @@ def gbtrs_packed(ab: torch.Tensor, lpan: torch.Tensor, piv: torch.Tensor,
                 b[c0:c0 + nb] = torch.linalg.solve_triangular(
                     u11, rhs, upper=True)
             return b
-        for k in range(nt):                          # Uᵀ forward
+        for k in range(nt):                          # op(U) forward
             c0 = k * nb
             u11, u12 = u_block(k)
-            x1 = torch.linalg.solve_triangular(u11.mT, b[c0:c0 + nb],
+            x1 = torch.linalg.solve_triangular(cj(u11).mT, b[c0:c0 + nb],
                                                upper=False)
-            b[c0 + nb:c0 + hu] -= u12.mT @ x1
+            b[c0 + nb:c0 + hu] -= cj(u12).mT @ x1
             b[c0:c0 + nb] = x1
-        for k in reversed(range(nt)):                # Lᵀ backward, P⁻¹
+        for k in reversed(range(nt)):                # op(L) backward, P⁻¹
             c0 = k * nb
             l11, l21 = lpan[k][:nb] + eye, lpan[k][nb:]
             W = b[c0:c0 + hr].clone()
-            rhs = W[:nb] - l21.mT @ W[nb:]
+            rhs = W[:nb] - cj(l21).mT @ W[nb:]
             W[:nb] = torch.linalg.solve_triangular(
-                l11.mT, rhs, upper=True, unitriangular=True)
+                cj(l11).mT, rhs, upper=True, unitriangular=True)
             b[c0:c0 + hr][perms[k]] = W
         return b

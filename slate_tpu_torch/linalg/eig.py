@@ -80,9 +80,7 @@ def hegst(itype: int, A: HermitianMatrix, L, opts=None) -> HermitianMatrix:
     from ..ops.blas import _mirror_full, trmm, trsm
     slate_error_if(itype not in (1, 2, 3), f"hegst: itype {itype} not in "
                    "1, 2, 3")
-    slate_error_if(A.dtype.is_complex,
-                   "hegst: complex dtypes are not ported yet")
-    Af = _mirror_full(A, conj=False)
+    Af = _mirror_full(A, conj=A.dtype.is_complex)
     if itype == 1:
         Y = trsm(Side.Left, 1.0, L, Af, opts)
         C = trsm(Side.Right, 1.0, conj_transpose(L), Y, opts)
@@ -103,6 +101,10 @@ def hegv(itype: int, A: HermitianMatrix, B: HermitianMatrix, opts=None):
     NaN, as the JAX package's come out, and heev is not run."""
     from ..ops.blas import trmm, trsm
     from .potrf import potrf
+    slate_error_if(A.dtype.is_complex or B.dtype.is_complex,
+                   "hegv: complex inputs wait for the complex two-stage "
+                   "eigensolver (he2hb phases), not ported yet; hegst "
+                   "runs in complex")
     L, info = potrf(B, opts)
     if L.uplo == Uplo.Upper:
         # B = Uᴴ·U: the reduction takes the lower factor L = Uᴴ

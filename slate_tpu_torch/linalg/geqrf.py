@@ -35,8 +35,8 @@ from ..internal.precision import full_f32_matmul, resolve_tier, tier_mm
 from ..internal.tile_kernels import (_factor_dtype, extract_v, larft,
                                      panel_qr_factor)
 from ..matrix import (HermitianMatrix, Matrix, TriangularMatrix,
-                      bc_from_tiles, bc_to_tiles, cdiv, conj_transpose,
-                      dense_to_tiles, tiles_to_dense)
+                      bc_from_tiles, bc_to_tiles, cdiv, check_rhs_dtype,
+                      conj_transpose, dense_to_tiles, tiles_to_dense)
 from ..ops.blas import gemm, herk, trsm
 from ..types import Diag, MethodGels, Op, Side, Uplo
 from .potrf import potrf
@@ -49,8 +49,6 @@ def geqrf(A: Matrix, opts=None):
     A = A.materialize()
     slate_error_if(A.grid.size != 1,
                    "geqrf: multi-device grids are not ported yet")
-    slate_error_if(A.dtype.is_complex,
-                   "geqrf: complex dtypes are not ported yet")
     tier = resolve_tier(opts)
     if _qr_fast_applies(A):
         data, T = _geqrf_fast_core(A, _qr_panel_mode(A), tier)
@@ -198,11 +196,13 @@ def unmqr(side: Side, trans: Op, QR: Matrix, T, C: Matrix, opts=None):
     With H_k = I − V_k·T_k·V_kᴴ: Q·C applies the panels in reverse order
     with T, Qᴴ·C in forward order with Tᴴ; C·Q forward with T, C·Qᴴ in
     reverse with Tᴴ. ``Op.Trans`` is ``Op.ConjTrans`` for real dtypes
-    (LAPACK dormqr accepts 'T'); complex dtypes are not ported."""
-    slate_error_if(QR.dtype.is_complex or C.dtype.is_complex,
-                   "unmqr: complex dtypes are not ported yet")
+    (LAPACK dormqr accepts 'T') and raises for complex ones, as cunmqr
+    does."""
+    slate_error_if(trans == Op.Trans and QR.dtype.is_complex,
+                   "unmqr: trans must be NoTrans or ConjTrans for complex "
+                   "types (LAPACK cunmqr semantics)")
     notrans = trans == Op.NoTrans
-    C = C.materialize()
+    C = check_rhs_dtype(C.materialize(), QR.dtype)
     nb, m = QR.nb, QR.m
     kt = T.shape[0]
     slate_error_if(C.nb != nb, "unmqr: C and QR must share a tile size")

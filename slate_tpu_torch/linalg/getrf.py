@@ -45,8 +45,8 @@ from ..internal import panel_plu
 from ..internal.precision import (full_f32_matmul, resolve_tier,
                                   tier_addmm_, tier_mm)
 from ..matrix import (Matrix, TriangularMatrix, bc_from_tiles, bc_to_tiles,
-                      cdiv, conj_transpose, dense_to_tiles, tiles_to_dense,
-                      transpose)
+                      cdiv, check_rhs_dtype, conj_transpose, dense_to_tiles,
+                      tiles_to_dense, transpose)
 from ..internal.tile_kernels import lu_nopiv_block
 from ..ops.blas import trsm
 from ..ops.norms import norm
@@ -75,8 +75,6 @@ def getrf(A: Matrix, opts=None, health: bool = False):
     the info slot: the same info and an rcond estimate by ``gecondest``
     when the factor is nonsingular (host-synced)."""
     A = A.materialize()
-    slate_error_if(A.dtype.is_complex,
-                   "getrf: complex dtypes are not ported yet")
     Anorm = float(norm(Norm.One, A)) if health else None
     tier = resolve_tier(opts)
     if _fast_path_mode(A, "partial") is not None:
@@ -388,38 +386,50 @@ def _getrf_dense_1dev(A, tier):
     dev = a.device
     info = torch.zeros((), dtype=torch.int32, device=dev)
     pivs = []
-    for k in range(kt):
-        r0 = k * nb
-        w = min(nb, n - r0)              # real panel width
-        h = m - r0                       # real panel height
-        kw = min(h, w)                   # pivots of this panel
-        lu, ipiv, zp = torch.linalg.lu_factor_ex(a[r0:m, r0:r0 + w])
-        if int(zp) > 0:                  # an exact zero pivot in the panel
-            lu, piv_l = _panel_getf2(a[r0:m, r0:r0 + w].clone())
-        else:
-            piv_l = ipiv.long() - 1      # LAPACK's 1-based ipiv
-        a[r0:m, r0:r0 + w] = lu
-        perm = torch.from_numpy(
-            runtime.resolve_pivots(piv_l.cpu().numpy(), h)).to(dev)
-        if r0 > 0:                       # swap rows of the factored left part
-            a[r0:m, :r0] = a[r0:m, :r0][perm]
-        piv_k = piv_l[:kw] + r0
-        if kw < nb:                      # padded pivot slots self-swap
-            piv_k = torch.cat([piv_k, r0 + torch.arange(kw, nb, device=dev)])
-        pivs.append(piv_k.int())
-        info += (torch.diagonal(lu)[:kw] == 0).sum().int()
-        if r0 + w < n:
-            right = a[r0:m, r0 + w:n][perm]
-            urow = torch.linalg.solve_triangular(
-                lu[:kw, :kw], right[:kw], upper=False, unitriangular=True)
-            a[r0:r0 + kw, r0 + w:n] = urow
-            if r0 + kw < m:
-                a[r0 + kw:m, r0 + w:n] = right[kw:] - tier_mm(
-                    lu[kw:, :kw], urow, tier)
+    # the solves at full FP32 (complex64 included), the products at tier
+    with full_f32_matmul():
+        for k in range(kt):
+            r0 = k * nb
+            w = min(nb, n - r0)          # real panel width
+            h = m - r0                   # real panel height
+            kw = min(h, w)               # pivots of this panel
+            lu, ipiv, zp = torch.linalg.lu_factor_ex(a[r0:m, r0:r0 + w])
+            if int(zp) > 0:              # an exact zero pivot in the panel
+                lu, piv_l = _panel_getf2(a[r0:m, r0:r0 + w].clone())
+            else:
+                piv_l = ipiv.long() - 1  # LAPACK's 1-based ipiv
+            a[r0:m, r0:r0 + w] = lu
+            perm = torch.from_numpy(
+                runtime.resolve_pivots(piv_l.cpu().numpy(), h)).to(dev)
+            if r0 > 0:                   # swap rows of the factored left
+                a[r0:m, :r0] = a[r0:m, :r0][perm]
+            piv_k = piv_l[:kw] + r0
+            if kw < nb:                  # padded pivot slots self-swap
+                piv_k = torch.cat([piv_k,
+                                   r0 + torch.arange(kw, nb, device=dev)])
+            pivs.append(piv_k.int())
+            info += (torch.diagonal(lu)[:kw] == 0).sum().int()
+            if r0 + w < n:
+                right = a[r0:m, r0 + w:n][perm]
+                urow = torch.linalg.solve_triangular(
+                    lu[:kw, :kw], right[:kw], upper=False,
+                    unitriangular=True)
+                a[r0:r0 + kw, r0 + w:n] = urow
+                if r0 + kw < m:
+                    a[r0 + kw:m, r0 + w:n] = right[kw:] - tier_mm(
+                        lu[kw:, :kw], urow, tier)
     piv = (torch.stack(pivs) if pivs
            else torch.zeros((0, nb), dtype=torch.int32, device=dev))
     tiles = dense_to_tiles(a, nb, A.mtl, A.ntl)
     return bc_from_tiles(tiles, 1, 1), piv, info
+
+
+def _amax_key(col: torch.Tensor) -> torch.Tensor:
+    """The magnitude by which LAPACK's i?amax picks a pivot: |x| for a
+    real column, |Re x| + |Im x| for a complex one."""
+    if col.is_complex():
+        return col.real.abs() + col.imag.abs()
+    return col.abs()
 
 
 def _panel_getf2(p):
@@ -428,11 +438,14 @@ def _panel_getf2(p):
     dgetf2 neither swaps nor scales and goes on; cuSOLVER's getrf goes on
     otherwise, so taking the solver's factor past that pivot would make
     the factor, and the zero pivots counted from it, differ between the
-    card and the CPU. Returns ``(p, ipiv)``, ipiv 0-based [min(h, w)]."""
+    card and the CPU. The pivot is the first entry of largest |Re| + |Im|
+    in a complex column, as LAPACK's i?amax chooses it (and so cuSOLVER's
+    and the JAX package's CPU ``lu``), not the largest modulus. Returns
+    ``(p, ipiv)``, ipiv 0-based [min(h, w)]."""
     kw = min(p.shape)
     piv = torch.empty(kw, dtype=torch.int64, device=p.device)
     for j in range(kw):
-        q = j + torch.argmax(p[j:, j].abs())     # the first of equal maxima
+        q = j + torch.argmax(_amax_key(p[j:, j]))  # the first of equal maxima
         piv[j] = q
         rows = torch.stack([q.new_tensor(j), q])
         p[rows] = p[rows.flip(0)]
@@ -497,8 +510,6 @@ def getrf_nopiv(A: Matrix, opts=None):
     pivot stays 0 on U's diagonal and the elimination divides by 1 in its
     place. A is not modified."""
     A = A.materialize()
-    slate_error_if(A.dtype.is_complex,
-                   "getrf_nopiv: complex dtypes are not ported yet")
     data, info = _getrf_nopiv_dense_1dev(A, resolve_tier(opts))
     return A._replace(data=data), info
 
@@ -612,8 +623,6 @@ def gbtrf(A, opts=None):
     ``piv [kt, nb]`` (row k·nb + j swapped with ``piv[k, j]``, nb the
     band block) and the number of zero pivots. A is not modified."""
     Am = A.materialize()          # resolves op views; flips kl/ku
-    slate_error_if(Am.dtype.is_complex,
-                   "gbtrf: complex dtypes are not ported yet")
     kl, ku = Am.kl, Am.ku
     kuf = kl + ku
     nbw = _bp._band_block(min(Am.m, Am.n), kl + kuf)
@@ -632,7 +641,7 @@ def gbtrs(F, piv=None, B: Matrix = None, trans: Op = Op.NoTrans,
     row swaps at panel-block granularity). ``piv`` defaults to the
     factor's own pivots."""
     slate_error_if(F.n != B.m, "gbtrs dims")
-    B = B.materialize()
+    B = check_rhs_dtype(B.materialize(), F.ab.dtype)
     pv = F.piv if piv is None else piv
     pad = cdiv(min(F.m, F.n), F.nb) * F.nb + F.kl + F.kl + F.ku
     b = _bp._b_to_dense(B, pad)

@@ -1,9 +1,9 @@
-"""Symmetric-indefinite solve: hetrf / hetrs / hesv by Aasen's LTLᵀ
+"""Hermitian-indefinite solve: hetrf / hetrs / hesv by Aasen's LTLᴴ
 (reference src/hetrf.cc, src/hetrs.cc, src/hesv.cc; counterpart of
 ``slate_tpu/linalg/hetrf.py``).
 
-P·A·Pᵀ = L·T·Lᵀ with L unit lower triangular (its first block column
-e₁) and T symmetric block tridiagonal; stage 2 factors T by the packed
+P·A·Pᵀ = L·T·Lᴴ with L unit lower triangular (its first block column
+e₁) and T Hermitian block tridiagonal; stage 2 factors T by the packed
 band LU (``linalg/band.py``, bandwidth 2nb − 1) and the solves ride the
 band solve.
 
@@ -11,19 +11,19 @@ The JAX package runs stage 1 as one ``shard_map`` loop over block
 columns with masked einsums and candidate-gather psums. On one device
 the port loops in Python over the nt block columns on the dense padded
 [M, M] matrix, updated in place, as its ``_getrf_dense_1dev`` does; with
-H := T·Lᵀ (block upper Hessenberg), step k:
+H := T·Lᴴ (block upper Hessenberg), step k:
 
 1. L's block row k (L(k, j) is stored at tile (k, j − 1));
-2. H(j, k) = T(j, j−1)·L(k, j−1)ᵀ + T(j, j)·L(k, j)ᵀ + T(j, j+1)·L(k, j+1)ᵀ
+2. H(j, k) = T(j, j−1)·L(k, j−1)ᴴ + T(j, j)·L(k, j)ᴴ + T(j, j+1)·L(k, j+1)ᴴ
    for 1 ≤ j < k, three batched products;
 3. W = A(:, k) − Σ_{1≤j<k} L(:, j)·H(j, k) over the rows ≥ k·nb only,
    one product (the JAX package masks all tile rows);
-4. H(k, k) = L(k, k)⁻¹·W(k), T(k, k) = (H(k, k) − T(k, k−1)·L(k, k−1)ᵀ)·
-   L(k, k)⁻ᵀ, symmetrised;
+4. H(k, k) = L(k, k)⁻¹·W(k), T(k, k) = (H(k, k) − T(k, k−1)·L(k, k−1)ᴴ)·
+   L(k, k)⁻ᴴ, made Hermitian;
 5. V = W − L(:, k)·H(k, k) below block row k; its pivoted panel LU
    (``tile_kernels.panel_lu_factor``, the physical-swap kernel K10 where
    the capability table admits the window) gives L(:, k+1) and the upper
-   triangular H(k+1, k); T(k+1, k) = H(k+1, k)·L(k, k)⁻ᵀ;
+   triangular H(k+1, k); T(k+1, k) = H(k+1, k)·L(k, k)⁻ᴴ;
 6. the panel's swaps apply symmetrically: one row gather outside tile
    column k, one column gather over the columns ≥ (k+1)·nb (rows below
    block row k: the rows above hold the upper triangle, which nothing
@@ -45,7 +45,7 @@ from ..internal.precision import full_f32_matmul, resolve_tier
 from ..internal.tile_kernels import panel_lu_factor
 from ..matrix import (Matrix, TriangularMatrix, bc_from_tiles, bc_to_tiles,
                       cdiv, conj_transpose, dense_to_tiles, tiles_to_dense)
-from ..ops.blas import trsm
+from ..ops.blas import _mirror_full as _mirror, trsm
 from ..robust.guards import health_report
 from ..types import Diag, Op, Side, Uplo
 from . import band as _band
@@ -63,10 +63,7 @@ def hetrf(A, opts=None, health: bool = False, times=None):
     mirror and L; ``gbtrf_T``: T's band LU), the device synchronised at
     each boundary. ``health=True`` returns a
     :class:`~..robust.guards.HealthReport` in the info slot (the zero
-    pivot count, no growth estimate). Complex inputs are not ported and
-    raise."""
-    slate_error_if(A.dtype.is_complex,
-                   "hetrf: complex dtypes are not ported yet")
+    pivot count, no growth estimate)."""
     slate_error_if(A.op != Op.NoTrans, "mirror before transpose views")
     clock = _StageClock(times, A.grid.device)
     L, Td, Ts, piv, info_p = clock("aasen", _stage1, A)
@@ -79,7 +76,7 @@ def hetrf(A, opts=None, health: bool = False, times=None):
 
 def hetrs(factors, B: Matrix, opts=None) -> Matrix:
     """Solve from hetrf factors (reference src/hetrs.cc):
-    x = Pᵀ·L⁻ᵀ·T⁻¹·L⁻¹·P·b, the T solve by the packed band LU."""
+    x = Pᵀ·L⁻ᴴ·T⁻¹·L⁻¹·P·b, the T solve by the packed band LU."""
     L, FT, piv = factors
     Bp = _apply_pivots_matrix(B, piv, forward=True)
     Z = trsm(Side.Left, 1.0, L, Bp, opts)
@@ -124,14 +121,11 @@ def _stage2(Td, Ts, n: int, nb: int, opts):
 # ---------------------------------------------------------------------------
 
 def _mirror_full(A) -> torch.Tensor:
-    """The dense padded symmetric matrix from the stored triangle (the
-    JAX package's ``_mirror_full``, ``ops/blas.py:434-478``): a new
-    [M, M] tensor."""
+    """The dense padded Hermitian matrix from the stored triangle
+    (:func:`ops.blas._mirror_full` with ``conj``, which is the JAX
+    package's ``_mirror_full``): a new [M, M] tensor."""
     M = A.mtl * A.nb
-    d = tiles_to_dense(bc_to_tiles(A.data), M, M)
-    if A.uplo == Uplo.Upper:
-        return torch.triu(d) + torch.triu(d, 1).mT
-    return torch.tril(d) + torch.tril(d, -1).mT
+    return tiles_to_dense(bc_to_tiles(_mirror(A, conj=True).data), M, M)
 
 
 def _hetrf_aasen(a: torch.Tensor, n: int, nb: int):
@@ -158,13 +152,13 @@ def _hetrf_aasen(a: torch.Tensor, n: int, nb: int):
             LT = torch.zeros((k + 1, nb, nb), dtype=a.dtype, device=dev)
             if k > 1:
                 LT[1:k] = a[r0:start, :r0 - nb].reshape(
-                    nb, k - 1, nb).permute(1, 2, 0)
-            LT[k] = Lkk.mT
+                    nb, k - 1, nb).permute(1, 2, 0).conj()
+            LT[k] = Lkk.mH
             # 2.-3. W = A(:, k) − Σ_{1≤j<k} L(:, j)·H(j, k), rows ≥ k·nb
             W = a[r0:, r0:start].clone()
             if k > 1:
                 H = (Ts[:k - 1] @ LT[:k - 1] + Td[1:k] @ LT[1:k]
-                     + Ts[1:k].mT @ LT[2:k + 1])
+                     + Ts[1:k].mH @ LT[2:k + 1])
                 W -= a[r0:, :r0 - nb] @ H.reshape((k - 1) * nb, nb)
             # 4. H(k, k) and T(k, k)
             wk = tile_diag_pad_identity(W[:nb], k, n, nb)
@@ -172,9 +166,9 @@ def _hetrf_aasen(a: torch.Tensor, n: int, nb: int):
                                                 unitriangular=True)
             corr = Ts[k - 1] @ LT[k - 1] if k else 0.0
             tkk = torch.linalg.solve_triangular(
-                Lkk.mT, Hkk - corr, upper=True, left=False,
+                Lkk.mH, Hkk - corr, upper=True, left=False,
                 unitriangular=True)
-            Td[k] = (tkk + tkk.mT) * 0.5
+            Td[k] = (tkk + tkk.mH) * 0.5
             if start >= n:              # the dead last step
                 continue
             # 5. V = W − L(:, k)·H(k, k) below block row k; its panel LU
@@ -189,7 +183,7 @@ def _hetrf_aasen(a: torch.Tensor, n: int, nb: int):
             info += info_k
             piv[k + 1] = piv_k
             Ts[k] = torch.linalg.solve_triangular(
-                Lkk.mT, V2[start:start + nb].triu(), upper=True, left=False,
+                Lkk.mH, V2[start:start + nb].triu(), upper=True, left=False,
                 unitriangular=True)
             # 6. store the panel in tile column k, then swap symmetrically
             a[start:, r0:start] = V2[start:]
@@ -215,8 +209,8 @@ def _build_L(a: torch.Tensor, nb: int) -> torch.Tensor:
 
 def _pack_blocktridiag(Td: torch.Tensor, Ts: torch.Tensor, n: int, nb: int,
                        kd: int, ncols: int) -> torch.Tensor:
-    """Block-tridiagonal symmetric T (diagonal blocks Td[k], sub-diagonal
-    blocks Ts[k] = T(k+1, k)) → packed gbtrf working storage
+    """Block-tridiagonal Hermitian T (diagonal blocks Td[k], sub-diagonal
+    blocks Ts[k] = T(k+1, k), super-diagonal blocks Ts[k]ᴴ) → packed gbtrf working storage
     [kd + 2kd + 1, ncols] with band offsets (kd, 2kd); one gather, T is
     never formed densely (``hetrf.py:308-337``)."""
     nt = Td.shape[0]
@@ -232,7 +226,7 @@ def _pack_blocktridiag(Td: torch.Tensor, Ts: torch.Tensor, n: int, nb: int,
     bic = bi.clamp(0, nt - 1)
     diag_v = Td[bjc, oi, oj]
     sub_v = Ts[bjc, oi, oj]
-    sup_v = Ts[bic, oj, oi]
+    sup_v = Ts[bic, oj, oi].conj()
     val = torch.where(bi == bj, diag_v,
                       torch.where(bi == bj + 1, sub_v,
                                   torch.where(bi + 1 == bj, sup_v, 0.0)))

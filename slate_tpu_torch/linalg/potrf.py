@@ -23,11 +23,11 @@ from ..errors import slate_error_if
 from ..internal import band_packed as _bp
 from ..internal.precision import (full_f32_matmul, resolve_tier,
                                   tier_context, tier_lhs, tier_rhs)
-from ..internal.tile_kernels import (_factor_dtype, tile_potrf,
-                                     tile_trsm_right_lower_t)
+from ..internal.tile_kernels import (_factor_dtype, hermitian_tile,
+                                     tile_potrf, tile_trsm_right_lower_t)
 from ..matrix import (HermitianMatrix, Matrix, TriangularMatrix,
-                      bc_from_tiles, cdiv, conj_transpose, dense_to_tiles,
-                      tiles_to_dense)
+                      bc_from_tiles, cdiv, check_rhs_dtype, conj_transpose,
+                      dense_to_tiles, tiles_to_dense)
 from ..ops.blas import trsm
 from ..ops.norms import norm
 from ..robust.guards import finite_guard, health_report
@@ -51,8 +51,6 @@ def potrf(A: HermitianMatrix, opts=None, health: bool = False):
     slate_error_if(A.m != A.n, "potrf needs a square matrix")
     slate_error_if(A.grid.size != 1,
                    "potrf: multi-device grids are not ported yet")
-    slate_error_if(A.dtype.is_complex,
-                   "potrf: complex dtypes are not ported yet")
     Anorm = float(norm(Norm.One, A)) if health else None
     if A.uplo == Uplo.Upper:
         # Factor the mirrored lower problem; return the upper view.
@@ -96,7 +94,7 @@ def _conj_transpose_data(A):
 
 
 def _syrk_update_inplace(a, r0, nsub, vl, vr, cutoff=2048):
-    """a[r0:r0+nsub, r0:r0+nsub] −= v·vᵀ in place, touching (mostly) only
+    """a[r0:r0+nsub, r0:r0+nsub] −= v·vᴴ in place, touching (mostly) only
     the lower-triangular blocks: recursive 2×2 split — the diagonal
     halves recurse, the off-diagonal quarter is one rectangular product.
     Saves ~45% of the flops a full square product would spend on the
@@ -120,20 +118,20 @@ def _potrf_dense_loop(a, nb, n, Mp, tier):
     nt = cdiv(n, nb)
     info = torch.zeros((), dtype=torch.int32, device=a.device)
     fd = _factor_dtype(a.dtype)
+    cplx = a.dtype.is_complex
     for k in range(nt):
         r0 = k * nb
-        akk = a[r0:r0 + nb, r0:r0 + nb]
-        # the upper half of a Hermitian tile is junk: mirror the lower
-        akk = akk.tril() + akk.tril(-1).mT
-        lkk, info = finite_guard(tile_potrf(akk), info, k + 1, diag=True)
+        akk = hermitian_tile(a[r0:r0 + nb, r0:r0 + nb])
+        lkk, info = finite_guard(tile_potrf(akk), info, k + 1, diag=True,
+                                 cplx=cplx)
         a[r0:r0 + nb, r0:r0 + nb] = lkk.tril()
         if r0 + nb < Mp:
             with full_f32_matmul():
                 pan = tile_trsm_right_lower_t(
                     lkk.to(fd), a[r0 + nb:, r0:r0 + nb].to(fd)).to(a.dtype)
-            pan, info = finite_guard(pan, info, k + 1)
+            pan, info = finite_guard(pan, info, k + 1, cplx=cplx)
             a[r0 + nb:, r0:r0 + nb] = pan          # panel write-back
-            vl, vr = tier_lhs(pan, tier), tier_rhs(pan.mT, tier)
+            vl, vr = tier_lhs(pan, tier), tier_rhs(pan.mH, tier)
             with tier_context(tier, a.dtype):
                 _syrk_update_inplace(a, r0 + nb, Mp - r0 - nb, vl, vr)
     return info
@@ -156,9 +154,10 @@ def potrf_dense_inplace(a: torch.Tensor, nb: int = 1024, group: int = 16,
     slate_error_if(not isinstance(a, torch.Tensor) or a.dim() != 2
                    or a.shape[0] != a.shape[1],
                    "potrf_dense_inplace needs a square 2-D tensor")
-    slate_error_if(not a.is_floating_point() or not a.is_contiguous(),
-                   "potrf_dense_inplace needs a contiguous real floating "
-                   "tensor (its storage is factored in place)")
+    slate_error_if(not (a.is_floating_point() or a.is_complex())
+                   or not a.is_contiguous(),
+                   "potrf_dense_inplace needs a contiguous floating or "
+                   "complex tensor (its storage is factored in place)")
     n = a.shape[0]
     slate_error_if(n % nb != 0,
                    "potrf_dense_inplace: n must be a multiple of nb")
@@ -191,8 +190,6 @@ def _potrf_dense_1dev(A, tier):
 def potrs(L: TriangularMatrix, B: Matrix, opts=None) -> Matrix:
     """Solve A·X = B given the Cholesky factor (reference src/potrs.cc):
     L·Y = B then Lᴴ·X = Y (lower), or Uᴴ·Y = B then U·X = Y (upper)."""
-    slate_error_if(L.dtype.is_complex,
-                   "potrs: complex dtypes are not ported yet")
     if L.uplo == Uplo.Upper:
         Y = trsm(Side.Left, 1.0, conj_transpose(L), B, opts)
         return trsm(Side.Left, 1.0, L, Y, opts)
@@ -222,8 +219,6 @@ def pbtrf(A, opts=None, health: bool = False):
     same first-block convention."""
     Am = A.materialize()          # resolves op views; flips uplo, kl, ku
     slate_error_if(Am.m != Am.n, "pbtrf needs a square matrix")
-    slate_error_if(Am.dtype.is_complex,
-                   "pbtrf: complex dtypes are not ported yet")
     upper = Am.uplo == Uplo.Upper
     kd = Am.ku if upper else Am.kl
     nbw = _bp._band_block(Am.n, kd)
@@ -241,9 +236,7 @@ def pbtrs(L, B: Matrix, opts=None) -> Matrix:
     """Solve A·X = B from :func:`pbtrf`'s factor (reference
     src/pbtrs.cc)."""
     slate_error_if(L.n != B.m, "pbtrs dims")
-    slate_error_if(L.ab.dtype.is_complex,
-                   "pbtrs: complex dtypes are not ported yet")
-    Bm = B.materialize()
+    Bm = check_rhs_dtype(B.materialize(), L.ab.dtype)
     nbw = _bp._band_block(L.n, L.kd)
     b = _bp._b_to_dense(Bm, cdiv(L.n, nbw) * nbw + L.kd)
     x = _band.pbtrs_packed(L.ab, b, L.n, L.kd, nbw)

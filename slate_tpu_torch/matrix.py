@@ -68,6 +68,17 @@ def tiles_to_dense(tiles: torch.Tensor, m: int, n: int) -> torch.Tensor:
     return full[:m, :n]
 
 
+def check_rhs_dtype(B: "BaseTiledMatrix",
+                    dtype: torch.dtype) -> "BaseTiledMatrix":
+    """``B`` itself, after refusing a real right-hand side of complex
+    factors: the solution is complex and a real B cannot hold it (the
+    JAX package raises a ``TypeError`` there)."""
+    slate_error_if(dtype.is_complex and not B.dtype.is_complex,
+                   f"a real right-hand side ({B.dtype}) of {dtype} factors:"
+                   f" pass B as {dtype}")
+    return B
+
+
 def _as_tensor(a, device) -> torch.Tensor:
     if isinstance(a, np.ndarray):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)

@@ -20,8 +20,9 @@ from ..internal import masks
 from ..internal.masks import tile_diag_pad_identity
 from ..internal.precision import full_f32_matmul, resolve_tier, tier_addmm
 from ..internal.tile_kernels import tile_trsm_left_lower
-from ..matrix import (BandMatrix, Matrix, cdiv, conj_transpose,
-                      dense_to_tiles, tiles_to_dense, transpose)
+from ..matrix import (BandMatrix, Matrix, cdiv, check_rhs_dtype,
+                      conj_transpose, dense_to_tiles, tiles_to_dense,
+                      transpose)
 from ..types import Diag, Op, Side, Uplo
 
 
@@ -201,7 +202,7 @@ def trsm(side: Side, alpha, A, B: Matrix, opts=None) -> Matrix:
     triangular (reference src/trsm.cc). The transpose flags are resolved
     into storage first, so only the storage ``uplo`` is solved."""
     Am = A.materialize()
-    B = B.materialize()
+    B = check_rhs_dtype(B.materialize(), Am.dtype)
     if side == Side.Right:
         slate_error_if(Am.n != B.n, "trsm dims")
     else:

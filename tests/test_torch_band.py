@@ -142,8 +142,9 @@ def test_band_matrix_transpose_swaps_widths():
     assert rel(a.T @ X.to_dense().numpy(), rhs(n, 2)) < 1e-11
 
 
-def test_gbsv_float32_and_complex():
-    """f32 runs (the card's type) to an f32 residual; complex raises."""
+def test_gbsv_float32_and_complex(grid11):
+    """f32 runs (the card's type) to an f32 residual; complex64 gives the
+    JAX package's pivots and info and its solution within 1e-4."""
     n, kl, ku = 200, 32, 32
     a = band_dense(n, kl, ku, 5, False).astype(np.float32)
     g = st.Grid(1, 1, device="cpu")
@@ -155,9 +156,17 @@ def test_gbsv_float32_and_complex():
     assert int(info) == 0 and F.nb == 96
     assert (np.linalg.norm(a @ x - b) / (np.linalg.norm(a) * np.linalg.norm(x))
             < 10 * n * 2.0 ** -24)
-    with pytest.raises(st.SlateError, match="complex"):
-        st.gbtrf(st.BandMatrix.from_dense(a.astype(np.complex64), nb=64,
-                                          grid=g, kl=kl, ku=ku))
+    ac = (a + 1j * band_dense(n, kl, ku, 6, False)).astype(np.complex64)
+    bc = (b + 1j * rhs(n, 2)[::-1]).astype(np.complex64)
+    X, F, piv, info = st.gbsv(
+        st.BandMatrix.from_dense(ac, nb=64, grid=g, kl=kl, ku=ku),
+        st.Matrix.from_dense(bc, nb=64, grid=g))
+    JX, _, jpiv, jinfo = sj.gbsv(
+        sj.BandMatrix.from_dense(ac, nb=64, grid=grid11, kl=kl, ku=ku),
+        sj.Matrix.from_dense(bc, nb=64, grid=grid11))
+    assert int(info) == int(jinfo) == 0
+    assert np.array_equal(piv.numpy(), np.asarray(jpiv))
+    assert rel(X.to_dense().numpy(), np.asarray(JX.to_dense())) < 1e-4
 
 
 def test_gbtrf_zero_column_counts_info():

@@ -334,7 +334,8 @@ def test_hegv_itype2(grid11):
 def test_hegv_upper_b_and_failures(grid11):
     """An Upper-stored B (B = Uᴴ·U) reduces with L = Uᴴ, so λ matches the
     Lower-stored B's; a B that is not positive definite gives the JAX
-    package's info and NaN λ and Z, and heev is not run; complex raises."""
+    package's info and NaN λ and Z, and heev is not run; complex hegst
+    gives the JAX package's result while complex hegv raises."""
     from scipy.linalg import eigh
     a, b = sym(24, 17), spd(24, np.float64, seed=18)
     A = pst.HermitianMatrix.from_dense(a, nb=8, grid=CPU)
@@ -353,5 +354,15 @@ def test_hegv_upper_b_and_failures(grid11):
     assert int(info) == int(jinfo) == 2
     assert np.isnan(lam.numpy()).all() and np.isnan(np.asarray(jlam)).all()
     assert np.isnan(dense(Z)).all() and Z.shape == (24, 24)
+    ac = (a + 1j * np.tril(sym(24, 19), -1)).astype(np.complex128)
+    ac = np.tril(ac) + np.tril(ac, -1).conj().T
+    L = pst.potrf(Bu)[0]
+    Lc = pst.TriangularMatrix.from_dense(
+        L.to_dense().numpy().conj().T.astype(np.complex128), nb=8, grid=CPU)
+    C = pst.hegst(1, pst.HermitianMatrix.from_dense(ac, nb=8, grid=CPU), Lc)
+    JC = jst.hegst(1, jst.HermitianMatrix.from_dense(ac, nb=8, grid=grid11),
+                   jst.TriangularMatrix.from_dense(dense(Lc), nb=8,
+                                                   grid=grid11))
+    assert np.abs(dense(C) - dense(JC)).max() < 1e-12
     with pytest.raises(pst.SlateError, match="complex"):
-        pst.hegst(1, A.astype(torch.complex128), pst.potrf(Bu)[0])
+        pst.hegv(1, A.astype(torch.complex128), Bu)

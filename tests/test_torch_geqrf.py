@@ -232,7 +232,7 @@ def test_qr_verbs_match_drivers():
         pst.unmlq(pst.Side.Left, pst.Op.NoTrans, LQ, TL, C).to_dense())
 
 
-def test_qr_gates_and_contracts(monkeypatch):
+def test_qr_gates_and_contracts(monkeypatch, grid11):
     """Auto-on only on a CUDA card for n ≥ 2048; forced anywhere by
     SLATE_QR_FAST=1 for whole-tile m ≥ n; off with =0. The panel mode is
     the card's kernel, or with SLATE_QR_PANEL=1 its plain version."""
@@ -248,8 +248,16 @@ def test_qr_gates_and_contracts(monkeypatch):
     monkeypatch.setenv("SLATE_QR_FAST", "0")
     monkeypatch.setenv("SLATE_QR_PANEL", "0")
     assert not pgq._qr_fast_applies(A) and pgq._qr_panel_mode(A) is None
-    with pytest.raises(pst.SlateError, match="complex"):
-        pst.geqrf(A.astype(torch.complex128))
+    # complex runs and gives the JAX package's factors; unmqr takes
+    # NoTrans and ConjTrans only, as cunmqr does
+    ac = rand(256, 128, np.complex128, 4)
+    QR, T = pst.geqrf(pst.Matrix.from_dense(ac, nb=128, grid=CPU))
+    JQR, JT = jst.geqrf(jst.Matrix.from_dense(ac, nb=128, grid=grid11))
+    assert np.abs(QR.to_dense().numpy() - np.asarray(JQR.to_dense())).max() \
+        < 1e-12 and np.abs(T.numpy() - np.asarray(JT)).max() < 1e-12
+    with pytest.raises(pst.SlateError, match="ConjTrans"):
+        pst.unmqr(pst.Side.Left, pst.Op.Trans, QR, T,
+                  pst.Matrix.zeros(256, 4, 128, CPU, dtype=torch.complex128))
     with pytest.raises(pst.SlateError, match="dims"):
         QR, T = pst.geqrf(A)
         pst.unmqr(pst.Side.Left, pst.Op.NoTrans, QR, T,

@@ -1,7 +1,7 @@
 """Tests of the port that need a CUDA card: each CUDA kernel against its
 plain PyTorch version, and the Cholesky, LU, QR, eig, SVD, band LU and
-Aasen paths on the card against the same paths on the CPU. They skip
-without a card.
+Aasen paths (real and complex) and the test-matrix generator on the card
+against the same paths on the CPU. They skip without a card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -1223,3 +1223,122 @@ def test_singular_dense_getrf_on_card_matches_cpu(cuda, zero_cols):
     assert info == info_c == len(zero_cols)
     assert np.array_equal(piv, piv_c)
     assert rel(torch.from_numpy(lu), torch.from_numpy(lu_c)) < 1e-4
+
+
+def crel(x, ref):
+    x, ref = (torch.as_tensor(t).to(torch.complex128).cpu() for t in (x, ref))
+    return float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref))
+
+
+def cbackward(a, x, b):
+    """‖A·X − B‖_F/(‖A‖_F·‖X‖_F) in complex128 on the operands' device."""
+    a, x, b = (t.to(torch.complex128) for t in (a, x, b))
+    return float(torch.linalg.norm(a @ x - b)
+                 / (torch.linalg.norm(a) * torch.linalg.norm(x)))
+
+
+def complex_solves(dev, dt, n=192, nb=32):
+    """posv, gesv, gesv_nopiv, gels (B = A·X₀), hesv, gbsv, pbsv and hegst
+    itype 1 in ``dt`` on ``dev``: their backward errors (hegst's
+    ‖L·C·Lᴴ − A‖_F/(‖L‖²_F·‖C‖_F)), their infos and their pivots. The
+    inputs come from one CPU seed, so both devices solve the same
+    systems."""
+    gen = torch.Generator().manual_seed(93)
+    g = torch.randn(n, n, generator=gen, dtype=dt)
+    h = (g + g.mH) / 2
+    hpd = h + 4 * n ** 0.5 * torch.eye(n, dtype=dt)
+    b = torch.randn(n, 3, generator=gen, dtype=dt)
+    x0 = torch.randn(n // 2, 3, generator=gen, dtype=dt)
+    i = torch.arange(n)
+    band = torch.where((i[None] - i[:, None]).abs() <= 5, g, 0)
+    hband = torch.where((i[None] - i[:, None]).abs() <= 5, hpd, 0)
+    dom = g + n * torch.eye(n, dtype=dt)
+    tall = g[:, :n // 2]
+    b4 = (tall.to(torch.complex128) @ x0.to(torch.complex128)).to(dt)
+    g, h, hpd, b, band, hband, dom, tall, b4 = (
+        t.to(dev) for t in (g, h, hpd, b, band, hband, dom, tall, b4))
+    grid = st.Grid(1, 1, device=dev)
+    M = lambda t, cls=st.Matrix, **kw: cls.from_dense(t, nb=nb, grid=grid,
+                                                      **kw)
+    B = M(b)
+    X1, _, i1 = st.posv(M(hpd, st.HermitianMatrix), B)
+    X2, _, piv, i2 = st.gesv(M(g), B)
+    X3, _, i3 = st.gesv_nopiv(M(dom), B)
+    X4 = st.gels(M(tall), M(b4))
+    X5, (_, _, hp), i5 = st.hesv(M(h.tril(), st.HermitianMatrix), B)
+    X6, _, bp, i6 = st.gbsv(M(band, st.BandMatrix, kl=5, ku=5), B)
+    X7, _, i7 = st.pbsv(M(hband.tril(), st.HermitianBandMatrix, kl=5,
+                          ku=5), B)
+    L, _ = st.potrf(M(hpd, st.HermitianMatrix))
+    c = st.hegst(1, M(h, st.HermitianMatrix), L).to_dense()
+    l = L.to_dense().tril().to(torch.complex128)
+    res = [cbackward(a, X.to_dense(), r) for a, X, r in (
+        (hpd, X1, b), (g, X2, b), (dom, X3, b), (tall, X4, b4), (h, X5, b),
+        (band, X6, b), (hband, X7, b))]
+    res.append(float(torch.linalg.norm(l @ c.to(torch.complex128) @ l.mH - h)
+                     / (torch.linalg.norm(l) ** 2 * torch.linalg.norm(c))))
+    assert all(X.dtype == dt for X in (X1, X2, X3, X4, X5, X6, X7)) and \
+        c.dtype == dt
+    ints = [int(v) for v in (i1, i2, i3, i5, i6, i7)]
+    return res, ints, [p.cpu() for p in (piv, hp, bp)]
+
+
+@pytest.mark.parametrize("dt", [torch.complex64, torch.complex128],
+                         ids=["c64", "c128"])
+def test_complex_solvers_on_card_match_cpu(cuda, dt):
+    """posv, gesv (pivots), gesv_nopiv, gels, hesv, gbsv, pbsv and hegst
+    in complex on the card with the caller's TF32 on, against the same
+    solves on the CPU: no kernel launched, equal info and pivots, and on
+    each device every backward error within n·u (n = 192; u = 2⁻²⁴
+    complex64, 2⁻⁵³ complex128)."""
+    from slate_tpu_torch.internal.precision import tf32_matmul
+    n = 192
+    u = 2.0 ** -24 if dt == torch.complex64 else 2.0 ** -53
+    before = dict(K.LAUNCHES)
+    with tf32_matmul():
+        res, ints, pivs = complex_solves(cuda, dt, n)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == before
+    res_c, ints_c, pivs_c = complex_solves("cpu", dt, n)
+    assert ints == ints_c == [0] * 6
+    for p, q in zip(pivs, pivs_c):
+        assert torch.equal(p, q)
+    assert max(res) <= n * u and max(res_c) <= n * u, (res, res_c)
+
+
+def test_complex64_gemm_pins_fp32_on_card(cuda):
+    """The port's complex64 gemm with the caller's TF32 on stays within
+    16·√k·2⁻²⁴ of the complex128 product (a TF32 product does not)."""
+    from slate_tpu_torch.internal.precision import tf32_matmul
+    grid = st.Grid(1, 1)
+    gen = torch.Generator(device=cuda).manual_seed(94)
+    a = torch.randn(2048, 2048, generator=gen, device=cuda,
+                    dtype=torch.complex64)
+    b = torch.randn(2048, 256, generator=gen, device=cuda,
+                    dtype=torch.complex64)
+    ref = a.to(torch.complex128) @ b.to(torch.complex128)
+    C = st.Matrix.zeros(2048, 256, 256, grid, dtype=torch.complex64)
+    with tf32_matmul():
+        out = st.gemm(1.0, st.Matrix.from_dense(a, nb=256, grid=grid),
+                      st.Matrix.from_dense(b, nb=256, grid=grid), 0.0,
+                      C).to_dense()
+    assert crel(out, ref) <= 16 * 2048 ** 0.5 * 2.0 ** -24
+
+
+def test_generator_on_card_matches_cpu(cuda):
+    """The uniform and binary random kinds are the same bits on the card
+    and the CPU; randn and the formula kinds agree within 8·2⁻²⁴ of the
+    largest entry."""
+    from slate_tpu_torch.utils.generator import FORMULA_KINDS
+    cpu = st.Grid(1, 1, device="cpu")
+    for kind in FORMULA_KINDS + ("rand", "rands", "randn", "randb",
+                                 "randr"):
+        x = st.generate_matrix(kind, 300, 200, nb=64, grid=st.Grid(1, 1),
+                               seed=9).to_dense().cpu()
+        y = st.generate_matrix(kind, 300, 200, nb=64, grid=cpu,
+                               seed=9).to_dense()
+        if kind in ("rand", "rands", "randb", "randr"):
+            assert torch.equal(x, y), kind
+        else:
+            assert float((x - y).abs().max()) <= 8 * 2.0 ** -24 * max(
+                float(y.abs().max()), 1e-30), kind

@@ -159,9 +159,10 @@ def test_hetrs_on_carried_factors(jax_refs):
     assert np.array_equal(back["piv"], ref["piv"])
 
 
-def test_hesv_upper_mirror_verbs_and_refusals():
+def test_hesv_upper_mirror_verbs_and_refusals(grid11):
     """Upper storage through the mirror gives the Lower result; the verbs
-    wrap hetrf/hesv/hetrs; complex input raises; health=True reports."""
+    wrap hetrf/hesv/hetrs; complex input gives the JAX package's pivots,
+    info and solution; health=True reports."""
     n, nb = 61, 8
     _, _, (X, factors, _) = port_hesv(n, nb, np.float64, False)
     a, B, (Xu, _, info) = port_hesv(n, nb, np.float64, False, st.Uplo.Upper)
@@ -175,8 +176,18 @@ def test_hesv_upper_mirror_verbs_and_refusals():
     f2, _ = st.indefinite_factor(A)
     np.testing.assert_array_equal(
         st.indefinite_solve_using_factor(f2, B).to_dense(), X.to_dense())
-    with pytest.raises(st.SlateError, match="complex"):
-        st.hetrf(st.HermitianMatrix.from_dense(
-            np.tril(a).astype(np.complex128), nb=nb, grid=g))
+    h = a + 1j * np.tril(indef_sym(n, n + 1, np.float64, False), -1)
+    h = np.tril(h) + np.tril(h, -1).conj().T
+    bc = B.to_dense().numpy() * (1 - 2j)
+    Xc, (_, _, pivc), infoc = st.hesv(
+        st.HermitianMatrix.from_dense(np.tril(h), nb=nb, grid=g),
+        st.Matrix.from_dense(bc, nb=nb, grid=g))
+    JX, (_, _, jpiv), jinfo = sj.hesv(
+        sj.HermitianMatrix.from_dense(np.tril(h), nb=nb, grid=grid11),
+        sj.Matrix.from_dense(bc, nb=nb, grid=grid11))
+    assert int(infoc) == int(jinfo) == 0
+    assert np.array_equal(pivc.numpy(), np.asarray(jpiv))
+    assert np.abs(Xc.to_dense().numpy() - np.asarray(JX.to_dense())).max() \
+        < 1e-10 * np.abs(np.asarray(JX.to_dense())).max()
     _, rep = st.hetrf(A, health=True)
     assert isinstance(rep, st.HealthReport) and rep.info == 0 and rep.ok

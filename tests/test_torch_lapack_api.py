@@ -28,7 +28,7 @@ DT = {"s": np.float32, "d": np.float64}
 
 
 def rel(x, ref):
-    x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+    x, ref = np.asarray(x, np.complex128), np.asarray(ref, np.complex128)
     return np.linalg.norm(x - ref) / max(np.linalg.norm(ref), 1e-300)
 
 
@@ -255,14 +255,69 @@ def test_names_match_jax():
         assert getattr(pla, name).__name__ == name
 
 
+def complex_calls(pre):
+    """Each complex shim family that runs, with its arguments: inputs
+    with O(1) imaginary parts, a Hermitian h for the he* families."""
+    dt = {"c": np.complex64, "z": np.complex128}[pre]
+    a, s, b, t, c = (rand(N // 2, N // 2, dt, 1), spd(N // 2, dt, 2),
+                     rand(N // 2, 3, dt, 3),
+                     (np.tril(rand(N // 2, N // 2, dt, 4))
+                      + N * np.eye(N // 2)).astype(dt),
+                     rand(N // 2, N // 2, dt, 5))
+    h = rand(N // 2, N // 2, dt, 8)
+    h = ((h + h.conj().T) / 2).astype(dt)
+    tall, bt = rand(N, N // 4, dt, 6), rand(N, 2, dt, 7)
+    calls = dict(
+        gesv=(a, b), posv=("L", s, b), potrf=("U", s), getrf=(a,),
+        geqrf=(tall,), gels=(tall, bt), gesv_mixed=(a, b),
+        gemm=("c", "n", 1.5 + 0.5j, a, c, 0.5, s), lange=("F", a),
+        lantr=("1", "U", "N", a), lansy=("I", "L", h), lanhe=("1", "U", h),
+        trmm=("L", "L", "C", "N", 2.0, t, c[:, :8]),
+        trsm=("R", "U", "C", "U", 1.0, t, c),
+        symm=("R", "U", 2.0, s, c, 0.5, a), syrk=("L", "t", 1.0, a, 0.5, s),
+        syr2k=("U", "n", 1.0, a, c, 2.0, s),
+        hemm=("L", "L", 1.0 - 1j, h, c, 0.5, a),
+        herk=("U", "c", 1.0, a, 0.5, h), her2k=("L", "n", 1.0 + 1j, a, c,
+                                                2.0, h))
+    return calls, a, s, b, h
+
+
 @pytest.mark.parametrize("pre", ["c", "z"])
-def test_complex_shims_raise(pre):
+def test_complex_shims_raise(jgrid, pre):
+    """The 24 complex families that run give the JAX shims' results
+    (``info``, pivots and ``iters`` equal, the rest within TOL); heev and
+    gesvd, which take the complex two-stage reductions, still raise."""
     names = [n for n in pla.__all__ if n.startswith(f"slate_{pre}")]
     assert len(names) == 26
-    a = np.eye(4, dtype=np.complex128)
-    for name in names:
+    tol = {"c": 1e-4, "z": 1e-10}[pre]
+    calls, a, s, b, h = complex_calls(pre)
+    lu, piv, _ = getattr(jla, f"slate_{pre}getrf")(a, nb=NB)
+    f, _ = getattr(jla, f"slate_{pre}potrf")("L", s, nb=NB)
+    calls.update({"getrs": ("c", lu, piv, b), "getri": (lu, piv),
+                  "potrs": ("L", f, b), "potri": ("L", f)})
+    assert len(calls) == 24
+    for name, args in calls.items():
+        want = getattr(jla, f"slate_{pre}{name}")(*args, nb=NB)
+        got = getattr(pla, f"slate_{pre}{name}")(*args, nb=NB, grid=CPU)
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        for x, ref in zip(got, want):
+            if np.ndim(ref) == 0 or np.asarray(ref).dtype.kind == "i":
+                if isinstance(ref, float):
+                    assert abs(x - ref) <= tol * abs(ref), name
+                else:
+                    assert np.array_equal(x, ref), name
+            else:
+                assert x.dtype == np.asarray(ref).dtype, name
+                assert rel(x, ref) < tol, name
+    # an Upper posv against the exact solution: the JAX package's potrs
+    # treats an upper factor as a lower one (ROADMAP §C)
+    X, info = getattr(pla, f"slate_{pre}posv")("U", s, b, nb=NB, grid=CPU)
+    assert info == 0 and rel(X, np.linalg.solve(s.astype(np.complex128),
+                                                b)) < tol
+    for name, args in (("heev", ("N", "L", h)), ("gesvd", ("N", "N", a))):
         with pytest.raises(pst.SlateError, match="complex"):
-            getattr(pla, name)(a, a, grid=CPU)
+            getattr(pla, f"slate_{pre}{name}")(*args, grid=CPU)
 
 
 def test_lapack_api_family_count():

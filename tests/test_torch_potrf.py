@@ -190,7 +190,7 @@ def test_simplified_verbs():
     assert np.abs(H.to_dense().numpy() - a @ b).max() < 1e-12
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(grid11):
     A = pst.HermitianMatrix.from_dense(spd(8), nb=4, grid=CPU)
     # every tier of the JAX package resolves; an unknown one raises
     for tier in ("bf16_3x", "mxu_bf16"):
@@ -200,9 +200,14 @@ def test_unported_options_raise():
         pst.potrf(A, {pst.Option.TrailingPrecision: "nonsense"})
     with pytest.raises(pst.SlateError, match="multi-device"):
         pst.Grid(2, 2, device="cpu")
-    Ac = pst.HermitianMatrix.from_dense(spd(8, np.complex128), nb=4, grid=CPU)
-    with pytest.raises(pst.SlateError, match="complex"):
-        pst.potrf(Ac)
+    # complex runs, through torch.linalg, and gives the JAX package's
+    # factor and info
+    ac = spd(8, np.complex128)
+    L, info = pst.potrf(pst.HermitianMatrix.from_dense(ac, nb=4, grid=CPU))
+    JL, jinfo = jst.potrf(jst.HermitianMatrix.from_dense(ac, nb=4,
+                                                         grid=grid11))
+    assert int(info) == int(jinfo) == 0
+    assert np.abs(tri(L, False) - tri(JL, False)).max() < 1e-12
 
 
 def test_tf32_choice_is_pinned_off_and_restored(monkeypatch):

@@ -54,7 +54,8 @@ device time, and the copy and elementwise kernels' count. ``pbsv_prof``
 runs one ``pbsv`` at ``chip_smoke.py`` 3r's shape (f32, n = 16384,
 kd = 32, 8 right-hand sides) under ``torch.profiler`` and prints
 ``chip_smoke.phase_breakdown``'s lines: wall and device busy time, the
-device time by category and the six host ops with the most self time.
+device time by category and the six host ops with the most self time;
+before it, the median of 7 timed runs (``pbsv_ms``).
 ``lu_gate`` times ``gesv`` (f32, 8 right-hand sides) at n = 20480, 24576
 and 32768, nb = 512 (the LAPACK shims' default there) and 1024, on the
 dense route (SLATE_LU_FAST=0: ``lu_factor`` per panel) and on the
@@ -520,7 +521,8 @@ def main() -> int:
         B = st.Matrix.from_dense(b, nb=cs.AASEN_NB, grid=grid)
         st.pbsv(A, B)                                   # warm-up
         torch.cuda.synchronize()
-        print(f"pbsv_prof {args.label} on {smi}", flush=True)
+        print(f"pbsv_prof {args.label} on {smi}: pbsv_ms "
+              f"{cs.time_ms(lambda: st.pbsv(A, B), reps=7):.3f}", flush=True)
         cs.phase_breakdown("pbsv", lambda: st.pbsv(A, B), host_top=6)
 
     if "lu_gate" in want:
