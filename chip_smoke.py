@@ -93,17 +93,17 @@ The two-stage eigensolver and SVD slice (f32, ``Grid(1, 1)``):
 
 2d. The bulge chasers K8 (``hb2st_vmem``) and K9 (``tb2bd_vmem``) on the
    card at (n, band) = (8192, 128), (4096, 128) (the shapes of 3h/3j
-   and 3i/3k), (1024, 128) and (600, 32): the kernel's spectrum within
-   10·n·2⁻²⁴·‖A‖₂ of the dense f64 band's and its reflectors rebuilding
-   the band within 10·n·2⁻²⁴; up to n=4096 also against the plain
-   version on the card: sweep 0's reflectors within 1e-4, d and |e|
+   and 3i/3k), (2048, 128), (1024, 128) and (600, 32): the kernel's
+   spectrum within 10·n·2⁻²⁴·‖A‖₂ of the dense f64 band's and its
+   reflectors rebuilding the band within 10·n·2⁻²⁴; up to n=2048 also
+   against the plain version on the card: sweep 0's reflectors within 1e-4, d and |e|
    within 5e-2·‖A‖₂, the plain version's spectrum to the same bound. At
    the two small shapes the plain version also runs in f64 on the card
    and in f32 on the CPU, and the distances of d and |e| between them
    are printed. Kernel times (median of 3) at (8192, 128), with the
    time per wave-equivalent (2(n − 2) + T of them) beside the 42.55 µs
    (K8) and 41.53 µs (K9) of their former design of one launch per wave
-   (commits 6498b2e and 274cf77, same card type), and at (4096, 128),
+   (commits 6498b2e and 274cf77, same card type), and at (2048, 128),
    where the plain version is timed once. Each chaser twice on one band
    gives equal bits.
 3h. ``heev`` values at n=8192, nb=128, ``MethodEig.TwoStage``, A = (G + Gᵀ)/2:
@@ -276,7 +276,43 @@ The complex solvers and utils slice (``Grid(1, 1)``):
    port's FP32 pins removed, and that control must land above the bound.
 4i. Card = CPU for complex at n=512, nb=128: a non-HPD ``potrf``'s
    ``info`` (3), a singular ``gesv``'s (1); ``unmqr`` with ``Op.Trans``
-   raises on both; ``slate_cheev`` and ``slate_cgesvd`` raise.
+   raises on both; ``slate_cheev`` and ``slate_cgesvd`` give the CPU's λ
+   and σ within 10·n·2⁻²⁴ (4h: ``slate_zheev`` the CPU's λ within
+   10·n·2⁻⁵³).
+
+The complex and float64 two-stage slice (``Grid(1, 1)``):
+
+2i. K8 and K9 in float64, complex64 and complex128 (one template each,
+   ``csrc/chase_flow.cuh``) against their plain versions on the card at
+   (n, band) = (1024, 64), 64 being the band ``preferred_eig_band``
+   gives these types' main paths, (600, 32) and (512, 128), past their
+   shared memory: the spectrum against the dense band's in
+   f64/complex128 and the band rebuilt from the packed reflectors (and
+   K9's column-0 phase) within 10·n·u; d and |e| within CHASE_DE_TOL·‖A‖₂
+   and sweep 0's V, τ within CHASE_SWEEP0_TOL, both scaled by u/2⁻²⁴;
+   phase0 equal to the plain version's; d and e real; two runs bit for
+   bit equal. Then at the main paths' shape, n = 8192 (complex128 4096)
+   and band 64, all of these but the plain version's, and each alone
+   timed there and at band 128, with the bound for its type (a complex
+   multiply-add four real ones, FP64 at 34 TFLOP/s).
+3u. The two-stage paths with the caller's TF32 on, complex64 unless
+   marked: ``heev`` values at 8192/128 (with its breakdown under
+   ``torch.profiler``), ``gesvd`` values at 8192², ``heev`` with vectors
+   (DC) at 4096/512, ``gesvd`` with U, Vᴴ at 6144×4096, ``hegv`` itype 1–3
+   at 4096/512 (3r's bounds, against complex128 references); float64
+   ``heev`` and ``gesvd`` values at 8192 by TwoStage (they raised on the
+   card before); complex128 ``heev`` with vectors at 2048; ``slate_cheev``,
+   ``slate_zheev``, ``slate_cgesvd`` and ``slate_zgesvd`` ('N') at 4096 on
+   their default grid (Auto: the library's dense eigensolver and SVD).
+   λ and σ in the real dtype within 10·n·u (·‖A‖₂, ·σ_max) of
+   ``eigvalsh``/``svdvals`` in complex128/f64 on the card (σ of complex
+   matrices from the Gram matrix's eigenvalues); the residuals and
+   orthogonality of the vectors within 10·n·u (10·m·u for the SVD).
+   ``hb2st_vmem`` 1 a ``heev``/``hegv``, ``tb2bd_vmem`` 1 a ``gesvd``, no
+   other kernel (complex ``potrf``, ``hegst`` and the solves are library
+   ops), none on the shims. Each complex64 two-stage path also meets
+   ``TF32_TIGHT[key]`` and runs again with the FP32 pins removed as the
+   control, which must land above it.
 
 Each path of 3–3s runs with the launch counts set to 0 just before it
 and read just after. Any failure raises and the script exits non-zero.
@@ -308,11 +344,13 @@ EIG_N, EIG_NB = 8192, 128     # heev2_split_8192 / gesvd2_split_8192 (bench.py:9
 # ones. The plain version, a task-by-task loop of small torch ops, runs up
 # to CHASE_PLAIN_MAX_N: on an H100 machine it takes ~0.8 ms a task for
 # K8's and ~1.3 ms for K9's, on the card or on its host CPU alike, so
-# ~4 minutes each at n=8192. There the kernel is held to the checks that
-# need no plain version: the spectrum and the band rebuilt from its
-# reflectors.
-CHASE_SHAPES = ((EIG_N, EIG_NB), (4096, EIG_NB), (1024, 128), (600, 32))
-CHASE_PLAIN_MAX_N = 4096
+# ~4 minutes each at n=8192 and 60–80 s at 4096, where it ran until 2i
+# and 3u came (2d took 217.6 s). Above it the kernel is held to the
+# checks that need no plain version: the spectrum and the band rebuilt
+# from its reflectors.
+CHASE_SHAPES = ((EIG_N, EIG_NB), (4096, EIG_NB), (2048, EIG_NB),
+                (1024, 128), (600, 32))
+CHASE_PLAIN_MAX_N = 2048
 # K8/K9 vs plain: d and |e|, relative to ‖A‖₂. The reduction is backward
 # stable, not forward stable: single entries drift apart along a chain of
 # ~n·T f32 reflections (1.7e-2·‖A‖₂ measured for K9 at (600, 32) while
@@ -324,6 +362,7 @@ CHASE_SWEEP0_TOL = 1e-4   # K8/K9 vs plain: sweep 0's V and τ (a short chain)
 TOL = 1e-5                # kernel vs plain: relative Frobenius error, FP32
 LU_ATOL = 1e-4            # K10 vs plain where not bitwise (pivots, info equal)
 FP32_PEAK = 67e12         # H100 SXM, non-tensor FP32 FLOP/s (data sheet)
+FP64_PEAK = 34e12         # H100 SXM, non-tensor FP64 FLOP/s (data sheet)
 HBM_RATE = 3.35e12        # H100 SXM, bytes/s (data sheet)
 REPS = 7
 # Device cycles of the sleep queued before each timed run (about 25 ms at
@@ -440,8 +479,9 @@ def time_ms(fn, setup=None, reps=REPS) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+def bound(flops: float, nbytes: float,
+          peak: float = FP32_PEAK) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -1573,33 +1613,66 @@ def chase_work(n, b, which):
     return flops, nbytes
 
 
+def unit_roundoff(dtype) -> float:
+    return 2.0 ** -24 if dtype in (torch.float32, torch.complex64) \
+        else 2.0 ** -53
+
+
 def dense_band(ab, upper):
-    """The dense f64 matrix of a compact band, on the card."""
+    """The dense f64 (complex128 for a complex band) matrix of a compact
+    band, on the card: upper storage as it is, lower storage as the
+    Hermitian band (the upper triangle conjugated, the diagonal real)."""
     b, n = ab.shape[0] - 1, ab.shape[1]
-    a = torch.zeros(n, n, dtype=torch.float64, device=ab.device)
+    wide = torch.complex128 if ab.is_complex() else torch.float64
+    a = torch.zeros(n, n, dtype=wide, device=ab.device)
     for d in range(b + 1):
         j = torch.arange(n - d, device=ab.device)
-        a[j, j + d] = ab[d, :n - d].double()
+        x = ab[d, :n - d].to(wide)
+        if not upper and d == 0:
+            x = x.real.to(wide)
+        a[j, j + d] = x if upper else x.conj()
         if not upper:
-            a[j + d, j] = ab[d, :n - d].double()
+            a[j + d, j] = x
     return a
 
 
-def spectrum(a, upper):
+def spectrum(a, upper, gram=True):
     """Eigenvalues (symmetric) or singular values (upper), ascending, of
     a dense f64 matrix. The singular values come from the eigenvalues of
     the Gram matrix aᵀa, in f64: an absolute error of at most
     ~sqrt(n·2⁻⁵²)·‖a‖₂, far inside the f32 bounds they are held to, in
-    far less time than ``svdvals`` at n=8192."""
+    far less time than ``svdvals`` at n=8192. Without ``gram``, from
+    cuSOLVER's QR-iteration SVD (``driver="gesvd"``): the default
+    driver's Jacobi SVD reads ~1e4·u of σ_max (3u's witness)."""
     if not upper:
         return torch.linalg.eigvalsh(a)
-    return torch.linalg.eigvalsh(a.T @ a).clamp_min(0.0).sqrt()
+    if not gram:
+        return torch.linalg.svdvals(a, driver="gesvd").flip(0)
+    return torch.linalg.eigvalsh(a.mH @ a).clamp_min(0.0).sqrt()
 
 
-def chase_spectrum(d, e, upper):
+def chase_spectrum(d, e, upper, gram=True):
     d, e = d.double(), e.double()
     t = torch.diag(d) + torch.diag(e, 1)
-    return spectrum(t if upper else t + torch.diag(e, -1), upper)
+    return spectrum(t if upper else t + torch.diag(e, -1), upper, gram)
+
+
+def tridiag_spectrum(d, e, upper):
+    """Eigenvalues of the real symmetric tridiagonal (d, e), or singular
+    values of the upper bidiagonal (the nonnegative half of its 2n×2n
+    Golub–Kahan tridiagonal's eigenvalues), ascending, f64 on the card:
+    LAPACK on the host, O(n²), so it serves at n = 8192 in f64."""
+    from scipy.linalg import eigvalsh_tridiagonal
+    d = d.double().cpu().numpy()
+    e = e.double().cpu().numpy()
+    if upper:
+        n = d.size
+        off = np.empty(2 * n - 1)
+        off[0::2], off[1::2] = d, e
+        w = np.sort(np.abs(eigvalsh_tridiagonal(np.zeros(2 * n), off)[n:]))
+    else:
+        w = eigvalsh_tridiagonal(d, e)
+    return torch.from_numpy(np.ascontiguousarray(w)).to("cuda")
 
 
 def de_gap(x, y) -> float:
@@ -1609,52 +1682,75 @@ def de_gap(x, y) -> float:
                for i in (0, 1))
 
 
-def check_chase(which, n, b, gen):
-    """K8 or K9 on one random band: the kernel's spectrum against the
-    dense f64 band's, and its reflectors rebuilding the band in their
-    packed order (which a task run out of order, or two tasks of a wave
-    that collide, would break); up to n = CHASE_PLAIN_MAX_N also against
-    its plain version on the card: sweep 0's reflectors, d and |e|, the
-    plain version's spectrum. At n ≤ 1024 the plain version also runs in
-    f64 on the card and in f32 on the CPU, to show how far f32 rounding
-    alone moves d and |e|. Returns the band, the max abs difference of d
-    and |e| and the plain version's time (host clock: a host-bound loop
-    of small torch ops); None for both above CHASE_PLAIN_MAX_N."""
+def check_chase(which, n, b, gen, dtype=torch.float32):
+    """K8 or K9 on one random band of ``dtype`` (complex: O(1) real and
+    imaginary parts, a complex a₀₀): the kernel's spectrum against the
+    dense f64 (complex128) band's, and its reflectors (and K9's column-0
+    phase) rebuilding the band in their packed order (which a task run
+    out of order, or two tasks of a wave that collide, would break), both
+    within 10·n·u; up to n = CHASE_PLAIN_MAX_N also against its plain
+    version on the card: sweep 0's reflectors, d and |e| (their
+    tolerances scaled by u/2⁻²⁴), the plain version's spectrum, and
+    phase0 equal. Outside float32, d and e of the real dtype and two runs
+    bit for bit equal too (2d checks float32's bits at 8192), and the
+    spectra of d and e from LAPACK's tridiagonal solver on the host
+    (:func:`tridiag_spectrum`), so that n = 8192 stays cheap. At
+    n ≤ 1024 in float32 the plain version also runs in f64 on the card
+    and in f32 on the CPU, to show how far f32 rounding alone moves d and
+    |e|. Returns the band, the max abs difference of d and |e| and the
+    plain version's time (host clock: a host-bound loop of small torch
+    ops); None for both above CHASE_PLAIN_MAX_N."""
     from slate_tpu_torch.internal import band_bulge as bb
     from slate_tpu_torch.internal import kernels as K
     from slate_tpu_torch.linalg.bulge import apply_bulge_reflectors
     upper = which == "tb2bd"
     fn = K.tb2bd_chase if upper else K.hb2st_chase
     plain = bb.tb2bd if upper else bb.hb2st
-    ab = torch.randn(b + 1, n, generator=gen, device="cuda")
+    f32 = dtype == torch.float32
+    ab = torch.randn(b + 1, n, generator=gen, device="cuda", dtype=dtype)
     out = fn(ab)
     dense = dense_band(ab, upper)
-    want = spectrum(dense, upper)
+    # float32's singular values from the Gram matrix, fast at n = 8192
+    # and far inside its bound; the wider types' need svdvals
+    u = unit_roundoff(dtype)
+    # the Gram matrix in f64 (complex128) is far inside the bounds of the
+    # single-precision types; the double ones need a true SVD
+    want = spectrum(dense, upper, gram=u == 2.0 ** -24)
     norm2 = float(want.abs().max())
-    limit = 10 * n * 2.0 ** -24
-    eye = torch.eye(n, device="cuda")
+    spec_of = ((lambda d, e: chase_spectrum(d, e, upper, True)) if f32
+               else (lambda d, e: tridiag_spectrum(d, e, upper)))
+    limit, scale = 10 * n * u, u / 2.0 ** -24
+    eye = torch.eye(n, device="cuda", dtype=dtype)
     with _f32():
         if upper:
             U2 = apply_bulge_reflectors(out[2], out[3], eye, b)
             V2 = apply_bulge_reflectors(out[4], out[5], eye, b)
-            rebuilt = U2 @ (torch.diag(out[0]) + torch.diag(out[1], 1)) @ V2.T
+            bid = (torch.diag(out[0]) + torch.diag(out[1], 1)).to(dtype)
+            rebuilt = U2 @ bid @ V2.mH
+            rebuilt[:, 0] *= out[6].conj()
             del U2, V2
         else:
             Q = apply_bulge_reflectors(out[2], out[3], eye, b)
             tri = (torch.diag(out[0]) + torch.diag(out[1], 1)
-                   + torch.diag(out[1], -1))
-            rebuilt = Q @ tri @ Q.T
+                   + torch.diag(out[1], -1)).to(dtype)
+            rebuilt = Q @ tri @ Q.mH
             del Q, tri
-    rec = float(torch.linalg.norm(rebuilt.double() - dense)
+    rec = float(torch.linalg.norm(rebuilt.to(dense.dtype) - dense)
                 / torch.linalg.norm(dense))
     del rebuilt, eye
-    spec = float((chase_spectrum(out[0], out[1], upper) - want).abs().max()
-                 ) / norm2
+    spec = float((spec_of(out[0], out[1]) - want).abs().max()) / norm2
     ok = (spec <= limit and rec <= limit
           and bool(torch.isfinite(out[0]).all()))
-    line = (f"  {which} n={n} band={b}: kernel spectrum {spec:.3e}, band "
-            f"rebuilt from the kernel's reflectors {rec:.3e} (bound "
+    name = "" if f32 else f" {str(dtype)[6:]}"
+    line = (f"  {which}{name} n={n} band={b}: kernel spectrum {spec:.3e}, "
+            f"band rebuilt from the kernel's reflectors {rec:.3e} (bound "
             f"{limit:.3e} each)")
+    if not f32:
+        same = all(torch.equal(x, y) for x, y in zip(out, fn(ab)))
+        real = out[0].dtype == out[1].dtype == (
+            dtype.to_real() if dtype.is_complex else dtype)
+        ok = ok and same and real
+        line += f"; two runs bit for bit equal {same}; d, e real {real}"
     mx = plain_ms = note = None
     if n <= CHASE_PLAIN_MAX_N:
         torch.cuda.synchronize()
@@ -1666,15 +1762,18 @@ def check_chase(which, n, b, gen):
         sweep0 = max(float((x[0] - y[0]).abs().max())
                      for x, y in zip(out[2:6 if upper else 4],
                                      ref[2:6 if upper else 4]))
-        spec_p = float((chase_spectrum(ref[0], ref[1], upper) - want)
-                       .abs().max()) / norm2
-        ok = (ok and mx <= CHASE_DE_TOL * norm2 and spec_p <= limit
-              and sweep0 <= CHASE_SWEEP0_TOL)
+        spec_p = float((spec_of(ref[0], ref[1]) - want).abs().max()) / norm2
+        phase = not upper or torch.equal(out[6], ref[6])
+        ok = (ok and mx <= CHASE_DE_TOL * scale * norm2 and spec_p <= limit
+              and sweep0 <= CHASE_SWEEP0_TOL * scale and phase)
         line += (f"; vs plain: d,|e| max_abs_err {mx:.3e} (tol "
-                 f"{CHASE_DE_TOL:g}*|A|_2 = {CHASE_DE_TOL * norm2:.3e}), "
-                 f"sweep-0 V,tau {sweep0:.3e} (tol {CHASE_SWEEP0_TOL:g}), "
-                 f"plain spectrum {spec_p:.3e}, plain_ms {plain_ms:.1f}")
-        if n <= 1024:
+                 f"{CHASE_DE_TOL * scale:g}*|A|_2 = "
+                 f"{CHASE_DE_TOL * scale * norm2:.3e}), sweep-0 V,tau "
+                 f"{sweep0:.3e} (tol {CHASE_SWEEP0_TOL * scale:g}), plain "
+                 f"spectrum {spec_p:.3e}, plain_ms {plain_ms:.1f}")
+        if upper and not f32:
+            line += f", phase0 {complex(out[6]):.6f} equal {phase}"
+        if n <= 1024 and f32:
             r64 = plain(ab.double())
             rcpu = plain(ab.cpu())
             note = (f"    f32 rounding: d,|e| distance from the plain version "
@@ -1686,7 +1785,8 @@ def check_chase(which, n, b, gen):
     if note:
         say(note)
     if not ok:
-        raise AssertionError(f"{which} n={n} band={b} fails its checks")
+        raise AssertionError(f"{which} {dtype} n={n} band={b} fails its "
+                             "checks")
     return ab, mx, plain_ms
 
 
@@ -3454,8 +3554,8 @@ def phase_lapack_stein_calu():
 def phase_lapack_calu_failure_report():
     """4h: a singular slate_sgesv (n = 512) gives the same info on the
     card and the CPU, at the shim's default nb = 64 (the dense path) and
-    at nb = 128 with the fast path forced on both devices; a complex
-    two-stage shim (slate_zheev) raises;
+    at nb = 128 with the fast path forced on both devices; slate_zheev
+    gives the CPU's λ within 10·n·2⁻⁵³·max|λ|;
     slate_sgetrs with another ipiv blocking raises; plu_panel's tournament
     (h = 18432 > H_MAX, two chunks) on a panel with a zero column gives
     the same pivots, info and zero multipliers on the card and the CPU."""
@@ -3477,10 +3577,11 @@ def phase_lapack_calu_failure_report():
     finally:
         os.environ.pop("SLATE_LU_FAST")
     raised = []
-    try:
-        la.slate_zheev("N", "L", a)
-    except st.SlateError as e:
-        raised.append("complex" in str(e))
+    zw = {dev: la.slate_zheev("N", "L", a.astype(np.complex128),
+                              grid=st.Grid(1, 1, device=dev))[0]
+          for dev in ("cuda", "cpu")}
+    zerr = float(np.abs(zw["cuda"] - zw["cpu"]).max()
+                 / np.abs(zw["cpu"]).max())
     lu, piv, _ = la.slate_sgetrf(a + np.eye(n, dtype=np.float32), nb=64)
     try:
         la.slate_sgetrs("n", lu, piv, b, nb=128)
@@ -3502,13 +3603,15 @@ def phase_lapack_calu_failure_report():
     say(f"LAPACK/CALU failure report: singular sgesv info card "
         f"{dense['cuda']}, CPU {dense['cpu']} (dense path, nb 64), card "
         f"{infos['cuda']}, CPU {infos['cpu']} (fast path, nb 128); "
-        f"slate_zheev and ipiv "
-        f"blocking raise {raised}; tournament h={h} zero column: pivots "
+        f"slate_zheev card vs CPU max|d lambda|/max|lambda| {zerr:.3e} "
+        f"(bound {10 * n * 2.0 ** -53:.3e}); ipiv "
+        f"blocking raises {raised}; tournament h={h} zero column: pivots "
         f"equal {same}, info card {out['cuda'][2]} CPU {out['cpu'][2]}, zero "
         f"pivots {out['cuda'][3]}, zero multipliers {out['cuda'][4]}, max "
         f"|card - CPU| {err:.3e}")
     assert dense["cuda"] == dense["cpu"] == 1
-    assert infos["cuda"] == infos["cpu"] == 1 and raised == [True, True]
+    assert infos["cuda"] == infos["cpu"] == 1 and raised == [True]
+    assert zw["cpu"].dtype == np.float64 and zerr <= 10 * n * 2.0 ** -53
     assert same and out["cuda"][2:] == out["cpu"][2:] == (1, 1, True)
     assert err <= LU_ATOL
 
@@ -3556,7 +3659,12 @@ def solution_info(out):
 # control. The first bound, 10·n·u, passes a TF32 result.
 TF32_TIGHT = {"posv": 2e-8, "gesv": 3e-5, "gesv_nopiv": 4e-9,
               "gels": 4e-7, "hesv": 6e-4, "gbsv": 1e-7, "pbsv": 8e-9,
-              "hegst": 7e-10, "slate_cgesv": 2e-5, "slate_cgels": 6e-7}
+              "hegst": 7e-10, "slate_cgesv": 2e-5, "slate_cgels": 6e-7,
+              # 3u's complex64 two-stage paths, by each path's reading:
+              # pinned 1.6e-7–4.5e-6, pins removed 230–395× that
+              "heev_vals": 3e-6, "gesvd_vals": 2.5e-6, "heev": 8e-5,
+              "gesvd": 8.5e-5, "hegv1": 9e-6, "hegv2": 1.7e-5,
+              "hegv3": 1.9e-5}
 
 
 @contextlib.contextmanager
@@ -3857,7 +3965,8 @@ def phase_generator():
 def phase_complex_failure_report():
     """4i: card = CPU for complex: a non-HPD complex64 potrf's info, a
     singular complex64 gesv's info; unmqr with Op.Trans on complex
-    raises on both; slate_cheev and slate_cgesvd raise."""
+    raises on both; slate_cheev and slate_cgesvd give the CPU's λ and σ
+    within 10·n·2⁻²⁴ of the largest."""
     import slate_tpu_torch as st
     from slate_tpu_torch import lapack_api as la
     rng = np.random.default_rng(92)
@@ -3889,19 +3998,20 @@ def phase_complex_failure_report():
     shims = []
     for name, args in (("slate_cheev", ("N", "L", hpd)),
                        ("slate_cgesvd", ("N", "N", g))):
-        try:
-            getattr(la, name)(*args)
-            shims.append(False)
-        except st.SlateError as e:
-            shims.append("complex" in str(e))
+        w = {dev: getattr(la, name)(*args, grid=st.Grid(1, 1, device=dev))[0]
+             for dev in ("cuda", "cpu")}
+        shims.append(float(np.abs(w["cuda"] - w["cpu"]).max()
+                           / np.abs(w["cpu"]).max()))
+        assert w["cuda"].dtype == w["cpu"].dtype == np.float32, name
     same_piv = torch.equal(out["cuda"][3], out["cpu"][3])
     say(f"complex failure report n={n} nb={nb}: non-HPD potrf info card "
         f"{out['cuda'][0]}, CPU {out['cpu'][0]}; singular gesv info card "
         f"{out['cuda'][1]}, CPU {out['cpu'][1]} (pivots equal {same_piv}); "
         f"unmqr Op.Trans raises card {out['cuda'][2]}, CPU {out['cpu'][2]}; "
-        f"slate_cheev, slate_cgesvd raise {shims}")
+        f"slate_cheev, slate_cgesvd card vs CPU max|d|/max "
+        f"{shims[0]:.3e}, {shims[1]:.3e} (bound {10 * n * 2.0 ** -24:.3e})")
     assert out["cuda"][:3] == out["cpu"][:3] == (3, 1, True)
-    assert shims == [True, True]
+    assert max(shims) <= 10 * n * 2.0 ** -24, shims
 
 
 def phase_complex_utils():
@@ -3909,6 +4019,363 @@ def phase_complex_utils():
     timed("2h generator", phase_generator)
     timed("3t complex solvers", phase_complex_solvers)
     timed("4i complex failure report", phase_complex_failure_report)
+
+
+# ---------------------------------------------------------------------------
+# the complex and float64 two-stage slice
+# ---------------------------------------------------------------------------
+
+# 2i: K8/K9 in the new types, held to their plain versions at these
+# shapes, a band of None being the one preferred_eig_band gives the main
+# paths (64); 128 is past the shared memory of the 8- and 16-byte types
+CHASE_TYPE_SHAPES = ((1024, None), (600, 32), (512, 128))
+# ... then at (n, the main paths' band) without the plain version
+# (spectrum, rebuilt band, bits) and timed there, and timed alone at
+# CHASE_WIDE_BAND
+CHASE_TIME_N = {torch.float64: EIG_N, torch.complex64: EIG_N,
+                torch.complex128: 4096}
+CHASE_WIDE_BAND = 128
+
+
+def chase_work_typed(n, b, which, dtype):
+    """(flops, bytes, peak) of one chase in ``dtype``: :func:`chase_work`'s
+    real counts, a complex multiply-add four real ones, each element
+    ``itemsize`` bytes, against the FP32 or FP64 peak."""
+    flops, nbytes = chase_work(n, b, which)
+    item = torch.empty((), dtype=dtype).element_size()
+    real = dtype.to_real() if dtype.is_complex else dtype
+    peak = FP32_PEAK if real == torch.float32 else FP64_PEAK
+    return (flops * (4 if dtype.is_complex else 1), nbytes * item / 4, peak)
+
+
+def phase_chase_types():
+    """2i: K8 and K9 in float64, complex64 and complex128 against their
+    plain versions on the card at bands 64, 32 and 128; then at
+    (8192, 64) (complex128 at 4096), the main paths' shape, held to the
+    dense band's spectrum, the band rebuilt from the reflectors and their
+    own bits, and timed there and at band 128, with the bound for its
+    type."""
+    from slate_tpu_torch.internal import _build
+    from slate_tpu_torch.internal import kernels as K
+    from slate_tpu_torch.internal.band_wave import preferred_eig_band
+    gen = torch.Generator(device="cuda").manual_seed(120)
+    say("bulge-chase kernels in float64, complex64, complex128 (on the card):")
+    for name, log in sorted(_build.BUILD_LOG.items()):
+        if name in ("hb2st_chase", "band_chase"):
+            for line in log.splitlines():
+                if "Compiling entry" in line or "spill" in line:
+                    say(f"  ptxas[{name}]: {line.strip()}")
+    main = {dt: preferred_eig_band(n, dt, "cuda")
+            for dt, n in CHASE_TIME_N.items()}
+    for dtype in CHASE_TIME_N:
+        for which in ("hb2st", "tb2bd"):
+            for n, b in CHASE_TYPE_SHAPES:
+                check_chase(which, n, b or main[dtype], gen, dtype)
+    times = {}
+    for dtype, n in CHASE_TIME_N.items():
+        for which, fn in (("hb2st", K.hb2st_chase), ("tb2bd", K.tb2bd_chase)):
+            for b in (CHASE_WIDE_BAND, main[dtype]):
+                if b == main[dtype]:
+                    ab = check_chase(which, n, b, gen, dtype)[0]
+                else:
+                    ab = torch.randn(b + 1, n, generator=gen, device="cuda",
+                                     dtype=dtype)
+                ms = time_ms(lambda: fn(ab), reps=3)
+                flops, nbytes, peak = chase_work_typed(n, b, which, dtype)
+                bms, by = bound(flops, nbytes, peak)
+                times[str(dtype)[6:], which, b] = ms
+                say(f"  {which} {str(dtype)[6:]} kernel_ms {ms:.4f} at n={n} "
+                    f"band={b}; bound_ms {bms:.4f} ({by}; "
+                    f"{flops / 1e9:.2f} GFLOP, {nbytes / 2 ** 20:.1f} MiB); "
+                    f"library_ms null")
+                del ab
+    return times
+
+
+TWO_STAGE_VEC_N, TWO_STAGE_VEC_NB = 4096, 512   # 3u: 3i's shape
+TWO_STAGE_SVD_M, TWO_STAGE_SVD_N = 6144, 4096   # 3u: 3k's shape
+TWO_STAGE_VEC_C128_N = 2048    # 3u: complex128 heev with vectors
+SHIM_EIG_N = 4096              # 3u: the c/z heev and gesvd shims
+
+
+def herm_card(n, seed, dtype=torch.complex64):
+    """(G + Gᴴ)/2 on the card, G Gaussian (complex: O(1) parts)."""
+    g = torch.randn(n, n, generator=torch.Generator(device="cuda")
+                    .manual_seed(seed), device="cuda", dtype=dtype)
+    return (g + g.mH) / 2
+
+
+def two_stage_path(label, fn, check, dtype, n, counts, key=None,
+                   tight=None):
+    """One path of 3u: the launch counts set to 0 just before ``fn(times)``
+    and exactly ``counts`` just after; its time (one run) and stage split;
+    ``check(out)``'s reading within 10·n·u (and within ``tight`` when
+    given). A complex64 path with a ``key`` runs again with the FP32 pins removed, and
+    :func:`hold_second_bound` holds both readings to TF32_TIGHT[key].
+    Returns the launch counts and ``out``."""
+    base, t0 = start_path()
+    times = {}
+    out = fn(times)
+    ms, launches, peak_gib = end_path(base, t0, counts)
+    res, text = check(out)
+    limit = 10 * n * unit_roundoff(dtype)
+    split = ", ".join(f"{k} {v * 1e3:.3f}" for k, v in times.items())
+    say(f"  {label} {str(dtype)[6:]}: ms {ms:.3f}"
+        + (" (stage clock on)" if split else "") + f", {text} "
+        f"(bound 10*n*u = {limit:.3e}), peak device memory above its "
+        f"inputs {peak_gib:.3f} GiB" + (f"; stage split ms: {split}"
+                                         if split else ""))
+    assert res <= limit, (label, res, limit)
+    assert tight is None or res <= tight, (label, res, tight)
+    if key is not None:
+        with fp32_pins_removed():
+            control = fn(None)
+        hold_second_bound(key, res, check(control)[0])
+    return launches, out
+
+
+def eig_values_check(ref, rdt, n):
+    """max|λ − λ_ref|/‖A‖₂ of ``(lam, Z)``, λ of the real dtype."""
+    norm2 = float(ref.abs().max())
+
+    def check(out):
+        lam = out[0]
+        assert lam.dtype == rdt and tuple(lam.shape) == (n,)
+        assert bool(torch.isfinite(lam).all())
+        err = float((lam.double() - ref).abs().max()) / norm2
+        return err, f"max|lam - lam_ref|/|A|_2 {err:.3e}"
+    return check
+
+
+def eig_vectors_check(a, rdt, n):
+    """max(‖A·Z − Z·Λ‖_F/‖A‖_F, ‖ZᴴZ − I‖_F/n) in complex128/f64."""
+    wide = torch.complex128 if a.is_complex() else torch.float64
+    a64 = a.to(wide)
+
+    def check(out):
+        lam, Z = out
+        assert lam.dtype == rdt
+        z = Z.to_dense().to(wide)
+        res = float(torch.linalg.norm(a64 @ z - z * lam.double())
+                    / torch.linalg.norm(a64))
+        orth = float(torch.linalg.norm(
+            z.mH @ z - torch.eye(n, device="cuda", dtype=wide)) / n)
+        return max(res, orth), (f"|AZ - Z Lambda|/|A| {res:.3e}, "
+                                f"|Z^H Z - I|/n {orth:.3e}")
+    return check
+
+
+def sv_values_check(ref, rdt, n):
+    """max|σ − σ_ref|/σ_max of ``(s, U, VT)``, σ of the real dtype."""
+    smax = float(ref.max())
+
+    def check(out):
+        s = out[0]
+        assert s.dtype == rdt and tuple(s.shape) == (n,)
+        assert bool(torch.isfinite(s).all())
+        err = float((s.double() - ref).abs().max()) / smax
+        return err, f"max|s - s_ref|/s_max {err:.3e}"
+    return check
+
+
+def phase_two_stage_types():
+    """3u: the two-stage paths in complex64 (unless marked) at full width
+    on the card, with the caller's TF32 on: heev values at 8192/128 and
+    with vectors (DC) at 4096/512, gesvd values at 8192² and with U, Vᴴ
+    at 6144×4096, hegv itype 1–3 at 4096/512; float64 heev and gesvd
+    values at 8192 by TwoStage (the repair: they raised on the card);
+    complex128 heev with vectors at 2048; slate_cheev, slate_zheev,
+    slate_cgesvd, slate_zgesvd at 4096 on their default grid (Auto: the
+    library's dense eigensolver and SVD, no kernel). Each complex64
+    two-stage path also meets TF32_TIGHT[key] and runs again with the
+    FP32 pins removed as the control."""
+    import slate_tpu_torch as st
+    from slate_tpu_torch import lapack_api as la
+    from slate_tpu_torch.internal.precision import tf32_matmul
+    grid = st.Grid(1, 1)
+    c64, c128, f64 = torch.complex64, torch.complex128, torch.float64
+    eo = {st.Option.MethodEig: st.MethodEig.TwoStage}
+    so = {st.Option.MethodSVD: st.MethodSVD.TwoStage}
+    dc = {st.Option.MethodEig: st.MethodEig.DC}
+    counts = {}
+    H = lambda t, nb: st.HermitianMatrix.from_dense(t, nb=nb, grid=grid)
+    G = lambda t, nb: st.Matrix.from_dense(t, nb=nb, grid=grid)
+    say("two-stage paths in complex64 (unless given) and float64 on "
+        "Grid(1,1), the caller's TF32 on:")
+    with tf32_matmul():
+        st.heev(H(herm_card(512, 1), EIG_NB), eo, want_vectors=False)
+        st.svd_vals(G(herm_card(512, 2), EIG_NB), so)     # warm-up
+        n = EIG_N
+        a = herm_card(n, 130)
+        A = H(a, EIG_NB)
+        ref = torch.linalg.eigvalsh(a.to(c128))
+        counts["heev_vals_c64"], _ = two_stage_path(
+            f"heev values n={n} nb={EIG_NB} TwoStage",
+            lambda t: st.heev(A, eo, False, t),
+            eig_values_check(ref, torch.float32, n), c64, n,
+            {"hb2st_vmem": 1}, "heev_vals")
+        phase_breakdown("complex64 heev (values)",
+                        lambda: st.heev(A, eo, False), cpu=False)
+        del A, ref
+        g = crandn(torch.Generator(device="cuda").manual_seed(131), n, n)
+        Ag = G(g, EIG_NB)
+        ref = spectrum(g.to(c128), upper=True).flip(0)
+        counts["gesvd_vals_c64"], _ = two_stage_path(
+            f"gesvd values {n}x{n} nb={EIG_NB} TwoStage",
+            lambda t: st.gesvd(Ag, so, times=t),
+            sv_values_check(ref, torch.float32, n), c64, n,
+            {"tb2bd_vmem": 1}, "gesvd_vals")
+        del Ag, g, ref
+        n, nb = TWO_STAGE_VEC_N, TWO_STAGE_VEC_NB
+        a = herm_card(n, 132)
+        A = H(a, nb)
+        counts["heev_c64"], _ = two_stage_path(
+            f"heev vectors n={n} nb={nb} DC",
+            lambda t: st.heev(A, dc, times=t),
+            eig_vectors_check(a, torch.float32, n), c64, n,
+            {"hb2st_vmem": 1}, "heev")
+        del A
+        m, n = TWO_STAGE_SVD_M, TWO_STAGE_SVD_N
+        g = crandn(torch.Generator(device="cuda").manual_seed(133), m, n)
+        Ag = G(g, EIG_NB)
+        g64 = g.to(c128)
+
+        def svd_check(out):
+            s, U, VT = out
+            assert s.dtype == torch.float32
+            u, vt = U.to_dense().to(c128), VT.to_dense().to(c128)
+            eye = torch.eye(n, device="cuda", dtype=c128)
+            rec = float(torch.linalg.norm(g64 - (u * s.double()) @ vt)
+                        / torch.linalg.norm(g64))
+            ou = float(torch.linalg.norm(u.mH @ u - eye) / n)
+            ov = float(torch.linalg.norm(vt @ vt.mH - eye) / n)
+            return max(rec, ou, ov), (f"|A - U S V^H|/|A| {rec:.3e}, "
+                                      f"|U^H U - I|/n {ou:.3e}, "
+                                      f"|V^H V - I|/n {ov:.3e}")
+        counts["gesvd_c64"], _ = two_stage_path(
+            f"gesvd U, V^H {m}x{n} nb={EIG_NB} TwoStage",
+            lambda t: st.gesvd(Ag, so, True, True, t), svd_check, c64, m,
+            {"tb2bd_vmem": 1}, "gesvd")
+        del Ag, g, g64
+        counts.update(hegv_complex(grid, dc))
+        # float64 by TwoStage: raised on the card before the kernels took it
+        n = EIG_N
+        a = herm_card(n, 134, f64)
+        ref = torch.linalg.eigvalsh(a)
+        A = H(a, EIG_NB)
+        counts["heev_vals_f64"], _ = two_stage_path(
+            f"heev values n={n} nb={EIG_NB} TwoStage",
+            lambda t: st.heev(A, eo, False, t),
+            eig_values_check(ref, f64, n), f64, n, {"hb2st_vmem": 1})
+        g = torch.randn(n, n, generator=torch.Generator(device="cuda")
+                        .manual_seed(135), device="cuda", dtype=f64)
+        t1 = time.perf_counter()
+        # QR iteration: the default Jacobi driver reads ~3e4·u here
+        ref = torch.linalg.svdvals(g, driver="gesvd")
+        torch.cuda.synchronize()
+        say(f"    svdvals f64 reference (driver gesvd) took "
+            f"{time.perf_counter() - t1:.1f} s")
+        Ag = G(g, EIG_NB)
+        counts["gesvd_vals_f64"], _ = two_stage_path(
+            f"gesvd values {n}x{n} nb={EIG_NB} TwoStage",
+            lambda t: st.gesvd(Ag, so, times=t),
+            sv_values_check(ref, f64, n), f64, n, {"tb2bd_vmem": 1})
+        del A, Ag, a, g, ref
+        n = TWO_STAGE_VEC_C128_N
+        a = herm_card(n, 136, c128)
+        A = H(a, 512)
+        counts["heev_c128"], _ = two_stage_path(
+            f"heev vectors n={n} nb=512 DC",
+            lambda t: st.heev(A, dc, times=t),
+            eig_vectors_check(a, f64, n), c128, n, {"hb2st_vmem": 1})
+        del a
+        n = SHIM_EIG_N
+        for pre, dt in (("c", c64), ("z", c128)):
+            a = herm_card(n, 137, dt)
+            an = a.cpu().numpy()
+            rdt = torch.float32 if dt == c64 else f64
+            ref = torch.linalg.eigvalsh(a.to(c128))
+            two_stage_path(
+                f"slate_{pre}heev('N') n={n}",
+                lambda t: (torch.from_numpy(getattr(la, f"slate_{pre}heev")(
+                    "N", "L", an)[0]).to("cuda"), None),
+                eig_values_check(ref, rdt, n), dt, n, {})
+            # σ of a Hermitian matrix: its |λ|
+            ref = ref.abs().sort(descending=True).values
+            two_stage_path(
+                f"slate_{pre}gesvd('N', 'N') {n}x{n}",
+                lambda t: (torch.from_numpy(getattr(la, f"slate_{pre}gesvd")(
+                    "N", "N", an)[0]).to("cuda"),),
+                sv_values_check(ref, rdt, n), dt, n, {})
+            del a, an, ref
+    return counts
+
+
+def hegv_complex(grid, opts):
+    """3u (hegv): itype 1, 2, 3 at 3r's shape in complex64, A = (G + Gᴴ)/2,
+    B = G₂·G₂ᴴ/n + I, held to 3r's bounds (10·n·2⁻²⁴·‖A‖₂·κ(B) and
+    √n·2⁻²⁴·‖A‖₂·κ(B)) against a complex128 reference formed on the card,
+    and to TF32_TIGHT with the pins removed as the control; the complex
+    potrf, hegst and solves are library ops, so K8 alone launches."""
+    import slate_tpu_torch as st
+    c128 = torch.complex128
+    n, nb = HEGV_N, HEGV_NB
+    a = herm_card(n, 138)
+    gb = crandn(torch.Generator(device="cuda").manual_seed(139), n, n)
+    bm = (gb.to(c128) @ gb.mH.to(c128) / n).to(torch.complex64) \
+        + torch.eye(n, device="cuda")
+    del gb
+    A = st.HermitianMatrix.from_dense(a, nb=nb, grid=grid)
+    Bh = st.HermitianMatrix.from_dense(bm, nb=nb, grid=grid)
+    a64, b64 = a.to(c128), bm.to(c128)
+    l64 = torch.linalg.cholesky(b64)
+    ev_b = torch.linalg.eigvalsh(b64)
+    norm_a = float(torch.linalg.eigvalsh(a64).abs().max())
+    kappa = float(ev_b[-1] / ev_b[0])
+    scale = norm_a * kappa
+    tight = n ** 0.5 * 2.0 ** -24 * scale
+    say(f"  hegv complex64 n={n} nb={nb} DC: |A|_2 {norm_a:.3f}, kappa(B) "
+        f"{kappa:.3f}; 3r's bounds over |A|_2*kappa(B): 10*n*2^-24 and "
+        f"sqrt(n)*2^-24 = {tight / scale:.3e}")
+    counts = {}
+    for itype in (1, 2, 3):
+        if itype == 1:
+            y = torch.linalg.solve_triangular(l64, a64, upper=False)
+            cc = torch.linalg.solve_triangular(l64, y.mH, upper=False)
+        else:
+            cc = l64.mH @ a64 @ l64
+        ref = torch.linalg.eigvalsh(cc)
+
+        def check(out, itype=itype, ref=ref):
+            lam, Z, info = out
+            assert int(info) == 0 and lam.dtype == torch.float32
+            z = Z.to_dense().to(c128)
+            lam64 = lam.double()
+            err = float((lam64 - ref).abs().max())
+            if itype == 1:
+                r = a64 @ z - (b64 @ z) * lam64
+            else:
+                r = (a64 @ (b64 @ z) if itype == 2 else b64 @ (a64 @ z)) \
+                    - z * lam64
+            res = float(torch.linalg.norm(r) / torch.linalg.norm(z))
+            worst = max(err, res) / scale
+            return worst, (f"itype {itype}: max|lam - lam_ref| {err:.3e}, "
+                           f"|R|_F/|Z|_F {res:.3e}, over |A|_2*kappa(B) "
+                           f"{worst:.3e}")
+        counts[f"hegv{itype}_c64"], _ = two_stage_path(
+            f"hegv itype {itype} n={n} nb={nb} DC",
+            lambda t, itype=itype: st.hegv(itype, A, Bh, opts),
+            check, torch.complex64, n, {"hb2st_vmem": 1}, f"hegv{itype}",
+            tight / scale)
+    return counts
+
+
+def phase_complex_two_stage():
+    """2i and 3u; their launch counts by path."""
+    timed("2i bulge-chase kernels in float64, complex64, complex128",
+          phase_chase_types)
+    return timed("3u two-stage paths in complex and float64",
+                 phase_two_stage_types)
 
 
 def timed(label, fn, *args):
@@ -3978,6 +4445,7 @@ def main() -> int:
     timed("4h LAPACK API and CALU failure report",
           phase_lapack_calu_failure_report)
     phase_complex_utils()
+    counts.update(phase_complex_two_stage())
     out = []
     for name, (source, replaces, path) in KERNELS.items():
         r = rows[name]

@@ -94,7 +94,8 @@ from .interop import (from_reference, to_reference, pivots_from_reference,
                       reflectors_to_reference, band_lu_from_reference,
                       band_lu_to_reference, hetrf_from_reference,
                       hetrf_to_reference, band_chol_from_reference,
-                      band_chol_to_reference)
+                      band_chol_to_reference, phase_from_reference,
+                      phase_to_reference)
 from . import lapack_api
 from .utils.generator import generate_matrix, random_matrix, random_spd
 from .utils.printing import print_matrix

@@ -1,5 +1,13 @@
-// The upper band -> upper bidiagonal bulge chase (K9), in FP32:
-//   slate_tb2bd_f32
+// The upper band -> real upper bidiagonal bulge chase (K9):
+//   slate_tb2bd_f32, slate_tb2bd_f64, slate_tb2bd_c64, slate_tb2bd_c128
+//
+// One template over the element type (chase_flow.cuh's scalars), as K8.
+// The JAX package runs double and complex through its XLA wave
+// (band_bulge_wave_bd.py), not a Pallas kernel. In complex the V-side
+// reflector comes from the conjugated row (larfg of conj(B[0, :])) and is
+// right-applied as B <- B (I - conj(tau) v v^H); the U-side reflector
+// left-applies as (I - tau u u^H) B with column sums of conj(u) B. The
+// column-0 phase (twin :239-249) is the wrapper's, before the launch.
 //
 // Replaces _tb2bd_vmem_jit (slate_tpu/internal/band_wave_vmem_bd.py:330) and
 // computes the task DAG of the numpy twin (slate_tpu/internal/band_bulge.py,
@@ -51,10 +59,10 @@
 // u's left-apply 2.4, late loads and v 1.1, B's right-apply and store 2.3,
 // D's rows 1.2, the wait for (s - 1, t + 1) 1.0, u's left-apply and the
 // stores 4.0), and consecutive sweeps start one task period apart.
-// The blocks live in shared memory for bands up to 128 and in the global
-// scratch the caller passes (two b x (b | 1) blocks per CTA) up to 256.
-// larfg follows the twin: beta = -sign(alpha) ||x|| with sign(0) = +1;
-// tau = 0 and beta = alpha when ||x[1:]|| = 0; v[0] = 1.
+// The blocks live in shared memory while their bytes are within
+// SMEM_BLOCK_BYTES and in the global scratch the caller passes (two
+// b x (b | 1) blocks per CTA) up to 256, as K8's. larfg is chase_flow.cuh's
+// Householder, the twin's.
 
 #include <cuda_runtime.h>
 
@@ -62,87 +70,72 @@
 
 namespace {
 
-using slate::chase::NTH;
-using slate::chase::NW;
-using slate::chase::Ribbon;
-using slate::chase::warp_sum;
-using slate::chase::warp_sums;
-using slate::chase::warps_sum;
+using namespace slate::chase;
 
-constexpr int BMAX = 256;       // widest band
-constexpr int SMEM_BMAX = 128;  // widest band whose two blocks fit shared memory
+constexpr int BMAX = 256;  // widest band
 
-struct Vectors {
-  float x[BMAX];   // row s (t = 0), then D's column 0 after the right-apply
-  float v[BMAX];   // the task's V-side reflector
-  float u[BMAX];   // the task's U-side reflector
-  float up[BMAX];  // the previous task's
-  float w[BMAX];   // column sums: the previous u's left-apply, then u's
-  float part[NW][BMAX];
-  float red[NW];
-  float sc[3];     // the last column's sum, tau_v, beta_v
-};
-
-__device__ __forceinline__ Vectors& vectors() {
-  __shared__ Vectors sh;
-  return sh;
-}
-
-// beta, tau and 1 / (alpha - beta)'s denominator of larfg from alpha and
-// ||x[1:]||^2, as the twin computes them
-struct Householder {
-  float beta, tau, vden;
-  __device__ __forceinline__ Householder(float alpha, float xn) {
-    beta = alpha;
-    tau = 0.f;
-    vden = 1.f;
-    if (xn != 0.f) {
-      const float sgn = alpha < 0.f ? -1.f : 1.f;
-      beta = -sgn * sqrtf(alpha * alpha + xn);
-      tau = (beta - alpha) / beta;
-      vden = alpha - beta;
-    }
-  }
-};
-
-// J column slots a lane (b <= 32 J): K9 with its blocks in shared memory
-// (J = 4) or in global scratch (J = 8).
-template <int J>
+// J column slots a lane (b <= 32 J): J = 4 up to band 128, J = 8 above.
+template <class T, int J>
 struct Tb2bd {
-  static constexpr int U = J * 2;    // row slots a warp: rows w + NW u, u < U
-  static constexpr int UB = 16 / J;  // rows a warp loads in one batch
-  static constexpr int RG = 32 / J;  // rows a warp reduces at once
-  Ribbon R;
-  int n, b, T;
-  float* Vu;
-  float* tauu;
-  float* Vv;
-  float* tauv;
-  float* scratch;
+  using S = real_t<T>;
+  static constexpr int WD = sizeof(T) / 4;  // 32-bit words an element
+  static constexpr int U = J * 2;           // row slots a warp: rows w + NW u, u < U
+  // rows a warp loads in one batch, and reduces at once (fewer for wider T)
+  static constexpr int UB = 16 / (J * WD) > 0 ? 16 / (J * WD) : 1;
+  static constexpr int RG = 32 / (J * WD) > 0 ? 32 / (J * WD) : 1;
+  static constexpr int BV = 32 * J;
+  struct Vectors {
+    T x[BV];   // row s (t = 0), then D's column 0 after the right-apply
+    T v[BV];   // the task's V-side reflector
+    T u[BV];   // the task's U-side reflector
+    T up[BV];  // the previous task's
+    T w[BV];   // column sums: the previous u's left-apply, then u's
+    T part[NW][BV];
+    T red[NW];
+    T sc[3];   // the last column's sum, tau_v, beta_v
+  };
+  Ribbon<T> R;
+  int n, b, T_;
+  T* Vu;
+  T* tauu;
+  T* Vv;
+  T* tauv;
+  T* scratch;  // null: the blocks in shared memory after the vectors
   // a thread's state from one stage or task to the next
   int c0, L;
-  float tv, tp, sq;
+  T tv, tp;
+  S sq;
 
-  __device__ __forceinline__ float* blockB(float* dyn) const {
+  __device__ __forceinline__ static Vectors& vectors(char* dyn) {
+    return *reinterpret_cast<Vectors*>(dyn);
+  }
+  // Whether every band this J takes keeps its blocks in shared memory
+  // (float with J = 4, bands up to 128): then blockB is a constant and no
+  // select on scratch sits in the task's loops (a select there took K9
+  // from 166 to 182 ms at n = 8192, band 128, on an H100).
+  static constexpr bool SMEM_ALWAYS =
+      static_cast<size_t>(2) * BV * (BV + 1) * sizeof(T) <= SMEM_BLOCK_BYTES;
+  __device__ __forceinline__ T* blockB(char* dyn) const {
     const int ld = b | 1;
-    return J * 32 <= SMEM_BMAX ? dyn : scratch + static_cast<size_t>(blockIdx.x) * 2 * b * ld;
+    if (SMEM_ALWAYS || !scratch) return reinterpret_cast<T*>(dyn + sizeof(Vectors));
+    return scratch + static_cast<size_t>(blockIdx.x) * 2 * b * ld;
   }
 
   // B's rows (t >= 1) but its last element and D's rows but their last
   // column, loaded into registers in batches of UB rows a warp whose loads
   // are all in flight at once, then stored.
-  __device__ __forceinline__ void fetch(float* B, float* D, int ld, bool chase) const {
+  __device__ __forceinline__ void fetch(T* B, T* D, int ld, bool chase) const {
     const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5, lc = L - 1;
     for (int u0 = 0; u0 < U; u0 += UB) {
-      float rb[UB][J], rd[UB][J];
+      T rb[UB][J], rd[UB][J];
 #pragma unroll
       for (int u = 0; u < UB; ++u)
 #pragma unroll
         for (int j = 0; j < J; ++j) {
           const int i = wp + NW * (u0 + u), k = lane + 32 * j;
           const bool inb = chase && i < b && k < L && !(i == b - 1 && k == lc);
-          rb[u][j] = inb ? __ldcg(R.at(c0 - b + i, c0 + k)) : 0.f;
-          rd[u][j] = i < L && k < lc ? __ldcg(R.at(c0 + i, c0 + k)) : 0.f;
+          rb[u][j] = inb ? ldcg(R.at(c0 - b + i, c0 + k)) : T{};
+          rd[u][j] = i < L && k < lc ? ldcg(R.at(c0 + i, c0 + k)) : T{};
         }
 #pragma unroll
       for (int u = 0; u < UB; ++u)
@@ -156,31 +149,31 @@ struct Tb2bd {
   }
 
   // Stage 1, early part: the loads, and for t >= 1 the previous u's
-  // deferred left-apply: column sums per warp in row order, then in warp
-  // order (the last column's without B's last element), and the update of
-  // every column but the last.
-  __device__ void early(int s, int t, float* dyn) {
-    Vectors& sh = vectors();
+  // deferred left-apply: column sums of conj(u) B per warp in row order,
+  // then in warp order (the last column's without B's last element), and
+  // the update of every column but the last.
+  __device__ void early(int s, int t, char* dyn) {
+    Vectors& sh = vectors(dyn);
     const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5, ld = b | 1;
     c0 = s + 1 + t * b;
     L = min(b, n - c0);
     const int lc = L - 1;
-    float* B = blockB(dyn);
+    T* B = blockB(dyn);
     if (t == 0)
-      for (int k = threadIdx.x; k < lc; k += NTH) sh.x[k] = __ldcg(R.at(s, c0 + k));
+      for (int k = threadIdx.x; k < lc; k += NTH) sh.x[k] = ldcg(R.at(s, c0 + k));
     fetch(B, B + b * ld, ld, t > 0);
     __syncthreads();
     if (t == 0) return;
-    float acc[J] = {};
+    T acc[J] = {};
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = wp + NW * u;
       if (i >= b) continue;
-      const float ui = sh.up[i];
+      const T ui = sh.up[i];
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const int k = lane + 32 * j;
-        if (k < L && !(i == b - 1 && k == lc)) acc[j] = fmaf(ui, B[i * ld + k], acc[j]);
+        if (k < L && !(i == b - 1 && k == lc)) acc[j] = fmac(ui, B[i * ld + k], acc[j]);
       }
     }
 #pragma unroll
@@ -190,97 +183,100 @@ struct Tb2bd {
     }
     __syncthreads();
     for (int k = threadIdx.x; k < L; k += NTH) {
-      float w = sh.part[0][k];
-      for (int q = 1; q < NW; ++q) w += sh.part[q][k];
+      T w = sh.part[0][k];
+      for (int q = 1; q < NW; ++q) w = add(w, sh.part[q][k]);
       sh.w[k] = w;
     }
     __syncthreads();
-    float wj[J];
+    T wj[J];
 #pragma unroll
-    for (int j = 0; j < J; ++j) wj[j] = lane + 32 * j < lc ? sh.w[lane + 32 * j] : 0.f;
+    for (int j = 0; j < J; ++j) wj[j] = lane + 32 * j < lc ? sh.w[lane + 32 * j] : T{};
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = wp + NW * u;
       if (i >= b) continue;
-      const float f = __fmul_rn(tp, sh.up[i]);
+      const T f = mul(tp, sh.up[i]);
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const int k = lane + 32 * j;
-        if (k < lc) B[i * ld + k] = __fsub_rn(B[i * ld + k], __fmul_rn(f, wj[j]));
+        if (k < lc) B[i * ld + k] = sub(B[i * ld + k], mul(f, wj[j]));
       }
     }
   }
 
   // Stage 1, the rest: the late element and D's last column; warp 0
-  // finishes row 0 (or row s) and forms v from it; every warp finishes its
-  // rows' last column and right-applies v, straight to the ribbon.
-  __device__ void first(int s, int t, float* dyn) {
-    Vectors& sh = vectors();
+  // finishes row 0 (or row s) and forms v from its conjugate; every warp
+  // finishes its rows' last column and right-applies v, straight to the
+  // ribbon.
+  __device__ void first(int s, int t, char* dyn) {
+    Vectors& sh = vectors(dyn);
     const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5, ld = b | 1, lc = L - 1;
-    float* B = blockB(dyn);
-    float* D = B + b * ld;
-    for (int i = threadIdx.x; i < lc; i += NTH) D[i * ld + lc] = __ldcg(R.at(c0 + i, c0 + lc));
+    T* B = blockB(dyn);
+    T* D = B + b * ld;
+    for (int i = threadIdx.x; i < lc; i += NTH) D[i * ld + lc] = ldcg(R.at(c0 + i, c0 + lc));
     if (wp == 0) {
-      const float xl = __ldcg(R.at(t > 0 ? c0 - 1 : s, c0 + lc));
-      float x[J];
+      const T xl = ldcg(R.at(t > 0 ? c0 - 1 : s, c0 + lc));
+      T x[J];
       if (t > 0) {
-        const float wl = fmaf(sh.up[b - 1], xl, sh.w[lc]);
+        const T wl = fmac(sh.up[b - 1], xl, sh.w[lc]);
         if (lane == 0) {
           B[(b - 1) * ld + lc] = xl;
           sh.sc[0] = wl;
         }
         __syncwarp();
-        const float f = __fmul_rn(tp, sh.up[0]);
+        const T f = mul(tp, sh.up[0]);
 #pragma unroll
         for (int j = 0; j < J; ++j) {
           const int k = lane + 32 * j;
-          x[j] = k < lc ? B[k] : k == lc ? __fsub_rn(B[lc], __fmul_rn(f, wl)) : 0.f;
+          x[j] = k < lc ? B[k] : k == lc ? sub(B[lc], mul(f, wl)) : T{};
         }
       } else {
 #pragma unroll
         for (int j = 0; j < J; ++j) {
           const int k = lane + 32 * j;
-          x[j] = k < lc ? sh.x[k] : k == lc ? xl : 0.f;
+          x[j] = k < lc ? sh.x[k] : k == lc ? xl : T{};
         }
       }
-      float p = 0.f;
+      S p = S(0);
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const int k = lane + 32 * j;
-        if (k >= 1 && k < L) p = fmaf(x[j], x[j], p);
+        if (k >= 1 && k < L) p = abs2_add(x[j], p);
       }
-      const Householder h(__shfl_sync(0xffffffffu, x[0], 0), warp_sum(p));
+      const T alpha = conj(shfl(x[0], 0));
+      const S xn = warp_sum(p);
+      const Householder<T> h(alpha, xn, warp_rescue_norm(alpha, xn, x, L));
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const int k = lane + 32 * j;
-        if (k < L) sh.v[k] = k == 0 ? 1.f : x[j] / h.vden;
-        if (t == 0 && k < L) *R.at(s, c0 + k) = k == 0 ? h.beta : 0.f;
+        if (k < L) sh.v[k] = k == 0 ? of_real<T>(S(1)) : quot(conj(x[j]), h.vden);
+        if (t == 0 && k < L) *R.at(s, c0 + k) = k == 0 ? of_real<T>(h.beta) : T{};
       }
       if (lane == 0) {
         sh.sc[1] = h.tau;
-        sh.sc[2] = h.beta;
+        sh.sc[2] = of_real<T>(h.beta);
       }
     }
     __syncthreads();
     tv = sh.sc[1];
     if (t == 0) return;
-    const float wl = sh.sc[0], beta = sh.sc[2];
-    float vj[J];
+    const T wl = sh.sc[0], beta = sh.sc[2], ctv = conj(tv);
+    T vj[J];
 #pragma unroll
-    for (int j = 0; j < J; ++j) vj[j] = lane + 32 * j < L ? sh.v[lane + 32 * j] : 0.f;
+    for (int j = 0; j < J; ++j) vj[j] = lane + 32 * j < L ? sh.v[lane + 32 * j] : T{};
     for (int g0 = 0; g0 < U; g0 += RG) {
-      float x[RG][J], p[RG];
+      T x[RG][J], p[RG];
 #pragma unroll
       for (int r = 0; r < RG; ++r) {
         const int i = wp + NW * (g0 + r);
-        const float f = i < b ? __fmul_rn(tp, sh.up[i]) : 0.f;
-        p[r] = 0.f;
+        const T f = i < b ? mul(tp, sh.up[i]) : T{};
+        p[r] = T{};
 #pragma unroll
         for (int j = 0; j < J; ++j) {
           const int k = lane + 32 * j;
-          x[r][j] = i < b && k < L ? B[i * ld + k] : 0.f;
-          if (k == lc) x[r][j] = __fsub_rn(x[r][j], __fmul_rn(f, wl));
-          if (k < L) p[r] = fmaf(x[r][j], vj[j], p[r]);
+          x[r][j] = i < b && k < L ? B[i * ld + k] : T{};
+          if (k == lc) x[r][j] = sub(x[r][j], mul(f, wl));
+          if (k < L) p[r] = fma_(x[r][j], vj[j], p[r]);
         }
       }
       warp_sums(p);
@@ -288,12 +284,12 @@ struct Tb2bd {
       for (int r = 0; r < RG; ++r) {
         const int i = wp + NW * (g0 + r);
         if (i >= b) continue;
-        const float f = __fmul_rn(tv, p[r]);
+        const T f = mul(ctv, p[r]);
 #pragma unroll
         for (int j = 0; j < J; ++j) {
           const int k = lane + 32 * j;
           if (k >= L) continue;
-          const float y = i == 0 ? (k == 0 ? beta : 0.f) : __fsub_rn(x[r][j], __fmul_rn(f, vj[j]));
+          const T y = i == 0 ? (k == 0 ? beta : T{}) : sub(x[r][j], mul(f, conj(vj[j])));
           *R.at(c0 - b + i, c0 + k) = y;
         }
       }
@@ -301,25 +297,26 @@ struct Tb2bd {
   }
 
   // Row i of D: v's right-apply by the warp that owns the row, in shared
-  // memory; its column-0 entry to x and, from row 1, its square into sq.
-  // The rows [lo, hi) of this warp, RG at once.
-  __device__ __forceinline__ void right_rows(float* D, int ld, int lo, int hi, Vectors& sh) {
+  // memory; its column-0 entry to x and, from row 1, its squared modulus
+  // into sq. The rows [lo, hi) of this warp, RG at once.
+  __device__ __forceinline__ void right_rows(T* D, int ld, int lo, int hi, Vectors& sh) {
     const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
-    float vj[J];
+    T vj[J];
 #pragma unroll
-    for (int j = 0; j < J; ++j) vj[j] = lane + 32 * j < L ? sh.v[lane + 32 * j] : 0.f;
+    for (int j = 0; j < J; ++j) vj[j] = lane + 32 * j < L ? sh.v[lane + 32 * j] : T{};
+    const T ctv = conj(tv);
     for (int g0 = 0; g0 < U; g0 += RG) {
-      float x[RG][J], p[RG];
+      T x[RG][J], p[RG];
 #pragma unroll
       for (int r = 0; r < RG; ++r) {
         const int i = wp + NW * (g0 + r);
         const bool on = i >= lo && i < hi;
-        p[r] = 0.f;
+        p[r] = T{};
 #pragma unroll
         for (int j = 0; j < J; ++j) {
           const int k = lane + 32 * j;
-          x[r][j] = on && k < L ? D[i * ld + k] : 0.f;
-          if (k < L) p[r] = fmaf(x[r][j], vj[j], p[r]);
+          x[r][j] = on && k < L ? D[i * ld + k] : T{};
+          if (k < L) p[r] = fma_(x[r][j], vj[j], p[r]);
         }
       }
       warp_sums(p);
@@ -327,15 +324,15 @@ struct Tb2bd {
       for (int r = 0; r < RG; ++r) {
         const int i = wp + NW * (g0 + r);
         if (i < lo || i >= hi) continue;
-        const float f = __fmul_rn(tv, p[r]);
+        const T f = mul(ctv, p[r]);
 #pragma unroll
         for (int j = 0; j < J; ++j) {
           const int k = lane + 32 * j;
-          if (k < L) D[i * ld + k] = x[r][j] = __fsub_rn(x[r][j], __fmul_rn(f, vj[j]));
+          if (k < L) D[i * ld + k] = x[r][j] = sub(x[r][j], mul(f, conj(vj[j])));
         }
         if (lane == 0) {
           sh.x[i] = x[r][0];
-          if (i >= 1) sq = fmaf(x[r][0], x[r][0], sq);
+          if (i >= 1) sq = abs2_add(x[r][0], sq);
         }
       }
     }
@@ -343,37 +340,38 @@ struct Tb2bd {
 
   // Between the stages, once B is published: v's right-apply to D's rows
   // but the last.
-  __device__ void mid(int, int, float* dyn) {
-    sq = 0.f;
-    right_rows(blockB(dyn) + b * (b | 1), b | 1, 0, L - 1, vectors());
+  __device__ void mid(int, int, char* dyn) {
+    sq = S(0);
+    right_rows(blockB(dyn) + b * (b | 1), b | 1, 0, L - 1, vectors(dyn));
   }
 
   // Stage 2: D's last row, u from column 0, its left-apply, then the packs.
-  __device__ void second(int s, int t, float* dyn) {
-    Vectors& sh = vectors();
+  __device__ void second(int s, int t, char* dyn) {
+    Vectors& sh = vectors(dyn);
     const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5, ld = b | 1, lc = L - 1;
-    float* D = blockB(dyn) + b * ld;
+    T* D = blockB(dyn) + b * ld;
     if (wp == lc % NW) {
-      if (lane == 0) D[lc * ld + lc] = __ldcg(R.at(c0 + lc, c0 + lc));
+      if (lane == 0) D[lc * ld + lc] = ldcg(R.at(c0 + lc, c0 + lc));
       __syncwarp();
       right_rows(D, ld, lc, L, sh);
     }
-    if (lane == 0) sh.red[wp] = sq;
+    if (lane == 0) sh.red[wp] = of_real<T>(sq);
     __syncthreads();
-    const Householder h(sh.x[0], warps_sum(sh.red));
-    // u's left-apply to D's columns 1.. : column sums per warp, then in
-    // warp order
-    float acc[J] = {};
+    const S xn = re(warps_sum(sh.red));
+    const Householder<T> h(sh.x[0], xn, rescue_norm(sh.x[0], xn, sh.x, L));
+    // u's left-apply to D's columns 1.. : column sums of conj(u) D per
+    // warp, then in warp order
+    T acc[J] = {};
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = wp + NW * u;
       if (i >= L) continue;
-      const float ui = i == 0 ? 1.f : sh.x[i] / h.vden;
+      const T ui = i == 0 ? of_real<T>(S(1)) : quot(sh.x[i], h.vden);
       if (lane == 0) sh.u[i] = ui;
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const int k = lane + 32 * j;
-        if (k >= 1 && k < L) acc[j] = fmaf(ui, D[i * ld + k], acc[j]);
+        if (k >= 1 && k < L) acc[j] = fmac(ui, D[i * ld + k], acc[j]);
       }
     }
 #pragma unroll
@@ -383,29 +381,29 @@ struct Tb2bd {
     }
     __syncthreads();
     for (int k = threadIdx.x; k < L; k += NTH) {
-      float w = sh.part[0][k];
-      for (int q = 1; q < NW; ++q) w += sh.part[q][k];
+      T w = sh.part[0][k];
+      for (int q = 1; q < NW; ++q) w = add(w, sh.part[q][k]);
       sh.w[k] = w;
     }
     __syncthreads();
-    float zj[J];
+    T zj[J];
 #pragma unroll
-    for (int j = 0; j < J; ++j) zj[j] = lane + 32 * j < L ? sh.w[lane + 32 * j] : 0.f;
+    for (int j = 0; j < J; ++j) zj[j] = lane + 32 * j < L ? sh.w[lane + 32 * j] : T{};
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = wp + NW * u;
       if (i >= L) continue;
-      const float f = __fmul_rn(h.tau, sh.u[i]);
+      const T f = mul(h.tau, sh.u[i]);
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const int k = lane + 32 * j;
         if (k >= L) continue;
-        const float y = k == 0 ? (i == 0 ? h.beta : 0.f)
-                               : __fsub_rn(D[i * ld + k], __fmul_rn(f, zj[j]));
+        const T y = k == 0 ? (i == 0 ? of_real<T>(h.beta) : T{})
+                           : sub(D[i * ld + k], mul(f, zj[j]));
         *R.at(c0 + i, c0 + k) = y;
       }
     }
-    const size_t task = static_cast<size_t>(s) * T + t;
+    const size_t task = static_cast<size_t>(s) * T_ + t;
     for (int i = threadIdx.x; i < L; i += NTH) {
       Vv[task * b + i] = sh.v[i];
       Vu[task * b + i] = sh.u[i];
@@ -419,38 +417,69 @@ struct Tb2bd {
   }
 };
 
-template <int J>
-cudaError_t run(float* rib, int n, int b, float* Vu, float* tauu, float* Vv, float* tauv,
-                float* scratch, int max_ctas, unsigned* cnt, cudaStream_t st) {
-  Tb2bd<J> task{};
-  task.R = Ribbon{rib, 4LL * b - 1, 2 * b - 1};
+template <class T, int J>
+cudaError_t run(T* rib, int n, int b, T* Vu, T* tauu, T* Vv, T* tauv, T* scratch, int max_ctas,
+                unsigned* cnt, cudaStream_t st) {
+  using Task = Tb2bd<T, J>;
+  Task task{};
+  task.R = Ribbon<T>{rib, 4LL * b - 1, 2 * b - 1};
   task.n = n;
   task.b = b;
-  task.T = (n - 2) / b + 1;
+  task.T_ = (n - 2) / b + 1;
   task.Vu = Vu;
   task.tauu = tauu;
   task.Vv = Vv;
   task.tauv = tauv;
-  task.scratch = scratch;
-  const size_t smem =
-      J * 32 <= SMEM_BMAX ? static_cast<size_t>(2) * b * (b | 1) * sizeof(float) : 0;
-  return slate::chase::launch(task, cnt, smem, max_ctas, st);
+  const bool in_smem = scratch_elems(b, sizeof(T)) == 0;
+  task.scratch = in_smem ? nullptr : scratch;
+  const size_t blocks = static_cast<size_t>(2) * b * (b | 1) * sizeof(T);
+  const size_t smem = sizeof(typename Task::Vectors) + (in_smem ? blocks : 0);
+  return launch(task, cnt, smem, max_ctas, st);
+}
+
+template <class T>
+int entry(T* rib, int n, int b, T* Vu, T* tauu, T* Vv, T* tauv, T* scratch, int max_ctas,
+          unsigned* cnt, void* stream) {
+  if (n < 2 || b < 1 || b > BMAX) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      b <= 128 ? run<T, 4>(rib, n, b, Vu, tauu, Vv, tauv, scratch, max_ctas, cnt, st)
+               : run<T, 8>(rib, n, b, Vu, tauu, Vv, tauv, scratch, max_ctas, cnt, st);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace
 
-// rib: the ribbon, n (4b) floats, updated in place. Vu, Vv: [n-1, T, b] and
-// tauu, tauv: [n-1, T], T = (n-2)/b + 1, zeroed by the caller: the U-side and
-// V-side packs. scratch: 2 b (b|1) floats per CTA for b > 128, max_ctas CTAs
-// at most. cnt: 2 (n-1) counters, zeroed by the caller for every call.
-// Returns a CUDA error code (0 on success).
+// Elements of scratch one CTA needs at band b for elements of `item` bytes
+// (0: the blocks go to shared memory); the wrapper sizes scratch by it.
+extern "C" int slate_tb2bd_scratch(int b, int item) {
+  return scratch_elems(b, static_cast<size_t>(item));
+}
+
+// rib: the ribbon, n (4b) elements, updated in place (its (0, 0) made real
+// by the caller's column-0 phase). Vu, Vv: [n-1, T, b] and tauu, tauv:
+// [n-1, T], T = (n-2)/b + 1, zeroed by the caller: the U-side and V-side
+// packs. scratch: slate_tb2bd_scratch(b, sizeof(T)) elements per
+// CTA, max_ctas CTAs at most. cnt: 2 (n-1) counters, zeroed
+// by the caller for every call. Returns a CUDA error code (0 on success).
+// The complex entries take interleaved (re, im) pairs.
 extern "C" int slate_tb2bd_f32(float* rib, int n, int b, float* Vu, float* tauu, float* Vv,
                                float* tauv, float* scratch, int max_ctas, unsigned* cnt,
                                void* stream) {
-  if (n < 2 || b < 1 || b > BMAX) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      b <= SMEM_BMAX ? run<4>(rib, n, b, Vu, tauu, Vv, tauv, scratch, max_ctas, cnt, st)
-                     : run<8>(rib, n, b, Vu, tauu, Vv, tauv, scratch, max_ctas, cnt, st);
-  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+  return entry(rib, n, b, Vu, tauu, Vv, tauv, scratch, max_ctas, cnt, stream);
+}
+extern "C" int slate_tb2bd_f64(double* rib, int n, int b, double* Vu, double* tauu, double* Vv,
+                               double* tauv, double* scratch, int max_ctas, unsigned* cnt,
+                               void* stream) {
+  return entry(rib, n, b, Vu, tauu, Vv, tauv, scratch, max_ctas, cnt, stream);
+}
+extern "C" int slate_tb2bd_c64(Cx<float>* rib, int n, int b, Cx<float>* Vu, Cx<float>* tauu,
+                               Cx<float>* Vv, Cx<float>* tauv, Cx<float>* scratch, int max_ctas,
+                               unsigned* cnt, void* stream) {
+  return entry(rib, n, b, Vu, tauu, Vv, tauv, scratch, max_ctas, cnt, stream);
+}
+extern "C" int slate_tb2bd_c128(Cx<double>* rib, int n, int b, Cx<double>* Vu, Cx<double>* tauu,
+                                Cx<double>* Vv, Cx<double>* tauv, Cx<double>* scratch,
+                                int max_ctas, unsigned* cnt, void* stream) {
+  return entry(rib, n, b, Vu, tauu, Vv, tauv, scratch, max_ctas, cnt, stream);
 }

@@ -1,5 +1,10 @@
-// The symmetric band -> tridiagonal bulge chase (K8), in FP32:
-//   slate_hb2st_f32
+// The Hermitian band -> real tridiagonal bulge chase (K8):
+//   slate_hb2st_f32, slate_hb2st_f64, slate_hb2st_c64, slate_hb2st_c128
+//
+// One template over the element type (chase_flow.cuh's scalars): float,
+// double, complex<float>, complex<double>. The JAX package runs the three
+// types beside float32 through its XLA wave (band_bulge_wave.py), not a
+// Pallas kernel; here they are the float32 kernel's instantiations.
 //
 // Replaces _hb2st_vmem_jit (slate_tpu/internal/band_wave_vmem.py:492) and
 // computes the task DAG of the numpy twin (slate_tpu/internal/band_bulge.py,
@@ -36,14 +41,19 @@
 //     update, written straight to the ribbon:
 //       y = tau D v;  w = y - (tau / 2) (v^T y) v;  D -= v w^T + w v^T.
 //     band_bulge.hb2st computes the same form; the rounding is written
-//     out (__fmul_rn, __fadd_rn) as its torch ops round.
+//     out (__fmul_rn, __fadd_rn) as its torch ops round. In complex the
+//     left-apply sums conj(v) B, the right-apply subtracts conj(tau) (B v)
+//     conj(v)^T, and D's update is y = conj(tau) D v, w = y - (tau / 2)
+//     (v^H y) v, D -= v w^H + w v^H; a read of D's upper half is the
+//     conjugate of its mirror.
 // Measured (PERF.md section 6): the critical path is the task's period in its
 // CTA plus its stage-1 tail, and the loads of the early part lead the
 // period.
-// The blocks live in shared memory for bands up to 128 and in the global
-// scratch the caller passes (two b x (b | 1) blocks per CTA) up to 256.
-// larfg follows the twin: beta = -sign(alpha) ||x|| with sign(0) = +1;
-// tau = 0 and beta = alpha when ||x[1:]|| = 0; v[0] = 1.
+// The blocks live in shared memory while their bytes are within
+// SMEM_BLOCK_BYTES (float bands up to 143, double and complex<float> up to
+// 101, complex<double> up to 71) and in the global scratch the caller
+// passes (two b x (b | 1) blocks per CTA) up to 256; the vectors always in
+// shared memory. larfg is chase_flow.cuh's Householder, the twin's.
 
 #include <cuda_runtime.h>
 
@@ -51,67 +61,68 @@
 
 namespace {
 
-using slate::chase::NTH;
-using slate::chase::NW;
-using slate::chase::Ribbon;
-using slate::chase::warp_sum;
-using slate::chase::warp_sums;
-using slate::chase::warps_sum;
+using namespace slate::chase;
 
-constexpr int BMAX = 256;       // widest band
-constexpr int SMEM_BMAX = 128;  // widest band whose two blocks fit shared memory
+constexpr int BMAX = 256;  // widest band
 
-struct Vectors {
-  float x[BMAX];      // column 0 of the bulge, the reflector's source
-  float v[BMAX];      // the task's reflector
-  float vp[BMAX];     // the previous task's
-  float y[BMAX];      // left-apply column sums, then tau D v
-  float part[NW][BMAX];
-  float red[NW];
-};
-
-__device__ __forceinline__ Vectors& vectors() {
-  __shared__ Vectors sh;
-  return sh;
-}
-
-// J column slots a lane (b <= 32 J): K8 with its blocks in shared memory
-// (J = 4) or in global scratch (J = 8).
-template <int J>
+// J column slots a lane (b <= 32 J): J = 4 up to band 128, J = 8 above.
+template <class T, int J>
 struct Hb2st {
+  using S = real_t<T>;
+  static constexpr int WD = sizeof(T) / 4;  // 32-bit words an element
   static constexpr int U = J * 2;           // row slots a warp: rows w + NW u, u < U
-  static constexpr int UB = 16 / J;         // rows a warp loads in one batch
-  static constexpr int RG = 32 / J;         // rows a warp reduces at once
-  Ribbon R;
-  int n, b, T;
-  float* V;
-  float* tau;
-  float* scratch;
+  // rows a warp loads in one batch, and reduces at once (fewer for wider T)
+  static constexpr int UB = 16 / (J * WD) > 0 ? 16 / (J * WD) : 1;
+  static constexpr int RG = 32 / (J * WD) > 0 ? 32 / (J * WD) : 1;
+  static constexpr int BV = 32 * J;
+  struct Vectors {
+    T x[BV];   // column 0 of the bulge, the reflector's source
+    T v[BV];   // the task's reflector
+    T vp[BV];  // the previous task's
+    T y[BV];   // left-apply column sums, then conj(tau) D v
+    T part[NW][BV];
+    T red[NW];
+  };
+  Ribbon<T> R;
+  int n, b, T_;
+  T* V;
+  T* tau;
+  T* scratch;  // null: the blocks in shared memory after the vectors
   // a thread's state from one stage or task to the next
   int i0, L;
-  float tv, tp, sq;
+  T tv, tp;
+  S sq;
 
-  __device__ __forceinline__ float* blockB(float* dyn) const {
+  __device__ __forceinline__ static Vectors& vectors(char* dyn) {
+    return *reinterpret_cast<Vectors*>(dyn);
+  }
+  // Whether every band this J takes keeps its blocks in shared memory
+  // (float with J = 4, bands up to 128): then blockB is a constant and no
+  // select on scratch sits in the task's loops (a select there took K9
+  // from 166 to 182 ms at n = 8192, band 128, on an H100).
+  static constexpr bool SMEM_ALWAYS =
+      static_cast<size_t>(2) * BV * (BV + 1) * sizeof(T) <= SMEM_BLOCK_BYTES;
+  __device__ __forceinline__ T* blockB(char* dyn) const {
     const int ld = b | 1;
-    return J * 32 <= SMEM_BMAX ? dyn : scratch + static_cast<size_t>(blockIdx.x) * 2 * b * ld;
+    if (SMEM_ALWAYS || !scratch) return reinterpret_cast<T*>(dyn + sizeof(Vectors));
+    return scratch + static_cast<size_t>(blockIdx.x) * 2 * b * ld;
   }
 
   // Rows [0, rows) of B (t >= 1, from column j0) and of D's lower
   // triangle, loaded into registers in batches of UB rows a warp whose
   // loads are all in flight at once, then stored: B as it is, D into both
-  // triangles.
-  __device__ __forceinline__ void fetch(float* B, float* D, int ld, int j0, bool chase,
-                                        int rows) const {
+  // triangles (the upper one conjugated).
+  __device__ __forceinline__ void fetch(T* B, T* D, int ld, int j0, bool chase, int rows) const {
     const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
     for (int u0 = 0; u0 < U; u0 += UB) {
-      float rb[UB][J], rd[UB][J];
+      T rb[UB][J], rd[UB][J];
 #pragma unroll
       for (int u = 0; u < UB; ++u)
 #pragma unroll
         for (int j = 0; j < J; ++j) {
           const int i = wp + NW * (u0 + u), k = lane + 32 * j;
-          rb[u][j] = chase && i < rows && k < b ? __ldcg(R.at(i0 + i, j0 + k)) : 0.f;
-          rd[u][j] = i < rows && k <= i ? __ldcg(R.at(i0 + i, i0 + k)) : 0.f;
+          rb[u][j] = chase && i < rows && k < b ? ldcg(R.at(i0 + i, j0 + k)) : T{};
+          rd[u][j] = i < rows && k <= i ? ldcg(R.at(i0 + i, i0 + k)) : T{};
         }
 #pragma unroll
       for (int u = 0; u < UB; ++u)
@@ -121,7 +132,7 @@ struct Hb2st {
           if (chase && i < rows && k < b) B[i * ld + k] = rb[u][j];
           if (i < rows && k <= i) {
             D[i * ld + k] = rd[u][j];
-            D[k * ld + i] = rd[u][j];
+            D[k * ld + i] = conj(rd[u][j]);
           }
         }
     }
@@ -129,19 +140,19 @@ struct Hb2st {
 
   // Row i of the bulge: the previous reflector's deferred right-apply, by
   // the warp that owns the row; its column-0 entry to x.
-  __device__ __forceinline__ void right_row(float* B, int ld, int i, Vectors& sh) const {
+  __device__ __forceinline__ void right_row(T* B, int ld, int i, Vectors& sh) const {
     const int lane = threadIdx.x & 31;
-    float p = 0.f;
+    T p{};
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int k = lane + 32 * j;
-      if (k < b) p = fmaf(B[i * ld + k], sh.vp[k], p);
+      if (k < b) p = fma_(B[i * ld + k], sh.vp[k], p);
     }
-    const float f = __fmul_rn(tp, warp_sum(p));
+    const T f = mul(conj(tp), warp_sum(p));
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int k = lane + 32 * j;
-      if (k < b) B[i * ld + k] = __fsub_rn(B[i * ld + k], __fmul_rn(f, sh.vp[k]));
+      if (k < b) B[i * ld + k] = sub(B[i * ld + k], mul(f, conj(sh.vp[k])));
     }
     __syncwarp();
     if (lane == 0) sh.x[i] = B[i * ld];
@@ -151,40 +162,41 @@ struct Hb2st {
   // which (s - 1, t + 1) may still write, loaded and right-applied; the
   // squares of column 0 summed per warp in row order. A warp takes RG of
   // its rows at once, so their loads and reductions overlap.
-  __device__ void early(int s, int t, float* dyn) {
-    Vectors& sh = vectors();
+  __device__ void early(int s, int t, char* dyn) {
+    Vectors& sh = vectors(dyn);
     const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5, ld = b | 1;
     i0 = s + 1 + t * b;
     L = min(b, n - i0);
     const int lr = L - 1;
-    float* B = blockB(dyn);
+    T* B = blockB(dyn);
     if (t == 0)
-      for (int i = threadIdx.x; i < lr; i += NTH) sh.x[i] = __ldcg(R.at(i0 + i, s));
+      for (int i = threadIdx.x; i < lr; i += NTH) sh.x[i] = ldcg(R.at(i0 + i, s));
     fetch(B, B + b * ld, ld, i0 - b, t > 0, lr);
     __syncthreads();
-    sq = 0.f;
+    sq = S(0);
     if (t == 0) {
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int i = wp + NW * u;
-        if (lane == 0 && i >= 1 && i < lr) sq = fmaf(sh.x[i], sh.x[i], sq);
+        if (lane == 0 && i >= 1 && i < lr) sq = abs2_add(sh.x[i], sq);
       }
       return;
     }
-    float vj[J];
+    T vj[J];
 #pragma unroll
-    for (int j = 0; j < J; ++j) vj[j] = lane + 32 * j < b ? sh.vp[lane + 32 * j] : 0.f;
+    for (int j = 0; j < J; ++j) vj[j] = lane + 32 * j < b ? sh.vp[lane + 32 * j] : T{};
+    const T ctp = conj(tp);
     for (int g0 = 0; g0 < U; g0 += RG) {
-      float x[RG][J], p[RG];
+      T x[RG][J], p[RG];
 #pragma unroll
       for (int r = 0; r < RG; ++r) {
         const int i = wp + NW * (g0 + r);
-        p[r] = 0.f;
+        p[r] = T{};
 #pragma unroll
         for (int j = 0; j < J; ++j) {
           const int k = lane + 32 * j;
-          x[r][j] = i < lr && k < b ? B[i * ld + k] : 0.f;
-          if (k < b) p[r] = fmaf(x[r][j], vj[j], p[r]);
+          x[r][j] = i < lr && k < b ? B[i * ld + k] : T{};
+          if (k < b) p[r] = fma_(x[r][j], vj[j], p[r]);
         }
       }
       warp_sums(p);
@@ -192,15 +204,15 @@ struct Hb2st {
       for (int r = 0; r < RG; ++r) {
         const int i = wp + NW * (g0 + r);
         if (i >= lr) continue;
-        const float f = __fmul_rn(tp, p[r]);
+        const T f = mul(ctp, p[r]);
 #pragma unroll
         for (int j = 0; j < J; ++j) {
           const int k = lane + 32 * j;
-          if (k < b) B[i * ld + k] = x[r][j] = __fsub_rn(x[r][j], __fmul_rn(f, vj[j]));
+          if (k < b) B[i * ld + k] = x[r][j] = sub(x[r][j], mul(f, conj(vj[j])));
         }
         if (lane == 0) {
           sh.x[i] = x[r][0];
-          if (i >= 1) sq = fmaf(x[r][0], x[r][0], sq);
+          if (i >= 1) sq = abs2_add(x[r][0], sq);
         }
       }
     }
@@ -208,68 +220,63 @@ struct Hb2st {
 
   // Stage 1, the rest: the last row (by the warp that owns it, last in its
   // row order), larfg, the left-apply, and the bulge (or column s) stored.
-  __device__ void first(int s, int t, float* dyn) {
-    Vectors& sh = vectors();
+  __device__ void first(int s, int t, char* dyn) {
+    Vectors& sh = vectors(dyn);
     const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5, ld = b | 1;
     const int j0 = i0 - b, il = L - 1;
-    float* B = blockB(dyn);
-    float* D = B + b * ld;
+    T* B = blockB(dyn);
+    T* D = B + b * ld;
     if (wp == il % NW) {
-      float rb[J], rd[J];
+      T rb[J], rd[J];
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const int k = lane + 32 * j;
-        rb[j] = t > 0 && k < b ? __ldcg(R.at(i0 + il, j0 + k)) : 0.f;
-        rd[j] = k < il ? __ldcg(R.at(i0 + il, i0 + k)) : 0.f;
+        rb[j] = t > 0 && k < b ? ldcg(R.at(i0 + il, j0 + k)) : T{};
+        rd[j] = k < il ? ldcg(R.at(i0 + il, i0 + k)) : T{};
       }
-      const float xl = t == 0 && lane == 0 ? __ldcg(R.at(i0 + il, s)) : 0.f;
+      const T xl = t == 0 && lane == 0 ? ldcg(R.at(i0 + il, s)) : T{};
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const int k = lane + 32 * j;
         if (t > 0 && k < b) B[il * ld + k] = rb[j];
         if (k < il) {
           D[il * ld + k] = rd[j];
-          D[k * ld + il] = rd[j];
+          D[k * ld + il] = conj(rd[j]);
         }
       }
       if (t == 0 && lane == 0) sh.x[il] = xl;
       __syncwarp();
       if (t > 0) right_row(B, ld, il, sh);
-      if (lane == 0 && il >= 1) sq = fmaf(sh.x[il], sh.x[il], sq);
+      if (lane == 0 && il >= 1) sq = abs2_add(sh.x[il], sq);
     }
-    if (lane == 0) sh.red[wp] = sq;
+    if (lane == 0) sh.red[wp] = of_real<T>(sq);
     __syncthreads();
 
     // larfg, every thread alike: the partial sums in warp order
-    const float alpha = sh.x[0], xn = warps_sum(sh.red);
-    float beta = alpha, vden = 1.f;
-    tv = 0.f;
-    if (xn != 0.f) {
-      const float sgn = alpha < 0.f ? -1.f : 1.f;
-      beta = -sgn * sqrtf(alpha * alpha + xn);
-      tv = (beta - alpha) / beta;
-      vden = alpha - beta;
-    }
+    const S xn = re(warps_sum(sh.red));
+    const Householder<T> h(sh.x[0], xn, rescue_norm(sh.x[0], xn, sh.x, L));
+    tv = h.tau;
 
     if (t == 0) {
       for (int i = threadIdx.x; i < L; i += NTH) {
-        sh.v[i] = i == 0 ? 1.f : sh.x[i] / vden;
-        *R.at(i0 + i, s) = i == 0 ? beta : 0.f;
+        sh.v[i] = i == 0 ? of_real<T>(S(1)) : quot(sh.x[i], h.vden);
+        *R.at(i0 + i, s) = i == 0 ? of_real<T>(h.beta) : T{};
       }
       return;
     }
-    // left-apply to B's columns 1.. : column sums per warp, then in warp order
-    float acc[J] = {};
+    // left-apply to B's columns 1.. : column sums of conj(v) B per warp,
+    // then in warp order
+    T acc[J] = {};
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = wp + NW * u;
       if (i >= L) continue;
-      const float vi = i == 0 ? 1.f : sh.x[i] / vden;
+      const T vi = i == 0 ? of_real<T>(S(1)) : quot(sh.x[i], h.vden);
       if (lane == 0) sh.v[i] = vi;
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const int k = lane + 32 * j;
-        if (k < b) acc[j] = fmaf(vi, B[i * ld + k], acc[j]);
+        if (k < b) acc[j] = fmac(vi, B[i * ld + k], acc[j]);
       }
     }
 #pragma unroll
@@ -279,55 +286,56 @@ struct Hb2st {
     }
     __syncthreads();
     for (int k = threadIdx.x; k < b; k += NTH) {
-      float w = sh.part[0][k];
-      for (int q = 1; q < NW; ++q) w += sh.part[q][k];
+      T w = sh.part[0][k];
+      for (int q = 1; q < NW; ++q) w = add(w, sh.part[q][k]);
       sh.y[k] = w;
     }
     __syncthreads();
-    float wj[J];
+    T wj[J];
 #pragma unroll
-    for (int j = 0; j < J; ++j) wj[j] = lane + 32 * j < b ? sh.y[lane + 32 * j] : 0.f;
+    for (int j = 0; j < J; ++j) wj[j] = lane + 32 * j < b ? sh.y[lane + 32 * j] : T{};
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = wp + NW * u;
       if (i >= L) continue;
-      const float f = __fmul_rn(tv, sh.v[i]);
+      const T f = mul(tv, sh.v[i]);
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const int k = lane + 32 * j;
         if (k >= b) continue;
-        const float x = k == 0 ? (i == 0 ? beta : 0.f)
-                               : __fsub_rn(B[i * ld + k], __fmul_rn(f, wj[j]));
+        const T x = k == 0 ? (i == 0 ? of_real<T>(h.beta) : T{})
+                           : sub(B[i * ld + k], mul(f, wj[j]));
         *R.at(i0 + i, j0 + k) = x;
       }
     }
   }
 
   // Nothing between the stages: D's update needs its last diagonal element.
-  __device__ __forceinline__ void mid(int, int, float*) {}
+  __device__ __forceinline__ void mid(int, int, char*) {}
 
-  // Stage 2: D <- H D H on its lower triangle, then V and tau.
-  __device__ void second(int s, int t, float* dyn) {
-    Vectors& sh = vectors();
+  // Stage 2: D <- H D H^H on its lower triangle, then V and tau.
+  __device__ void second(int s, int t, char* dyn) {
+    Vectors& sh = vectors(dyn);
     const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5, ld = b | 1;
-    float* D = blockB(dyn) + b * ld;
-    if (threadIdx.x == 0) D[(L - 1) * ld + L - 1] = __ldcg(R.at(i0 + L - 1, i0 + L - 1));
+    T* D = blockB(dyn) + b * ld;
+    if (threadIdx.x == 0) D[(L - 1) * ld + L - 1] = ldcg(R.at(i0 + L - 1, i0 + L - 1));
     __syncthreads();
-    // y = tau D v, one warp a row, RG rows at once; v^T y by warp partials
-    // in row order
-    float c = 0.f, vj[J];
+    // y = conj(tau) D v, one warp a row, RG rows at once; v^H y by warp
+    // partials in row order
+    T c{}, vj[J];
 #pragma unroll
-    for (int j = 0; j < J; ++j) vj[j] = lane + 32 * j < L ? sh.v[lane + 32 * j] : 0.f;
+    for (int j = 0; j < J; ++j) vj[j] = lane + 32 * j < L ? sh.v[lane + 32 * j] : T{};
+    const T ctv = conj(tv);
     for (int g0 = 0; g0 < U; g0 += RG) {
-      float p[RG];
+      T p[RG];
 #pragma unroll
       for (int r = 0; r < RG; ++r) {
         const int i = wp + NW * (g0 + r);
-        p[r] = 0.f;
+        p[r] = T{};
 #pragma unroll
         for (int j = 0; j < J; ++j) {
           const int k = lane + 32 * j;
-          if (i < L && k < L) p[r] = fmaf(D[i * ld + k], vj[j], p[r]);
+          if (i < L && k < L) p[r] = fma_(D[i * ld + k], vj[j], p[r]);
         }
       }
       warp_sums(p);
@@ -335,37 +343,37 @@ struct Hb2st {
       for (int r = 0; r < RG; ++r) {
         const int i = wp + NW * (g0 + r);
         if (i >= L) continue;
-        const float yi = __fmul_rn(tv, p[r]);
+        const T yi = mul(ctv, p[r]);
         if (lane == 0) {
           sh.y[i] = yi;
-          c = fmaf(sh.v[i], yi, c);
+          c = fmac(sh.v[i], yi, c);
         }
       }
     }
     if (lane == 0) sh.red[wp] = c;
     __syncthreads();
-    const float al = __fmul_rn(-0.5f * tv, warps_sum(sh.red));
-    // D -= v w^T + w v^T, w = y + al v, on the lower triangle, stored
-    float wj[J];
+    const T al = mul(half_neg(tv), warps_sum(sh.red));
+    // D -= v w^H + w v^H, w = y + al v, on the lower triangle, stored
+    T wj[J];
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int k = lane + 32 * j;
-      wj[j] = k < L ? __fadd_rn(sh.y[k], __fmul_rn(al, vj[j])) : 0.f;
+      wj[j] = k < L ? add(sh.y[k], mul(al, vj[j])) : T{};
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = wp + NW * u;
       if (i >= L) continue;
-      const float vi = sh.v[i], wi = __fadd_rn(sh.y[i], __fmul_rn(al, vi));
+      const T vi = sh.v[i], wi = add(sh.y[i], mul(al, vi));
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const int k = lane + 32 * j;
         if (k > i) continue;
-        const float r2 = __fadd_rn(__fmul_rn(vi, wj[j]), __fmul_rn(wi, vj[j]));
-        *R.at(i0 + i, i0 + k) = __fsub_rn(D[i * ld + k], r2);
+        const T r2 = add(mul(vi, conj(wj[j])), mul(wi, conj(vj[j])));
+        *R.at(i0 + i, i0 + k) = sub(D[i * ld + k], r2);
       }
     }
-    const size_t task = static_cast<size_t>(s) * T + t;
+    const size_t task = static_cast<size_t>(s) * T_ + t;
     for (int i = threadIdx.x; i < L; i += NTH) {
       V[task * b + i] = sh.v[i];
       sh.vp[i] = sh.v[i];
@@ -373,36 +381,70 @@ struct Hb2st {
     if (threadIdx.x == 0) tau[task] = tv;
     tp = tv;
   }
+
+  // -tau / 2, exact
+  __device__ __forceinline__ static T half_neg(T a) {
+    if constexpr (is_cx<T>) return T{S(-0.5) * a.re, S(-0.5) * a.im};
+    else return S(-0.5) * a;
+  }
 };
 
-template <int J>
-cudaError_t run(float* rib, int n, int b, float* V, float* tau, float* scratch, int max_ctas,
-                unsigned* cnt, cudaStream_t st) {
-  Hb2st<J> task{};
-  task.R = Ribbon{rib, 4LL * b - 1, 2 * b - 1};
+template <class T, int J>
+cudaError_t run(T* rib, int n, int b, T* V, T* tau, T* scratch, int max_ctas, unsigned* cnt,
+                cudaStream_t st) {
+  using Task = Hb2st<T, J>;
+  Task task{};
+  task.R = Ribbon<T>{rib, 4LL * b - 1, 2 * b - 1};
   task.n = n;
   task.b = b;
-  task.T = (n - 2) / b + 1;
+  task.T_ = (n - 2) / b + 1;
   task.V = V;
   task.tau = tau;
-  task.scratch = scratch;
-  const size_t smem =
-      J * 32 <= SMEM_BMAX ? static_cast<size_t>(2) * b * (b | 1) * sizeof(float) : 0;
-  return slate::chase::launch(task, cnt, smem, max_ctas, st);
+  const bool in_smem = scratch_elems(b, sizeof(T)) == 0;
+  task.scratch = in_smem ? nullptr : scratch;
+  const size_t blocks = static_cast<size_t>(2) * b * (b | 1) * sizeof(T);
+  const size_t smem = sizeof(typename Task::Vectors) + (in_smem ? blocks : 0);
+  return launch(task, cnt, smem, max_ctas, st);
+}
+
+template <class T>
+int entry(T* rib, int n, int b, T* V, T* tau, T* scratch, int max_ctas, unsigned* cnt,
+          void* stream) {
+  if (n < 2 || b < 1 || b > BMAX) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = b <= 128 ? run<T, 4>(rib, n, b, V, tau, scratch, max_ctas, cnt, st)
+                                 : run<T, 8>(rib, n, b, V, tau, scratch, max_ctas, cnt, st);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace
 
-// rib: the ribbon, n (4b) floats, updated in place (its lower triangle).
-// V: [n-1, T, b] and tau: [n-1, T], T = (n-2)/b + 1, zeroed by the caller.
-// scratch: 2 b (b|1) floats per CTA for b > 128, max_ctas CTAs at most.
+// Elements of scratch one CTA needs at band b for elements of `item` bytes
+// (0: the blocks go to shared memory); the wrapper sizes scratch by it.
+extern "C" int slate_hb2st_scratch(int b, int item) {
+  return scratch_elems(b, static_cast<size_t>(item));
+}
+
+// rib: the ribbon, n (4b) elements, updated in place (its lower triangle;
+// a Hermitian band's diagonal real). V: [n-1, T, b] and tau: [n-1, T],
+// T = (n-2)/b + 1, zeroed by the caller. scratch: slate_hb2st_scratch(b,
+// sizeof(T)) elements per CTA, max_ctas CTAs at most.
 // cnt: 2 (n-1) counters, zeroed by the caller for every call. Returns a
-// CUDA error code (0 on success).
+// CUDA error code (0 on success). The complex entries take interleaved
+// (re, im) pairs, torch's complex64 and complex128.
 extern "C" int slate_hb2st_f32(float* rib, int n, int b, float* V, float* tau, float* scratch,
                                int max_ctas, unsigned* cnt, void* stream) {
-  if (n < 2 || b < 1 || b > BMAX) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = b <= SMEM_BMAX ? run<4>(rib, n, b, V, tau, scratch, max_ctas, cnt, st)
-                                       : run<8>(rib, n, b, V, tau, scratch, max_ctas, cnt, st);
-  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+  return entry(rib, n, b, V, tau, scratch, max_ctas, cnt, stream);
+}
+extern "C" int slate_hb2st_f64(double* rib, int n, int b, double* V, double* tau,
+                               double* scratch, int max_ctas, unsigned* cnt, void* stream) {
+  return entry(rib, n, b, V, tau, scratch, max_ctas, cnt, stream);
+}
+extern "C" int slate_hb2st_c64(Cx<float>* rib, int n, int b, Cx<float>* V, Cx<float>* tau,
+                               Cx<float>* scratch, int max_ctas, unsigned* cnt, void* stream) {
+  return entry(rib, n, b, V, tau, scratch, max_ctas, cnt, stream);
+}
+extern "C" int slate_hb2st_c128(Cx<double>* rib, int n, int b, Cx<double>* V, Cx<double>* tau,
+                                Cx<double>* scratch, int max_ctas, unsigned* cnt, void* stream) {
+  return entry(rib, n, b, V, tau, scratch, max_ctas, cnt, stream);
 }

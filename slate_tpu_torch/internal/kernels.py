@@ -66,6 +66,13 @@ _PANEL_SPAN = (1, 16384, 1)
 # plain versions take any band
 _BAND_SPAN = (1, 256, 1)
 _ANY_BAND = (1, 1 << 30, 1)
+# the chasers' element types: one instantiation each (csrc/chase_flow.cuh)
+_CHASE_TYPES = {torch.float32: "f32", torch.float64: "f64",
+                torch.complex64: "c64", torch.complex128: "c128"}
+_CHASE_CAPS = {str(t).removeprefix("torch."): _BAND_SPAN
+               for t in _CHASE_TYPES}
+_CHASE_CAPS_CPU = {str(t).removeprefix("torch."): _ANY_BAND
+                   for t in _CHASE_TYPES}
 # panel widths of the physical-swap panel LU (``_CAPS_TPU["panel_plu"]``
 # of pallas_kernels.py) and contractions of the rank-k tail (its
 # ``rank_k`` row: below one 128-lane tile)
@@ -86,8 +93,8 @@ _CAPS_CUDA = {
     "panel_transpose": {"float32": _PANEL_SPAN},
     "panel_qr": {"float32": _PANEL_SPAN},
     "lu_nopiv_tile": {"float32": _SPAN},
-    "hb2st_vmem": {"float32": _BAND_SPAN},
-    "tb2bd_vmem": {"float32": _BAND_SPAN},
+    "hb2st_vmem": _CHASE_CAPS,
+    "tb2bd_vmem": _CHASE_CAPS,
     "panel_plu_swap": {"float32": _SWAP_SPAN},
     "rank_k_tail": {"float32": _RANK_K_SPAN},
     "stein": {"float32": _STEIN_SPAN, "float64": _STEIN_SPAN},
@@ -100,8 +107,8 @@ _CAPS_CPU = {
     "panel_transpose": {"float32": _PANEL_SPAN, "float64": _PANEL_SPAN},
     "panel_qr": {"float32": _PANEL_SPAN, "float64": _PANEL_SPAN},
     "lu_nopiv_tile": {"float32": _SPAN, "float64": _SPAN},
-    "hb2st_vmem": {"float32": _ANY_BAND, "float64": _ANY_BAND},
-    "tb2bd_vmem": {"float32": _ANY_BAND, "float64": _ANY_BAND},
+    "hb2st_vmem": _CHASE_CAPS_CPU,
+    "tb2bd_vmem": _CHASE_CAPS_CPU,
     "panel_plu_swap": {"float32": _SWAP_SPAN, "float64": _SWAP_SPAN},
     "rank_k_tail": {"float32": _RANK_K_SPAN, "float64": _RANK_K_SPAN},
     "stein": {"float32": _STEIN_SPAN, "float64": _STEIN_SPAN},
@@ -167,9 +174,15 @@ _SIGNATURES = {
     "slate_qr_subpanel_f32": ("panel_qr",
                               (_P, _L, _I, _I, _P, _P, _I, _U, _P)),
     "slate_lu_nopiv_tile_f32": ("lu_nopiv_tile", (_P, _I, _P, _P, _U, _P)),
-    "slate_hb2st_f32": ("hb2st_chase", (_P, _I, _I, _P, _P, _P, _I, _P, _P)),
-    "slate_tb2bd_f32": ("band_chase", (_P, _I, _I) + (_P,) * 5 + (_I, _P,
-                                                                  _P)),
+    **{f"slate_hb2st_{x}": ("hb2st_chase", (_P, _I, _I, _P, _P, _P, _I, _P,
+                                            _P))
+       for x in _CHASE_TYPES.values()},
+    **{f"slate_tb2bd_{x}": ("band_chase", (_P, _I, _I) + (_P,) * 5
+                            + (_I, _P, _P))
+       for x in _CHASE_TYPES.values()},
+    # (band, bytes an element) → scratch elements a CTA; no stream
+    "slate_hb2st_scratch": ("hb2st_chase", (_I, _I)),
+    "slate_tb2bd_scratch": ("band_chase", (_I, _I)),
     "slate_panel_plu_swap_f32": ("panel_plu_swap", (_P,) * 6 + (_I,) * 3
                                  + (_P,)),
     "slate_rank_k_tail_f32": ("rank_k_tail", (_P, _I, _P, _I, _P, _I, _P)
@@ -180,9 +193,8 @@ _SIGNATURES = {
 _FNS: dict = {}
 
 
-def _launch(symbol: str, device: torch.device, *args) -> None:
-    """Call one C entry point on ``device``'s current stream; raise if
-    it reports a CUDA error."""
+def _entry(symbol: str):
+    """One C entry point of the built kernels, loaded once."""
     fn = _FNS.get(symbol)
     if fn is None:
         from ._build import library
@@ -191,6 +203,13 @@ def _launch(symbol: str, device: torch.device, *args) -> None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _FNS[symbol] = fn
+    return fn
+
+
+def _launch(symbol: str, device: torch.device, *args) -> None:
+    """Call one C entry point on ``device``'s current stream; raise if
+    it reports a CUDA error."""
+    fn = _entry(symbol)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, _P(stream))
@@ -946,9 +965,9 @@ def _trivial_band(name: str, ab: torch.Tensor) -> bool:
     """Raise for what the chase kernel does not take; True for the
     trivial case (band < 1 or n < 2), which is the function itself and
     launches nothing."""
-    slate_error_if(ab.dtype != torch.float32,
-                   f"{name}: the kernel takes float32 bands, got {ab.dtype}; "
-                   "float64 and complex bands run only on the CPU")
+    slate_error_if(ab.dtype not in _CHASE_TYPES,
+                   f"{name}: the kernel takes float32, float64, complex64 "
+                   f"and complex128 bands, got {ab.dtype}")
     band, n = ab.shape[0] - 1, ab.shape[1]
     if band < 1 or n < 2:
         return True
@@ -958,19 +977,25 @@ def _trivial_band(name: str, ab: torch.Tensor) -> bool:
     return False
 
 
-def _chase_scratch(b: int, ctas: int, device) -> torch.Tensor:
-    """Global scratch for the task blocks of bands too wide for shared
-    memory (SMEM_BMAX in csrc/band_chase.cu and csrc/hb2st_chase.cu): two
-    [b, b|1] blocks per CTA; one float otherwise."""
-    per = 2 * b * (b | 1) if b > 128 else 0
-    return torch.empty(max(1, per * ctas), dtype=torch.float32,
-                       device=device)
+def _chase_scratch(chase: str, b: int, ctas: int, dtype,
+                   device) -> torch.Tensor:
+    """Global scratch for the task blocks of ``chase`` ("hb2st" or
+    "tb2bd") at band ``b`` in ``dtype``: as many elements a CTA as the
+    kernel's own ``slate_<chase>_scratch`` asks (two [b, b|1] blocks
+    where they do not fit its shared memory, csrc/chase_flow.cuh); one
+    element when they do."""
+    item = torch.empty((), dtype=dtype).element_size()
+    per = _entry(f"slate_{chase}_scratch")(b, item)
+    return torch.empty(max(1, per * ctas), dtype=dtype, device=device)
 
 
 def hb2st_chase(ab: torch.Tensor):
-    """Symmetric band (lower storage ``ab[d, j] = A[j+d, j]``) →
+    """Hermitian band (lower storage ``ab[d, j] = A[j+d, j]``) → real
     tridiagonal; the contract of :func:`band_bulge.hb2st`,
-    ``(d, e, V [S, T, b], tau [S, T])``.
+    ``(d, e, V [S, T, b], tau [S, T])``, in float32, float64, complex64
+    or complex128 (one instantiation of csrc/hb2st_chase.cu each; the JAX
+    package runs the last three through its XLA wave, not a Pallas
+    kernel).
 
     Replaces ``_hb2st_vmem_jit`` (band_wave_vmem.py:492), which keeps the
     whole ribbon in VMEM across a sequential grid of waves and works on
@@ -990,10 +1015,13 @@ def hb2st_chase(ab: torch.Tensor):
     wrapper for every call (no epoch). A task keeps only the lower
     triangle (no mirror store), runs each pass one warp a row with
     shuffle reductions in a fixed order, so runs repeat bit for bit, and
-    updates D by one matvec and one symmetric rank-2 update, the form of
-    :func:`band_bulge.hb2st`. The blocks sit in shared memory for bands
-    ≤ 128 and in global scratch up to 256. The 4b-wide ribbon stays in
-    device memory (17 MB at n = 8192, b = 128, resident in L2). A CPU
+    updates D by one matvec and one Hermitian rank-2 update, the form of
+    :func:`band_bulge.hb2st`. The blocks sit in shared memory while their
+    two [b, b|1] blocks take at most 160 KiB (float32 bands up to 143,
+    float64 and complex64 up to 101, complex128 up to 71) and in global
+    scratch up to 256, sized by the kernel's ``slate_hb2st_scratch``.
+    The 4b-wide ribbon stays in device memory (17 MB at n = 8192,
+    b = 128, resident in L2). A CPU
     tensor runs the plain version; a band < 1 or n < 2 is the trivial
     case."""
     band, n = ab.shape[0] - 1, ab.shape[1]
@@ -1010,9 +1038,10 @@ def hb2st_chase(ab: torch.Tensor):
     V = ab.new_zeros((S, T, band))
     tau = ab.new_zeros((S, T))
     ctas = torch.cuda.get_device_properties(ab.device).multi_processor_count
-    scratch = _chase_scratch(band, ctas, ab.device)
+    scratch = _chase_scratch("hb2st", band, ctas, ab.dtype, ab.device)
     cnt = torch.zeros(2 * S, dtype=torch.int32, device=ab.device)
-    _launch("slate_hb2st_f32", ab.device, _P(rib.data_ptr()), n, band,
+    _launch(f"slate_hb2st_{_CHASE_TYPES[ab.dtype]}", ab.device,
+            _P(rib.data_ptr()), n, band,
             _P(V.data_ptr()), _P(tau.data_ptr()), _P(scratch.data_ptr()),
             ctas, _P(cnt.data_ptr()))
     LAUNCHES["hb2st_vmem"] += 1
@@ -1021,9 +1050,12 @@ def hb2st_chase(ab: torch.Tensor):
 
 
 def tb2bd_chase(ub: torch.Tensor):
-    """Upper triangular band (``ub[d, j] = A[j, j+d]``) → upper
+    """Upper triangular band (``ub[d, j] = A[j, j+d]``) → real upper
     bidiagonal; the contract of :func:`band_bulge.tb2bd`,
-    ``(d, e, Vu, tauu, Vv, tauv, phase0)``.
+    ``(d, e, Vu, tauu, Vv, tauv, phase0)``, in the four types of
+    :func:`hb2st_chase`. The column-0 phase is
+    :func:`band_bulge.phase0`, a torch op on the ribbon's (0, 0) before
+    the launch, so it equals the plain version's.
 
     Replaces ``_tb2bd_vmem_jit`` (band_wave_vmem_bd.py:330), the SVD twin
     of the eig chaser. Same bound as :func:`hb2st_chase`: latency along
@@ -1043,8 +1075,8 @@ def tb2bd_chase(ub: torch.Tensor):
     counters it waits on are zeroed by this wrapper for every call (no
     epoch). Every pass runs one warp a row with shuffle reductions in a
     fixed order, so runs repeat bit for bit; the arithmetic is
-    :func:`band_bulge.tb2bd`'s. The blocks sit in shared memory for
-    bands ≤ 128 and in global scratch up to 256. At n = 8192, b = 128 a
+    :func:`band_bulge.tb2bd`'s. The blocks sit in shared memory or in
+    global scratch as :func:`hb2st_chase`'s. At n = 8192, b = 128 a
     chase takes 166 ms, against 680 in the design of one launch per wave
     it replaced (41.5 µs a wave, block moves and four full-block passes
     per task); a task's loads lead its 20 µs. A CPU tensor runs the
@@ -1060,17 +1092,19 @@ def tb2bd_chase(ub: torch.Tensor):
                    "the host")
     S, T = n - 1, band_bulge.max_chase(n, band)
     rib = band_bulge.ribbon(ub.contiguous(), upper=True)
+    phase0 = band_bulge.phase0(rib, band)
     Vu, Vv = ub.new_zeros((S, T, band)), ub.new_zeros((S, T, band))
     tauu, tauv = ub.new_zeros((S, T)), ub.new_zeros((S, T))
     ctas = torch.cuda.get_device_properties(ub.device).multi_processor_count
-    scratch = _chase_scratch(band, ctas, ub.device)
+    scratch = _chase_scratch("tb2bd", band, ctas, ub.dtype, ub.device)
     cnt = torch.zeros(2 * S, dtype=torch.int32, device=ub.device)
-    _launch("slate_tb2bd_f32", ub.device, _P(rib.data_ptr()), n, band,
+    _launch(f"slate_tb2bd_{_CHASE_TYPES[ub.dtype]}", ub.device,
+            _P(rib.data_ptr()), n, band,
             *(_P(t.data_ptr()) for t in (Vu, tauu, Vv, tauv, scratch)),
             ctas, _P(cnt.data_ptr()))
     LAUNCHES["tb2bd_vmem"] += 1
     d, e = band_bulge.ribbon_diagonals(rib, n, band, upper=True)
-    return d, e, Vu, tauu, Vv, tauv, ub.new_ones(())
+    return d, e, Vu, tauu, Vv, tauv, phase0
 
 
 # ---------------------------------------------------------------------------

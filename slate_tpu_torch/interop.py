@@ -10,8 +10,9 @@ cross as a numpy int32 ``[kt, nb]`` array, LAPACK ipiv or, wrapped in a
 ``geqrf``/``gelqf``/``he2hb``/``ge2tb`` cross as a numpy ``[kt, nb, nb]``
 array. The two-stage eig/SVD's compact bands (``ab``/``ub``
 ``[band + 1, n]``) and packed bulge reflectors (``V [S, T, band]``,
-``tau [S, T]``) cross as numpy arrays too, so either package's
-back-transform can run on the other's stage-1 and stage-2 output. A band
+``tau [S, T]``) cross as numpy arrays too, real or complex, with tb2bd's
+column-0 phase as a numpy scalar, so either package's back-transform can
+run on the other's stage-1 and stage-2 output. A band
 LU factor crosses as a dict of numpy arrays and ints, and the hetrf
 factors ``(L, T band LU factor, piv)`` as a dict of the three, so either
 package's ``gbtrs``/``hetrs`` can run on the other's factors, and a band
@@ -136,6 +137,17 @@ def reflectors_from_reference(V, tau, *, device=None):
 def reflectors_to_reference(V: torch.Tensor, tau: torch.Tensor):
     """The numpy ``(V, tau)`` of the port's packed bulge reflectors."""
     return V.detach().cpu().numpy(), tau.detach().cpu().numpy()
+
+
+def phase_from_reference(phase0, *, device=None) -> torch.Tensor:
+    """The port's tb2bd column-0 phase (a 0-dim tensor of its dtype) from
+    the JAX ``tb2bd``'s ``phase0`` (a numpy scalar)."""
+    return _tensor(np.asarray(phase0).reshape(()), device)
+
+
+def phase_to_reference(phase0: torch.Tensor):
+    """The numpy scalar of the port's tb2bd column-0 phase."""
+    return phase0.detach().cpu().numpy()[()]
 
 
 _BAND_INTS = ("m", "n", "kl", "ku", "nb")

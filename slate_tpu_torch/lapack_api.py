@@ -13,9 +13,9 @@ Each shim takes a keyword ``grid=None``: the matrices go to
 :func:`~.grid.default_grid`, ``Grid(1, 1)`` on the CUDA card (which raises
 without one), unless the caller names another, e.g. ``Grid(1, 1,
 device="cpu")``. No shim falls back to the CPU by itself. The c/z shims
-run the drivers in complex64/complex128, except ``slate_{c,z}heev`` and
-``slate_{c,z}gesvd``, which raise :class:`~.errors.SlateError`: the
-complex two-stage reductions they take are not ported yet.
+run the drivers in complex64/complex128, ``slate_{c,z}heev`` and
+``slate_{c,z}gesvd`` included (their eigen- and singular values come out
+in the real dtype).
 
 Like the reference's shims, these trade speed for drop-in convenience
 (every call copies numpy to the device and back); callers of the port
@@ -24,7 +24,6 @@ should use the Matrix API.
 
 from __future__ import annotations
 
-import functools
 import sys
 
 import numpy as np
@@ -37,7 +36,6 @@ from .compat_flags import (apply_op_char as _apply_op,
                            op_from_char as _op,
                            side_from_char as _side,
                            uplo_from_char as _uplo)
-from .errors import SlateError
 from .errors import slate_error_if as _error_if
 from .grid import default_grid
 from .matrix import (HermitianMatrix, Matrix, SymmetricMatrix,
@@ -104,23 +102,8 @@ def _piv2d(piv, nb, n=None):
     return piv.reshape(-1, nb)
 
 
-# complex shims whose drivers take the complex two-stage reductions
-# (he2hb, ge2tb and their bulge chases), which are not ported yet
-_COMPLEX_TWO_STAGE = ("heev", "gesvd")
-
-
 def _shim(pre, name, fn):
-    """Name ``fn`` ``slate_<pre><name>``; for a complex prefix and a
-    family of :data:`_COMPLEX_TWO_STAGE`, a function of the same name
-    that raises."""
-    if pre in "cz" and name in _COMPLEX_TWO_STAGE:
-        @functools.wraps(fn)
-        def complex_shim(*args, **kwargs):
-            raise SlateError(
-                f"slate_{pre}{name}: the complex two-stage eigensolver and "
-                f"SVD are not ported yet "
-                f"({np.dtype(_PREFIX_DTYPE[pre]).name})")
-        fn = complex_shim
+    """Name ``fn`` ``slate_<pre><name>``."""
     fn.__name__ = fn.__qualname__ = f"slate_{pre}{name}"
     return fn
 

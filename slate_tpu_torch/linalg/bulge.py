@@ -7,8 +7,8 @@ src/bdsqr.cc; counterpart of ``slate_tpu/linalg/bulge.py``).
   2·nt band tiles on the matrix's device — no dense matrix, no host
   round trip.
 * :func:`apply_bulge_reflectors` applies a packed (sweep, chase)
-  reflector family (``internal/band_bulge.py`` format) to the rows of a
-  tensor. The spans within one sweep are disjoint, so a Python loop
+  reflector family (``internal/band_bulge.py`` format, real or complex)
+  to the rows of a tensor. The spans within one sweep are disjoint, so a Python loop
   walks the sweeps and each applies its T reflectors as one batched
   product.
 * :func:`bdsqr` is the bidiagonal SVD on the host through the
@@ -61,8 +61,12 @@ def _gather_band(A, n: int, super_diag: bool) -> torch.Tensor:
 
 def gather_band_lower(A) -> torch.Tensor:
     """Compact lower band ``ab[d, j] = A[j+d, j]`` (d = 0..nb) of a
-    he2hb output, from its 2·nt band tiles, on its device."""
-    return _gather_band(A, A.n, super_diag=False)
+    he2hb output, from its 2·nt band tiles, on its device; a complex
+    (Hermitian) band's diagonal keeps its real part."""
+    ab = _gather_band(A, A.n, super_diag=False)
+    if ab.is_complex():
+        ab[0] = ab[0].real
+    return ab
 
 
 def gather_band_upper(A) -> torch.Tensor:
@@ -72,13 +76,21 @@ def gather_band_upper(A) -> torch.Tensor:
 
 
 def apply_bulge_reflectors(V, tau, Z: torch.Tensor, band: int,
-                           forward: bool = False) -> torch.Tensor:
+                           forward: bool = False,
+                           conj_tau: bool = True) -> torch.Tensor:
     """Apply the packed reflector product to the rows of Z [n, m]; a new
-    tensor. forward=False gives H₁ᵀ·…·H_Kᵀ·Z, the band → tri/bidiagonal
-    back-transform of hb2st's Q and tb2bd's U₂ and V₂; forward=True
-    H_K·…·H₁·Z (real reflectors: Hᵀ = H). Z is padded to the sweeps'
-    reach so every sweep is one [T, band, m] window; the padding rows
-    stay zero because the packs are zero past each reflector's length."""
+    tensor (the JAX package's ``apply_bulge_reflectors``). forward=False
+    with ``conj_tau`` (the default) gives H₁ᴴ·…·H_Kᴴ·Z, the band →
+    tri/bidiagonal back-transform of hb2st's Q and tb2bd's U₂ and V₂;
+    forward=True H_K·…·H₁·Z, and without ``conj_tau`` each H in place of
+    Hᴴ (H = I − τ·v·vᴴ, so Hᴴ takes conj(τ)). The port's callers all
+    pass ``conj_tau = not forward``; the parameter keeps the JAX
+    signature, and its tests hold the other two combinations to the
+    JAX package's. Each reflector applies as
+    w = vᴴ·Z, Z −= τ·v·w. Z is padded to the sweeps' reach so every sweep
+    is one [T, band, m] window; the padding rows stay zero because the
+    packs are zero past each reflector's length. Complex64 products run
+    under the FP32 pin."""
     S, T = tau.shape
     n, m = Z.shape
     if tau.numel() == 0:
@@ -87,11 +99,14 @@ def apply_bulge_reflectors(V, tau, Z: torch.Tensor, band: int,
     Zp[:n] = Z
     V = V.to(Z.dtype)
     tau = tau.to(Z.dtype)
+    Vc = V.conj()
+    if conj_tau:
+        tau = tau.conj()
     with full_f32_matmul():
         for i in range(S):
             s = i if forward else S - 1 - i
             Zw = Zp[s + 1:s + 1 + T * band].view(T, band, m)   # a view of Zp
-            w = torch.bmm(V[s].unsqueeze(1), Zw)                # [T, 1, m]
+            w = torch.bmm(Vc[s].unsqueeze(1), Zw)               # [T, 1, m]
             Zw.sub_((tau[s][:, None] * V[s]).unsqueeze(2) * w)
     return Zp[:n]
 

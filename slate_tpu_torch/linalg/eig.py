@@ -1,4 +1,4 @@
-"""Symmetric eigensolver heev, the generalised hegst/hegv and the
+"""Hermitian eigensolver heev, the generalised hegst/hegv and the
 tridiagonal kernels sterf, steqr, stedc (reference src/heev.cc:56-180,
 src/hegst.cc, src/hegv.cc, src/sterf.cc, src/steqr2.cc, src/stedc.cc;
 counterpart of ``slate_tpu/linalg/eig.py``).
@@ -34,7 +34,7 @@ def _he_to_dense(A: HermitianMatrix) -> torch.Tensor:
 
 def heev(A: HermitianMatrix, opts=None, want_vectors: bool = True,
          times=None):
-    """Eigendecomposition A = Z·Λ·Zᵀ (reference src/heev.cc). Returns
+    """Eigendecomposition A = Z·Λ·Zᴴ (reference src/heev.cc). Returns
     ``(lam, Z)``: lam ascending, a tensor of A's real dtype on A's
     device; Z a Matrix, or None without vectors. ``times``, a dict,
     receives the two-stage pipeline's stage seconds (``he2hb``,
@@ -98,13 +98,10 @@ def hegv(itype: int, A: HermitianMatrix, B: HermitianMatrix, opts=None):
     x = L⁻ᴴ·y (itype 1 and 2) or x = L·y (itype 3). itype 1 solves
     A·x = λ·B·x, 2 A·B·x = λ·x, 3 B·A·x = λ·x. Returns ``(lam, Z, info)``
     with ``info`` potrf's. When B is not positive definite, lam and Z are
-    NaN, as the JAX package's come out, and heev is not run."""
+    NaN, as the JAX package's come out, and heev is not run. Real and
+    complex dtypes; lam comes out in the real dtype."""
     from ..ops.blas import trmm, trsm
     from .potrf import potrf
-    slate_error_if(A.dtype.is_complex or B.dtype.is_complex,
-                   "hegv: complex inputs wait for the complex two-stage "
-                   "eigensolver (he2hb phases), not ported yet; hegst "
-                   "runs in complex")
     L, info = potrf(B, opts)
     if L.uplo == Uplo.Upper:
         # B = Uᴴ·U: the reduction takes the lower factor L = Uᴴ

@@ -5,15 +5,16 @@ src/gesvd.cc:77-102; counterpart of ``slate_tpu/linalg/ge2tb.py``).
 
 On a 1×1 grid the JAX package's ``shard_map`` loop collapses to slices
 of one dense copy, updated in place. Per block k: a QR panel on block
-column k (rows ≥ k·nb) with the left update A ← A − V·Tᵀ·(Vᵀ·A) of the
+column k (rows ≥ k·nb) with the left update A ← A − V·Tᴴ·(Vᴴ·A) of the
 columns right of it, then an LQ panel on block row k (columns ≥ (k+1)·nb),
-factored as the QR of its transpose, with the right update
-A ← A − (A·V)·T·Vᵀ of the rows below it. The panels go through
+factored as the QR of its conjugate transpose, with the right update
+A ← A − (A·V)·T·Vᴴ of the rows below it. The panels go through
 ``torch.geqrf`` (``panel_qr_factor``), as the JAX package's go through
 XLA's ``geqrf``; their T as in ``he2hb.panel_t``. The result is an upper
 band of width nb + 1 with the QR reflectors below the diagonal and the
 LQ reflectors right of the superdiagonal — LAPACK gebrd's layout at
-block scale. Real dtypes only.
+block scale. Real and complex dtypes; the bidiagonal stage runs in the
+real dtype and the singular values come out in it.
 """
 
 from __future__ import annotations
@@ -33,15 +34,12 @@ from .he2hb import _StageClock, panel_t, reblock, two_stage_chase_band
 
 
 def ge2tb(A: Matrix, opts=None):
-    """Reduce A (m ≥ n) to upper triangular band: A = U·B·Vᵀ. Returns
+    """Reduce A (m ≥ n) to upper triangular band: A = U·B·Vᴴ. Returns
     ``(Aout, Tq, Tl)``: Aout stores the band and both reflector sets,
     Tq [nt, nb, nb] and Tl [max(nt − 1, 1), nb, nb]. A is not
     modified."""
     A = A.materialize()
     slate_error_if(A.m < A.n, "ge2tb v1 expects m >= n")
-    slate_error_if(A.dtype.is_complex,
-                   f"ge2tb: complex two-stage inputs are not ported yet "
-                   f"(got {A.dtype})")
     slate_error_if(A.grid.size != 1,
                    "ge2tb: multi-device grids are not ported yet")
     nb, m, n = A.nb, A.m, A.n
@@ -58,17 +56,17 @@ def ge2tb(A: Matrix, opts=None):
             V = extract_v(pan, r0, m)[r0:m]
             Tq[k] = T = panel_t(V, taus)
             C = a[r0:m, c1:nt * nb]                        # a view of a
-            C.sub_(V @ (T.mT @ (V.mT @ C)))
+            C.sub_(V @ (T.mH @ (V.mH @ C)))
             if k == nt - 1:
                 break
-            # LQ panel of block row k (the QR of its transpose), right
-            # update of the rows below it
-            pan, taus = panel_qr_factor(a[r0:c1, :].mT, c1, n)
-            a[r0:c1, :] = pan.mT
+            # LQ panel of block row k (the QR of its conjugate transpose),
+            # right update of the rows below it
+            pan, taus = panel_qr_factor(a[r0:c1, :].mH, c1, n)
+            a[r0:c1, :] = pan.mH
             V = extract_v(pan, c1, n)[c1:n]
             Tl[k] = T = panel_t(V, taus)
             R = a[c1:mt * nb, c1:n]                        # a view of a
-            R.sub_(((R @ V) @ T) @ V.mT)
+            R.sub_(((R @ V) @ T) @ V.mH)
     data = bc_from_tiles(dense_to_tiles(a, nb, A.mtl, A.ntl), 1, 1)
     return A._replace(data=data), Tq, Tl
 
@@ -82,7 +80,8 @@ def ge2tb_gather(Aout: Matrix) -> torch.Tensor:
 def tb2bd(ub: torch.Tensor):
     """Upper triangular band → real bidiagonal by bulge chasing
     (reference src/tb2bd.cc): ``(d, e, Vu, tauu, Vv, tauv, phase0)`` on
-    the band's device. On the card the hand-written chase kernel (B17)
+    the band's device, d and e of the real dtype, phase0 the column-0
+    phase of a complex band (1 for a real one). On the card the hand-written chase kernel (B17)
     runs, or the call raises; the CPU runs its plain version. A
     non-finite d or e raises :class:`SlateError`, the validator of the
     JAX package's ladder."""
@@ -102,8 +101,9 @@ def unmbr_ge2tb_u(trans: Op, Aout: Matrix, Tq, C: Matrix, opts=None):
 
 def unmbr_ge2tb_v(trans: Op, Aout: Matrix, Tl, C: Matrix, opts=None):
     """Apply the V-side (LQ panel) reflectors to C [n, ·]: NoTrans gives
-    C ← Q₁⋯Q_K·C (panels in reverse order), Q_k = I − V_k·T_k·V_kᵀ with
-    V_k from block row k of Aout; otherwise the transpose, forward."""
+    C ← Q₁⋯Q_K·C (panels in reverse order), Q_k = I − V_k·T_k·V_kᴴ with
+    V_k from block row k of Aout (conjugate-transposed back to column
+    form); otherwise the conjugate transpose, forward."""
     notrans = trans == Op.NoTrans
     nb, n = Aout.nb, Aout.n
     C = C.materialize()
@@ -116,10 +116,10 @@ def unmbr_ge2tb_v(trans: Op, Aout: Matrix, Tl, C: Matrix, opts=None):
     with full_f32_matmul():
         for k in (range(kt - 1, -1, -1) if notrans else range(kt)):
             start = (k + 1) * nb
-            V = extract_v(av[k * nb:start, :].mT, start, n)[start:n]
-            Top = Tl[k] if notrans else Tl[k].mT
+            V = extract_v(av[k * nb:start, :].mH, start, n)[start:n]
+            Top = Tl[k] if notrans else Tl[k].mH
             cc = c[start:n]                                # a view of c
-            cc.sub_(V @ (Top @ (V.mT @ cc)))
+            cc.sub_(V @ (Top @ (V.mH @ cc)))
     return C._replace(data=dense_to_tiles(c, nb, C.mtl, C.ntl)[None, None])
 
 
@@ -128,8 +128,8 @@ def gesvd_two_stage(A: Matrix, opts=None, want_u=False, want_vt=False,
     """The two-stage SVD (reference gesvd.cc:77-102) for m ≥ n: ge2tb →
     band gather → tb2bd → bdsqr → the tb2bd and ge2tb back-transforms.
     Returns ``(s, U | None, VT | None)``: s descending, a tensor of A's
-    dtype on its device; U [m, n] and VT [n, n] Matrices. ``times`` as
-    for ``heev_two_stage``."""
+    real dtype on its device; U [m, n] and VT [n, n] Matrices, VT = Vᴴ.
+    ``times`` as for ``heev_two_stage``."""
     band_nb = get_option(opts, Option.EigBand,
                          preferred_eig_band(min(A.m, A.n), A.dtype,
                                             A.grid.device))
@@ -137,13 +137,14 @@ def gesvd_two_stage(A: Matrix, opts=None, want_u=False, want_vt=False,
         A = reblock(A, band_nb)
     clock = _StageClock(times, A.grid.device)
     dev, dt = A.grid.device, A.dtype
+    rdt = dt.to_real() if dt.is_complex else dt
     m, n = A.m, A.n
     Aout, Tq, Tl = clock("ge2tb", ge2tb, A, opts)
     ub = clock("gather", ge2tb_gather, Aout)
     d, e, Vu, tauu, Vv, tauv, phase0 = clock("tb2bd", tb2bd, ub)
     if not (want_u or want_vt):
         s = clock("bdsqr", bdsqr, d, e)
-        return torch.as_tensor(s).to(dev, dt), None, None
+        return torch.as_tensor(s).to(dev, rdt), None, None
     s, Ubd, VbdT = clock("bdsqr", bdsqr, d, e, True)
     U = VT = None
     if want_u:
@@ -155,11 +156,11 @@ def gesvd_two_stage(A: Matrix, opts=None, want_u=False, want_vt=False,
         U = clock("unmbr_ge2tb", unmbr_ge2tb_u, Op.NoTrans, Aout, Tq,
                   Matrix.from_dense(ub_full, nb=A.nb, grid=A.grid), opts)
     if want_vt:
-        # V = Q_v·diag(phase0, 1, …)·V₂·V_bd, then VT = Vᵀ
+        # V = Q_v·diag(phase0, 1, …)·V₂·V_bd, then VT = Vᴴ
         v2 = clock("unmbr_tb2bd", apply_bulge_reflectors, Vv, tauv,
                    torch.from_numpy(VbdT.T.copy()).to(dev, dt), A.nb)
         v2[0] *= phase0
         Vm = clock("unmbr_ge2tb", unmbr_ge2tb_v, Op.NoTrans, Aout, Tl,
                    Matrix.from_dense(v2, nb=A.nb, grid=A.grid), opts)
         VT = conj_transpose(Vm).materialize()
-    return torch.as_tensor(s).to(dev, dt), U, VT
+    return torch.as_tensor(s).to(dev, rdt), U, VT

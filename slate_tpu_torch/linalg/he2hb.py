@@ -13,12 +13,15 @@ of one dense copy of the matrix, updated in place. Per block column k:
    ``geqrf._blocked_T`` (a few batched products) where the JAX package
    runs the ``larft`` column recurrence — the same T, without an
    nb-long loop of small launches per panel;
-2. Y = A₂₂·V with A₂₂ read from its lower triangle only;
-3. X = Y·T, W = X − ½·V·(Tᵀ·(Vᵀ·X));
-4. A₂₂ ← A₂₂ − W·Vᵀ − V·Wᵀ.
+2. Y = A₂₂·V with A₂₂ read from its lower triangle only (the strict
+   lower part conjugated for its mirror);
+3. X = Y·T, W = X − ½·V·(Tᴴ·(Vᴴ·X));
+4. A₂₂ ← A₂₂ − W·Vᴴ − V·Wᴴ.
 
 Afterwards the storage holds the band with the V blocks below it, plus
-the [kt, nb, nb] T stack. Real dtypes only.
+the [kt, nb, nb] T stack. Real and complex dtypes; the tridiagonal stage
+runs in the real dtype, the eigenvalues come out in it, and a complex64
+product runs under the FP32 pin.
 """
 
 from __future__ import annotations
@@ -41,27 +44,24 @@ from .geqrf import _blocked_T
 
 def panel_t(V: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
     """The compact-WY T of one panel's reflectors (LAPACK larft's), from
-    their Gram matrix VᵀV."""
+    their Gram matrix VᴴV."""
     with full_f32_matmul():
-        return _blocked_T(V.mT @ V, taus, V.shape[1])
+        return _blocked_T(V.mH @ V, taus, V.shape[1])
 
 
-def _check_real(name: str, A) -> None:
-    slate_error_if(A.dtype.is_complex,
-                   f"{name}: complex two-stage inputs are not ported yet "
-                   f"(got {A.dtype})")
+def _check_grid(name: str, A) -> None:
     slate_error_if(A.grid.size != 1,
                    f"{name}: multi-device grids are not ported yet")
 
 
 def he2hb(A: HermitianMatrix, opts=None):
-    """Reduce symmetric A (lower storage) to band form A = Q·B·Qᵀ, B of
+    """Reduce Hermitian A (lower storage) to band form A = Q·B·Qᴴ, B of
     bandwidth nb. Returns ``(Aband, T)``: Aband's storage holds the band
     and the V blocks below it (the reference's in-place layout), T is
     [max(nt − 1, 1), nb, nb]. A is not modified."""
     slate_error_if(A.m != A.n, "he2hb needs square")
     slate_error_if(A.uplo != Uplo.Lower, "he2hb v1: lower storage")
-    _check_real("he2hb", A)
+    _check_grid("he2hb", A)
     tier = resolve_tier(opts)
     nb, n = A.nb, A.n
     M = A.mtl * nb
@@ -76,11 +76,11 @@ def he2hb(A: HermitianMatrix, opts=None):
         Ts[k] = T = panel_t(V, taus)
         A22 = a[start:n, start:n]                        # a view of a
         Y = (tier_mm(torch.tril(A22), V, tier)
-             + tier_mm(torch.tril(A22, -1).mT, V, tier))
+             + tier_mm(torch.tril(A22, -1).mH, V, tier))
         with full_f32_matmul():
             X = Y @ T
-            W = X - 0.5 * (V @ (T.mT @ (V.mT @ X)))
-        A22.sub_(tier_mm(W, V.mT, tier) + tier_mm(V, W.mT, tier))
+            W = X - 0.5 * (V @ (T.mH @ (V.mH @ X)))
+        A22.sub_(tier_mm(W, V.mH, tier) + tier_mm(V, W.mH, tier))
     data = bc_from_tiles(dense_to_tiles(a, nb, A.mtl, A.ntl), 1, 1)
     out = HermitianMatrix(data=data, m=A.m, n=A.n, nb=nb, grid=A.grid,
                           uplo=Uplo.Lower)
@@ -96,7 +96,7 @@ def he2hb_gather(Aband: HermitianMatrix) -> torch.Tensor:
 def unmtr_he2hb(trans: Op, Aband: HermitianMatrix, T, C: Matrix,
                 opts=None) -> Matrix:
     """Apply Q from he2hb to C (reference src/unmtr_he2hb.cc): Q·C for
-    NoTrans (panels in reverse order), Qᵀ·C otherwise (forward order).
+    NoTrans (panels in reverse order), Qᴴ·C otherwise (forward order).
     Returns the new C."""
     notrans = trans == Op.NoTrans
     nb, n = Aband.nb, Aband.n
@@ -111,16 +111,16 @@ def unmtr_he2hb(trans: Op, Aband: HermitianMatrix, T, C: Matrix,
         for k in (range(kt - 1, -1, -1) if notrans else range(kt)):
             start = (k + 1) * nb
             V = extract_v(av[:, k * nb:start], start, n)[start:n]
-            Top = T[k] if notrans else T[k].mT
+            Top = T[k] if notrans else T[k].mH
             cc = c[start:n]                              # a view of c
-            cc.sub_(V @ (Top @ (V.mT @ cc)))
+            cc.sub_(V @ (Top @ (V.mH @ cc)))
     return C._replace(data=dense_to_tiles(c, nb, C.mtl, C.ntl)[None, None])
 
 
 def hb2st(band: torch.Tensor):
-    """Symmetric band → tridiagonal by bulge chasing (reference
-    src/hb2st.cc): ``(d, e, V, tau)`` on the band's device, the packed
-    reflectors for :func:`unmtr_hb2st`.
+    """Hermitian band → real tridiagonal by bulge chasing (reference
+    src/hb2st.cc): ``(d, e, V, tau)`` on the band's device, d and e of
+    the real dtype, the packed reflectors for :func:`unmtr_hb2st`.
 
     On the card this is the hand-written chase kernel (B16) or an error:
     there is no other rung. The JAX package's other rungs (the XLA wave,
@@ -139,9 +139,10 @@ def hb2st(band: torch.Tensor):
 def unmtr_hb2st(V, tau, C: torch.Tensor, band: int,
                 trans: Op = Op.NoTrans) -> torch.Tensor:
     """Apply Q from hb2st to the rows of C (reference
-    src/unmtr_hb2st.cc): Q·C for NoTrans, Qᵀ·C otherwise."""
-    return apply_bulge_reflectors(V, tau, C, band,
-                                  forward=trans != Op.NoTrans)
+    src/unmtr_hb2st.cc): Q·C for NoTrans, Qᴴ·C otherwise."""
+    notrans = trans == Op.NoTrans
+    return apply_bulge_reflectors(V, tau, C, band, forward=not notrans,
+                                  conj_tau=notrans)
 
 
 def two_stage_chase_band(n: int, nb: int, band_nb: int) -> int:
@@ -170,7 +171,8 @@ def heev_two_stage(A: HermitianMatrix, opts=None, want_vectors=True,
     with the device synchronised at each boundary; None (the default)
     times nothing and adds no synchronisation."""
     from .eig import sterf, steqr, stedc
-    _check_real("heev", A)
+    _check_grid("heev", A)
+    rdt = A.dtype.to_real() if A.dtype.is_complex else A.dtype
     method = get_option(opts, Option.MethodEig, MethodEig.Auto)
     band_nb = get_option(opts, Option.EigBand,
                          preferred_eig_band(A.n, A.dtype, A.grid.device))
@@ -182,24 +184,24 @@ def heev_two_stage(A: HermitianMatrix, opts=None, want_vectors=True,
     d, e, V2, tau2 = clock("hb2st", hb2st, band)
     if not want_vectors:
         lam = clock("sterf", sterf, d, e)
-        return torch.as_tensor(lam).to(A.grid.device, A.dtype), None
+        return torch.as_tensor(lam).to(A.grid.device, rdt), None
     if method == MethodEig.QR or (method != MethodEig.DC and A.n <= 128):
         if A.n > 512:
             # values by host QR iteration, vectors by batched inverse
             # iteration on the device (linalg/stein.py), as the JAX
             # package's steqr with a grid
             lam, ztri = clock("steqr", steqr, d, e, True, A.grid.device,
-                              A.dtype, times)
+                              rdt, times)
         else:
             lam, ztri = clock("steqr", steqr, d, e)
-            ztri = torch.from_numpy(ztri).to(A.grid.device, A.dtype)
+            ztri = torch.from_numpy(ztri).to(A.grid.device, rdt)
     else:
-        lam, ztri = clock("stedc", stedc, d, e, True, A.grid.device,
-                          A.dtype)
-    zb = clock("unmtr_hb2st", unmtr_hb2st, V2, tau2, ztri, A.nb)
+        lam, ztri = clock("stedc", stedc, d, e, True, A.grid.device, rdt)
+    # the real tridiagonal's vectors, cast once to A's dtype
+    zb = clock("unmtr_hb2st", unmtr_hb2st, V2, tau2, ztri.to(A.dtype), A.nb)
     Zb = Matrix.from_dense(zb, nb=A.nb, grid=A.grid)
     Z = clock("unmtr_he2hb", unmtr_he2hb, Op.NoTrans, Aband, T, Zb, opts)
-    return torch.as_tensor(lam).to(A.grid.device, A.dtype), Z
+    return torch.as_tensor(lam).to(A.grid.device, rdt), Z
 
 
 class _StageClock:

@@ -161,22 +161,24 @@ def lq_multiply_by_q(side, op, LQ, T, C, opts=None):
 
 
 def eig_vals(A, opts=None):
-    """Eigenvalues of a symmetric matrix, ascending (heev)."""
+    """Eigenvalues of a Hermitian (or real symmetric) matrix, ascending,
+    in its real dtype (heev)."""
     lam, _ = heev(A, opts, want_vectors=False)
     return lam
 
 
 def eig(A, opts=None):
-    """``(lam, Z)`` of a symmetric matrix (heev)."""
+    """``(lam, Z)`` of a Hermitian (or real symmetric) matrix, lam in its
+    real dtype (heev)."""
     return heev(A, opts, want_vectors=True)
 
 
 def svd_vals(A, opts=None):
-    """Singular values, descending (gesvd)."""
+    """Singular values, descending, in A's real dtype (gesvd)."""
     s, _, _ = gesvd(A, opts)
     return s
 
 
 def svd(A, opts=None):
-    """``(s, U, VT)`` (gesvd)."""
+    """``(s, U, VT)``, VT = Vᴴ and s in A's real dtype (gesvd)."""
     return gesvd(A, opts, want_u=True, want_vt=True)

@@ -22,6 +22,7 @@ import slate_tpu as sj  # noqa: E402
 import slate_tpu_torch as st  # noqa: E402
 from slate_tpu.linalg import band as jband  # noqa: E402
 from slate_tpu_torch.internal import kernels as K  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 CASES = [(60, 4, 6, 3, True), (33, 1, 1, 1, True), (50, 7, 2, 2, True),
          (30, 2, 2, 1, False), (100, 16, 16, 2, False)]

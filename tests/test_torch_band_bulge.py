@@ -34,6 +34,7 @@ from slate_tpu_torch.internal import band_bulge as pbb  # noqa: E402
 from slate_tpu_torch.linalg import bulge as pbulge  # noqa: E402
 from slate_tpu_torch.linalg import ge2tb as pge  # noqa: E402
 from slate_tpu_torch.linalg import he2hb as phe  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 SHAPES = [(37, 3), (50, 8), (100, 16), (300, 128)]
 DTYPES = [np.float32, np.float64]
@@ -206,11 +207,17 @@ def test_nan_band_raises():
 
 
 def test_complex_band_raises():
-    ab = torch.ones((3, 5), dtype=torch.complex64)
-    with pytest.raises(pst.SlateError, match="complex"):
-        pbb.hb2st(ab)
-    with pytest.raises(pst.SlateError, match="complex"):
-        pbb.tb2bd(ab)
+    """A complex band, refused before the complex chases were ported,
+    gives the twin's result: d and e real, the packs and tb2bd's phase0
+    (here 1: a₀₀ = 1 is real) within 1e-6."""
+    ab = np.ones((3, 5), np.complex64)
+    ab[1:] += 0.5j
+    for name in ("hb2st", "tb2bd"):
+        got = getattr(pbb, name)(torch.from_numpy(ab))
+        want = getattr(jbb, name)(ab.copy())
+        assert got[0].dtype == got[1].dtype == torch.float32
+        for x, ref in zip(got, want):
+            assert np.abs(np.asarray(x) - np.asarray(ref)).max() < 1e-6
 
 
 @pytest.mark.parametrize("forward", [False, True])
@@ -272,7 +279,8 @@ def test_band_interop_round_trip():
 def test_chase_wrappers_route_by_device():
     """A CPU band runs the plain version and counts no launch; a device
     with no kernel raises; the gates follow the kernel's own limits
-    (float32, band 1..256) on the card only."""
+    (float32, float64, complex64, complex128, band 1..256) on the card
+    only, where the wider types chase at band 64."""
     from slate_tpu_torch.internal import band_wave, kernels as K
     K.reset_launches()
     ab = torch.from_numpy(band(30, 4, np.float32))
@@ -284,15 +292,19 @@ def test_chase_wrappers_route_by_device():
     with pytest.raises(pst.SlateError, match="no kernel"):
         K.hb2st_chase(torch.zeros((3, 8), device="meta"))
     for name in ("hb2st_vmem", "tb2bd_vmem"):
-        assert K.supported(name, torch.float32, 128, "cuda")
-        assert K.supported(name, torch.float32, 256, "cuda")
-        assert not K.supported(name, torch.float32, 257, "cuda")
-        assert not K.supported(name, torch.float64, 128, "cuda")
-        assert K.supported(name, torch.float64, 512, "cpu")
+        for dt in (torch.float32, torch.float64, torch.complex64,
+                   torch.complex128):
+            assert K.supported(name, dt, 128, "cuda")
+            assert K.supported(name, dt, 256, "cuda")
+            assert not K.supported(name, dt, 257, "cuda")
+            assert K.supported(name, dt, 512, "cpu")
+        assert not K.supported(name, torch.float16, 128, "cuda")
     assert band_wave.preferred_eig_band(8192, torch.float32, "cuda") == 128
     assert band_wave.preferred_eig_band(1, torch.float32, "cuda") == 256
     assert band_wave.preferred_eig_band(8192, torch.float32, "cpu") == 256
-    assert band_wave.preferred_eig_band(8192, torch.float64, "cuda") == 256
+    for dt in (torch.float64, torch.complex64, torch.complex128):
+        assert band_wave.preferred_eig_band(8192, dt, "cuda") == 64
+        assert band_wave.preferred_eig_band(8192, dt, "cpu") == 256
 
 
 @pytest.mark.parametrize("n,b", [(5, 8), (3, 6)])

@@ -46,6 +46,7 @@ import pytest
 import torch
 
 from slate_tpu_torch.internal import band_bulge as bb
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 SHAPES = [(12, 1), (17, 2), (40, 3), (41, 5), (30, 8), (20, 32), (131, 129)]
 CHASES = ["hb2st", "tb2bd"]

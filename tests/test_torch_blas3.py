@@ -20,6 +20,7 @@ import slate_tpu as jst  # noqa: E402
 import slate_tpu_torch as pst  # noqa: E402
 from slate_tpu_torch.internal import kernels as K  # noqa: E402
 from tests.conftest import rand, spd  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 CPU = pst.Grid(1, 1, device="cpu")
 SIDES = ["Left", "Right"]
@@ -335,7 +336,8 @@ def test_hegv_upper_b_and_failures(grid11):
     """An Upper-stored B (B = Uᴴ·U) reduces with L = Uᴴ, so λ matches the
     Lower-stored B's; a B that is not positive definite gives the JAX
     package's info and NaN λ and Z, and heev is not run; complex hegst
-    gives the JAX package's result while complex hegv raises."""
+    and complex hegv give the JAX package's results (λ real), an Upper
+    complex B the Lower one's λ."""
     from scipy.linalg import eigh
     a, b = sym(24, 17), spd(24, np.float64, seed=18)
     A = pst.HermitianMatrix.from_dense(a, nb=8, grid=CPU)
@@ -364,5 +366,18 @@ def test_hegv_upper_b_and_failures(grid11):
                    jst.TriangularMatrix.from_dense(dense(Lc), nb=8,
                                                    grid=grid11))
     assert np.abs(dense(C) - dense(JC)).max() < 1e-12
-    with pytest.raises(pst.SlateError, match="complex"):
-        pst.hegv(1, A.astype(torch.complex128), Bu)
+    bc = spd(24, np.complex128, seed=20)
+    jlam_c, _, jinfo_c = jst.hegv(
+        1, jst.HermitianMatrix.from_dense(ac, nb=8, grid=grid11),
+        jst.HermitianMatrix.from_dense(bc, nb=8, grid=grid11))
+    Ac = pst.HermitianMatrix.from_dense(ac, nb=8, grid=CPU)
+    lam_c, Zc, info_c = pst.hegv(1, Ac, pst.HermitianMatrix.from_dense(
+        bc, nb=8, grid=CPU))
+    assert int(info_c) == int(jinfo_c) == 0 and lam_c.dtype == torch.float64
+    assert np.abs(lam_c.numpy() - np.asarray(jlam_c)).max() < 1e-10
+    zc = dense(Zc)
+    assert np.linalg.norm(ac @ zc - bc @ zc * lam_c.numpy()) < 1e-10 * 24
+    lam_u, _, info_u = pst.hegv(1, Ac, pst.HermitianMatrix.from_dense(
+        np.triu(bc), nb=8, grid=CPU, uplo=pst.Uplo.Upper))
+    assert int(info_u) == 0
+    assert np.abs(lam_u.numpy() - lam_c.numpy()).max() < 1e-10

@@ -31,6 +31,7 @@ from slate_tpu_torch.internal import panel_plu as ppp  # noqa: E402
 from slate_tpu_torch.internal import tile_kernels as ptk  # noqa: E402
 from slate_tpu_torch.linalg import getrf as pgetrf  # noqa: E402
 from tests.conftest import rand, spd  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 CPU = pst.Grid(1, 1, device="cpu")
 ATOL = 1e-4

@@ -30,6 +30,7 @@ import slate_tpu_torch as st  # noqa: E402
 from slate_tpu_torch.internal import kernels as K  # noqa: E402
 from slate_tpu_torch.linalg import getrf as pgetrf  # noqa: E402
 from tests.conftest import rand, spd  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 CPU = st.Grid(1, 1, device="cpu")
 N, NB = 32, 16

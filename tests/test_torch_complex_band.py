@@ -22,6 +22,7 @@ import slate_tpu as sj  # noqa: E402
 import slate_tpu_torch as st  # noqa: E402
 from slate_tpu_torch.internal import kernels as K  # noqa: E402
 from tests.conftest import rand, spd  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 CPU = st.Grid(1, 1, device="cpu")
 N, NB, KL, KU, KD = 40, 8, 3, 2, 4

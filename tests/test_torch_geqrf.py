@@ -27,6 +27,7 @@ import slate_tpu_torch as pst  # noqa: E402
 from slate_tpu.linalg import geqrf as jgq  # noqa: E402
 from slate_tpu_torch.linalg import geqrf as pgq  # noqa: E402
 from tests.conftest import rand  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 CPU = pst.Grid(1, 1, device="cpu")
 SHAPES = [(384, 256, 128), (512, 512, 128), (29, 13, 8), (80, 48, 16)]

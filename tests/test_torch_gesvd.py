@@ -23,6 +23,7 @@ from slate_tpu.linalg import ge2tb as jge  # noqa: E402
 from slate_tpu_torch.linalg import bulge as pbulge  # noqa: E402
 from slate_tpu_torch.linalg import ge2tb as pge  # noqa: E402
 from tests.conftest import rand  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 CPU = pst.Grid(1, 1, device="cpu")
 NB = 16
@@ -161,8 +162,11 @@ def test_svd_verbs_and_contracts():
     s_auto = pst.svd_vals(A)
     assert np.abs(s_auto.numpy() - np.linalg.svd(a, compute_uv=False)).max() \
         < 1e-12
-    with pytest.raises(pst.SlateError, match="complex"):
-        pst.gesvd(A.astype(torch.complex128), o)
+    # complex runs the two-stage pipeline too (raised before it was
+    # ported): a real A as complex has A's σ, in float64
+    sc = pst.gesvd(A.astype(torch.complex128), o)[0]
+    assert sc.dtype == torch.float64
+    assert np.abs(sc.numpy() - s.numpy()).max() < 1e-12
     with pytest.raises(pst.SlateError, match="m >= n"):
         pst.ge2tb(pst.Matrix.from_dense(a.T.copy(), nb=8, grid=CPU))
     # a method with no pipeline of its own raises (the JAX package sends

@@ -34,6 +34,7 @@ import slate_tpu_torch as pst  # noqa: E402
 from slate_tpu.linalg import getrf as jgetrf  # noqa: E402
 from slate_tpu_torch.linalg import getrf as pgetrf  # noqa: E402
 from tests.conftest import rand  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 CPU = pst.Grid(1, 1, device="cpu")
 # (n, nb, zero column): flat branch at 384/128; the folded branch at

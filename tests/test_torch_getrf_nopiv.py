@@ -32,6 +32,7 @@ from slate_tpu.internal import tile_kernels as jtk  # noqa: E402
 from slate_tpu_torch.internal import kernels as K  # noqa: E402
 from slate_tpu_torch.internal import tile_kernels as tk  # noqa: E402
 from tests.conftest import rand  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 CPU = pst.Grid(1, 1, device="cpu")
 TOL = {np.float32: 1e-5, np.float64: 1e-12}

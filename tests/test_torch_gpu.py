@@ -605,15 +605,163 @@ def test_tb2bd_kernel_refuses_graph_capture(cuda):
 
 
 def test_chase_kernels_refuse_what_they_do_not_take(cuda):
-    ab = torch.randn(9, 40, device=cuda)
-    with pytest.raises(st.SlateError, match="float64"):
-        K.hb2st_chase(ab.double())
-    with pytest.raises(st.SlateError, match="float64"):
-        K.tb2bd_chase(ab.double())
     with pytest.raises(st.SlateError, match="band 300"):
         K.hb2st_chase(torch.randn(301, 400, device=cuda))
     with pytest.raises(st.SlateError, match="non-finite"):
         st.linalg.he2hb.hb2st(torch.full((9, 40), float("nan"), device=cuda))
+
+
+CHASE_TYPES = {"f64": torch.float64, "c64": torch.complex64,
+               "c128": torch.complex128}
+
+
+@pytest.mark.parametrize("kind", ["f64", "c64", "c128"])
+@pytest.mark.parametrize("n,b", [(256, 64), (600, 32)])
+def test_chase_kernels_typed_match_plain(cuda, kind, n, b):
+    """K8 and K9 in float64, complex64 and complex128 against their plain
+    versions on the card (:func:`_chase_matches_plain`)."""
+    _chase_matches_plain(cuda, CHASE_TYPES[kind], n, b)
+
+
+@pytest.mark.parametrize("kind", ["f32", "f64", "c64", "c128"])
+def test_chase_kernels_match_plain_where_blocks_leave_shared_memory(cuda,
+                                                                    kind):
+    """K8 and K9 on both sides of the band where a type's two task blocks
+    leave shared memory for scratch, as the kernels' own
+    ``slate_*_scratch`` queries place it (float32 143, which takes the
+    8-column register tiles, and 144; float64 and complex64 101 and 102;
+    complex128 71 and 72), against their plain versions."""
+    dt = {"f32": torch.float32, **CHASE_TYPES}[kind]
+    item = torch.empty((), dtype=dt).element_size()
+    edge = {}
+    for chase in ("hb2st", "tb2bd"):
+        need = K._entry(f"slate_{chase}_scratch")
+        edge[chase] = max(b for b in range(1, 257) if need(b, item) == 0)
+        assert need(edge[chase] + 1, item) == 2 * (edge[chase] + 1) * (
+            (edge[chase] + 1) | 1)
+    assert edge["hb2st"] == edge["tb2bd"] == {
+        torch.float32: 143, torch.float64: 101, torch.complex64: 101,
+        torch.complex128: 71}[dt]
+    for b in (edge["hb2st"], edge["hb2st"] + 1):
+        _chase_matches_plain(cuda, dt, 300, b)
+
+
+def _chase_matches_plain(cuda, dt, n, b):
+    """K8 and K9 in ``dt`` on a random (n, b) band against their plain
+    versions on the card: d and |e| within 5e-2·‖A‖·u/2⁻²⁴ (the chain
+    drifts single entries, not the spectrum), sweep 0's reflectors within
+    1e-4·u/2⁻²⁴, the tridiagonal's spectrum the plain one's within
+    10·n·u·‖A‖; d and e real, phase0 equal, two runs bit for bit equal,
+    one launch each."""
+    u = 2.0 ** -24 if dt in (torch.float32, torch.complex64) else 2.0 ** -53
+    scale = u / 2.0 ** -24
+    ab = torch.randn(b + 1, n, generator=torch.Generator(device=cuda)
+                     .manual_seed(n + b), device=cuda, dtype=dt)
+    rdt = dt.to_real() if dt.is_complex else dt
+    from slate_tpu_torch.internal import band_bulge as bb
+    for name, fn, plain in (("hb2st_vmem", K.hb2st_chase, bb.hb2st),
+                            ("tb2bd_vmem", K.tb2bd_chase, bb.tb2bd)):
+        before = K.LAUNCHES[name]
+        out, again = fn(ab), fn(ab)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES[name] == before + 2
+        for x, y in zip(out, again):
+            assert torch.equal(x, y)
+        ref = plain(ab)
+        assert out[0].dtype == out[1].dtype == rdt
+        norm = float(ab.abs().max()) * b
+        for x, y in zip(out[:2], ref[:2]):
+            assert float((x.abs() - y.abs()).abs().max()) \
+                <= 5e-2 * scale * norm
+        for x, y in zip(out[2:-1 if name == "tb2bd_vmem" else 4],
+                        ref[2:-1 if name == "tb2bd_vmem" else 4]):
+            assert float((x[0] - y[0]).abs().max()) <= 1e-4 * scale
+        if name == "tb2bd_vmem":
+            assert torch.equal(out[6], ref[6])
+        upper = name == "tb2bd_vmem"
+
+        def spec(d, e):
+            t = torch.diag(d.double()) + torch.diag(e.double(), 1)
+            if upper:
+                return torch.linalg.svdvals(t)
+            return torch.linalg.eigvalsh(t + torch.diag(e.double(), -1))
+        gap = float((spec(*out[:2]) - spec(*ref[:2])).abs().max())
+        assert gap <= 10 * n * u * float(spec(*ref[:2]).abs().max())
+
+
+@pytest.mark.parametrize("kind", ["f64", "c64", "c128"])
+def test_two_stage_typed_on_card_match_cpu(cuda, kind):
+    """heev (DC) and gesvd by the two-stage pipelines at n = 256, nb = 32
+    in float64, complex64 and complex128 on the card (K8, K9 of the type)
+    and on the CPU: λ and σ of the real dtype within 10·n·u of each other
+    relative to the largest, the card's vectors by residual."""
+    dt = CHASE_TYPES[kind]
+    n, nb = 256, 32
+    u = 2.0 ** -24 if dt == torch.complex64 else 2.0 ** -53
+    rdt = torch.float32 if dt == torch.complex64 else torch.float64
+    rng = np.random.default_rng(12)
+    g = rng.standard_normal((n, n))
+    if dt.is_complex:
+        g = g + 1j * rng.standard_normal((n, n))
+    g = g.astype({torch.float64: np.float64, torch.complex64: np.complex64,
+                  torch.complex128: np.complex128}[dt])
+    a = (g + g.conj().T) / 2
+    bound = 10 * n * u
+    lam, sv = {}, {}
+    for dev in (cuda, "cpu"):
+        grid = st.Grid(1, 1, device=dev)
+        before = dict(K.LAUNCHES)
+        l, Z = st.heev(st.HermitianMatrix.from_dense(a, nb=nb, grid=grid),
+                       {st.Option.MethodEig: st.MethodEig.DC})
+        s, U, VT = st.svd(st.Matrix.from_dense(g, nb=nb, grid=grid),
+                          {st.Option.MethodSVD: st.MethodSVD.TwoStage})
+        assert l.dtype == s.dtype == rdt
+        launched = {k: K.LAUNCHES[k] - before[k] for k in before}
+        assert launched == {**dict.fromkeys(before, 0),
+                            **({"hb2st_vmem": 1, "tb2bd_vmem": 1}
+                               if dev != "cpu" else {})}
+        lam[str(dev)] = l.double().cpu().numpy()
+        sv[str(dev)] = s.double().cpu().numpy()
+        z = Z.to_dense().cpu().numpy().astype(np.complex128)
+        assert np.linalg.norm(a @ z - z * lam[str(dev)]) \
+            <= bound * np.linalg.norm(a)
+        uu, vt = (M.to_dense().cpu().numpy().astype(np.complex128)
+                  for M in (U, VT))
+        assert np.linalg.norm(uu * sv[str(dev)] @ vt - g) \
+            <= bound * np.linalg.norm(g)
+    assert np.abs(lam["cuda"] - lam["cpu"]).max() \
+        <= bound * np.abs(lam["cpu"]).max()
+    assert np.abs(sv["cuda"] - sv["cpu"]).max() <= bound * sv["cpu"][0]
+
+
+@pytest.mark.parametrize("kind", ["f32", "c64", "c128"])
+@pytest.mark.parametrize("m,n", [(160, 96), (96, 160)])
+def test_gesvd_dense_route_on_card_matches_cpu(cuda, kind, m, n):
+    """gesvd's dense route (cuSOLVER's gesvd driver on the card, LAPACK
+    on the CPU), tall and wide, with and without vectors: σ of the real
+    dtype, the card's within 10·max(m, n)·u·σ_max of the CPU's, U·Σ·Vᴴ
+    rebuilding A within the same bound."""
+    dt = {"f32": torch.float32, **CHASE_TYPES}[kind]
+    u = 2.0 ** -24 if dt in (torch.float32, torch.complex64) else 2.0 ** -53
+    rdt = dt.to_real() if dt.is_complex else dt
+    g = torch.randn(m, n, generator=torch.Generator().manual_seed(m + n),
+                    dtype=dt)
+    bound = 10 * max(m, n) * u
+    dense = {st.Option.MethodSVD: st.MethodSVD.Dense}
+    sv = {}
+    for dev in (cuda, "cpu"):
+        A = st.Matrix.from_dense(g.to(dev), nb=32,
+                                 grid=st.Grid(1, 1, device=dev))
+        s0 = st.gesvd(A, dense)[0]
+        s, U, VT = st.gesvd(A, dense, True, True)
+        assert s.dtype == s0.dtype == rdt
+        assert float((s - s0).abs().max()) <= bound * float(s[0])
+        rec = (U.to_dense() * s.to(dt)) @ VT.to_dense()
+        assert float(torch.linalg.norm(rec.cpu() - g)) \
+            <= bound * float(torch.linalg.norm(g))
+        sv[str(dev)] = s.double().cpu()
+    assert float((sv["cuda"] - sv["cpu"]).abs().max()) \
+        <= bound * float(sv["cpu"][0])
 
 
 def test_heev_gesvd_on_card_match_cpu(cuda):

@@ -24,6 +24,7 @@ from slate_tpu.linalg import stedc as jstedc  # noqa: E402
 from slate_tpu_torch.linalg import he2hb as phe  # noqa: E402
 from slate_tpu_torch.linalg import stedc as pstedc  # noqa: E402
 from tests.conftest import rand  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 CPU = pst.Grid(1, 1, device="cpu")
 N, NB = 100, 16
@@ -227,9 +228,13 @@ def test_heev_auto_dense_below_threshold_and_qr_gate(grid11):
     np.testing.assert_array_equal(blam.numpy(), np.asarray(jlam))
     for z in (BZ.to_dense().numpy(), np.asarray(JZ.to_dense())):
         assert np.linalg.norm(z.T @ z - np.eye(600)) < 1e-12
-    with pytest.raises(pst.SlateError, match="complex"):
-        pst.heev(A.astype(torch.complex128),
-                 {pst.Option.MethodEig: pst.MethodEig.TwoStage})
+    # complex runs the two-stage pipeline too (raised before it was
+    # ported): a real A as complex has A's λ, in float64
+    lc, _ = pst.heev(A.astype(torch.complex128),
+                     {pst.Option.MethodEig: pst.MethodEig.TwoStage},
+                     want_vectors=False)
+    assert lc.dtype == torch.float64
+    assert np.abs(lc.numpy() - np.linalg.eigvalsh(a)).max() < 1e-12
     # hegv runs; this A is indefinite, so B = A fails potrf at block
     # column 1 and λ and Z come out NaN, as the JAX package's do
     lam, Z, info = pst.linalg.eig.hegv(1, A, A)

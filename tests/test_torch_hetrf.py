@@ -25,6 +25,7 @@ import slate_tpu_torch as st  # noqa: E402
 from slate_tpu.internal import pallas_kernels as pk  # noqa: E402
 from slate_tpu_torch import runtime  # noqa: E402
 from slate_tpu_torch.internal import kernels as K  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 # (n, nb, dtype, zero diagonal); nb = 128 runs the JAX Pallas panel
 CASES = [(61, 8, np.float64, False), (96, 16, np.float64, False),

@@ -20,6 +20,7 @@ import slate_tpu.lapack_api as jla  # noqa: E402
 import slate_tpu_torch as pst  # noqa: E402
 from slate_tpu_torch import lapack_api as pla  # noqa: E402
 from tests.conftest import rand, spd  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 CPU = pst.Grid(1, 1, device="cpu")
 N, NB = 64, 16
@@ -284,9 +285,10 @@ def complex_calls(pre):
 
 @pytest.mark.parametrize("pre", ["c", "z"])
 def test_complex_shims_raise(jgrid, pre):
-    """The 24 complex families that run give the JAX shims' results
-    (``info``, pivots and ``iters`` equal, the rest within TOL); heev and
-    gesvd, which take the complex two-stage reductions, still raise."""
+    """All 26 complex families give the JAX shims' results (``info``,
+    pivots and ``iters`` equal, the rest within TOL), heev and gesvd
+    included: their λ and σ in the real dtype, and slate_?heev('V')'s
+    vectors by residual."""
     names = [n for n in pla.__all__ if n.startswith(f"slate_{pre}")]
     assert len(names) == 26
     tol = {"c": 1e-4, "z": 1e-10}[pre]
@@ -315,9 +317,18 @@ def test_complex_shims_raise(jgrid, pre):
     X, info = getattr(pla, f"slate_{pre}posv")("U", s, b, nb=NB, grid=CPU)
     assert info == 0 and rel(X, np.linalg.solve(s.astype(np.complex128),
                                                 b)) < tol
+    rdt = {"c": np.float32, "z": np.float64}[pre]
     for name, args in (("heev", ("N", "L", h)), ("gesvd", ("N", "N", a))):
-        with pytest.raises(pst.SlateError, match="complex"):
-            getattr(pla, f"slate_{pre}{name}")(*args, grid=CPU)
+        want = getattr(jla, f"slate_{pre}{name}")(*args, nb=NB)
+        got = getattr(pla, f"slate_{pre}{name}")(*args, nb=NB, grid=CPU)
+        assert got[0].dtype == np.asarray(want[0]).dtype == rdt, name
+        assert rel(got[0], want[0]) < tol and got[-1] == want[-1] == 0
+        assert all(x is None for x in got[1:-1]), name
+    w, z, info = getattr(pla, f"slate_{pre}heev")("V", "L", h, nb=NB,
+                                                   grid=CPU)
+    z = z.astype(np.complex128)
+    assert info == 0 and np.linalg.norm(h @ z - z * w) \
+        < tol * np.linalg.norm(h) * N
 
 
 def test_lapack_api_family_count():

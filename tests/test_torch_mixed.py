@@ -32,6 +32,7 @@ from slate_tpu_torch.internal import kernels as K  # noqa: E402
 from slate_tpu_torch.internal import precision as P  # noqa: E402
 from slate_tpu_torch.linalg import mixed  # noqa: E402
 from tests.conftest import rand, spd  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 CPU = st.Grid(1, 1, device="cpu")
 N, NB = 96, 32

@@ -21,6 +21,7 @@ import slate_tpu_torch as st  # noqa: E402
 from slate_tpu.ops import elementwise as jel  # noqa: E402
 from slate_tpu_torch.ops import elementwise as pel  # noqa: E402
 from tests.conftest import rand, spd  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 CPU = st.Grid(1, 1, device="cpu")
 NORM_TOL = {np.float32: 1e-6, np.float64: 1e-12}

@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 
 import slate_tpu_torch as pst  # noqa: E402
 from slate_tpu_torch.internal import _build  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "slate_tpu_torch"

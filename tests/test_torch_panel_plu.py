@@ -24,6 +24,7 @@ from slate_tpu.internal import panel_plu as jpp  # noqa: E402
 from slate_tpu_torch import SlateError  # noqa: E402
 from slate_tpu_torch.internal import kernels as K  # noqa: E402
 from slate_tpu_torch.internal import panel_plu as pp  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 ATOL = 1e-4
 CASES = [(h, fold) for h in (384, 1024, 2048) for fold in (False, True)]

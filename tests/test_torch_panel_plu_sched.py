@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from slate_tpu_torch.internal import kernels as K
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 W = K.W
 IB = 32

@@ -24,6 +24,7 @@ from slate_tpu.internal import pallas_kernels as pk  # noqa: E402
 from slate_tpu_torch import SlateError  # noqa: E402
 from slate_tpu_torch.internal import kernels as K  # noqa: E402
 from slate_tpu_torch.internal import tile_kernels as tk  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 TOL = {np.float32: 1e-5, np.float64: 1e-12}
 

@@ -24,6 +24,7 @@ from slate_tpu.internal import panel_qr as jpq  # noqa: E402
 from slate_tpu_torch import SlateError  # noqa: E402
 from slate_tpu_torch.internal import kernels as K  # noqa: E402
 from slate_tpu_torch.internal import panel_qr as pq  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 TOL = 1e-5
 CASES = [(h, d0) for h in (384, 1024) for d0 in (0, 128)]

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 
 def tag(epoch, c):

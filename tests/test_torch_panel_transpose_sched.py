@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 TR = TC = 64            # tile rows and columns
 CH = TC // 4            # 16-byte chunks in a tile row

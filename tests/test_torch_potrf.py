@@ -18,6 +18,7 @@ import slate_tpu_torch as pst  # noqa: E402
 from slate_tpu.types import Uplo as JUplo  # noqa: E402
 from slate_tpu_torch.internal.precision import full_f32_matmul  # noqa: E402
 from tests.conftest import rand, spd  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 TOL = {np.float64: 1e-10, np.float32: 2e-4}
 CPU = pst.Grid(1, 1, device="cpu")

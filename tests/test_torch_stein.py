@@ -29,6 +29,7 @@ from slate_tpu_torch.internal import kernels as K  # noqa: E402
 from slate_tpu_torch.linalg import eig as peig  # noqa: E402
 from slate_tpu_torch.linalg import stein as pstein  # noqa: E402
 from tests.conftest import spd  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 CPU = pst.Grid(1, 1, device="cpu")
 TDT = {np.float32: torch.float32, np.float64: torch.float64}

@@ -17,6 +17,7 @@ import slate_tpu as jst  # noqa: E402
 import slate_tpu_torch as pst  # noqa: E402
 from slate_tpu_torch.ops import blas  # noqa: E402
 from tests.conftest import rand  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 CPU = pst.Grid(1, 1, device="cpu")
 

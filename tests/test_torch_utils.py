@@ -38,6 +38,7 @@ from slate_tpu.utils import debug as jdebug  # noqa: E402
 from slate_tpu.utils import generator as jgen  # noqa: E402
 from slate_tpu_torch.utils import debug as pdebug  # noqa: E402
 from slate_tpu_torch.utils import generator as pgen  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
 
 CPU = st.Grid(1, 1, device="cpu")
 M, N, NB = 40, 28, 16

@@ -634,7 +634,7 @@ FLOW_LOOP = [
       """ + _flow_mark(11) + """
       g[4] = df::now_ns();
       if (threadIdx.x == 0) {
-        long long* p = prof + (static_cast<size_t>(s) * task.T + t) * 20;
+        long long* p = prof + (static_cast<size_t>(s) * task.T_ + t) * 20;
         for (int u = 0; u < 12; ++u) p[u] = task.q[u];
         for (int u = 0; u < 5; ++u) p[12 + u] = static_cast<long long>(g[u]);
       }
@@ -642,13 +642,14 @@ FLOW_LOOP = [
     ("launch arguments", "void* args[] = {&arg, &cnt};",
      "long long* prof = arg.prof;\n  void* args[] = {&arg, &cnt, &prof};"),
 ]
-_FLOW_STATE = ("task state", "  float tv, tp, sq;\n",
-               "  float tv, tp, sq;\n  long long* prof;\n  long long q[12];\n"
+_FLOW_STATE = ("task state", "  T tv, tp;\n  S sq;\n",
+               "  T tv, tp;\n  S sq;\n  long long* prof;\n  long long q[12];\n"
                "  long long ck;\n")
-_FLOW_PROF = [("profile buffer", "  task.scratch = scratch;\n",
-               "  task.scratch = scratch;\n  task.prof = g_prof;\n"),
-              ("profile pointer", "template <int J>\ncudaError_t run(",
-               "long long* g_prof = nullptr;\n\ntemplate <int J>\ncudaError_t run(")]
+_FLOW_PROF = [("profile buffer", "  task.b = b;\n",
+               "  task.b = b;\n  task.prof = g_prof;\n"),
+              ("profile pointer", "template <class T, int J>\ncudaError_t run(",
+               "long long* g_prof = nullptr;\n\n"
+               "template <class T, int J>\ncudaError_t run(")]
 FLOW_BODY = {
     "hb2st": ("hb2st_chase.cu", "slate_hb2st_f32", [
         _FLOW_STATE,
@@ -682,9 +683,9 @@ FLOW_BODY = {
     tv = sh.sc[1];""", """    __syncthreads();
     """ + _flow_mark(4, "") + """
     tv = sh.sc[1];"""),
-        ("norm", """    if (lane == 0) sh.red[wp] = sq;
+        ("norm", """    if (lane == 0) sh.red[wp] = of_real<T>(sq);
     __syncthreads();
-""", """    if (lane == 0) sh.red[wp] = sq;
+""", """    if (lane == 0) sh.red[wp] = of_real<T>(sq);
     __syncthreads();
     """ + _flow_mark(9, "") + "\n"),
         *_FLOW_PROF,
