@@ -31,7 +31,12 @@ eigensolver and SVD (``he2hb``, ``ge2tb`` and so ``heev`` two-stage,
 
 Entry points run on the CUDA card unless the caller asks for the CPU:
 ``Grid(1, 1)`` means ``torch.device("cuda")`` and raises without one;
-``Grid(1, 1, device="cpu")`` runs on the CPU.
+``Grid(1, 1, device="cpu")`` runs on the CPU. ``Grid(p, q)`` holds p·q
+virtual ranks on that one device, the tiles rank-stacked in the JAX
+package's block-cyclic layout: the Cholesky and LU solves (with and
+without pivoting, in lookahead super-step chunks), ``gemm``, ``herk``,
+``syrk``, ``trsm`` and the norms run on it through the collectives of
+``internal/comm.py``; every other entry point refuses a p×q grid.
 
 The test-matrix generator, printing and debug aids are in ``utils/``
 and the version stamp in ``version.py``, as in the JAX package.
@@ -43,9 +48,10 @@ JAX or ``slate_tpu``.
 from .version import __version__, version, id  # noqa: A004
 
 from .types import (Op, Uplo, Diag, Side, Norm, NormScope, Option,
-                    MethodLU, MethodGels, MethodEig, MethodSVD, get_option)
+                    GridOrder, MethodGemm, MethodLU, MethodGels, MethodEig,
+                    MethodSVD, get_option, superstep_chunk)
 from .errors import SlateError, InfoError, slate_error_if, raise_if_info
-from .grid import Grid, default_grid
+from .grid import Grid, default_grid, require_one_rank
 from .matrix import (
     BaseTiledMatrix, Matrix, HermitianMatrix, TriangularMatrix, BandMatrix,
     TrapezoidMatrix, SymmetricMatrix, TriangularBandMatrix,

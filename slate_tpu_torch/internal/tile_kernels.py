@@ -121,6 +121,28 @@ def lu_nopiv_block(a: torch.Tensor, ib: int = 32):
     return a, info
 
 
+def panel_lu_nopiv(panel: torch.Tensor, start: int, m: int):
+    """Unpivoted LU of a full-height panel [M, nb] (reference
+    getrf_nopiv.cc; ``tile_kernels.py:353-377``): the diagonal block
+    [start, start + nb) by :func:`lu_nopiv_block` (K7 where
+    :data:`kernels.CAPABILITY` admits it), then L21 = A21·U11⁻¹ for the
+    rows [start + nb, m) in one triangular solve against the safe U11
+    (a zero diagonal entry taken as 1). Rows outside the window keep
+    their values. Returns new tensors ``(panel, info)``, ``info`` the
+    number of zero pivots."""
+    nb = panel.shape[1]
+    d_f, info = lu_nopiv_block(panel[start:start + nb])
+    out = panel.clone()
+    out[start:start + nb] = d_f
+    if m > start + nb:
+        d = torch.diagonal(d_f)
+        safe_u = d_f.triu() + torch.diag((d == 0).to(d_f.dtype))
+        with full_f32_matmul():
+            out[start + nb:m] = torch.linalg.solve_triangular(
+                safe_u, panel[start + nb:m], upper=True, left=False)
+    return out, info
+
+
 # ---------------------------------------------------------------------------
 # LU panel with partial pivoting (reference Tile_getrf.hh:161-300;
 # tile_kernels.py:147-207)

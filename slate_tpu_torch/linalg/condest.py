@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..grid import require_one_rank
 from ..matrix import Matrix, conj_transpose, transpose
 from ..ops.blas import trsm
 from ..ops.norms import norm
@@ -66,6 +67,7 @@ def _rcond(Anorm: float, inv_est: float) -> float:
 
 def gecondest(norm_kind: Norm, LU: Matrix, piv, Anorm: float, opts=None):
     """rcond estimate from getrf factors (reference src/gecondest.cc)."""
+    require_one_rank(LU.grid, "gecondest")
     from .getrf import getrs
     cplx = LU.dtype.is_complex
     opT = Op.ConjTrans if cplx else Op.Trans
@@ -80,6 +82,7 @@ def gecondest(norm_kind: Norm, LU: Matrix, piv, Anorm: float, opts=None):
 def pocondest(norm_kind: Norm, L, Anorm: float, opts=None):
     """rcond estimate from the Cholesky factor (LAPACK pocon
     semantics)."""
+    require_one_rank(L.grid, "pocondest")
     from .potrf import potrs
     inv_est = _onenormest(
         lambda v: _vec_solve(lambda V: potrs(L, V, opts), L, v),
@@ -91,6 +94,7 @@ def pocondest(norm_kind: Norm, L, Anorm: float, opts=None):
 def trcondest(norm_kind: Norm, A, opts=None):
     """rcond estimate of a triangular matrix (reference
     src/trcondest.cc)."""
+    require_one_rank(A.grid, "trcondest")
     cplx = A.dtype.is_complex
     opT = conj_transpose if cplx else transpose
     Anorm = float(norm(Norm.One, A))

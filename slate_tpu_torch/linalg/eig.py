@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..errors import slate_error_if
+from ..grid import require_one_rank
 from ..matrix import HermitianMatrix, Matrix, conj_transpose
 from ..types import MethodEig, Option, Side, Uplo, get_option
 
@@ -41,6 +42,7 @@ def heev(A: HermitianMatrix, opts=None, want_vectors: bool = True,
     ``gather``, ``hb2st``, ``sterf`` or ``stedc``/``steqr``, the
     back-transforms; ``steqr`` above n = 512 also its ``sterf`` and
     ``stein``); the Dense method records none."""
+    require_one_rank(A.grid, "heev")
     slate_error_if(A.m != A.n, "heev needs square")
     method = get_option(opts, Option.MethodEig, MethodEig.Auto)
     if method == MethodEig.Auto:
@@ -77,6 +79,7 @@ def hegst(itype: int, A: HermitianMatrix, L, opts=None) -> HermitianMatrix:
     itype 1, A ← L⁻¹·A·L⁻ᴴ by two ``trsm`` (the left one a lower solve,
     so K3 takes its tiles); itype 2 and 3, A ← Lᴴ·A·L by two ``trmm``.
     Both triangles of the result are stored."""
+    require_one_rank(A.grid, "hegst")
     from ..ops.blas import _mirror_full, trmm, trsm
     slate_error_if(itype not in (1, 2, 3), f"hegst: itype {itype} not in "
                    "1, 2, 3")
@@ -100,6 +103,7 @@ def hegv(itype: int, A: HermitianMatrix, B: HermitianMatrix, opts=None):
     with ``info`` potrf's. When B is not positive definite, lam and Z are
     NaN, as the JAX package's come out, and heev is not run. Real and
     complex dtypes; lam comes out in the real dtype."""
+    require_one_rank(A.grid, "hegv")
     from ..ops.blas import trmm, trsm
     from .potrf import potrf
     L, info = potrf(B, opts)

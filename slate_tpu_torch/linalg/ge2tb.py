@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..errors import SlateError, slate_error_if
+from ..grid import require_one_rank
 from ..internal import kernels
 from ..internal.band_wave import preferred_eig_band
 from ..internal.precision import full_f32_matmul
@@ -38,10 +39,9 @@ def ge2tb(A: Matrix, opts=None):
     ``(Aout, Tq, Tl)``: Aout stores the band and both reflector sets,
     Tq [nt, nb, nb] and Tl [max(nt − 1, 1), nb, nb]. A is not
     modified."""
+    require_one_rank(A.grid, "ge2tb")
     A = A.materialize()
     slate_error_if(A.m < A.n, "ge2tb v1 expects m >= n")
-    slate_error_if(A.grid.size != 1,
-                   "ge2tb: multi-device grids are not ported yet")
     nb, m, n = A.nb, A.m, A.n
     mt, nt = A.mt, A.nt
     a = tiles_to_dense(A.data[0, 0], A.mtl * nb, A.ntl * nb)  # in place
@@ -95,6 +95,7 @@ def tb2bd(ub: torch.Tensor):
 def unmbr_ge2tb_u(trans: Op, Aout: Matrix, Tq, C: Matrix, opts=None):
     """Apply the U-side (QR panel) reflectors to C: the layout of
     ``unmqr`` over the ge2tb output (reference unmbr_ge2tb, U side)."""
+    require_one_rank(C.grid, "unmbr_ge2tb_u")
     from .geqrf import unmqr
     return unmqr(Side.Left, trans, Aout, Tq, C, opts)
 
@@ -104,6 +105,7 @@ def unmbr_ge2tb_v(trans: Op, Aout: Matrix, Tl, C: Matrix, opts=None):
     C ← Q₁⋯Q_K·C (panels in reverse order), Q_k = I − V_k·T_k·V_kᴴ with
     V_k from block row k of Aout (conjugate-transposed back to column
     form); otherwise the conjugate transpose, forward."""
+    require_one_rank(C.grid, "unmbr_ge2tb_v")
     notrans = trans == Op.NoTrans
     nb, n = Aout.nb, Aout.n
     C = C.materialize()

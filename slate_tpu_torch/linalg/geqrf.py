@@ -30,6 +30,7 @@ import os
 import torch
 
 from ..errors import slate_error_if
+from ..grid import require_one_rank
 from ..internal import panel_qr
 from ..internal.precision import full_f32_matmul, resolve_tier, tier_mm
 from ..internal.tile_kernels import (_factor_dtype, extract_v, larft,
@@ -46,9 +47,8 @@ def geqrf(A: Matrix, opts=None):
     """QR: A = Q·R (reference src/geqrf.cc). Returns ``(QR, T)``: QR
     holds the reflectors below and R on and above the diagonal, T the
     [kt, nb, nb] block-reflector triangles. A is not modified."""
+    require_one_rank(A.grid, "geqrf")
     A = A.materialize()
-    slate_error_if(A.grid.size != 1,
-                   "geqrf: multi-device grids are not ported yet")
     tier = resolve_tier(opts)
     if _qr_fast_applies(A):
         data, T = _geqrf_fast_core(A, _qr_panel_mode(A), tier)
@@ -198,6 +198,7 @@ def unmqr(side: Side, trans: Op, QR: Matrix, T, C: Matrix, opts=None):
     reverse with Tᴴ. ``Op.Trans`` is ``Op.ConjTrans`` for real dtypes
     (LAPACK dormqr accepts 'T') and raises for complex ones, as cunmqr
     does."""
+    require_one_rank(C.grid, "unmqr")
     slate_error_if(trans == Op.Trans and QR.dtype.is_complex,
                    "unmqr: trans must be NoTrans or ConjTrans for complex "
                    "types (LAPACK cunmqr semantics)")
@@ -232,11 +233,13 @@ def gelqf(A: Matrix, opts=None):
     """LQ: A = L·Q as the QR of Aᴴ (reference src/gelqf.cc uses
     dedicated LQ kernels; the transpose is the same in exact arithmetic).
     Returns ``(LQ, T)``, the QR factors of Aᴴ."""
+    require_one_rank(A.grid, "gelqf")
     return geqrf(conj_transpose(A).materialize(), opts)
 
 
 def unmlq(side: Side, trans: Op, LQ: Matrix, T, C: Matrix, opts=None):
     """Apply Q from gelqf (reference src/unmlq.cc): Q_lq = (Q_qr)ᴴ."""
+    require_one_rank(C.grid, "unmlq")
     flip = Op.NoTrans if trans != Op.NoTrans else Op.ConjTrans
     return unmqr(side, flip, LQ, T, C, opts)
 
@@ -244,6 +247,7 @@ def unmlq(side: Side, trans: Op, LQ: Matrix, T, C: Matrix, opts=None):
 def cholqr(A: Matrix, opts=None):
     """Cholesky QR (reference src/cholqr.cc): R = chol(AᴴA) upper,
     Q = A·R⁻¹. Returns ``(Q, R, info)``."""
+    require_one_rank(A.grid, "cholqr")
     Cg = HermitianMatrix.zeros(A.n, A.n, A.nb, A.grid, dtype=A.dtype,
                                uplo=Uplo.Lower)
     Cg = herk(1.0, conj_transpose(A), 0.0, Cg, opts)   # AᴴA
@@ -260,6 +264,7 @@ def gels(A: Matrix, BX: Matrix, opts=None) -> Matrix:
     gels_cholqr.cc). For m ≥ n, min‖A·X − B‖₂ by Householder QR or
     CholQR (``Option.MethodGels``); for m < n the minimum-norm solution
     through LQ: A = R̂ᴴ·Q̂ᴴ ⇒ X = Q̂·[R̂⁻ᴴ·B; 0]. Returns X [n, nrhs]."""
+    require_one_rank(A.grid, "gels")
     if A.m < A.n:
         LQ, T = gelqf(A, opts)                  # QR factors of Aᴴ [n, m]
         Rh = _upper_view(LQ)

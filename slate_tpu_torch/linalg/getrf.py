@@ -28,6 +28,17 @@ The unpivoted LU (:func:`getrf_nopiv`) is the JAX package's dense
 one-device loop: the tile LU kernel K7 on each diagonal tile
 (``tile_kernels.lu_nopiv_block``), two triangular solves for the block
 column and block row, one trailing product.
+
+On a p×q grid both are the JAX package's SPMD program over the
+rank-stacked tiles (``getrf.py:856-1108``): lcm(p, q)-aligned super-step
+chunks, each a loop over its block columns that gathers panel k to every
+rank and factors it once (K10 with partial pivoting, K7 on its diagonal
+block without), writes it back to the owner column, applies its row
+swaps to the other columns (the rows move between ranks through
+``internal/comm.py``), solves block row k's U tiles in one K3 launch and
+updates the trailing matrix by one product. ``Option.PipelineDepth`` is
+accepted and changes nothing (one schedule: the ranks share one
+stream).
 """
 
 from __future__ import annotations
@@ -39,19 +50,22 @@ import torch
 
 from .. import runtime
 from ..errors import slate_error_if
+from ..grid import require_one_rank
 from . import band as _band
 from ..internal import band_packed as _bp
-from ..internal import panel_plu
+from ..internal import comm, masks, panel_plu
 from ..internal.precision import (full_f32_matmul, resolve_tier,
                                   tier_addmm_, tier_mm)
 from ..matrix import (Matrix, TriangularMatrix, bc_from_tiles, bc_to_tiles,
                       cdiv, check_rhs_dtype, conj_transpose, dense_to_tiles,
                       tiles_to_dense, transpose)
-from ..internal.tile_kernels import lu_nopiv_block
+from ..internal.tile_kernels import (lu_nopiv_block, panel_lu_factor,
+                                     panel_lu_nopiv, tile_trsm_left_lower)
+from ..internal.precision import tier_context, tier_lhs, tier_rhs
 from ..ops.blas import trsm
 from ..ops.norms import norm
 from ..robust.guards import health_report
-from ..types import Diag, MethodLU, Norm, Op, Side, Uplo
+from ..types import Diag, MethodLU, Norm, Op, Side, Uplo, superstep_chunk
 from .condest import gecondest
 
 _FAST_W = 128            # subpanel width (= panel_plu.W)
@@ -77,7 +91,9 @@ def getrf(A: Matrix, opts=None, health: bool = False):
     A = A.materialize()
     Anorm = float(norm(Norm.One, A)) if health else None
     tier = resolve_tier(opts)
-    if _fast_path_mode(A, "partial") is not None:
+    if A.grid.size > 1:
+        data, piv, info = _getrf_pq(A, opts, tier, "partial")
+    elif _fast_path_mode(A, "partial") is not None:
         data, order, info = _getrf_fast_core(A, panel_plu._fold_enabled(),
                                              tier)
         piv = pivot_order_to_ipiv(order)
@@ -95,7 +111,10 @@ def _getrf_health(LU, piv, info, Anorm, opts):
     nonsingular and ‖A‖₁ is nonzero."""
     i = int(info)
     growth = None
-    if i == 0 and Anorm:
+    # the condition estimate runs on one rank only (condest has no p×q
+    # form yet): a p×q report carries info and no growth, as the JAX
+    # package's does when its estimate fails
+    if i == 0 and Anorm and LU.grid.size == 1:
         growth = float(gecondest(Norm.One, LU, piv, Anorm, opts))
     return health_report("getrf", i, convention="count", growth=growth)
 
@@ -510,7 +529,10 @@ def getrf_nopiv(A: Matrix, opts=None):
     pivot stays 0 on U's diagonal and the elimination divides by 1 in its
     place. A is not modified."""
     A = A.materialize()
-    data, info = _getrf_nopiv_dense_1dev(A, resolve_tier(opts))
+    if A.grid.size > 1:
+        data, _, info = _getrf_pq(A, opts, resolve_tier(opts), "none")
+    else:
+        data, info = _getrf_nopiv_dense_1dev(A, resolve_tier(opts))
     return A._replace(data=data), info
 
 
@@ -576,6 +598,10 @@ def gesv_nopiv(A: Matrix, B: Matrix, opts=None):
 
 def _apply_pivots_matrix(B: Matrix, piv, forward: bool) -> Matrix:
     B = B.materialize()
+    if B.grid.size > 1:
+        slate_error_if(isinstance(piv, PivotOrder),
+                       "PivotOrder pivots need a single-rank B")
+        return _apply_piv_dist(B, piv, forward)
     tiles = bc_to_tiles(B.data)
     mt_p, nt_p, nb, _ = tiles.shape
     rows = mt_p * nb
@@ -612,6 +638,196 @@ def _sim_perm(piv, rows: int, forward: bool) -> torch.Tensor:
     return torch.from_numpy(perm).to(t.device)
 
 
+def _apply_piv_dist(B: Matrix, piv, forward: bool) -> Matrix:
+    """A pivot sequence applied to the rows of a p×q B (``getrf.py:
+    1780-1820``): the swaps composed on the host into one permutation,
+    each rank's rows fetched from their owners (:func:`~..internal.comm.
+    gather_rows`) and written into its own slots."""
+    p, q = B.grid.p, B.grid.q
+    mtl, nb = B.mtl, B.nb
+    rows = mtl * p * nb
+    perm = _sim_perm(piv, rows, forward)
+    got = comm.gather_rows(B.data, perm)             # [p, q, rows, ntl, nb]
+    tl = masks.local_elem_rows(mtl, nb, p, B.data.device)  # [p, mtl, nb]
+    ridx = torch.arange(p, device=B.data.device).view(p, 1, 1)
+    vals = got[ridx, :, tl]                          # [p, mtl, nb, q, ntl, nb]
+    return B._replace(data=vals.permute(0, 3, 1, 4, 2, 5).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# p×q grid: super-step chunks of the SPMD factorization
+# ---------------------------------------------------------------------------
+
+def _getrf_pq(A, opts, tier, piv_mode):
+    """The p×q LU (``getrf.py:71-250``, ``:856-972``, without checkpoints,
+    fault injection and tuning): lcm(p, q)-aligned chunks of
+    :func:`superstep_chunk` block columns once there are at least two
+    chunks' worth, else one chunk over every block column. ``piv_mode``
+    is ``"partial"`` or ``"none"`` (the JAX package runs the unpivoted LU
+    as the same loop with the unpivoted panel and no swaps). Returns
+    ``(data, piv, info)``."""
+    g = A.grid
+    kt = min(A.mt, A.nt)
+    lcm_pq = comm.lcm(g.p, g.q)
+    S = superstep_chunk(kt, lcm_pq, opts) if kt >= 2 * lcm_pq else kt
+    dev = A.data.device
+    data = A.data.clone()
+    piv = (torch.arange(kt, dtype=torch.int32, device=dev)[:, None] * A.nb
+           + torch.arange(A.nb, dtype=torch.int32, device=dev)[None, :])
+    info = torch.zeros((), dtype=torch.int32, device=dev)
+    for k0 in range(0, kt, S):
+        info = _getrf_chunk_core(A, data, piv, info, k0, min(S, kt - k0),
+                                 tier, piv_mode)
+    return data, piv, info
+
+
+class _LUPanel:
+    """A factored panel of step k, from ``panel`` [R·p·nb, nb] in global
+    row order from tile row ``base`` (the window of the JAX body's
+    full-height panel that the factorization touches): the unit lower
+    diagonal block ``lkk``, the host copy of the pivots ``pivs``, and
+    ``lrows``, the L tiles below the diagonal block in each rank row's
+    slot order from slot (k + 1) // p, split for the trailing tier."""
+
+    def __init__(self, panel, base, k, pivs, p, nb, mt, tier):
+        self.pivs = pivs
+        start = (k - base) * nb
+        lkk = panel[start:start + nb]
+        self.lkk = lkk.tril(-1) + torch.eye(nb, dtype=lkk.dtype,
+                                            device=lkk.device)
+        R = panel.shape[0] // (p * nb)
+        slots = panel.view(R, p, nb, nb).transpose(0, 1)   # [p, R, nb, nb]
+        gi = (torch.arange(R, device=panel.device)[None, :] + base // p) * p \
+            + torch.arange(p, device=panel.device)[:, None]
+        below = ((gi > k) & (gi < mt))[:, :, None, None]
+        lrows = torch.where(below, slots, torch.zeros_like(slots))
+        lrows = lrows[:, (k + 1) // p - base // p:]
+        self.lrows = tier_lhs(lrows.reshape(-1, nb), tier)
+
+
+class _GetrfSteps:
+    """The per-step operations of a p×q LU on the rank-stacked tiles
+    ``data`` and pivots ``piv`` (both updated in place)."""
+
+    def __init__(self, A, data, piv, tier, piv_mode):
+        g = A.grid
+        self.p, self.q, self.nb = g.p, g.q, A.nb
+        self.m, self.n, self.mt, self.nt = A.m, A.n, A.mt, A.nt
+        self.data, self.piv = data, piv
+        self.tier, self.pivoting = tier, piv_mode == "partial"
+        self.gj = masks.local_tile_cols(A.ntl, self.q, data.device)
+
+    def factor(self, k, info):
+        """Gather panel k to every rank (its diagonal tile's padding set to
+        an identity, so padding self-pivots), factor it once (K10, or K7
+        on its diagonal block without pivoting), write it back to the
+        owner column and record its pivots. Returns ``(info, panel)``."""
+        p, q, nb, d = self.p, self.q, self.nb, self.data
+        c0, kc, lo = k % q, k // q, k // p
+        pcol = d[:, c0, lo:, kc].clone()             # [p, R, nb, nb]
+        pcol[k % p, 0] = masks.tile_diag_pad_identity(
+            pcol[k % p, 0], k, self.m, nb, self.n)
+        R = pcol.shape[1]
+        full = comm.allgather_panel_rows(
+            pcol.unsqueeze(1).expand(p, q, R, nb, nb), p, c0)[0, 0]
+        panel = full.reshape(R * p * nb, nb)
+        base = lo * p
+        start, mloc = (k - base) * nb, self.m - base * nb
+        if self.pivoting:
+            panel, piv_k, info_k = panel_lu_factor(panel, start, mloc)
+            piv_k = piv_k + base * nb
+            pivs = piv_k.tolist()
+        else:
+            panel, info_k = panel_lu_nopiv(panel, start, mloc)
+            piv_k = k * nb + torch.arange(nb, dtype=torch.int32,
+                                          device=d.device)
+            pivs = None
+        self.piv[k] = piv_k
+        d[:, c0, lo:, kc] = panel.view(R, p, nb, nb).transpose(0, 1)
+        return info + info_k, _LUPanel(panel, base, k, pivs, p, nb, self.mt,
+                                       self.tier)
+
+    def swap(self, k, pivs):
+        """Step k's row swaps in every tile column but k (the stored L is
+        back-pivoted); ``pivs`` None without pivoting."""
+        if pivs is not None:
+            _swap_rows_local(self.data, pivs, k * self.nb, self.gj != k)
+
+    def update(self, k, pan):
+        """Block row k's U tiles right of k solved by one K3 launch (the
+        ranks of grid row k % p each solving their own tiles, side by
+        side), broadcast down the grid columns, then the trailing update
+        as one product: every rank's rows from slot (k + 1) // p minus
+        L·U over its columns from slot (k + 1) // q (``getrf.py:
+        1057-1091``; the tiles of that window above or left of k + 1, at
+        most p − 1 rows and q − 1 columns of them, see a zero L or U)."""
+        p, q, nb, d = self.p, self.q, self.nb, self.data
+        r, a, c0 = k % p, k // p, (k + 1) // q
+        arow = d[r, :, a, c0:]                       # [q, W, nb, nb]
+        W = arow.shape[1]
+        gj = self.gj[:, c0:]
+        right = ((gj > k) & (gj < self.nt))[:, :, None, None]
+        with full_f32_matmul():
+            x = tile_trsm_left_lower(
+                pan.lkk, arow.permute(2, 0, 1, 3).reshape(nb, q * W * nb),
+                unit=True)
+        d[r, :, a, c0:] = torch.where(
+            right, x.view(nb, q, W, nb).permute(1, 2, 0, 3), arow)
+        u = comm.bcast_from_row(d[:, :, a, c0:], r)[0]   # [q, W, nb, nb]
+        u = torch.where(right, u, torch.zeros_like(u))
+        rhs = tier_rhs(u.permute(2, 0, 1, 3).reshape(nb, q * W * nb),
+                       self.tier)
+        with tier_context(self.tier, d.dtype):
+            upd = torch.matmul(pan.lrows, rhs)       # [p·R·nb, q·W·nb]
+        R = pan.lrows.shape[0] // (p * nb)
+        d[:, :, (k + 1) // p:, c0:] -= upd.view(p, R, nb, q, W, nb).permute(
+            0, 3, 1, 4, 2, 5)
+
+
+def _swap_rows_local(d, pivs, start: int, keep):
+    """One panel's row swaps on the rank-stacked tiles ``d``
+    (``getrf.py:1515-1588``): global rows (start + j) ↔ ``pivs[j]`` in
+    order, composed on the host, applied to the tile columns that
+    ``keep`` [q, ntl] selects. The changed rows come from their owners
+    through :func:`~..internal.comm.gather_rows`; each rank writes its
+    own."""
+    p, q, _, _, nb, _ = d.shape
+    content = {}
+    for j, b in enumerate(pivs):
+        a = start + j
+        ca, cb = content.get(a, a), content.get(b, b)
+        content[a], content[b] = cb, ca
+    moves = [(t, s) for t, s in sorted(content.items()) if s != t]
+    if not moves:
+        return
+    dev = d.device
+    dst = torch.tensor([t for t, _ in moves], device=dev)
+    src = torch.tensor([s for _, s in moves], device=dev)
+    dt = dst // nb
+    dr, ds, di = dt % p, dt // p, dst % nb
+    sel = torch.arange(len(moves), device=dev)
+    got = comm.gather_rows(d, src)                   # [p, q, M, ntl, nb]
+    old = d[dr, :, ds, :, di, :]                     # [M, q, ntl, nb]
+    d[dr, :, ds, :, di, :] = torch.where(keep[None, :, :, None],
+                                         got[dr, :, sel], old)
+
+
+def _getrf_chunk_core(A, data, piv, info, k0, klen, tier=None,
+                      piv_mode="partial"):
+    """One chunk over block columns [k0, k0 + klen) (``getrf.py:
+    974-1108``): factor panel k, swap its rows in every other tile
+    column, solve block row k's U tiles right of k and update the
+    trailing matrix. ``data`` and ``piv`` are updated in place; returns
+    ``info``."""
+    st = _GetrfSteps(A, data, piv, tier, piv_mode)
+    for k in range(k0, k0 + klen):
+        info, pan = st.factor(k, info)
+        st.swap(k, pan.pivs)
+        if k + 1 < A.nt:
+            st.update(k, pan)
+    return info
+
+
 # ---------------------------------------------------------------------------
 # band LU (reference src/gbtrf.cc, gbtrs.cc, gbsv.cc; getrf.py:1873-1911):
 # the packed-band loop of linalg/band.py on dgbtrf working storage
@@ -622,6 +838,7 @@ def gbtrf(A, opts=None):
     ``(BandLUFactor, piv, info)``: the packed dgbtrf-layout factor,
     ``piv [kt, nb]`` (row k·nb + j swapped with ``piv[k, j]``, nb the
     band block) and the number of zero pivots. A is not modified."""
+    require_one_rank(A.grid, "gbtrf")
     Am = A.materialize()          # resolves op views; flips kl/ku
     kl, ku = Am.kl, Am.ku
     kuf = kl + ku
@@ -640,6 +857,7 @@ def gbtrs(F, piv=None, B: Matrix = None, trans: Op = Op.NoTrans,
     """Solve op(A)·X = B from gbtrf factors (reference src/gbtrs.cc,
     row swaps at panel-block granularity). ``piv`` defaults to the
     factor's own pivots."""
+    require_one_rank(B.grid, "gbtrs")
     slate_error_if(F.n != B.m, "gbtrs dims")
     B = check_rhs_dtype(B.materialize(), F.ab.dtype)
     pv = F.piv if piv is None else piv
@@ -652,5 +870,6 @@ def gbtrs(F, piv=None, B: Matrix = None, trans: Op = Op.NoTrans,
 
 def gbsv(A, B: Matrix, opts=None):
     """Solve A·X = B by band LU. Returns ``(X, LU, piv, info)``."""
+    require_one_rank(A.grid, "gbsv")
     LU, piv, info = gbtrf(A, opts)
     return gbtrs(LU, piv, B, Op.NoTrans, opts), LU, piv, info

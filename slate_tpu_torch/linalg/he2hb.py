@@ -31,6 +31,7 @@ import time
 import torch
 
 from ..errors import SlateError, slate_error_if
+from ..grid import require_one_rank
 from ..internal import kernels
 from ..internal.band_wave import preferred_eig_band
 from ..internal.precision import full_f32_matmul, resolve_tier, tier_mm
@@ -49,19 +50,14 @@ def panel_t(V: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
         return _blocked_T(V.mH @ V, taus, V.shape[1])
 
 
-def _check_grid(name: str, A) -> None:
-    slate_error_if(A.grid.size != 1,
-                   f"{name}: multi-device grids are not ported yet")
-
-
 def he2hb(A: HermitianMatrix, opts=None):
     """Reduce Hermitian A (lower storage) to band form A = Q·B·Qᴴ, B of
     bandwidth nb. Returns ``(Aband, T)``: Aband's storage holds the band
     and the V blocks below it (the reference's in-place layout), T is
     [max(nt − 1, 1), nb, nb]. A is not modified."""
+    require_one_rank(A.grid, "he2hb")
     slate_error_if(A.m != A.n, "he2hb needs square")
     slate_error_if(A.uplo != Uplo.Lower, "he2hb v1: lower storage")
-    _check_grid("he2hb", A)
     tier = resolve_tier(opts)
     nb, n = A.nb, A.n
     M = A.mtl * nb
@@ -98,6 +94,7 @@ def unmtr_he2hb(trans: Op, Aband: HermitianMatrix, T, C: Matrix,
     """Apply Q from he2hb to C (reference src/unmtr_he2hb.cc): Q·C for
     NoTrans (panels in reverse order), Qᴴ·C otherwise (forward order).
     Returns the new C."""
+    require_one_rank(C.grid, "unmtr_he2hb")
     notrans = trans == Op.NoTrans
     nb, n = Aband.nb, Aband.n
     C = C.materialize()
@@ -171,7 +168,7 @@ def heev_two_stage(A: HermitianMatrix, opts=None, want_vectors=True,
     with the device synchronised at each boundary; None (the default)
     times nothing and adds no synchronisation."""
     from .eig import sterf, steqr, stedc
-    _check_grid("heev", A)
+    require_one_rank(A.grid, "heev")
     rdt = A.dtype.to_real() if A.dtype.is_complex else A.dtype
     method = get_option(opts, Option.MethodEig, MethodEig.Auto)
     band_nb = get_option(opts, Option.EigBand,

@@ -39,6 +39,7 @@ import torch
 
 from .. import runtime
 from ..errors import slate_error_if
+from ..grid import require_one_rank
 from ..internal import band_packed as _bp
 from ..internal.masks import tile_diag_pad_identity
 from ..internal.precision import full_f32_matmul, resolve_tier
@@ -64,6 +65,7 @@ def hetrf(A, opts=None, health: bool = False, times=None):
     each boundary. ``health=True`` returns a
     :class:`~..robust.guards.HealthReport` in the info slot (the zero
     pivot count, no growth estimate)."""
+    require_one_rank(A.grid, "hetrf")
     slate_error_if(A.op != Op.NoTrans, "mirror before transpose views")
     clock = _StageClock(times, A.grid.device)
     L, Td, Ts, piv, info_p = clock("aasen", _stage1, A)
@@ -77,6 +79,7 @@ def hetrf(A, opts=None, health: bool = False, times=None):
 def hetrs(factors, B: Matrix, opts=None) -> Matrix:
     """Solve from hetrf factors (reference src/hetrs.cc):
     x = Pᵀ·L⁻ᴴ·T⁻¹·L⁻¹·P·b, the T solve by the packed band LU."""
+    require_one_rank(B.grid, "hetrs")
     L, FT, piv = factors
     Bp = _apply_pivots_matrix(B, piv, forward=True)
     Z = trsm(Side.Left, 1.0, L, Bp, opts)
@@ -89,6 +92,7 @@ def hesv(A, B: Matrix, opts=None, times=None):
     """Factor and solve (reference src/hesv.cc). Returns
     ``(X, factors, info)``; ``times`` as for :func:`hetrf`, plus
     ``hetrs``."""
+    require_one_rank(A.grid, "hesv")
     factors, info = hetrf(A, opts, times=times)
     X = _StageClock(times, A.grid.device)("hetrs", hetrs, factors, B, opts)
     return X, factors, info

@@ -28,6 +28,7 @@ import threading
 import numpy as np
 import torch
 
+from ..grid import require_one_rank
 from ..matrix import HermitianMatrix, Matrix
 from ..ops.blas import gemm
 from ..ops.elementwise import add
@@ -136,6 +137,7 @@ def _chol_legs(A, opts, info_box, set_info_hi: bool):
 def gesv_mixed(A: Matrix, B: Matrix, opts=None):
     """LU in low precision and IR in working precision (reference
     src/gesv_mixed.cc). Returns ``(X, iters, info)``."""
+    require_one_rank(A.grid, "gesv_mixed")
     info_box = {}
     X, iters, _ = _ir_loop(A, B, *_lu_legs(A, opts, info_box, True), opts)
     return X, iters, info_box.get("info")
@@ -144,6 +146,7 @@ def gesv_mixed(A: Matrix, B: Matrix, opts=None):
 def posv_mixed(A: HermitianMatrix, B: Matrix, opts=None):
     """Cholesky in low precision and IR (reference src/posv_mixed.cc).
     Returns ``(X, iters, info)``."""
+    require_one_rank(A.grid, "posv_mixed")
     info_box = {}
     X, iters, _ = _ir_loop(A, B, *_chol_legs(A, opts, info_box, True),
                            opts)
@@ -223,6 +226,7 @@ def _gmres_ir(A, B, factor_lo, solve_lo, solve_hi, opts,
 def gesv_mixed_gmres(A: Matrix, B: Matrix, opts=None):
     """GMRES-IR LU solver (reference src/gesv_mixed_gmres.cc). Returns
     ``(X, iters, info)``."""
+    require_one_rank(A.grid, "gesv_mixed_gmres")
     info_box = {}
     X, iters, _ = _gmres_ir(A, B, *_lu_legs(A, opts, info_box, False),
                             opts)
@@ -232,6 +236,7 @@ def gesv_mixed_gmres(A: Matrix, B: Matrix, opts=None):
 def posv_mixed_gmres(A: HermitianMatrix, B: Matrix, opts=None):
     """GMRES-IR Cholesky solver (reference src/posv_mixed_gmres.cc).
     Returns ``(X, iters, info)``."""
+    require_one_rank(A.grid, "posv_mixed_gmres")
     info_box = {}
     X, iters, _ = _gmres_ir(A, B, *_chol_legs(A, opts, info_box, False),
                             opts)

@@ -1,14 +1,24 @@
 """Cholesky: potrf / potrs / posv and the band Cholesky pbtrf / pbtrs /
-pbsv on one device (reference src/potrf.cc, src/potrs.cc, src/posv.cc,
-src/pbtrf.cc, src/pbtrs.cc, src/pbsv.cc; counterpart of
-``slate_tpu/linalg/potrf.py``).
+pbsv (reference src/potrf.cc, src/potrs.cc, src/posv.cc, src/pbtrf.cc,
+src/pbtrs.cc, src/pbsv.cc; counterpart of ``slate_tpu/linalg/potrf.py``).
 
-The factorization is the right-looking blocked loop over the block
-columns of the dense matrix: symmetrise and factor the diagonal tile,
-solve the panel below it, subtract the panel's product from the lower
-triangle of the trailing matrix. The port runs eagerly and updates the
-dense copy in place (panel write-back and trailing update), so the peak
-is the matrix, its dense copy and one panel.
+On one rank the factorization is the right-looking blocked loop over the
+block columns of the dense matrix: symmetrise and factor the diagonal
+tile, solve the panel below it, subtract the panel's product from the
+lower triangle of the trailing matrix. The port runs eagerly and updates
+the dense copy in place (panel write-back and trailing update), so the
+peak is the matrix, its dense copy and one panel.
+
+On a p×q grid it is the JAX package's SPMD program over the rank-stacked
+tiles (``potrf.py:101-228``, ``:484-847``): lcm(p, q)-aligned super-step
+chunks, each a loop over its block columns that broadcasts the diagonal
+tile, factors it once (K1), solves the owner column's panel (K2),
+gathers the panel to every rank and applies its update one tile column
+at a time, over the rows at and below the column's diagonal tile (the
+lower trapezoid's flops; one product over the whole trailing window, as
+the JAX body does, would double them). ``Option.PipelineDepth`` is
+accepted and changes nothing (one schedule: the ranks share one
+stream).
 
 Numerical failure (not positive definite) is reported through ``info``,
 the 1-based index of the first failing block column (0 = success), a
@@ -20,7 +30,9 @@ from __future__ import annotations
 import torch
 
 from ..errors import slate_error_if
+from ..grid import require_one_rank
 from ..internal import band_packed as _bp
+from ..internal import comm, masks
 from ..internal.precision import (full_f32_matmul, resolve_tier,
                                   tier_context, tier_lhs, tier_rhs)
 from ..internal.tile_kernels import (_factor_dtype, hermitian_tile,
@@ -31,7 +43,7 @@ from ..matrix import (HermitianMatrix, Matrix, TriangularMatrix,
 from ..ops.blas import trsm
 from ..ops.norms import norm
 from ..robust.guards import finite_guard, health_report
-from ..types import Diag, Norm, Side, Uplo
+from ..types import Diag, Norm, Side, Uplo, superstep_chunk
 from . import band as _band
 from .condest import pocondest
 
@@ -49,8 +61,6 @@ def potrf(A: HermitianMatrix, opts=None, health: bool = False):
     not for inner loops).
     """
     slate_error_if(A.m != A.n, "potrf needs a square matrix")
-    slate_error_if(A.grid.size != 1,
-                   "potrf: multi-device grids are not ported yet")
     Anorm = float(norm(Norm.One, A)) if health else None
     if A.uplo == Uplo.Upper:
         # Factor the mirrored lower problem; return the upper view.
@@ -64,10 +74,13 @@ def potrf(A: HermitianMatrix, opts=None, health: bool = False):
             return U, _potrf_health(U, info, Anorm, opts)
         return U, info
     tier = resolve_tier(opts)
-    # On one device the port always takes the dense loop: the JAX
-    # package caps it at 64 block columns only because it unrolls the
-    # loop at trace time; an eager loop has no trace to grow.
-    data, info = _potrf_dense_1dev(A, tier)
+    if A.grid.size > 1:
+        data, info = _potrf_pq(A, opts, tier)
+    else:
+        # On one device the port always takes the dense loop: the JAX
+        # package caps it at 64 block columns only because it unrolls
+        # the loop at trace time; an eager loop has no trace to grow.
+        data, info = _potrf_dense_1dev(A, tier)
     L = TriangularMatrix(data=data, m=A.m, n=A.n, nb=A.nb, grid=A.grid,
                          uplo=Uplo.Lower, diag=Diag.NonUnit)
     if health:
@@ -81,7 +94,10 @@ def _potrf_health(L, info, Anorm, opts):
     succeeded and ‖A‖₁ is nonzero."""
     i = int(info)
     growth = None
-    if i == 0 and Anorm:
+    # the condition estimate runs on one rank only (condest has no p×q
+    # form yet): a p×q report carries info and no growth, as the JAX
+    # package's does when its estimate fails
+    if i == 0 and Anorm and L.grid.size == 1:
         growth = float(pocondest(Norm.One, L, Anorm, opts))
     return health_report("potrf", i, convention="first_block", growth=growth)
 
@@ -187,6 +203,128 @@ def _potrf_dense_1dev(A, tier):
     return bc_from_tiles(tiles, 1, 1), info
 
 
+# ---------------------------------------------------------------------------
+# p×q grid: super-step chunks of the SPMD factorization
+# ---------------------------------------------------------------------------
+
+def _potrf_pq(A, opts, tier):
+    """The p×q factorization (``potrf.py:101-228`` without checkpoints,
+    fault injection and tuning): lcm(p, q)-aligned chunks of
+    :func:`superstep_chunk` block columns once there are at least two
+    chunks' worth, else one chunk over every block column. Returns
+    ``(data, info)``, the factor in a new rank-stacked tensor."""
+    g = A.grid
+    nt = A.nt
+    lcm_pq = comm.lcm(g.p, g.q)
+    S = superstep_chunk(nt, lcm_pq, opts) if nt >= 2 * lcm_pq else nt
+    data = A.data.clone()
+    info = torch.zeros((), dtype=torch.int32, device=data.device)
+    for k0 in range(0, nt, S):
+        info = _potrf_chunk_core(A, data, info, k0, min(S, nt - k0), tier)
+    return data, info
+
+
+class _PotrfSteps:
+    """The per-step operations of a p×q chunk on the rank-stacked tiles
+    ``data`` (updated in place).
+
+    A gathered panel of step k is a :class:`_Panel`: the L tiles below
+    the diagonal in global tile-row order from ``base = (k // p)·p`` (the
+    JAX body's ``allgather_panel_rows`` of the masked column), and the
+    same tiles in each rank row's slot order, the left operand of every
+    tile-column update of the step."""
+
+    def __init__(self, A, data, tier):
+        g = A.grid
+        self.p, self.q, self.nb = g.p, g.q, A.nb
+        self.n, self.nt, self.mtl = A.n, A.nt, A.mtl
+        self.data = data
+        self.tier = tier
+        self.cplx = data.dtype.is_complex
+        self.gi = masks.local_tile_rows(self.mtl, self.p, data.device)
+
+    def factor(self, k, info):
+        """Factor panel k: the diagonal tile broadcast from its owner and
+        factored once (K1), the owner column's panel solved (K2) and
+        written back, the panel gathered to every rank. Returns
+        ``(info, panel)``."""
+        p, q, nb, d = self.p, self.q, self.nb, self.data
+        akk = comm.bcast_from_owner(d[:, :, k // p, k // q], k % p,
+                                    k % q)[0, 0]
+        akk = hermitian_tile(masks.tile_diag_pad_identity(akk, k, self.n,
+                                                          nb))
+        lkk, info = finite_guard(tile_potrf(akk), info, k + 1, diag=True,
+                                 cplx=self.cplx)
+        c0, kc, lo = k % q, k // q, k // p
+        blk = d[:, c0, lo:, kc]                       # [p, R, nb, nb]
+        R = blk.shape[1]
+        gi = self.gi[:, lo:, None, None]
+        new = blk
+        if k + 1 < self.nt:          # tiles past nt are zero padding
+            fd = _factor_dtype(d.dtype)
+            with full_f32_matmul():
+                solved = tile_trsm_right_lower_t(
+                    lkk.to(fd), blk.reshape(p * R * nb, nb).to(fd))
+            solved = solved.to(d.dtype).view(p, R, nb, nb)
+            new = torch.where(gi > k, solved, blk)
+        new = torch.where(gi == k, lkk.tril(), new)
+        d[:, c0, lo:, kc] = new
+        below = torch.where(gi > k, new, torch.zeros_like(new))
+        full = comm.allgather_panel_rows(
+            below.unsqueeze(1).expand(p, q, R, nb, nb), p, c0)[0, 0]
+        return info, _Panel(full, lo * p, p, self.tier)
+
+    def advance(self, s, j, pan):
+        """Step s's update of tile column j alone: the tiles of rank rows
+        from slot j // p down (the lower part of the column and at most
+        one tile above it per rank row) minus L·L[j]ᴴ, one product
+        batched over the rank rows."""
+        p, q, nb, d = self.p, self.q, self.nb, self.data
+        a_lo = j // p
+        lcol = pan.full[j - pan.base]
+        if self.cplx:
+            lcol = lcol.conj()
+        lrows = pan.rows(a_lo)                        # [p, Ra·nb, nb]
+        with tier_context(self.tier, d.dtype):
+            upd = torch.matmul(lrows, tier_rhs(lcol.mT, self.tier))
+        Ra = lrows.shape[1] // nb
+        d[:, j % q, a_lo:, j // q] -= upd.view(p, Ra, nb, nb)
+
+
+class _Panel:
+    """A gathered panel: ``full`` [R·p, nb, nb] in global tile-row order
+    from tile ``base``, and its rows in each rank row's slot order, split
+    once for the trailing tier (``tier_lhs``)."""
+
+    def __init__(self, full, base, p, tier):
+        self.full, self.base, self.p = full, base, p
+        R = full.shape[0] // p
+        nb = full.shape[-1]
+        slots = full.view(R, p, nb, nb).transpose(0, 1).reshape(
+            p, R * nb, nb)
+        self._lhs = tier_lhs(slots, tier)
+        self._nb = nb
+
+    def rows(self, a_lo):
+        """Rows of each rank row's slots from ``a_lo`` down, [p, ·, k]."""
+        off = (a_lo - self.base // self.p) * self._nb
+        return self._lhs[:, off:]
+
+
+def _potrf_chunk_core(A, data, info, k0, klen, tier=None):
+    """One chunk over block columns [k0, k0 + klen) (``potrf.py:
+    484-598``): factor panel k, then its update of every tile column
+    k < j < nt. ``k0`` is a multiple of lcm(p, q), so the window of slots
+    from (k0 // p, k0 // q) is itself block-cyclic. Updates ``data`` in
+    place; returns ``info``."""
+    st = _PotrfSteps(A, data, tier)
+    for k in range(k0, k0 + klen):
+        info, pan = st.factor(k, info)
+        for j in range(k + 1, A.nt):
+            st.advance(k, j, pan)
+    return info
+
+
 def potrs(L: TriangularMatrix, B: Matrix, opts=None) -> Matrix:
     """Solve A·X = B given the Cholesky factor (reference src/potrs.cc):
     L·Y = B then Lᴴ·X = Y (lower), or Uᴴ·Y = B then U·X = Y (upper)."""
@@ -217,6 +355,7 @@ def pbtrf(A, opts=None, health: bool = False):
     first non-SPD block column of the band block. ``health=True`` returns
     a :class:`~..robust.guards.HealthReport` in the info slot, with the
     same first-block convention."""
+    require_one_rank(A.grid, "pbtrf")
     Am = A.materialize()          # resolves op views; flips uplo, kl, ku
     slate_error_if(Am.m != Am.n, "pbtrf needs a square matrix")
     upper = Am.uplo == Uplo.Upper
@@ -235,6 +374,7 @@ def pbtrf(A, opts=None, health: bool = False):
 def pbtrs(L, B: Matrix, opts=None) -> Matrix:
     """Solve A·X = B from :func:`pbtrf`'s factor (reference
     src/pbtrs.cc)."""
+    require_one_rank(B.grid, "pbtrs")
     slate_error_if(L.n != B.m, "pbtrs dims")
     Bm = check_rhs_dtype(B.materialize(), L.ab.dtype)
     nbw = _bp._band_block(L.n, L.kd)
@@ -246,6 +386,7 @@ def pbtrs(L, B: Matrix, opts=None) -> Matrix:
 def pbsv(A, B: Matrix, opts=None):
     """Solve A·X = B by band Cholesky (reference src/pbsv.cc). Returns
     ``(X, L, info)``."""
+    require_one_rank(A.grid, "pbsv")
     L, info = pbtrf(A, opts)
     X = pbtrs(L, B, opts)
     return X, L, info

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..errors import slate_error_if
+from ..grid import require_one_rank
 from ..matrix import Matrix, conj_transpose
 from ..types import MethodSVD, Option, get_option
 
@@ -26,6 +27,7 @@ def gesvd(A: Matrix, opts=None, want_u: bool = False, want_vt: bool = False,
     on its device; U [m, k] and VT [k, n] Matrices, k = min(m, n).
     ``times``, a dict, receives the two-stage pipeline's stage seconds;
     the Dense method records none."""
+    require_one_rank(A.grid, "gesvd")
     method = get_option(opts, Option.MethodSVD, MethodSVD.Auto)
     slate_error_if(method not in (MethodSVD.Auto, MethodSVD.Dense,
                                   MethodSVD.TwoStage),

@@ -12,6 +12,7 @@ forms L⁻ᴴ·L⁻¹ with one product, the reference's trtrm step.
 
 from __future__ import annotations
 
+from ..grid import require_one_rank
 from ..matrix import (HermitianMatrix, Matrix, TriangularMatrix,
                       conj_transpose, transpose)
 from ..ops.blas import _extract_triangle, gemm, trsm
@@ -26,6 +27,7 @@ def _identity_like(A) -> Matrix:
 
 def trtri(A: TriangularMatrix, opts=None) -> TriangularMatrix:
     """A⁻¹ of a triangular matrix (reference src/trtri.cc)."""
+    require_one_rank(A.grid, "trtri")
     X = trsm(Side.Left, 1.0, A, _identity_like(A), opts)
     return TriangularMatrix(data=X.data, m=A.m, n=A.n, nb=A.nb,
                             grid=A.grid, uplo=A.uplo, diag=A.diag)
@@ -36,6 +38,7 @@ def trtrm(A: TriangularMatrix, opts=None) -> HermitianMatrix:
     src/trtrm.cc, LAPACK lauum; the second half of potri), both triangles
     stored. The JAX package forms Aᴴ·A for either, which for an upper
     factor is not the inverse potri needs."""
+    require_one_rank(A.grid, "trtrm")
     At = _extract_triangle(A)
     C = Matrix.zeros(A.n, A.n, A.nb, A.grid, dtype=A.dtype)
     if A.uplo == Uplo.Upper:
@@ -49,12 +52,14 @@ def trtrm(A: TriangularMatrix, opts=None) -> HermitianMatrix:
 def potri(L: TriangularMatrix, opts=None) -> HermitianMatrix:
     """A⁻¹ from the Cholesky factor: A⁻¹ = L⁻ᴴ·L⁻¹, or U⁻¹·U⁻ᴴ for an
     upper factor (src/potri.cc)."""
+    require_one_rank(L.grid, "potri")
     return trtrm(trtri(L, opts), opts)
 
 
 def getri(LU: Matrix, piv, opts=None) -> Matrix:
     """A⁻¹ from getrf factors (reference src/getri.cc): U⁻¹ by trtri,
     then X·L = U⁻¹ and the column permutation (A⁻¹ = U⁻¹·L⁻¹·P)."""
+    require_one_rank(LU.grid, "getri")
     from .getrf import _apply_pivots_matrix
     n = LU.n
     U = TriangularMatrix(data=LU.data, m=n, n=n, nb=LU.nb, grid=LU.grid,

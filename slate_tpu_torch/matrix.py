@@ -4,8 +4,10 @@ A matrix is one tensor ``data[p, q, mtl, ntl, nb, nb]``: global tile
 ``(i, j)`` lives at ``data[i % p, j % q, i // p, j // q]``, the
 reference's ``tileRank`` map (BaseMatrix.hh:879-905). The layout is the
 one the JAX package uses, so a matrix carries across bit for bit
-(:mod:`slate_tpu_torch.interop`), and multi-device grids can come later
-without changing the container.
+(:mod:`slate_tpu_torch.interop`). On a p×q grid ``data[r, c]`` is rank
+(r, c)'s local stack (``grid.py``); the layout changes that move tiles
+between ranks (a transposed view resolved, a new grid) go through the
+collectives of :mod:`slate_tpu_torch.internal.comm`.
 
 The matrix is padded to whole tiles and the padding is kept zero;
 factorizations place an identity on the padded diagonal while they run.
@@ -22,6 +24,7 @@ import torch
 
 from .errors import slate_error_if
 from .grid import Grid
+from .internal import comm
 from .types import Diag, Op, Uplo
 
 
@@ -205,6 +208,15 @@ class BaseTiledMatrix:
         Hermitian ``uplo`` flips with it, and so do a band's kl and ku."""
         if self.op == Op.NoTrans:
             return self
+        uplo = self.uplo
+        if uplo in (Uplo.Lower, Uplo.Upper):
+            uplo = Uplo.Upper if uplo == Uplo.Lower else Uplo.Lower
+        if self.grid.size > 1:
+            # the block-cyclic transpose is an all-to-all between ranks
+            data = comm.transpose_tiles(self.data, self.mt, self.nt,
+                                        conj=self.op == Op.ConjTrans)
+            return dataclasses.replace(self, data=data, op=Op.NoTrans,
+                                       uplo=uplo, kl=self.ku, ku=self.kl)
         tiles = bc_to_tiles(self.data).permute(1, 0, 3, 2)
         if self.op == Op.ConjTrans:
             tiles = tiles.conj()
@@ -215,12 +227,40 @@ class BaseTiledMatrix:
         nt_p = cdiv(tiles.shape[1], g.q) * g.q
         padded = tiles.new_zeros((mt_p, nt_p) + tuple(tiles.shape[2:]))
         padded[: tiles.shape[0], : tiles.shape[1]] = tiles
-        uplo = self.uplo
-        if uplo in (Uplo.Lower, Uplo.Upper):
-            uplo = Uplo.Upper if uplo == Uplo.Lower else Uplo.Lower
         return dataclasses.replace(self, data=bc_from_tiles(padded, g.p, g.q),
                                    op=Op.NoTrans, uplo=uplo, kl=self.ku,
                                    ku=self.kl)
+
+    def redistribute(self, grid: Grid) -> "BaseTiledMatrix":
+        """Re-lay the matrix out on another grid (reference
+        ``Matrix::redistribute``, Matrix.hh:831-862; ``matrix.py:264``):
+        each tile moves from its owner on this grid to its owner on
+        ``grid`` (:func:`~.internal.comm.relayout`, an all-to-all)."""
+        A = self.materialize()
+        data = comm.relayout(A.data, grid.p, grid.q, A.mt, A.nt)
+        return dataclasses.replace(A, data=data.to(grid.device), grid=grid)
+
+    @classmethod
+    def from_tile_map(cls, m: int, n: int, nb: int, provider,
+                      grid: Grid | None = None, dtype=None, **kw):
+        """Build from a per-tile provider ``provider(i, j) -> [nb, nb]``
+        (reference lambda-distribution constructors, BaseMatrix.hh:
+        793-843; ``matrix.py:310``). The tiles land in the canonical
+        block-cyclic placement whatever produced them; each is cropped
+        to the true edge size, so the padding stays zero."""
+        grid = grid or Grid(1, 1)
+        mt, nt = cdiv(m, nb), cdiv(n, nb)
+        first = np.asarray(provider(0, 0))
+        dtype = dtype or first.dtype
+        tiles = np.zeros((mt, nt, nb, nb), dtype)
+        for i in range(mt):
+            for j in range(nt):
+                t = np.asarray(first if (i, j) == (0, 0)
+                               else provider(i, j), dtype)
+                rr, cc = min(nb, m - i * nb), min(nb, n - j * nb)
+                tiles[i, j, :rr, :cc] = t[:rr, :cc]
+        data = _relayout(torch.from_numpy(tiles), grid)
+        return cls(data=data, m=m, n=n, nb=nb, grid=grid, **kw)
 
     def retile(self, new_nb: int) -> "BaseTiledMatrix":
         """Change the tile size to a divisor of ``nb`` (the two-stage
@@ -254,6 +294,17 @@ class BaseTiledMatrix:
     def __repr__(self):
         return (f"{type(self).__name__}({self.m}x{self.n}, nb={self.nb}, "
                 f"{self.grid}, dtype={self.data.dtype}, op={self.op.name})")
+
+
+def _relayout(tiles: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """[mt, nt, nb, nb] logical tiles → the block-cyclic stacked layout on
+    ``grid``, tile counts padded to grid multiples with zero tiles
+    (``matrix.py:345``)."""
+    mt, nt = tiles.shape[0], tiles.shape[1]
+    mt_p, nt_p = cdiv(mt, grid.p) * grid.p, cdiv(nt, grid.q) * grid.q
+    padded = tiles.new_zeros((mt_p, nt_p) + tuple(tiles.shape[2:]))
+    padded[:mt, :nt] = tiles
+    return bc_from_tiles(padded, grid.p, grid.q).to(grid.device)
 
 
 def _default_nb(m: int, n: int) -> int:

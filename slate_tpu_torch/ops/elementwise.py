@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..errors import slate_error_if
+from ..grid import require_one_rank
 from ..internal import masks
 from ..matrix import BaseTiledMatrix
 
@@ -23,6 +24,7 @@ def _scalar(x, A) -> torch.Tensor:
 
 def add(alpha, A: BaseTiledMatrix, beta, B: BaseTiledMatrix):
     """B = alpha·A + beta·B (reference src/add.cc)."""
+    require_one_rank(A.grid, "add")
     slate_error_if(A.shape != B.shape, "add dims")
     A = A.materialize()
     data = (_scalar(alpha, B) * A.data.to(B.dtype)
@@ -32,6 +34,7 @@ def add(alpha, A: BaseTiledMatrix, beta, B: BaseTiledMatrix):
 
 def copy(A: BaseTiledMatrix, B: BaseTiledMatrix):
     """B = A with precision conversion (reference src/copy.cc)."""
+    require_one_rank(A.grid, "copy")
     slate_error_if(A.shape != B.shape, "copy dims")
     A = A.materialize()
     return B._replace(data=A.data.to(B.dtype))
@@ -39,12 +42,14 @@ def copy(A: BaseTiledMatrix, B: BaseTiledMatrix):
 
 def scale(numer, denom, A: BaseTiledMatrix):
     """A = (numer/denom)·A (reference src/scale.cc)."""
+    require_one_rank(A.grid, "scale")
     return A._replace(data=A.data * (_scalar(numer, A) / _scalar(denom, A)))
 
 
 def scale_row_col(R, C, A: BaseTiledMatrix):
     """A = diag(R)·A·diag(C), row and column equilibration (reference
     src/scale_row_col.cc); R [m] and C [n]. The padding is scaled by 0."""
+    require_one_rank(A.grid, "scale_row_col")
     dev = A.data.device
     nb, mtl, ntl = A.nb, A.mtl, A.ntl
     rp = torch.zeros(mtl * nb, dtype=A.dtype, device=dev)
@@ -58,6 +63,7 @@ def scale_row_col(R, C, A: BaseTiledMatrix):
 def set_matrix(offdiag_value, diag_value, A: BaseTiledMatrix):
     """A[i, j] = offdiag (i ≠ j), diag (i = j) inside the shape's valid
     region, zero outside it (reference src/set.cc)."""
+    require_one_rank(A.grid, "set_matrix")
     er, ec = masks.elem_index(A.mtl, A.ntl, A.nb, A.data.device)
     vals = torch.where(er == ec, _scalar(diag_value, A),
                        _scalar(offdiag_value, A))

@@ -4,8 +4,12 @@ The per-call ``opts`` dict is the analog of SLATE's
 ``Options = std::map<Option, OptionValue>`` (types.hh:61). The keys are
 kept whole so that option-compatible call sites keep working; the port
 reads ``Option.TrailingPrecision``, ``Option.MethodLU``,
-``Option.MethodGels``, ``Option.MethodEig``, ``Option.MethodSVD`` and
-``Option.EigBand``.
+``Option.MethodGels``, ``Option.MethodEig``, ``Option.MethodSVD``,
+``Option.EigBand``, ``Option.MethodGemm`` and, on a p×q grid,
+``Option.ChunkSize`` and ``Option.Lookahead`` (:func:`superstep_chunk`).
+``Option.PipelineDepth`` is accepted and changes nothing: the port has
+one schedule, whose ranks share one stream, so a lookahead would only
+reorder the same work.
 """
 
 from __future__ import annotations
@@ -52,6 +56,14 @@ class NormScope(enum.Enum):
     Matrix = "m"
     Columns = "c"
     Rows = "r"
+
+
+class GridOrder(enum.Enum):
+    """Process-grid rank ordering (reference enums.hh:127-131): rank r
+    sits at grid coordinate (r % p, r // p) for Col, (r // q, r % q) for
+    Row."""
+    Col = "c"
+    Row = "r"
 
 
 class Option(enum.Enum):
@@ -119,6 +131,37 @@ def get_option(opts: Options | None, key: Option, default: Any = None) -> Any:
     if default is not None:
         return default
     return _DEFAULTS.get(key)
+
+
+def superstep_chunk(kt: int, lcm_pq: int, opts: Options | None = None) -> int:
+    """Block columns per super-step chunk of the p×q factorizations
+    (potrf/getrf; ``slate_tpu/types.py:192-230``).
+
+    ``Option.ChunkSize`` sets the chunk length directly, rounded up to a
+    multiple of lcm(p, q) so that every chunk starts grid-aligned.
+    Otherwise ``Option.Lookahead`` scales it: the default 1 splits the
+    factorization into about 8 chunks, a higher lookahead into fewer,
+    longer ones (reference ``Option::Lookahead``, src/potrf.cc:88-107).
+    """
+    def _cdiv(a, b):
+        return -(-a // b)
+
+    cs = get_option(opts, Option.ChunkSize)
+    if cs:
+        return max(lcm_pq, _cdiv(int(cs), lcm_pq) * lcm_pq)
+    la = max(1, int(get_option(opts, Option.Lookahead)))
+    n_chunks = max(1, 8 // la)
+    return max(lcm_pq, _cdiv(_cdiv(kt, n_chunks), lcm_pq) * lcm_pq)
+
+
+class MethodGemm(enum.Enum):
+    """gemm variant on a p×q grid (reference method.hh:25-92): GemmC is
+    the broadcast SUMMA, Ring the systolic Cannon ring, GemmA
+    stationary-A with a reduce-scatter epilogue."""
+    Auto = enum.auto()
+    GemmA = enum.auto()
+    GemmC = enum.auto()
+    Ring = enum.auto()
 
 
 class MethodLU(enum.Enum):

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ..errors import SlateError
-from ..grid import Grid, default_grid
+from ..grid import Grid, default_grid, require_one_rank
 from ..internal import masks
 from ..matrix import HermitianMatrix, Matrix, cdiv
 
@@ -119,6 +119,7 @@ def random_matrix(m: int, n: int, nb: int | None = None,
     """Random matrix on the grid's device; entries depend only on (seed,
     i, j). Drawn as f32 and cast to ``dtype``, as in the JAX package."""
     grid = grid or default_grid()
+    require_one_rank(grid, "random_matrix")
     nb = nb or _default_nb(m)
     mtl, ntl = cdiv(m, nb), cdiv(n, nb)
     t = _random_tiles(kind, seed, mtl, ntl, nb, cdiv(n, nb), grid.device)
@@ -259,6 +260,7 @@ def generate_matrix(kind: str, m: int, n: int | None = None,
     kinds (the reference's ``_dominant`` modifier)."""
     n = n if n is not None else m
     grid = grid or default_grid()
+    require_one_rank(grid, "generate_matrix")
     dtype = _torch_dtype(dtype)
     if kind in ("geev", "geevx"):
         raise NotImplementedError(f"matrix kind '{kind}' — not "
@@ -303,6 +305,7 @@ def random_spd(n: int, nb: int | None = None, grid: Grid | None = None,
     from ..ops.blas import syrk
     from ..ops.elementwise import _add_scaled_identity
     grid = grid or default_grid()
+    require_one_rank(grid, "random_spd")
     G = random_matrix(n, n, nb, grid, dtype, seed, "randn")
     C = HermitianMatrix.zeros(n, n, G.nb, grid, dtype=_torch_dtype(dtype))
     C = syrk(1.0 / n, G, 0.0, C)

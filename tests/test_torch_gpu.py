@@ -1490,3 +1490,61 @@ def test_generator_on_card_matches_cpu(cuda):
         else:
             assert float((x - y).abs().max()) <= 8 * 2.0 ** -24 * max(
                 float(y.abs().max()), 1e-30), kind
+
+
+@pytest.mark.parametrize("p,q", [(2, 2), (2, 4)])
+def test_pq_posv_gesv_on_card_match_cpu(cuda, p, q):
+    """posv and gesv on a p×q grid of virtual ranks: the card (K1, K2,
+    K3, K10) against the CPU (their plain versions), pivots equal, the
+    factors and posv's X within 10·n·2⁻²⁴, gesv's residual on the card
+    within 10·n·2⁻²⁴ (its X is as far apart as κ(A) makes it)."""
+    n, nb = 512, 128
+    gen = torch.Generator().manual_seed(p * 10 + q)
+    a = torch.randn(n, n, generator=gen)
+    s = a @ a.T / n + torch.eye(n)
+    b = torch.randn(n, 3, generator=gen)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        g = st.Grid(p, q, device=dev)
+        X, L, info = st.posv(st.HermitianMatrix.from_dense(s, nb=nb, grid=g),
+                             st.Matrix.from_dense(b, nb=nb, grid=g))
+        Y, LU, piv, linfo = st.gesv(st.Matrix.from_dense(a, nb=nb, grid=g),
+                                    st.Matrix.from_dense(b, nb=nb, grid=g))
+        out[dev] = (X.to_dense(), torch.tril(L.to_dense()), int(info),
+                    Y.to_dense(), LU.to_dense(), piv.cpu(), int(linfo))
+    c, h = out["cuda"], out["cpu"]
+    bound = 10 * n * 2.0 ** -24
+    assert c[2] == h[2] == 0 and c[6] == h[6] == 0
+    assert torch.equal(c[5], h[5])
+    for i in (0, 1, 4):
+        assert rel(c[i], h[i]) < bound, i
+    y = c[3].cpu().double()
+    r = torch.linalg.norm(a.double() @ y - b.double()) / (
+        torch.linalg.norm(a.double()) * torch.linalg.norm(y))
+    assert float(r) < bound
+
+
+@pytest.mark.parametrize("kind", ["posv", "gesv", "gesv_nopiv"])
+def test_pq_depths_bitwise_on_card(cuda, kind):
+    """``Option.PipelineDepth`` 0, 1 and 2 give the same bits on the card
+    (factors, pivots, X): the port runs one schedule at every depth, and
+    its kernels and cuBLAS products repeat their bits run to run."""
+    n, nb = 1024, 128
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    a = torch.randn(n, n, generator=gen, device=cuda)
+    if kind == "posv":
+        a = a @ a.T / n + torch.eye(n, device=cuda)
+    elif kind == "gesv_nopiv":
+        a = a + n * torch.eye(n, device=cuda)
+    b = torch.randn(n, 4, generator=gen, device=cuda)
+    g = st.Grid(2, 4)
+    cls = st.HermitianMatrix if kind == "posv" else st.Matrix
+    outs = []
+    for depth in (0, 1, 2):
+        out = getattr(st, kind)(cls.from_dense(a, nb=nb, grid=g),
+                                st.Matrix.from_dense(b, nb=nb, grid=g),
+                                {st.Option.PipelineDepth: depth})
+        outs.append([getattr(o, "data", o) for o in out])
+    for other in outs[1:]:
+        for u, v in zip(outs[0], other):
+            assert torch.equal(u, v)

@@ -1,0 +1,233 @@
+"""The port's p×q grid of virtual ranks, its block-cyclic storage and its
+masks against the JAX package's, and the refusal of every entry point
+whose p×q form is not ported, on the CPU.
+
+Storage after ``from_dense``, ``redistribute``, ``from_tile_map`` and a
+resolved transpose is held bit for bit to the JAX package's
+``[p, q, mtl, ntl, nb, nb]`` stack on the grids of the JAX fixtures (2×4
+and 2×2) and on 1×4 and 4×1, with ragged sizes.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
+
+import slate_tpu as jst  # noqa: E402
+from slate_tpu.grid import AXIS_P, AXIS_Q  # noqa: E402
+from slate_tpu.internal import masks as jmasks  # noqa: E402
+import slate_tpu_torch as pst  # noqa: E402
+from slate_tpu_torch.internal import masks  # noqa: E402
+from tests.conftest import rand, spd  # noqa: E402
+import tests.torch_cpu_threads  # noqa: E402,F401
+
+GRIDS = [(2, 4), (2, 2), (1, 4), (4, 1)]
+NB = 8
+
+
+def jgrid(p, q):
+    return jst.Grid(p, q, devices=jax.devices()[:p * q])
+
+
+def pgrid(p, q):
+    return pst.Grid(p, q, device="cpu")
+
+
+def test_grid_construction_and_maps():
+    g = pgrid(2, 4)
+    j = jgrid(2, 4)
+    assert g.size == 8 and g.device == torch.device("cpu")
+    assert len(g.devices) == 8 and set(g.devices) == {g.device}
+    for i, jj in [(0, 0), (5, 3), (7, 10)]:
+        assert g.tile_owner(i, jj) == j.tile_owner(i, jj)
+        assert g.tile_slot(i, jj) == j.tile_slot(i, jj)
+        assert g.global_tile(*g.tile_owner(i, jj), *g.tile_slot(i, jj)) \
+            == (i, jj) == j.global_tile(*j.tile_owner(i, jj),
+                                        *j.tile_slot(i, jj))
+        assert g.tile_device(i, jj) == g.device
+    for rank in range(8):
+        assert g.rank_coords(rank) == (rank % 2, rank // 2)
+    row = pst.Grid(2, 4, device="cpu", order=pst.types.GridOrder.Row)
+    assert row.rank_coords(5) == (1, 1)
+    from slate_tpu.grid import _default_pq as jpq
+    from slate_tpu_torch.grid import _default_pq
+    for nd in (1, 2, 4, 6, 8, 12):
+        assert _default_pq(nd) == jpq(nd)
+    g6 = pst.Grid(devices=["cpu"] * 6)
+    assert (g6.p, g6.q) == jpq(6)
+    with pytest.raises(pst.SlateError, match="multi-device"):
+        pst.Grid(1, 2, devices=["cpu", "meta"])
+    with pytest.raises(pst.SlateError, match="device count"):
+        pst.Grid(2, 2, devices=["cpu"] * 3)
+    with pytest.raises(pst.SlateError):
+        pst.Grid(0, 2, device="cpu")
+    assert pgrid(2, 2) == pgrid(2, 2) and pgrid(2, 2) != pgrid(2, 1)
+
+
+def test_default_grid_is_one_rank_on_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(pst.SlateError, match="device='cpu'"):
+        pst.default_grid()
+    with pytest.raises(pst.SlateError, match="device='cpu'"):
+        pst.Grid(2, 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    g = pst.default_grid()
+    assert (g.p, g.q, g.device.type) == (1, 1, "cuda")
+
+
+@pytest.mark.parametrize("p,q", GRIDS)
+def test_storage_bit_for_bit(p, q):
+    a = rand(45, 37, np.complex128, seed=p + 10 * q)
+    A = pst.Matrix.from_dense(a, nb=NB, grid=pgrid(p, q))
+    J = jst.Matrix.from_dense(a, nb=NB, grid=jgrid(p, q))
+    np.testing.assert_array_equal(A.data.numpy(), np.asarray(J.data))
+    np.testing.assert_array_equal(A.to_dense().numpy(), a)
+    np.testing.assert_array_equal(A.tile(4, 3).numpy(),
+                                  np.asarray(J.tile(4, 3)))
+    # a resolved transposed view: the block-cyclic transpose
+    for view, jview in [(pst.transpose, jst.transpose),
+                        (pst.conj_transpose, jst.conj_transpose)]:
+        np.testing.assert_array_equal(
+            view(A).materialize().data.numpy(),
+            np.asarray(jview(J).materialize().data))
+    # redistribute onto every other grid
+    for p2, q2 in GRIDS + [(1, 1)]:
+        R = A.redistribute(pgrid(p2, q2))
+        JR = J.redistribute(jgrid(p2, q2) if p2 * q2 > 1
+                            else jst.Grid(1, 1, devices=jax.devices()[:1]))
+        assert (R.grid.p, R.grid.q) == (p2, q2)
+        np.testing.assert_array_equal(R.data.numpy(), np.asarray(JR.data))
+    # from_tile_map: tiles from a provider, cropped at the ragged edge
+    def provider(i, j):
+        return np.full((NB, NB), 100.0 * i + j)
+    T = pst.Matrix.from_tile_map(45, 37, NB, provider, grid=pgrid(p, q))
+    JT = jst.Matrix.from_tile_map(45, 37, NB, provider, grid=jgrid(p, q))
+    np.testing.assert_array_equal(T.data.numpy(), np.asarray(JT.data))
+    Z = pst.Matrix.zeros(45, 37, NB, pgrid(p, q), dtype=torch.float64)
+    assert Z.data.shape == J.data.shape and not Z.data.any()
+    # a JAX matrix on the mesh crosses to the port's p×q grid and back
+    X = pst.from_reference(np.asarray(J.data), kind="Matrix", m=45, n=37,
+                           nb=NB, device="cpu")
+    assert (X.grid.p, X.grid.q) == (p, q) and torch.equal(X.data, A.data)
+    np.testing.assert_array_equal(pst.to_reference(X)["data"],
+                                  np.asarray(J.data))
+    S = A.sub(1, 3, 0, 2)
+    np.testing.assert_array_equal(S.data.numpy(),
+                                  np.asarray(J.sub(1, 3, 0, 2).data))
+
+
+@pytest.mark.parametrize("p,q", [(2, 4), (4, 1)])
+def test_masks_match_jax(p, q):
+    mtl, ntl, nb, m, n = 3, 2, 4, 21, 25
+    g = jgrid(p, q)
+
+    def body(x):
+        return tuple(y[None, None] for y in (
+            jmasks.local_tile_rows(mtl, p),
+            jmasks.local_tile_cols(ntl, q),
+            jmasks.local_elem_rows(mtl, nb, p),
+            jmasks.valid_mask(mtl, ntl, nb, p, q, m, n),
+            jmasks.uplo_mask(mtl, ntl, nb, p, q, lower=True, strict=True),
+            jmasks.uplo_mask(mtl, ntl, nb, p, q, lower=False),
+            jmasks.band_mask(mtl, ntl, nb, p, q, 3, 5)))
+
+    want = jax.jit(jax.shard_map(
+        body, mesh=g.mesh, in_specs=(P(AXIS_P, AXIS_Q),),
+        out_specs=tuple(P(AXIS_P, AXIS_Q) for _ in range(7)),
+        check_vma=False))(jnp.zeros((p, q)))
+    want = [np.asarray(w) for w in want]
+    got = [masks.local_tile_rows(mtl, p)[:, None].expand(p, q, mtl),
+           masks.local_tile_cols(ntl, q)[None].expand(p, q, ntl),
+           masks.local_elem_rows(mtl, nb, p)[:, None].expand(p, q, mtl, nb),
+           masks.valid_mask(mtl, ntl, nb, m, n, p=p, q=q),
+           masks.uplo_mask(mtl, ntl, nb, True, strict=True, p=p, q=q),
+           masks.uplo_mask(mtl, ntl, nb, False, p=p, q=q),
+           masks.band_mask(mtl, ntl, nb, 3, 5, p=p, q=q)]
+    for g_, w_ in zip(got, want):
+        np.testing.assert_array_equal(np.broadcast_to(g_.numpy(), w_.shape),
+                                      w_)
+    # one rank: the rank-stacked form is the local form
+    assert torch.equal(masks.valid_mask(mtl, ntl, nb, m, n, p=1, q=1)[0, 0],
+                       masks.valid_mask(mtl, ntl, nb, m, n))
+
+
+def _refusals():
+    """Every entry point outside the p×q slice, each on a 2×2 grid."""
+    g = pgrid(2, 2)
+    n = 16
+    a, s = rand(n, n, seed=1), spd(n, seed=2)
+    A = pst.Matrix.from_dense(a, nb=4, grid=g)
+    H = pst.HermitianMatrix.from_dense(s, nb=4, grid=g)
+    T = pst.TriangularMatrix.from_dense(np.tril(s), nb=4, grid=g)
+    B = pst.Matrix.from_dense(rand(n, 2, seed=3), nb=4, grid=g)
+    BA = pst.BandMatrix.from_dense(np.triu(np.tril(a, 2), -2), nb=4, grid=g,
+                                   kl=2, ku=2)
+    HB = pst.HermitianBandMatrix.from_dense(np.tril(np.triu(s, -2)), nb=4,
+                                            grid=g, kl=2, ku=2)
+    TB = pst.TriangularBandMatrix.from_dense(np.tril(np.triu(s, -2)), nb=4,
+                                             grid=g, kl=2, ku=0)
+    L, R, N_, O = pst.Side.Left, pst.Side.Right, pst.Norm.One, \
+        pst.Op.NoTrans
+    from slate_tpu_torch.linalg import ge2tb as ge2tb_mod
+    from slate_tpu_torch.linalg import he2hb as he2hb_mod
+    return {
+        "geqrf": lambda: pst.geqrf(A), "gelqf": lambda: pst.gelqf(A),
+        "unmqr": lambda: pst.unmqr(L, O, A, None, B),
+        "unmlq": lambda: pst.unmlq(L, O, A, None, B),
+        "cholqr": lambda: pst.cholqr(A), "gels": lambda: pst.gels(A, B),
+        "least_squares_solve": lambda: pst.least_squares_solve(A, B),
+        "heev": lambda: pst.heev(H), "eig_vals": lambda: pst.eig_vals(H),
+        "hegst": lambda: pst.hegst(1, H, T),
+        "hegv": lambda: pst.hegv(1, H, H), "gesvd": lambda: pst.gesvd(A),
+        "svd_vals": lambda: pst.svd_vals(A), "he2hb": lambda: pst.he2hb(H),
+        "heev_two_stage": lambda: he2hb_mod.heev_two_stage(H),
+        "unmtr_he2hb": lambda: he2hb_mod.unmtr_he2hb(O, H, None, B),
+        "ge2tb": lambda: pst.ge2tb(A),
+        "unmbr_ge2tb_u": lambda: ge2tb_mod.unmbr_ge2tb_u(O, A, None, B),
+        "unmbr_ge2tb_v": lambda: ge2tb_mod.unmbr_ge2tb_v(O, A, None, B),
+        "hetrf": lambda: pst.hetrf(H), "hesv": lambda: pst.hesv(H, B),
+        "hetrs": lambda: pst.hetrs(None, B),
+        "gbtrf": lambda: pst.gbtrf(BA), "gbsv": lambda: pst.gbsv(BA, B),
+        "gbtrs": lambda: pst.gbtrs(None, None, B),
+        "pbtrf": lambda: pst.pbtrf(HB), "pbsv": lambda: pst.pbsv(HB, B),
+        "pbtrs": lambda: pst.pbtrs(None, B),
+        "gbmm": lambda: pst.gbmm(1.0, BA, B, 0.0, B),
+        "hbmm": lambda: pst.hbmm(L, 1.0, HB, B, 0.0, B),
+        "tbsm": lambda: pst.tbsm(L, 1.0, TB, B),
+        "hemm": lambda: pst.hemm(L, 1.0, H, B, 0.0, B),
+        "symm": lambda: pst.symm(R, 1.0, H, A, 0.0, A),
+        "her2k": lambda: pst.her2k(1.0, A, A, 0.0, H),
+        "syr2k": lambda: pst.syr2k(1.0, A, A, 0.0, H),
+        "trmm": lambda: pst.trmm(L, 1.0, T, B),
+        "multiply_hermitian": lambda: pst.multiply(1.0, H, B, 0.0, B),
+        "gesv_mixed": lambda: pst.gesv_mixed(A, B),
+        "posv_mixed": lambda: pst.posv_mixed(H, B),
+        "gesv_mixed_gmres": lambda: pst.gesv_mixed_gmres(A, B),
+        "posv_mixed_gmres": lambda: pst.posv_mixed_gmres(H, B),
+        "gecondest": lambda: pst.gecondest(N_, A, None, 1.0),
+        "pocondest": lambda: pst.pocondest(N_, T, 1.0),
+        "trcondest": lambda: pst.trcondest(N_, T),
+        "trtri": lambda: pst.trtri(T), "trtrm": lambda: pst.trtrm(T),
+        "potri": lambda: pst.potri(T), "getri": lambda: pst.getri(A, None),
+        "add": lambda: pst.add(1.0, A, 1.0, A),
+        "copy": lambda: pst.copy(A, A),
+        "scale": lambda: pst.scale(1.0, 2.0, A),
+        "scale_row_col": lambda: pst.scale_row_col(None, None, A),
+        "set_matrix": lambda: pst.set_matrix(0.0, 1.0, A),
+        "generate_matrix": lambda: pst.generate_matrix("identity", 8, grid=g),
+        "random_matrix": lambda: pst.random_matrix(8, 8, 4, g),
+        "random_spd": lambda: pst.random_spd(8, 4, g),
+    }
+
+
+REFUSED = sorted(_refusals())
+
+
+@pytest.mark.parametrize("name", REFUSED)
+def test_entry_points_outside_the_slice_refuse_pq(name):
+    with pytest.raises(pst.SlateError, match="multi-device"):
+        _refusals()[name]()

@@ -24,6 +24,7 @@ PKG = ROOT / "slate_tpu_torch"
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, slate_tpu_torch\n"
+            "import slate_tpu_torch.internal.comm\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'slate_tpu' or "
             "m.startswith('slate_tpu.')]\n"

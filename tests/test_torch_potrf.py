@@ -199,8 +199,13 @@ def test_unported_options_raise(grid11):
         assert int(info) == 0
     with pytest.raises(pst.SlateError):
         pst.potrf(A, {pst.Option.TrailingPrecision: "nonsense"})
+    # a p×q grid constructs; a driver whose p×q form is not ported
+    # refuses it, and so does a grid over distinct devices
+    g22 = pst.Grid(2, 2, device="cpu")
     with pytest.raises(pst.SlateError, match="multi-device"):
-        pst.Grid(2, 2, device="cpu")
+        pst.geqrf(pst.Matrix.from_dense(spd(8), nb=4, grid=g22))
+    with pytest.raises(pst.SlateError, match="multi-device"):
+        pst.Grid(1, 2, devices=["cpu", "meta"])
     # complex runs, through torch.linalg, and gives the JAX package's
     # factor and info
     ac = spd(8, np.complex128)

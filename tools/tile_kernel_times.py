@@ -62,9 +62,15 @@ dense route (SLATE_LU_FAST=0: ``lu_factor`` per panel) and on the
 default one (the pivoting-by-index fast path, CALU above 16384 rows),
 in the order dense, fast, fast, dense, dense, fast after a warm-up of
 each (the median of three a route), with ``info`` and the backward
-error of each route.
+error of each route. ``pq`` times the p×q solves of ``chip_smoke.py``
+3v on virtual ranks (f32, 8 right-hand sides: ``posv`` 16384/1024 on
+2×2 and 2×4, ``gesv`` 16384/256 on 2×4, ``gesv_nopiv`` 16384/1024 on
+2×2), each the median of three wall times after a warm-up, beside the
+same call on Grid(1, 1), with the launches of one call, the peak device
+memory above the inputs and ``info``; then ``posv`` 2×2 and ``gesv``
+2×4 once under ``torch.profiler`` (``chip_smoke.phase_breakdown``).
 ``--only`` takes a comma-separated subset of k1k3, k2, k4, k5, k7, k10,
-k11, k6, chase, chase_drift, lu_prof, pbsv_prof, posv, lu_gate.
+k11, k6, chase, chase_drift, lu_prof, pbsv_prof, posv, lu_gate, pq.
 ``--sweep`` also times K1, K3 and K7 alone at widths 64 … 1024 (K3 with
 8 columns: the time per 64-wide block step) and K3 at n = 1024 over
 m = 8 … 256 beside ``solve_triangular``.
@@ -89,7 +95,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 # what --only selects (all by default)
 PARTS = ("k1k3", "k2", "k4", "k5", "k7", "k10", "k11", "k6", "chase",
-         "chase_drift", "lu_prof", "pbsv_prof", "posv", "lu_gate")
+         "chase_drift", "lu_prof", "pbsv_prof", "posv", "lu_gate", "pq")
 
 
 def digest(ts) -> str:
@@ -576,7 +582,56 @@ def main() -> int:
         print(json.dumps(dict(kernel="posv", n=N, nb=NB, nrhs=cs.NRHS, **out,
                               solve_ms=out["posv_ms"] - out["potrf_ms"],
                               label=args.label, device=smi)), flush=True)
+
+    if "pq" in want:
+        pq_times(cs, st, K, gen, emit_line)
     return 0
+
+
+def pq_times(cs, st, K, gen, emit_line):
+    """The ``pq`` part: the 3v solves' wall times, launches and memory."""
+    import torch
+    n = cs.N
+    g = torch.randn(n, n, generator=gen, device="cuda")
+    with cs._f32():
+        a_spd = g @ g.T / n + torch.eye(n, device="cuda")
+    del g
+    a_gen = torch.randn(n, n, generator=gen, device="cuda")
+    b = torch.randn(n, cs.NRHS, generator=gen, device="cuda")
+    for kind, nb, grids in (("posv", cs.NB, ((2, 2), (2, 4))),
+                            ("gesv", cs.PQ_LU_NB, ((2, 4),)),
+                            ("gesv_nopiv", cs.NB, ((2, 2),))):
+        a = a_spd if kind == "posv" else a_gen
+        if kind == "gesv_nopiv":
+            a = a_gen + n * torch.eye(n, device="cuda")
+        for p, q in ((1, 1),) + grids:
+            fn = cs.pq_call(kind, p, q, a, b, nb)
+            fn()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+            out = fn()
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in K.LAUNCHES.items() if v}
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            ts = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            emit_line(dict(kernel=f"pq_{kind}", grid=[p, q], n=n, nb=nb,
+                           ms=sorted(ts)[1], launches=launches,
+                           peak_gib=peak, info=int(out[-1])))
+            del out
+        if kind == "posv":
+            cs.phase_breakdown("posv Grid(2,2)",
+                               cs.pq_call(kind, 2, 2, a, b, nb))
+        elif kind == "gesv":
+            cs.phase_breakdown("gesv Grid(2,4) nb=256",
+                               cs.pq_call(kind, 2, 4, a, b, nb), cpu=False)
+        del a
 
 
 if __name__ == "__main__":
