@@ -334,8 +334,24 @@ The p×q slice (virtual ranks on the one card, ``Grid(p, q)``):
    the card against the CPU's plain versions (pivots and info equal,
    factors within 10·n·2⁻²⁴), and a non-SPD ``potrf`` (info 3) and a
    singular ``gesv`` give the same info on both.
+3w. p×q least squares and two-stage, each call beside the same call on
+   Grid(1, 1) with exact launch counts: f32 ``geqrf`` (|A − QR|/|A| and
+   |Q₁ᵀQ₁ − I|/n within 10·m·2⁻²⁴) and ``gels`` by Householder
+   (consistent and Gaussian B) and CholQR at 16384×4096, nb 1024,
+   nrhs 8, on 2×2 and 2×4 (3f's bounds), the LQ ``gels`` at 4096×16384
+   on 2×4; ``heev`` values at 8192 (nb 1024, Auto, which re-tiles to the
+   card's eig band on 2×2 and takes the dense route on 1×1) on 2×2 against
+   3h's f64 reference, vectors (DC) and ``hegv`` itype 1 at 4096/512 on
+   2×2 (residual and orthogonality within 10·n·2⁻²⁴, 3r's hegv bounds);
+   ``gesvd`` values at 8192² (nb 128, TwoStage) on 2×4 against 3j's f64
+   reference, and with U and Vᵀ at 6144×4096 on 2×2 (10·m·2⁻²⁴);
+   ``hemm``/``symm`` both sides, ``trmm`` both sides, ``her2k`` and
+   ``syr2k`` at 16384/1024 on 2×4 beside ``torch.matmul``, held to 3r's
+   bounds. The T of one panel by the Gram recurrence beside larft's,
+   both against the f64 larft; ``geqrf`` on 2×4 and ``heev`` values on
+   2×2 under ``torch.profiler``.
 
-Each path of 3–3v runs with the launch counts set to 0 just before it
+Each path of 3–3w runs with the launch counts set to 0 just before it
 and read just after. Any failure raises and the script exits non-zero.
 Without a CUDA card it exits with code 2 before doing anything. The last
 line is ``{"ok": true, "device": {...}}``.
@@ -1881,7 +1897,7 @@ def phase_heev_vals():
     (lam, Z), _, split = timed_stages(lambda t: st.heev(A, opts, False, t))
     ms, launches, peak_gib = end_path(base, t0, {"hb2st_vmem": 1})
     t1 = time.perf_counter()
-    ref = torch.linalg.eigvalsh(a.double())
+    ref = F64_REFS["heev_vals"] = torch.linalg.eigvalsh(a.double())
     ref_s = time.perf_counter() - t1
     norm2 = float(ref.abs().max())
     err = float((lam.double() - ref).abs().max()) / norm2
@@ -1944,7 +1960,7 @@ def phase_gesvd_vals():
     s, _, split = timed_stages(lambda t: st.gesvd(A, opts, times=t)[0])
     ms, launches, peak_gib = end_path(base, t0, {"tb2bd_vmem": 1})
     t1 = time.perf_counter()
-    ref = torch.linalg.svdvals(a.double())
+    ref = F64_REFS["gesvd_vals"] = torch.linalg.svdvals(a.double())
     torch.cuda.synchronize()
     ref_s = time.perf_counter() - t1
     err = float((s.double() - ref).abs().max()) / float(ref[0])
@@ -4640,6 +4656,347 @@ def phase_pq_card_vs_cpu():
     assert c[5] == h[5] == 300 // nb + 1 and c[6] == h[6] >= 1, (c, h)
 
 
+# ---------------------------------------------------------------------------
+# 3w: p×q least squares and the two-stage eigensolver and SVD
+# ---------------------------------------------------------------------------
+
+F64_REFS = {}        # 3h's and 3j's f64 spectra, kept for 3w's same matrices
+
+
+def pq_beside_one(label, make, fn, expect, grids):
+    """``fn(make(grid))`` on Grid(1, 1) and on each p×q grid of
+    ``grids``, each with the launch counts set to 0 just before it and
+    read just after (``expect[(p, q)]`` exactly). Returns the outputs
+    and the launches, each by grid; the times are those of each one
+    call."""
+    import slate_tpu_torch as st
+    outs, ms, launches = {}, {}, {}
+    for p, q in ((1, 1),) + tuple(grids):
+        args = make(st.Grid(p, q))
+        base, t0 = start_path()
+        outs[(p, q)] = fn(*args)
+        ms[(p, q)], launches[(p, q)], _ = end_path(base, t0, expect[(p, q)])
+        del args
+    say(f"  {label}: " + ", ".join(f"Grid({p},{q})_ms {v:.3f}"
+                                   for (p, q), v in ms.items()))
+    return outs, launches
+
+
+def phase_pq_least_squares():
+    """3w (least squares): geqrf and gels (Householder, CholQR) at
+    16384×4096/1024 on 2×2 and 2×4, the LQ gels at 4096×16384 on 2×4."""
+    import slate_tpu_torch as st
+    m, n = QR_M, QR_N
+    kt = n // NB
+    gen = torch.Generator(device="cuda").manual_seed(93)
+    a = torch.randn(m, n, generator=gen, device="cuda")
+    x0 = torch.randn(n, NRHS, generator=gen, device="cuda")
+    with _f32():
+        b0 = a @ x0
+    b = torch.randn(m, NRHS, generator=gen, device="cuda")
+    grids = ((2, 2), (2, 4))
+    counts = {}
+    limit = 10 * m * 2.0 ** -24
+    say(f"p×q least squares f32 m={m} n={n} nb={NB} nrhs={NRHS} (bounds "
+        f"{limit:.3e} unless stated):")
+    qr_counts = {(1, 1): {"qr_call": 32}, (2, 2): {}, (2, 4): {}}
+    mat = lambda x, g: st.Matrix.from_dense(x, nb=NB, grid=g)  # noqa: E731
+    outs, _ = pq_beside_one("geqrf", lambda g: (mat(a, g),), st.geqrf,
+                            qr_counts, grids)
+    for (p, q), (QR, T) in outs.items():
+        g = QR.grid
+        r = torch.triu(QR.to_dense()[:n])
+        R0 = mat(torch.cat([r, r.new_zeros(m - n, n)]), g)
+        qr_ = st.unmqr(st.Side.Left, st.Op.NoTrans, QR, T, R0).to_dense()
+        I0 = mat(torch.eye(m, n, device="cuda"), g)
+        q1 = st.unmqr(st.Side.Left, st.Op.NoTrans, QR, T, I0).to_dense()
+        with _f32():
+            rec = float(torch.linalg.norm(a - qr_) / torch.linalg.norm(a))
+            orth = float(torch.linalg.norm(q1.T @ q1 - torch.eye(
+                n, device="cuda")) / n)
+        say(f"    geqrf Grid({p},{q}): |A-QR|/|A| {rec:.3e}, |Q1^T Q1 - "
+            f"I|/n {orth:.3e}")
+        assert T.shape == (kt, NB, NB) and bool(torch.isfinite(qr_).all())
+        assert rec <= limit and orth <= limit, (p, q, rec, orth)
+        del QR, T, R0, qr_, I0, q1
+    del outs
+    A24 = mat(a, st.Grid(2, 4))
+    phase_breakdown("geqrf Grid(2,4)", lambda: st.geqrf(A24))
+    del A24
+    pq_t_cost(gen)
+    qr_opts = {st.Option.MethodGels: st.MethodGels.Geqrf}
+    for label, rhs, opts, expect in (
+            ("gels Householder, consistent B", b0, qr_opts, qr_counts),
+            ("gels Householder, Gaussian B", b, qr_opts, qr_counts),
+            ("gels CholQR (the default at m >= 2n), Gaussian B", b, None,
+             dict.fromkeys(((1, 1),) + grids,
+                           {"potrf_tile": kt,
+                            "trsm_right_lower_t": kt - 1}))):
+        outs, launches = pq_beside_one(
+            label, lambda g: (mat(a, g), mat(rhs, g), opts), st.gels,
+            expect, grids)
+        counts[f"{label.split(',')[0]} 2x4"] = launches[(2, 4)]
+        for (p, q), X in outs.items():
+            x = X.to_dense()
+            assert bool(torch.isfinite(x).all()) and x.shape == (n, NRHS)
+            if rhs is b0:
+                err = rel_err(x, x0)
+                say(f"    Grid({p},{q}): |X - X0|/|X0| {err:.3e} (bound "
+                    f"1e-3)")
+                assert err <= 1e-3, (label, p, q, err)
+            else:
+                res = normal_residual(a, x, b)
+                say(f"    Grid({p},{q}): |A^T(AX-B)|/(|A|(|A||X|+|B|)) "
+                    f"{res:.3e}")
+                assert res <= limit, (label, p, q, res)
+        del outs
+    del a, b, b0
+    at = torch.randn(n, m, generator=gen, device="cuda")      # m < n: LQ
+    bt = torch.randn(n, NRHS, generator=gen, device="cuda")
+    outs, launches = pq_beside_one(
+        f"gels LQ (m={n}, n={m}), Gaussian B",
+        lambda g: (mat(at, g), mat(bt, g)), st.gels,
+        {(1, 1): {"qr_call": 32, "trsm_left_lower": kt},
+         (2, 4): {"trsm_left_lower": kt}}, ((2, 4),))
+    for (p, q), X in outs.items():
+        x = X.to_dense()
+        with _f32():
+            res = float(torch.linalg.norm(at @ x - bt)
+                        / (torch.linalg.norm(at) * torch.linalg.norm(x)
+                           + torch.linalg.norm(bt)))
+        say(f"    Grid({p},{q}): |AX-B|/(|A||X|+|B|) {res:.3e}")
+        assert bool(torch.isfinite(x).all()) and res <= limit, (p, q, res)
+    counts["gels LQ 2x4"] = launches[(2, 4)]
+    return counts
+
+
+def pq_t_cost(gen):
+    """The T of one panel's reflectors on the card: the Gram-matrix
+    recurrence of the p×q loops (``geqrf.panel_t``) beside the larft
+    column recurrence of the JAX bodies (an nb-long loop of small
+    launches), on a geqrf panel [16384, 1024] and a he2hb panel
+    [8064, 128] (3w's heev at band 128), each within 10·nb·2⁻²⁴ of the
+    f64 larft."""
+    from slate_tpu_torch.internal.tile_kernels import extract_v, larft
+    from slate_tpu_torch.linalg.geqrf import panel_t
+    for h, w in ((QR_M, NB), (EIG_N - 128, 128)):
+        pan, taus = torch.geqrf(torch.randn(h, w, generator=gen,
+                                            device="cuda"))
+        V = extract_v(pan, 0, h)
+        t64 = larft(V.double(), taus.double())
+        limit = 10 * w * 2.0 ** -24
+        errs = [rel_err(f(V, taus), t64) for f in (panel_t, larft)]
+        ms = [time_ms(lambda f=f: f(V, taus), reps=3)
+              for f in (panel_t, larft)]
+        say(f"  T of a [{h}, {w}] panel: Gram recurrence (panel_t) ms "
+            f"{ms[0]:.3f}, rel_err {errs[0]:.3e}; larft ms {ms[1]:.3f}, "
+            f"rel_err {errs[1]:.3e} (bound {limit:.3e}, against f64 larft)")
+        assert max(errs) <= limit, (h, w, errs)
+
+
+def phase_pq_eig():
+    """3w (eig): heev values at 8192 (nb 1024, Auto) on 2×2, vectors (DC)
+    and hegv itype 1 at 4096/512 on 2×2."""
+    import slate_tpu_torch as st
+    counts = {}
+    n = EIG_N
+    a = sym_matrix(n, 13)                                # 3h's matrix
+    ref = F64_REFS.get("heev_vals")
+    if ref is None:
+        ref = torch.linalg.eigvalsh(a.double())
+    norm2 = float(ref.abs().max())
+    limit = 10 * n * 2.0 ** -24
+    say(f"p×q eig f32: heev values n={n} nb={NB} Auto (Grid(1,1): the "
+        f"dense route; 2x2: two-stage at the card's eig band):")
+    outs, launches = pq_beside_one(
+        "heev values",
+        lambda g: (st.HermitianMatrix.from_dense(a, nb=NB, grid=g), None,
+                   False),
+        st.heev, {(1, 1): {}, (2, 2): {"hb2st_vmem": 1}}, ((2, 2),))
+    counts["heev values 2x2"] = launches[(2, 2)]
+    for (p, q), (lam, Z) in outs.items():
+        err = float((lam.double() - ref).abs().max()) / norm2
+        say(f"    Grid({p},{q}): max|lam - lam_ref|/|A|_2 {err:.3e} (bound "
+            f"{limit:.3e})")
+        assert Z is None and bool(torch.isfinite(lam).all()) and \
+            err <= limit, (p, q, err)
+    A22 = st.HermitianMatrix.from_dense(a, nb=NB, grid=st.Grid(2, 2))
+    phase_breakdown("heev values Grid(2,2)",
+                    lambda: st.heev(A22, None, False), cpu=False)
+    del a, outs, A22
+    n, nb = HEGV_N, HEGV_NB
+    a = sym_matrix(n, 14)                                # 3i's matrix
+    dc = {st.Option.MethodEig: st.MethodEig.DC}
+    limit = 10 * n * 2.0 ** -24
+    outs, launches = pq_beside_one(
+        f"heev vectors n={n} nb={nb} DC",
+        lambda g: (st.HermitianMatrix.from_dense(a, nb=nb, grid=g), dc),
+        st.heev, dict.fromkeys(((1, 1), (2, 2)), {"hb2st_vmem": 1}),
+        ((2, 2),))
+    counts["heev vectors 2x2"] = launches[(2, 2)]
+    eye = torch.eye(n, device="cuda")
+    for (p, q), (lam, Z) in outs.items():
+        z = Z.to_dense()
+        with _f32():
+            res = float(torch.linalg.norm(a @ z - z * lam)
+                        / torch.linalg.norm(a))
+            orth = float(torch.linalg.norm(z.T @ z - eye) / n)
+        say(f"    Grid({p},{q}): |AZ - Z Lambda|/|A| {res:.3e}, |Z^T Z - "
+            f"I|/n {orth:.3e} (bound {limit:.3e} each)")
+        assert bool(torch.isfinite(z).all()) and res <= limit and \
+            orth <= limit, (p, q, res, orth)
+    del outs
+    a = sym_matrix(n, 55)                                # 3r's hegv pair
+    g2 = torch.randn(n, n, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(56))
+    with _f32():
+        bm = g2 @ g2.T / n + torch.eye(n, device="cuda")
+    del g2
+    a64, b64 = a.double(), bm.double()
+    l64 = torch.linalg.cholesky(b64)
+    y = torch.linalg.solve_triangular(l64, a64, upper=False)
+    lam_ref = torch.linalg.eigvalsh(torch.linalg.solve_triangular(
+        l64, y.T, upper=False))
+    ev_b = torch.linalg.eigvalsh(b64)
+    norm_a = float(torch.linalg.eigvalsh(a64).abs().max())
+    kappa = float(ev_b[-1] / ev_b[0])
+    bound = min(10 * n * 2.0 ** -24, n ** 0.5 * 2.0 ** -24) * norm_a * kappa
+    nt = n // nb
+    outs, launches = pq_beside_one(
+        f"hegv itype 1 n={n} nb={nb} DC",
+        lambda g: (1, st.HermitianMatrix.from_dense(a, nb=nb, grid=g),
+                   st.HermitianMatrix.from_dense(bm, nb=nb, grid=g), dc),
+        st.hegv,
+        {(1, 1): {"potrf_tile": nt, "trsm_right_lower_t": nt - 1,
+                  "trsm_left_lower": nt, "hb2st_vmem": 1},
+         (2, 2): {"potrf_tile": nt, "trsm_right_lower_t": nt - 1,
+                  "trsm_left_lower": 2 * nt, "hb2st_vmem": 1}}, ((2, 2),))
+    counts["hegv itype 1 2x2"] = launches[(2, 2)]
+    for (p, q), (lam, Z, info) in outs.items():
+        z = Z.to_dense().double()
+        err = float((lam.double() - lam_ref).abs().max())
+        res = float(torch.linalg.norm(a64 @ z - (b64 @ z) * lam.double())
+                    / torch.linalg.norm(z))
+        say(f"    Grid({p},{q}): info {int(info)}, max|lam - lam_ref| "
+            f"{err:.3e}, |R|_F/|Z|_F {res:.3e} (bound {bound:.3e})")
+        assert int(info) == 0 and bool(torch.isfinite(z).all())
+        assert max(err, res) <= bound, (p, q, err, res)
+    return counts
+
+
+def phase_pq_svd():
+    """3w (svd): gesvd values at 8192² on 2×4, with U and Vᵀ at
+    6144×4096 on 2×2 (nb 128, TwoStage)."""
+    import slate_tpu_torch as st
+    counts = {}
+    n, nb = EIG_N, EIG_NB
+    gen = torch.Generator(device="cuda").manual_seed(15)   # 3j's matrix
+    a = torch.randn(n, n, generator=gen, device="cuda")
+    ref = F64_REFS.get("gesvd_vals")
+    if ref is None:
+        ref = torch.linalg.svdvals(a.double())
+    two = {st.Option.MethodSVD: st.MethodSVD.TwoStage}
+    limit = 10 * n * 2.0 ** -24
+    say(f"p×q svd f32 TwoStage: gesvd values {n}x{n} nb={nb}:")
+    outs, launches = pq_beside_one(
+        "gesvd values",
+        lambda g: (st.Matrix.from_dense(a, nb=nb, grid=g), two), st.gesvd,
+        dict.fromkeys(((1, 1), (2, 4)), {"tb2bd_vmem": 1}), ((2, 4),))
+    counts["gesvd values 2x4"] = launches[(2, 4)]
+    for (p, q), (s, _, _) in outs.items():
+        err = float((s.double() - ref).abs().max()) / float(ref[0])
+        say(f"    Grid({p},{q}): max|s - s_ref|/s_max {err:.3e} (bound "
+            f"{limit:.3e})")
+        assert bool(torch.isfinite(s).all()) and err <= limit, (p, q, err)
+    del a, outs
+    m, n = 6144, 4096
+    gen = torch.Generator(device="cuda").manual_seed(16)   # 3k's matrix
+    a = torch.randn(m, n, generator=gen, device="cuda")
+    outs, launches = pq_beside_one(
+        f"gesvd U, VT {m}x{n}",
+        lambda g: (st.Matrix.from_dense(a, nb=nb, grid=g), two, True, True),
+        st.gesvd, dict.fromkeys(((1, 1), (2, 2)), {"tb2bd_vmem": 1}),
+        ((2, 2),))
+    counts["gesvd vectors 2x2"] = launches[(2, 2)]
+    limit = 10 * m * 2.0 ** -24
+    eye = torch.eye(n, device="cuda")
+    for (p, q), (s, U, VT) in outs.items():
+        u, vt = U.to_dense(), VT.to_dense()
+        with _f32():
+            rec = float(torch.linalg.norm(a - (u * s) @ vt)
+                        / torch.linalg.norm(a))
+            ou = float(torch.linalg.norm(u.T @ u - eye) / n)
+            ov = float(torch.linalg.norm(vt @ vt.T - eye) / n)
+        say(f"    Grid({p},{q}): |A - U S VT|/|A| {rec:.3e}, |U^T U - I|/n "
+            f"{ou:.3e}, |V^T V - I|/n {ov:.3e} (bound {limit:.3e} each)")
+        assert u.shape == (m, n) and vt.shape == (n, n)
+        assert max(rec, ou, ov) <= limit, (p, q, rec, ou, ov)
+    return counts
+
+
+def phase_pq_blas3():
+    """3w (BLAS): hemm and symm (Lower) and trmm (Lower, non-unit) on both
+    sides, her2k and syr2k, f32 at 16384/1024 on 2×4 beside Grid(1, 1)
+    and ``torch.matmul``, held to 3r's bounds (``check_product``)."""
+    import slate_tpu_torch as st
+    n, nb, k = N, NB, NB
+    gen = torch.Generator(device="cuda").manual_seed(94)
+    a = torch.randn(n, n, generator=gen, device="cuda")
+    b = torch.randn(n, k, generator=gen, device="cuda")
+    b2 = torch.randn(n, k, generator=gen, device="cuda")
+    bt = b.T.contiguous()
+    a64, b64, b2_64, bt64 = a.double(), b.double(), b2.double(), bt.double()
+    low64 = a64.tril()
+    full64 = low64 + low64.tril(-1).T
+    full, t64 = full64.float(), low64
+    t = t64.float()
+    say(f"p×q Level-3 BLAS f32 n={n} nb={nb}, B [{n}, {k}] (Right: its "
+        f"transpose); error against the f64 product formed on the card")
+    for p, q in ((1, 1), (2, 4)):
+        g = st.Grid(p, q)
+        B, B2, Bt = (st.Matrix.from_dense(x, nb=nb, grid=g)
+                     for x in (b, b2, bt))
+        C, Ct = st.Matrix.zeros(n, k, nb, g), st.Matrix.zeros(k, n, nb, g)
+        for cls, fn in ((st.HermitianMatrix, st.hemm),
+                        (st.SymmetricMatrix, st.symm)):
+            A = cls.from_dense(a, nb=nb, grid=g)
+            check_product(f"{fn.__name__} Left Grid({p},{q})",
+                          lambda: fn(st.Side.Left, 1.0, A, B, 0.0, C),
+                          full64 @ b64, n, lambda: full @ b)
+            check_product(f"{fn.__name__} Right Grid({p},{q})",
+                          lambda: fn(st.Side.Right, 1.0, A, Bt, 0.0, Ct),
+                          bt64 @ full64, n, lambda: bt @ full)
+            del A
+        T = st.TriangularMatrix.from_dense(a, nb=nb, grid=g)
+        check_product(f"trmm Left Grid({p},{q})",
+                      lambda: st.trmm(st.Side.Left, 1.0, T, B), t64 @ b64, n,
+                      lambda: t @ b)
+        check_product(f"trmm Right Grid({p},{q})",
+                      lambda: st.trmm(st.Side.Right, 1.0, T, Bt),
+                      bt64 @ t64, n, lambda: bt @ t)
+        del T
+        ref = b64 @ b2_64.T
+        ref += b2_64 @ b64.T
+        for cls, fn in ((st.HermitianMatrix, st.her2k),
+                        (st.SymmetricMatrix, st.syr2k)):
+            G = cls.zeros(n, n, nb, g)
+            check_product(f"{fn.__name__} Grid({p},{q})",
+                          lambda: fn(1.0, B, B2, 0.0, G), ref, k,
+                          lambda: torch.addmm(b @ b2.T, b2, b.T))
+            del G
+        del ref, B, B2, Bt, C, Ct
+
+
+def phase_pq_two_stage():
+    """3w: p×q least squares and the two-stage eigensolver and SVD, each
+    beside Grid(1, 1). Returns the launches by path."""
+    counts = phase_pq_least_squares()
+    counts.update(phase_pq_eig())
+    counts.update(phase_pq_svd())
+    phase_pq_blas3()
+    return counts
+
+
 def timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4696,6 +5053,8 @@ def main() -> int:
     counts.update(timed("3s LAPACK API, stein, CALU and the dense entries",
                         phase_lapack_stein_calu))
     counts.update(timed("3v p×q grids on one card", phase_pq))
+    counts.update(timed("3w p×q least squares and two-stage",
+                        phase_pq_two_stage))
     timed("4 failure report", phase_failure_report)
     timed("4b LU failure report", phase_lu_failure_report)
     timed("4c QR and unpivoted-LU failure report",

@@ -191,6 +191,17 @@ def gather_rows(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return _expand(got.transpose(0, 1).unsqueeze(0), p, q)
 
 
+def gather_tiles(x: torch.Tensor, rows: torch.Tensor,
+                 cols: torch.Tensor) -> torch.Tensor:
+    """Global tiles (rows[t], cols[t]) of a rank-stacked tile array from
+    their owners to every rank: ``[p, q, len(rows), nb, nb]``, the same
+    on every rank (the band gather of reference he2hbGather, each owner
+    sending its band tiles; only these tiles move)."""
+    p, q = x.shape[0], x.shape[1]
+    got = x[rows % p, cols % q, rows // p, cols // q]   # [T, nb, nb]
+    return _expand(got[None, None], p, q)
+
+
 def transpose_tiles(x: torch.Tensor, mt: int, nt: int,
                     conj: bool = False) -> torch.Tensor:
     """The block-cyclic transpose of a rank-stacked tile array: global

@@ -4,8 +4,8 @@ storage, the packed-reflector back-transform, and the bidiagonal SVD
 src/bdsqr.cc; counterpart of ``slate_tpu/linalg/bulge.py``).
 
 * :func:`gather_band_lower` / :func:`gather_band_upper` read only the
-  2·nt band tiles on the matrix's device — no dense matrix, no host
-  round trip.
+  2·nt band tiles on the matrix's device, from their owners on a p×q
+  grid (``comm.gather_tiles``) — no dense matrix, no host round trip.
 * :func:`apply_bulge_reflectors` applies a packed (sweep, chase)
   reflector family (``internal/band_bulge.py`` format, real or complex)
   to the rows of a tensor. The spans within one sweep are disjoint, so a Python loop
@@ -20,20 +20,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..internal import comm
 from ..internal.precision import full_f32_matmul
-from ..matrix import bc_to_tiles
 
 
 def _band_tiles(A, super_diag: bool):
-    """The diagonal tiles and the first sub- or super-diagonal tiles."""
-    tiles = bc_to_tiles(A.data)
+    """The diagonal tiles and the first sub- or super-diagonal tiles,
+    fetched from their owners on any grid (2·nt tiles, never the dense
+    matrix)."""
     nt = min(A.mt, A.nt)
-    k = torch.arange(nt, device=tiles.device)
-    Td = tiles[k, k]
+    k = torch.arange(nt, device=A.data.device)
+    Td = comm.gather_tiles(A.data, k, k)[0, 0]
     if super_diag:
-        Ts = tiles[k[:-1], k[:-1] + 1]
+        Ts = comm.gather_tiles(A.data, k[:-1], k[:-1] + 1)[0, 0]
     else:
-        Ts = tiles[k[:-1] + 1, k[:-1]]
+        Ts = comm.gather_tiles(A.data, k[:-1] + 1, k[:-1])[0, 0]
     return Td, Ts
 
 

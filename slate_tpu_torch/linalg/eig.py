@@ -6,8 +6,11 @@ counterpart of ``slate_tpu/linalg/eig.py``).
 Methods (``Option.MethodEig``): TwoStage, and QR/DC, which name the
 tridiagonal stage of the two-stage pipeline (``linalg/he2hb.py``); Dense
 is ``torch.linalg.eigh`` on the whole matrix, the counterpart of XLA's
-``eigh``. Auto takes the two-stage pipeline on one device from
-n = 24576, the JAX package's threshold. The tridiagonal kernels run on
+``eigh``. Auto takes the two-stage pipeline on a p×q grid with at least
+4 block columns and on one device from n = 24576, the JAX package's
+dispatch (``eig.py:99``). Every routine here runs on a p×q grid: the
+two-stage pipeline's p×q he2hb and back-transform, and hegst/hegv
+through the p×q potrf, trsm, trmm and the mirror. The tridiagonal kernels run on
 the host through scipy's LAPACK, as the reference runs them on one rank.
 """
 
@@ -17,7 +20,6 @@ import numpy as np
 import torch
 
 from ..errors import slate_error_if
-from ..grid import require_one_rank
 from ..matrix import HermitianMatrix, Matrix, conj_transpose
 from ..types import MethodEig, Option, Side, Uplo, get_option
 
@@ -42,11 +44,10 @@ def heev(A: HermitianMatrix, opts=None, want_vectors: bool = True,
     ``gather``, ``hb2st``, ``sterf`` or ``stedc``/``steqr``, the
     back-transforms; ``steqr`` above n = 512 also its ``sterf`` and
     ``stein``); the Dense method records none."""
-    require_one_rank(A.grid, "heev")
     slate_error_if(A.m != A.n, "heev needs square")
     method = get_option(opts, Option.MethodEig, MethodEig.Auto)
     if method == MethodEig.Auto:
-        two = A.n >= TWO_STAGE_MIN_N
+        two = (A.grid.size > 1 and A.nt >= 4) or A.n >= TWO_STAGE_MIN_N
     else:
         # QR and DC name the two-stage pipeline's tridiagonal stage; the
         # JAX package sends Bisection and MRRR to its dense path, the port
@@ -79,7 +80,6 @@ def hegst(itype: int, A: HermitianMatrix, L, opts=None) -> HermitianMatrix:
     itype 1, A ← L⁻¹·A·L⁻ᴴ by two ``trsm`` (the left one a lower solve,
     so K3 takes its tiles); itype 2 and 3, A ← Lᴴ·A·L by two ``trmm``.
     Both triangles of the result are stored."""
-    require_one_rank(A.grid, "hegst")
     from ..ops.blas import _mirror_full, trmm, trsm
     slate_error_if(itype not in (1, 2, 3), f"hegst: itype {itype} not in "
                    "1, 2, 3")
@@ -103,7 +103,6 @@ def hegv(itype: int, A: HermitianMatrix, B: HermitianMatrix, opts=None):
     with ``info`` potrf's. When B is not positive definite, lam and Z are
     NaN, as the JAX package's come out, and heev is not run. Real and
     complex dtypes; lam comes out in the real dtype."""
-    require_one_rank(A.grid, "hegv")
     from ..ops.blas import trmm, trsm
     from .potrf import potrf
     L, info = potrf(B, opts)

@@ -1,4 +1,4 @@
-"""Two-stage SVD on one device: ge2tb (general → upper triangular band),
+"""Two-stage SVD: ge2tb (general → upper triangular band),
 the band gather, the tb2bd dispatch, the back-transforms and the whole
 pipeline (reference src/ge2tb.cc, src/tb2bd.cc, src/bdsqr.cc,
 src/gesvd.cc:77-102; counterpart of ``slate_tpu/linalg/ge2tb.py``).
@@ -15,6 +15,16 @@ band of width nb + 1 with the QR reflectors below the diagonal and the
 LQ reflectors right of the superdiagonal — LAPACK gebrd's layout at
 block scale. Real and complex dtypes; the bidiagonal stage runs in the
 real dtype and the singular values come out in it.
+
+On a p×q grid of virtual ranks ge2tb and unmbr_ge2tb_v are the JAX
+package's SPMD loops (``ge2tb.py:61-168``, ``:252-302``) over the
+rank-stacked tiles: the QR panel of tile column k gathered down the grid
+rows and its left update through ``psum_rows``; the LQ panel of tile
+row k gathered along the grid columns, conjugate-transposed into a
+column panel, and its right update through ``psum_cols``; each update on
+the window of trailing slots, one product batched over the ranks for
+each side of it (``geqrf._reflect_left_pq``, ``_reflect_right_pq``).
+unmbr_ge2tb_u is the p×q ``unmqr``.
 """
 
 from __future__ import annotations
@@ -22,7 +32,6 @@ from __future__ import annotations
 import torch
 
 from ..errors import SlateError, slate_error_if
-from ..grid import require_one_rank
 from ..internal import kernels
 from ..internal.band_wave import preferred_eig_band
 from ..internal.precision import full_f32_matmul
@@ -31,7 +40,10 @@ from ..matrix import (Matrix, bc_from_tiles, conj_transpose, dense_to_tiles,
                       tiles_to_dense)
 from ..types import Op, Option, Side, get_option
 from .bulge import apply_bulge_reflectors, bdsqr, gather_band_upper
-from .he2hb import _StageClock, panel_t, reblock, two_stage_chase_band
+from .geqrf import (_gather_col_panel, _gather_row_panel, _put_col_panel,
+                    _put_row_panel, _qr_panel_pq, _reflect_left_pq,
+                    _reflect_right_pq, panel_t)
+from .he2hb import _StageClock, reblock, two_stage_chase_band
 
 
 def ge2tb(A: Matrix, opts=None):
@@ -39,11 +51,12 @@ def ge2tb(A: Matrix, opts=None):
     ``(Aout, Tq, Tl)``: Aout stores the band and both reflector sets,
     Tq [nt, nb, nb] and Tl [max(nt − 1, 1), nb, nb]. A is not
     modified."""
-    require_one_rank(A.grid, "ge2tb")
     A = A.materialize()
     slate_error_if(A.m < A.n, "ge2tb v1 expects m >= n")
     nb, m, n = A.nb, A.m, A.n
     mt, nt = A.mt, A.nt
+    if A.grid.size > 1:
+        return _ge2tb_pq(A)
     a = tiles_to_dense(A.data[0, 0], A.mtl * nb, A.ntl * nb)  # in place
     Tq = a.new_zeros((nt, nb, nb))
     Tl = a.new_zeros((max(nt - 1, 1), nb, nb))
@@ -71,6 +84,27 @@ def ge2tb(A: Matrix, opts=None):
     return A._replace(data=data), Tq, Tl
 
 
+def _ge2tb_pq(A):
+    """ge2tb on a p×q grid (``_ge2tb_jit``): per k the QR panel of tile
+    column k and its left update of the columns right of it, then the LQ
+    panel of tile row k and its right update of the rows below it."""
+    nb, m, n, mt, nt = A.nb, A.m, A.n, A.mt, A.nt
+    data = A.data.clone()
+    Tq = data.new_zeros((nt, nb, nb))
+    Tl = data.new_zeros((max(nt - 1, 1), nb, nb))
+    for k in range(nt):
+        pan, V, Tq[k] = _qr_panel_pq(_gather_col_panel(data, k), k * nb, m)
+        _put_col_panel(data, k, pan)
+        _reflect_left_pq(data, V, Tq[k].mH, k, k + 1, mt, nt)
+        if k == nt - 1:
+            break
+        start = (k + 1) * nb
+        pan, V, Tl[k] = _qr_panel_pq(_gather_row_panel(data, k), start, n)
+        _put_row_panel(data, k, pan)
+        _reflect_right_pq(data, V, Tl[k], k + 1, k + 1, mt, nt)
+    return A._replace(data=data), Tq, Tl
+
+
 def ge2tb_gather(Aout: Matrix) -> torch.Tensor:
     """The (nb+1)-wide upper band ``ub[d, j] = A[j, j+d]``, d = 0..nb,
     from the 2·nt band tiles, on the device."""
@@ -95,7 +129,6 @@ def tb2bd(ub: torch.Tensor):
 def unmbr_ge2tb_u(trans: Op, Aout: Matrix, Tq, C: Matrix, opts=None):
     """Apply the U-side (QR panel) reflectors to C: the layout of
     ``unmqr`` over the ge2tb output (reference unmbr_ge2tb, U side)."""
-    require_one_rank(C.grid, "unmbr_ge2tb_u")
     from .geqrf import unmqr
     return unmqr(Side.Left, trans, Aout, Tq, C, opts)
 
@@ -105,7 +138,6 @@ def unmbr_ge2tb_v(trans: Op, Aout: Matrix, Tl, C: Matrix, opts=None):
     C ← Q₁⋯Q_K·C (panels in reverse order), Q_k = I − V_k·T_k·V_kᴴ with
     V_k from block row k of Aout (conjugate-transposed back to column
     form); otherwise the conjugate transpose, forward."""
-    require_one_rank(C.grid, "unmbr_ge2tb_v")
     notrans = trans == Op.NoTrans
     nb, n = Aout.nb, Aout.n
     C = C.materialize()
@@ -113,6 +145,13 @@ def unmbr_ge2tb_v(trans: Op, Aout: Matrix, Tl, C: Matrix, opts=None):
                    f"unmbr_ge2tb_v dims: Q is {n}×{n} nb={nb}, C is "
                    f"{C.m}×{C.n} nb={C.nb}")
     kt = Tl.shape[0] if Aout.nt > 1 else 0
+    if C.grid.size > 1:
+        c = C.data.clone()
+        for k in (range(kt - 1, -1, -1) if notrans else range(kt)):
+            V = extract_v(_gather_row_panel(Aout.data, k), (k + 1) * nb, n)
+            Top = Tl[k] if notrans else Tl[k].mH
+            _reflect_left_pq(c, V, Top, k + 1, 0, C.mt, C.nt)
+        return C._replace(data=c)
     av = tiles_to_dense(Aout.data[0, 0], Aout.mtl * nb, Aout.ntl * nb)
     c = tiles_to_dense(C.data[0, 0], C.mtl * nb, C.ntl * nb)  # in place
     with full_f32_matmul():

@@ -1,10 +1,9 @@
-"""QR/LQ factorization and least squares on one device: geqrf, unmqr,
-gelqf, unmlq, cholqr, gels (reference src/geqrf.cc, src/unmqr.cc,
-src/gelqf.cc, src/cholqr.cc, src/gels.cc; counterpart of
-``slate_tpu/linalg/geqrf.py``).
+"""QR/LQ factorization and least squares: geqrf, unmqr, gelqf, unmlq,
+cholqr, gels (reference src/geqrf.cc, src/unmqr.cc, src/gelqf.cc,
+src/cholqr.cc, src/gels.cc; counterpart of ``slate_tpu/linalg/geqrf.py``).
 
-Two factorization paths, chosen as the JAX package chooses them on one
-device:
+Two factorization paths on one rank, chosen as the JAX package chooses
+them on one device:
 
 * the **fast path** (:func:`_geqrf_fast_core`) for a matrix that is a
   whole number of nb-tiles with m ≥ n: each panel is its true shrinking
@@ -16,8 +15,24 @@ device:
   ``torch.geqrf`` on each panel's window, T by the ``larft`` recurrence,
   the same compact-WY trailing update.
 
-Both run eagerly and update one dense copy of the matrix in place. The
-factors are LAPACK's: R on and above the diagonal, the reflectors' unit
+Both run eagerly and update one dense copy of the matrix in place.
+
+On a p×q grid of virtual ranks, geqrf and unmqr are the JAX package's
+SPMD loops (``geqrf.py:213-329`` at depth 0, ``:428-527``) over the
+rank-stacked tiles: per panel, the tile column gathered to every rank
+(``comm.allgather_panel_rows``), factored once by ``torch.geqrf`` on its
+window (``panel_qr_factor``, XLA's ``geqrf`` there), written back to its
+owner column, its T from the reflectors' Gram matrix (:func:`panel_t`,
+where the JAX body runs ``larft``'s nb-long recurrence), and the
+compact-WY apply on the trailing slots alone: each rank's Vᴴ·A₂ as one
+product batched over the ranks, ``comm.psum_rows``, then V·(Tᴴ·W) as
+one product (:func:`_reflect_left_pq`; :func:`_reflect_right_pq` the
+mirror along the grid columns). ``Option.PipelineDepth`` is accepted and
+changes nothing (the JAX lookahead reorders the same arithmetic; the
+ranks here share one stream). gelqf/unmlq go through the block-cyclic
+transpose, and cholqr/gels through the p×q herk, potrf, trsm and gemm.
+
+The factors are LAPACK's: R on and above the diagonal, the reflectors' unit
 lower columns below it; ``T`` is the [kt, nb, nb] stack of the panels'
 block-reflector triangles (SLATE's ``TriangularFactors``), with
 H_k = I − V_k·T_k·V_kᴴ and Q = H_0·H_1·…
@@ -30,15 +45,14 @@ import os
 import torch
 
 from ..errors import slate_error_if
-from ..grid import require_one_rank
-from ..internal import panel_qr
+from ..internal import comm, masks, panel_qr
 from ..internal.precision import full_f32_matmul, resolve_tier, tier_mm
 from ..internal.tile_kernels import (_factor_dtype, extract_v, larft,
                                      panel_qr_factor)
 from ..matrix import (HermitianMatrix, Matrix, TriangularMatrix,
                       bc_from_tiles, bc_to_tiles, cdiv, check_rhs_dtype,
                       conj_transpose, dense_to_tiles, tiles_to_dense)
-from ..ops.blas import gemm, herk, trsm
+from ..ops.blas import _outer_pq, gemm, herk, trsm
 from ..types import Diag, MethodGels, Op, Side, Uplo
 from .potrf import potrf
 
@@ -47,10 +61,11 @@ def geqrf(A: Matrix, opts=None):
     """QR: A = Q·R (reference src/geqrf.cc). Returns ``(QR, T)``: QR
     holds the reflectors below and R on and above the diagonal, T the
     [kt, nb, nb] block-reflector triangles. A is not modified."""
-    require_one_rank(A.grid, "geqrf")
     A = A.materialize()
     tier = resolve_tier(opts)
-    if _qr_fast_applies(A):
+    if A.grid.size > 1:
+        data, T = _geqrf_pq(A, tier)
+    elif _qr_fast_applies(A):
         data, T = _geqrf_fast_core(A, _qr_panel_mode(A), tier)
     else:
         data, T = _geqrf_dense_1dev(A, tier)
@@ -126,6 +141,13 @@ def _diag_blocks(G: torch.Tensor, bs: int) -> torch.Tensor:
     return G.reshape(C, bs, C, bs).diagonal(dim1=0, dim2=2).permute(2, 0, 1)
 
 
+def panel_t(V: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
+    """The compact-WY T of one panel's reflectors (LAPACK larft's), from
+    their Gram matrix VᴴV."""
+    with full_f32_matmul():
+        return _blocked_T(V.mH @ V, taus, V.shape[1])
+
+
 def _geqrf_fast_core(A, panel_mode=None, tier="bf16_6x"):
     """Blocked QR on the dense matrix with true-shape shrinking panels
     (a whole number of nb-tiles, m ≥ n). Returns ``(data, T)``."""
@@ -198,7 +220,6 @@ def unmqr(side: Side, trans: Op, QR: Matrix, T, C: Matrix, opts=None):
     reverse with Tᴴ. ``Op.Trans`` is ``Op.ConjTrans`` for real dtypes
     (LAPACK dormqr accepts 'T') and raises for complex ones, as cunmqr
     does."""
-    require_one_rank(C.grid, "unmqr")
     slate_error_if(trans == Op.Trans and QR.dtype.is_complex,
                    "unmqr: trans must be NoTrans or ConjTrans for complex "
                    "types (LAPACK cunmqr semantics)")
@@ -209,6 +230,8 @@ def unmqr(side: Side, trans: Op, QR: Matrix, T, C: Matrix, opts=None):
     slate_error_if(C.nb != nb, "unmqr: C and QR must share a tile size")
     slate_error_if((C.m if side == Side.Left else C.n) != m,
                    f"unmqr dims: Q is {m}×{m}, C is {C.m}×{C.n}")
+    if C.grid.size > 1:
+        return _unmqr_pq(side, notrans, QR, T, C)
     aq = tiles_to_dense(QR.data[0, 0], QR.mtl * nb, QR.ntl * nb)
     c = tiles_to_dense(C.data[0, 0], C.mtl * nb, C.ntl * nb)  # in place
     left = side == Side.Left
@@ -233,13 +256,11 @@ def gelqf(A: Matrix, opts=None):
     """LQ: A = L·Q as the QR of Aᴴ (reference src/gelqf.cc uses
     dedicated LQ kernels; the transpose is the same in exact arithmetic).
     Returns ``(LQ, T)``, the QR factors of Aᴴ."""
-    require_one_rank(A.grid, "gelqf")
     return geqrf(conj_transpose(A).materialize(), opts)
 
 
 def unmlq(side: Side, trans: Op, LQ: Matrix, T, C: Matrix, opts=None):
     """Apply Q from gelqf (reference src/unmlq.cc): Q_lq = (Q_qr)ᴴ."""
-    require_one_rank(C.grid, "unmlq")
     flip = Op.NoTrans if trans != Op.NoTrans else Op.ConjTrans
     return unmqr(side, flip, LQ, T, C, opts)
 
@@ -247,7 +268,6 @@ def unmlq(side: Side, trans: Op, LQ: Matrix, T, C: Matrix, opts=None):
 def cholqr(A: Matrix, opts=None):
     """Cholesky QR (reference src/cholqr.cc): R = chol(AᴴA) upper,
     Q = A·R⁻¹. Returns ``(Q, R, info)``."""
-    require_one_rank(A.grid, "cholqr")
     Cg = HermitianMatrix.zeros(A.n, A.n, A.nb, A.grid, dtype=A.dtype,
                                uplo=Uplo.Lower)
     Cg = herk(1.0, conj_transpose(A), 0.0, Cg, opts)   # AᴴA
@@ -264,7 +284,6 @@ def gels(A: Matrix, BX: Matrix, opts=None) -> Matrix:
     gels_cholqr.cc). For m ≥ n, min‖A·X − B‖₂ by Householder QR or
     CholQR (``Option.MethodGels``); for m < n the minimum-norm solution
     through LQ: A = R̂ᴴ·Q̂ᴴ ⇒ X = Q̂·[R̂⁻ᴴ·B; 0]. Returns X [n, nrhs]."""
-    require_one_rank(A.grid, "gels")
     if A.m < A.n:
         LQ, T = gelqf(A, opts)                  # QR factors of Aᴴ [n, m]
         Rh = _upper_view(LQ)
@@ -299,12 +318,169 @@ def _top_rows(B: Matrix, n: int) -> Matrix:
 
 def _pad_rows(B: Matrix, m_new: int) -> Matrix:
     """B extended with zero rows to m_new (its padding is zero, so only
-    tile rows are appended)."""
+    tile rows are appended), the tile rows rounded up to a multiple of
+    the grid's p (``_pad_rows_jit``, ``geqrf.py:619-632``)."""
     B = B.materialize()
+    g = B.grid
     tiles = bc_to_tiles(B.data)
-    mt_new = cdiv(m_new, B.nb)
+    mt_new = cdiv(cdiv(m_new, B.nb), g.p) * g.p
     out = tiles.new_zeros((mt_new,) + tuple(tiles.shape[1:]))
     keep = min(mt_new, tiles.shape[0])
     out[:keep] = tiles[:keep]
-    return Matrix(data=bc_from_tiles(out, 1, 1), m=m_new, n=B.n, nb=B.nb,
-                  grid=B.grid)
+    return Matrix(data=bc_from_tiles(out, g.p, g.q), m=m_new, n=B.n,
+                  nb=B.nb, grid=g)
+
+
+# ---------------------------------------------------------------------------
+# p×q grid: the SPMD loops over the rank-stacked tiles
+# ---------------------------------------------------------------------------
+
+def _gather_col_panel(data: torch.Tensor, k: int) -> torch.Tensor:
+    """Tile column k gathered to every rank (``allgather_panel_rows``),
+    one rank's copy as a full-height panel [mtl·p·nb, nb] in global row
+    order."""
+    p, q, nb = data.shape[0], data.shape[1], data.shape[-1]
+    full = comm.allgather_panel_rows(data[:, :, :, k // q], p, k % q)
+    return full[0, 0].reshape(-1, nb)
+
+
+def _put_col_panel(data: torch.Tensor, k: int, panel: torch.Tensor):
+    """A gathered panel written back to its owner column: each rank row
+    takes its own slots."""
+    p, q, mtl, nb = data.shape[:3] + data.shape[-1:]
+    gi = masks.local_tile_rows(mtl, p, data.device)
+    data[:, k % q, :, k // q] = panel.view(-1, nb, nb)[gi]
+
+
+def _gather_row_panel(data: torch.Tensor, k: int) -> torch.Tensor:
+    """Tile row k gathered along the grid columns to every rank and
+    conjugate-transposed into column-panel form [ntl·q·nb, nb] (row i of
+    the panel is global column i; ``ge2tb.py:104-114``)."""
+    p, q, nb = data.shape[0], data.shape[1], data.shape[-1]
+    row = comm.bcast_from_row(data[:, :, k // p], k % p)
+    full = comm.allgather_cyclic(row, q, comm.AXIS_Q)[0, 0]
+    return full.mH.reshape(-1, nb)
+
+
+def _put_row_panel(data: torch.Tensor, k: int, panel: torch.Tensor):
+    """A row panel in column-panel form written back to tile row k of its
+    owner row, each rank column taking its own slots."""
+    p, q, _, ntl, nb = data.shape[:5]
+    gj = masks.local_tile_cols(ntl, q, data.device)
+    data[k % p, :, k // p] = panel.view(-1, nb, nb).mH[gj]
+
+
+def _qr_panel_pq(panel: torch.Tensor, start: int, m: int):
+    """Factor a gathered panel on its window [start, m), once for every
+    rank. Returns the factored panel, V [rows, nb] and T."""
+    panel, taus = panel_qr_factor(panel, start, m)
+    V = extract_v(panel, start, m)
+    return panel, V, panel_t(V[start:m], taus)
+
+
+def _slots(V: torch.Tensor, idx: torch.Tensor, nb: int) -> torch.Tensor:
+    """V's tiles at the global tile indices ``idx`` (any shape), zero
+    where ``idx`` is past V's tiles."""
+    vt = V.view(-1, nb, nb)
+    got = vt[idx.clamp(max=vt.shape[0] - 1)]
+    return torch.where((idx < vt.shape[0])[..., None, None], got,
+                       torch.zeros_like(got))
+
+
+def _reflect_left_pq(c: torch.Tensor, V: torch.Tensor, Top: torch.Tensor,
+                     lo: int, col_lo: int, mt: int, nt: int,
+                     tier: str = "bf16_6x") -> None:
+    """C ← C − V·Top·(Vᴴ·C) in place on rank-stacked tiles ``c``, over the
+    tile rows from ``lo`` (V is zero above them) and the tile columns
+    from ``col_lo``, within the true mt × nt tiles: the JAX body's
+    ``einsum("aiv,abij->bvj")`` + ``psum_rows`` + outer product
+    (``geqrf.py:291-306``, ``:444-455``) on the window of slots from
+    (lo // p, col_lo // q). V [rows, nb] is in global row order, the same
+    on every rank."""
+    p, q, mtl, ntl, nb, _ = c.shape
+    a_lo, a_hi = lo // p, cdiv(mt, p)
+    b_lo, b_hi = col_lo // q, cdiv(nt, q)
+    R, B = a_hi - a_lo, b_hi - b_lo
+    if R <= 0 or B <= 0:
+        return
+    dev = c.device
+    gi = masks.local_tile_rows(mtl, p, dev)[:, a_lo:a_hi]    # [p, R]
+    gj = masks.local_tile_cols(ntl, q, dev)[:, b_lo:b_hi]    # [q, B]
+    vloc = _slots(V, gi, nb)                                  # [p, R, nb, nb]
+    cw = c[:, :, a_lo:a_hi, b_lo:b_hi]                        # a view of c
+    # each rank's Vᴴ·C over its own slots, batched over the ranks
+    rhs = cw.permute(0, 2, 4, 1, 3, 5).reshape(p, R * nb, q * B * nb)
+    part = tier_mm(vloc.reshape(p, R * nb, nb).mH, rhs, tier)
+    part = part.view(p, nb, q, B, nb).permute(0, 2, 3, 1, 4)
+    w = comm.psum_rows(part)[0]                               # [q, B, nb, nb]
+    keep = (gj >= col_lo) & (gj < nt)
+    w = torch.where(keep[..., None, None], w, torch.zeros_like(w))
+    with full_f32_matmul():
+        tw = Top @ w
+    cw -= _outer_pq(vloc.unsqueeze(1), tw.unsqueeze(0), tier)
+
+
+def _reflect_right_pq(c: torch.Tensor, V: torch.Tensor, Top: torch.Tensor,
+                      lo: int, row_lo: int, mt: int, nt: int,
+                      tier: str = "bf16_6x") -> None:
+    """C ← C − (C·V)·Top·Vᴴ in place on rank-stacked tiles ``c``, over the
+    tile columns from ``lo`` (V, indexed by C's columns, is zero before
+    them) and the tile rows from ``row_lo``: the mirror of
+    :func:`_reflect_left_pq` with ``psum_cols`` (``geqrf.py:476-527``,
+    ``ge2tb.py:131-142``). Tile columns past V's rows see a zero V
+    block."""
+    p, q, mtl, ntl, nb, _ = c.shape
+    a_lo, a_hi = row_lo // p, cdiv(mt, p)
+    b_lo, b_hi = lo // q, cdiv(nt, q)
+    R, B = a_hi - a_lo, b_hi - b_lo
+    if R <= 0 or B <= 0:
+        return
+    dev = c.device
+    gi = masks.local_tile_rows(mtl, p, dev)[:, a_lo:a_hi]    # [p, R]
+    gj = masks.local_tile_cols(ntl, q, dev)[:, b_lo:b_hi]    # [q, B]
+    vcol = _slots(V, gj, nb)                                  # [q, B, nb, nb]
+    cw = c[:, :, a_lo:a_hi, b_lo:b_hi]                        # a view of c
+    # each rank's C·V over its own slots, batched over the ranks
+    lhs = cw.permute(1, 0, 2, 4, 3, 5).reshape(q, p * R * nb, B * nb)
+    part = tier_mm(lhs, vcol.reshape(q, B * nb, nb), tier)
+    part = part.view(q, p, R, nb, nb).transpose(0, 1)
+    w = comm.psum_cols(part)[:, 0]                            # [p, R, nb, nb]
+    keep = (gi >= row_lo) & (gi < mt)
+    w = torch.where(keep[..., None, None], w, torch.zeros_like(w))
+    with full_f32_matmul():
+        tw = w @ Top
+    cw -= _outer_pq(tw.unsqueeze(1), vcol.mH.unsqueeze(0), tier)
+
+
+def _geqrf_pq(A, tier):
+    """The p×q factorization (``_geqrf_jit`` at depth 0): per panel k the
+    gathered tile column factored on [k·nb, m) and written back, then
+    A₂ ← A₂ − V·Tᴴ·(Vᴴ·A₂) on the block columns right of it. Returns
+    ``(data, T)``."""
+    nb, m = A.nb, A.m
+    kt = min(A.mt, A.nt)
+    data = A.data.clone()
+    T = data.new_zeros((kt, nb, nb))
+    for k in range(kt):
+        pan, V, T[k] = _qr_panel_pq(_gather_col_panel(data, k), k * nb, m)
+        _put_col_panel(data, k, pan)
+        _reflect_left_pq(data, V, T[k].mH, k, k + 1, A.mt, A.nt, tier)
+    return data, T
+
+
+def _unmqr_pq(side, notrans, QR, T, C):
+    """op(Q)·C (``_unmqr_jit``) or C·op(Q) (``_unmqr_right_jit``) on a p×q
+    grid: each panel's V gathered from its tile column, applied in the
+    order and with the T of :func:`unmqr`."""
+    nb, m = QR.nb, QR.m
+    kt = T.shape[0]
+    left = side == Side.Left
+    c = C.data.clone()
+    for k in (range(kt - 1, -1, -1) if left == notrans else range(kt)):
+        V = extract_v(_gather_col_panel(QR.data, k), k * nb, m)
+        Top = T[k] if notrans else T[k].mH
+        if left:
+            _reflect_left_pq(c, V, Top, k, 0, C.mt, C.nt)
+        else:
+            _reflect_right_pq(c, V, Top, k, 0, C.mt, C.nt)
+    return C._replace(data=c)

@@ -1,4 +1,4 @@
-"""Two-stage symmetric eigensolver on one device: he2hb (full → band),
+"""Two-stage symmetric eigensolver: he2hb (full → band),
 its back-transform, the band gather, the hb2st dispatch and the whole
 pipeline (reference src/he2hb.cc, src/unmtr_he2hb.cc, src/hb2st.cc,
 src/unmtr_hb2st.cc, src/heev.cc:104-172; counterpart of
@@ -19,7 +19,18 @@ of one dense copy of the matrix, updated in place. Per block column k:
 4. A₂₂ ← A₂₂ − W·Vᴴ − V·Wᴴ.
 
 Afterwards the storage holds the band with the V blocks below it, plus
-the [kt, nb, nb] T stack. Real and complex dtypes; the tridiagonal stage
+the [kt, nb, nb] T stack.
+
+On a p×q grid of virtual ranks he2hb and unmtr_he2hb are the JAX
+package's SPMD loops (``he2hb.py:70-167``, ``:188-232``) over the
+rank-stacked tiles, on the window of slots from ((k+1) // p,
+(k+1) // q): the gathered panel factored once and written back to its
+owner column; Y from the lower triangle alone, each rank's rows of
+A₂₂·V summed along the grid rows' ``psum_cols`` and the conjugated
+strict part's columns along ``psum_rows``, both gathered with
+``allgather_cyclic``; the rank-2 update as one product over the ranks.
+The band gather fetches the 2·nt band tiles from their owners, and the
+rest of the pipeline runs as on one rank. Real and complex dtypes; the tridiagonal stage
 runs in the real dtype, the eigenvalues come out in it, and a complex64
 product runs under the FP32 pin.
 """
@@ -31,23 +42,17 @@ import time
 import torch
 
 from ..errors import SlateError, slate_error_if
-from ..grid import require_one_rank
-from ..internal import kernels
+from ..internal import comm, kernels, masks
 from ..internal.band_wave import preferred_eig_band
 from ..internal.precision import full_f32_matmul, resolve_tier, tier_mm
 from ..internal.tile_kernels import extract_v, panel_qr_factor
-from ..matrix import (HermitianMatrix, Matrix, bc_from_tiles, dense_to_tiles,
-                      tiles_to_dense)
+from ..matrix import (HermitianMatrix, Matrix, bc_from_tiles, cdiv,
+                      dense_to_tiles, tiles_to_dense)
+from ..ops.blas import _outer_pq
 from ..types import MethodEig, Op, Option, Uplo, get_option
 from .bulge import apply_bulge_reflectors, gather_band_lower
-from .geqrf import _blocked_T
-
-
-def panel_t(V: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
-    """The compact-WY T of one panel's reflectors (LAPACK larft's), from
-    their Gram matrix VᴴV."""
-    with full_f32_matmul():
-        return _blocked_T(V.mH @ V, taus, V.shape[1])
+from .geqrf import (_gather_col_panel, _put_col_panel, _qr_panel_pq,
+                    _reflect_left_pq, _slots, panel_t)
 
 
 def he2hb(A: HermitianMatrix, opts=None):
@@ -55,10 +60,13 @@ def he2hb(A: HermitianMatrix, opts=None):
     bandwidth nb. Returns ``(Aband, T)``: Aband's storage holds the band
     and the V blocks below it (the reference's in-place layout), T is
     [max(nt − 1, 1), nb, nb]. A is not modified."""
-    require_one_rank(A.grid, "he2hb")
     slate_error_if(A.m != A.n, "he2hb needs square")
     slate_error_if(A.uplo != Uplo.Lower, "he2hb v1: lower storage")
     tier = resolve_tier(opts)
+    if A.grid.size > 1:
+        data, Ts = _he2hb_pq(A, tier)
+        return HermitianMatrix(data=data, m=A.m, n=A.n, nb=A.nb,
+                               grid=A.grid, uplo=Uplo.Lower), Ts
     nb, n = A.nb, A.n
     M = A.mtl * nb
     kt = max(A.nt - 1, 0)
@@ -83,6 +91,71 @@ def he2hb(A: HermitianMatrix, opts=None):
     return out, Ts
 
 
+def _he2hb_pq(A, tier):
+    """he2hb on a p×q grid (``_he2hb_jit``). Returns ``(data, T)``."""
+    g = A.grid
+    p, q, nb, n, nt = g.p, g.q, A.nb, A.n, A.nt
+    mtl, ntl = A.mtl, A.ntl
+    dev = A.data.device
+    kt = max(nt - 1, 0)
+    data = A.data.clone()
+    Ts = data.new_zeros((max(kt, 1), nb, nb))
+    er = masks.local_elem_rows(mtl, nb, p, dev)              # [p, mtl, nb]
+    ec = masks.local_elem_cols(ntl, nb, q, dev)              # [q, ntl, nb]
+    for k in range(kt):
+        start = (k + 1) * nb
+        pan, V, T = _qr_panel_pq(_gather_col_panel(data, k), start, n)
+        _put_col_panel(data, k, pan)
+        Ts[k] = T
+        # the trailing window: slots from ((k+1) // p, (k+1) // q)
+        a_lo, a_hi = (k + 1) // p, cdiv(nt, p)
+        b_lo, b_hi = (k + 1) // q, cdiv(nt, q)
+        R, B = a_hi - a_lo, b_hi - b_lo
+        aw = data[:, :, a_lo:a_hi, b_lo:b_hi]                # a view of data
+        r_el = er[:, a_lo:a_hi].view(p, 1, R, 1, nb, 1)
+        c_el = ec[:, b_lo:b_hi].view(1, q, 1, B, 1, nb)
+        trail = (r_el >= start) & (c_el >= start) & (r_el < n) & (c_el < n)
+        v_rows = _slots(V, masks.local_tile_rows(mtl, p, dev)[:, a_lo:a_hi],
+                        nb)                                  # [p, R, nb, nb]
+        v_cols = _slots(V, masks.local_tile_cols(ntl, q, dev)[:, b_lo:b_hi],
+                        nb)                                  # [q, B, nb, nb]
+        # Y = A₂₂·V from the lower triangle: rows by rank row (psum_cols)
+        a_low = torch.where(trail & (r_el >= c_el), aw, 0)
+        y1 = tier_mm(a_low.permute(0, 1, 2, 4, 3, 5).reshape(
+            p, q, R * nb, B * nb), v_cols.reshape(q, B * nb, nb), tier)
+        y1 = comm.psum_cols(y1)[:, :1]                       # [p, 1, R·nb, nb]
+        # … plus the conjugated strict part's columns (psum_rows)
+        a_str = torch.where(trail & (r_el > c_el), aw, 0).conj()
+        z1 = tier_mm(a_str.permute(0, 1, 3, 5, 2, 4).reshape(
+            p, q, B * nb, R * nb), v_rows.reshape(p, 1, R * nb, nb), tier)
+        z1 = comm.psum_rows(z1)[:1]                          # [1, q, B·nb, nb]
+        y_loc = y1.new_zeros((p, 1, mtl, nb, nb))
+        y_loc[:, :, a_lo:a_hi] = y1.view(p, 1, R, nb, nb)
+        z_loc = z1.new_zeros((1, q, ntl, nb, nb))
+        z_loc[:, :, b_lo:b_hi] = z1.view(1, q, B, nb, nb)
+        y_full = comm.allgather_cyclic(y_loc, p, comm.AXIS_P)[0, 0]
+        z_full = comm.allgather_cyclic(z_loc, q, comm.AXIS_Q)[0, 0]
+        L = min(z_full.shape[0], y_full.shape[0])
+        z_fit = torch.zeros_like(y_full)                     # the z_fit crop
+        z_fit[:L] = z_full[:L]
+        Y = (y_full + z_fit).reshape(-1, nb)[start:n]
+        Vs = V[start:n]
+        with full_f32_matmul():
+            X = Y @ T
+            Ws = X - 0.5 * (Vs @ (T.mH @ (Vs.mH @ X)))
+        W = torch.zeros_like(V)
+        W[start:n] = Ws
+        w_rows = _slots(W, masks.local_tile_rows(mtl, p, dev)[:, a_lo:a_hi],
+                        nb)
+        w_cols = _slots(W, masks.local_tile_cols(ntl, q, dev)[:, b_lo:b_hi],
+                        nb)
+        # A₂₂ ← A₂₂ − W·Vᴴ − V·Wᴴ as one product over the ranks
+        rows = torch.cat([w_rows, v_rows], dim=-1)           # [p, R, nb, 2nb]
+        cols = torch.cat([v_cols.mH, w_cols.mH], dim=-2)     # [q, B, 2nb, nb]
+        aw -= _outer_pq(rows.unsqueeze(1), cols.unsqueeze(0), tier)
+    return data, Ts
+
+
 def he2hb_gather(Aband: HermitianMatrix) -> torch.Tensor:
     """The band in lower storage ``band[d, j] = A[j+d, j]``, d = 0..nb
     (reference he2hbGather), from the 2·nt band tiles on the device."""
@@ -94,7 +167,6 @@ def unmtr_he2hb(trans: Op, Aband: HermitianMatrix, T, C: Matrix,
     """Apply Q from he2hb to C (reference src/unmtr_he2hb.cc): Q·C for
     NoTrans (panels in reverse order), Qᴴ·C otherwise (forward order).
     Returns the new C."""
-    require_one_rank(C.grid, "unmtr_he2hb")
     notrans = trans == Op.NoTrans
     nb, n = Aband.nb, Aband.n
     C = C.materialize()
@@ -102,6 +174,13 @@ def unmtr_he2hb(trans: Op, Aband: HermitianMatrix, T, C: Matrix,
                    f"unmtr_he2hb dims: Q is {n}×{n} nb={nb}, C is "
                    f"{C.m}×{C.n} nb={C.nb}")
     kt = T.shape[0] if Aband.nt > 1 else 0
+    if C.grid.size > 1:
+        c = C.data.clone()
+        for k in (range(kt - 1, -1, -1) if notrans else range(kt)):
+            V = extract_v(_gather_col_panel(Aband.data, k), (k + 1) * nb, n)
+            Top = T[k] if notrans else T[k].mH
+            _reflect_left_pq(c, V, Top, k + 1, 0, C.mt, C.nt)
+        return C._replace(data=c)
     av = tiles_to_dense(Aband.data[0, 0], Aband.mtl * nb, Aband.ntl * nb)
     c = tiles_to_dense(C.data[0, 0], C.mtl * nb, C.ntl * nb)  # in place
     with full_f32_matmul():
@@ -168,7 +247,6 @@ def heev_two_stage(A: HermitianMatrix, opts=None, want_vectors=True,
     with the device synchronised at each boundary; None (the default)
     times nothing and adds no synchronisation."""
     from .eig import sterf, steqr, stedc
-    require_one_rank(A.grid, "heev")
     rdt = A.dtype.to_real() if A.dtype.is_complex else A.dtype
     method = get_option(opts, Option.MethodEig, MethodEig.Auto)
     band_nb = get_option(opts, Option.EigBand,

@@ -4,15 +4,17 @@ ge2tb → tb2bd → bdsqr pipeline of ``linalg/ge2tb.py``; Dense is
 ``torch.linalg.svd`` on the whole matrix (cuSOLVER's ``gesvd`` driver on
 the card), the counterpart of XLA's SVD.
 The other methods raise, where the JAX package sends them to its dense
-path: a library SVD runs only under Dense and Auto. Auto takes the two-stage pipeline on one device from min(m, n) = 12288,
-the JAX package's threshold."""
+path: a library SVD runs only under Dense and Auto. Auto takes the
+two-stage pipeline on a p×q grid with at least 4 block rows and columns
+and on one device from min(m, n) = 12288, the JAX package's dispatch
+(``svd.py:43-44``); on a p×q grid a wide input goes through the
+block-cyclic transpose."""
 
 from __future__ import annotations
 
 import torch
 
 from ..errors import slate_error_if
-from ..grid import require_one_rank
 from ..matrix import Matrix, conj_transpose
 from ..types import MethodSVD, Option, get_option
 
@@ -27,14 +29,14 @@ def gesvd(A: Matrix, opts=None, want_u: bool = False, want_vt: bool = False,
     on its device; U [m, k] and VT [k, n] Matrices, k = min(m, n).
     ``times``, a dict, receives the two-stage pipeline's stage seconds;
     the Dense method records none."""
-    require_one_rank(A.grid, "gesvd")
     method = get_option(opts, Option.MethodSVD, MethodSVD.Auto)
     slate_error_if(method not in (MethodSVD.Auto, MethodSVD.Dense,
                                   MethodSVD.TwoStage),
                    f"gesvd: {method} has no pipeline of its own; use "
                    "MethodSVD.TwoStage or MethodSVD.Dense")
     if method == MethodSVD.Auto:
-        two = min(A.m, A.n) >= TWO_STAGE_MIN_N
+        two = ((A.grid.size > 1 and min(A.mt, A.nt) >= 4)
+               or min(A.m, A.n) >= TWO_STAGE_MIN_N)
     else:
         two = method == MethodSVD.TwoStage
     Am = A.materialize()

@@ -12,8 +12,10 @@ pack the band and run the packed products and solves of
 On a p×q grid ``gemm`` (SUMMA, the Cannon ring and stationary-A),
 ``herk``/``syrk`` and ``trsm`` (both sides) are the JAX package's SPMD
 bodies over the rank-stacked tiles (``blas.py:131-352``, ``:560-660``),
-with the collectives of ``internal/comm.py``; the other routines run on
-one rank only and refuse a p×q grid.
+with the collectives of ``internal/comm.py``; ``hemm``/``symm``,
+``her2k``/``syr2k`` and ``trmm`` normalise their shaped operand on the
+grid (the mirror through the block-cyclic transpose) and multiply by
+those. The band routines run on one rank only and refuse a p×q grid.
 """
 
 from __future__ import annotations
@@ -116,7 +118,6 @@ def her2k(alpha, A, B, beta, C, opts=None):
     """C = alpha·A·Bᴴ + conj(alpha)·B·Aᴴ + beta·C (reference
     src/her2k.cc): two products, both triangles written, as the JAX
     package's two SUMMA calls do."""
-    require_one_rank(A.grid, "her2k")
     G = gemm(alpha, A, conj_transpose(B), beta, _as_general(C), opts)
     calpha = complex(alpha).conjugate() if C.dtype.is_complex else alpha
     G = gemm(calpha, B, conj_transpose(A), 1.0, G, opts)
@@ -125,7 +126,6 @@ def her2k(alpha, A, B, beta, C, opts=None):
 
 def syr2k(alpha, A, B, beta, C, opts=None):
     """C = alpha·A·Bᵀ + alpha·B·Aᵀ + beta·C (reference src/syr2k.cc)."""
-    require_one_rank(A.grid, "syr2k")
     G = gemm(alpha, A, transpose(B), beta, _as_general(C), opts)
     G = gemm(alpha, B, transpose(A), 1.0, G, opts)
     return C._replace(data=G.data)
@@ -144,7 +144,6 @@ def hemm(side: Side, alpha, A, B: Matrix, beta, C: Matrix,
     """C = alpha·A·B + beta·C (Left) or alpha·B·A + beta·C (Right) with A
     Hermitian (reference src/hemm.cc): A's significant half is mirrored
     into a general matrix, then one :func:`gemm`."""
-    require_one_rank(A.grid, "hemm")
     Afull = _mirror_full(A, conj=True)
     if side == Side.Left:
         return gemm(alpha, Afull, B, beta, C, opts)
@@ -154,7 +153,6 @@ def hemm(side: Side, alpha, A, B: Matrix, beta, C: Matrix,
 def symm(side: Side, alpha, A, B: Matrix, beta, C: Matrix,
          opts=None) -> Matrix:
     """As :func:`hemm` with A symmetric (reference src/symm.cc)."""
-    require_one_rank(A.grid, "symm")
     Afull = _mirror_full(A, conj=False)
     if side == Side.Left:
         return gemm(alpha, Afull, B, beta, C, opts)
@@ -167,10 +165,15 @@ def _mirror_full(A, conj: bool) -> Matrix:
     the diagonal, whose real part alone counts when ``conj`` (the JAX
     ``_mirror_full_jit``, ``blas.py:437-470``, adds the half to its tile
     transpose and halves the diagonal: the same matrix). The padding
-    stays zero."""
+    stays zero. On a p×q grid the mirror is the block-cyclic transpose
+    of the half (``comm.transpose_tiles``, the JAX body's global tile
+    transpose refitted to the grid), which holds where the row and
+    column tile counts pad differently."""
     slate_error_if(A.op != Op.NoTrans, "mirror before transpose views")
-    slate_error_if(A.m != A.n or A.mtl != A.ntl,
-                   "mirror needs a square matrix")
+    slate_error_if(A.m != A.n, "mirror needs a square matrix")
+    if A.grid.size > 1:
+        return _mirror_full_pq(A, conj)
+    slate_error_if(A.mtl != A.ntl, "mirror needs a square matrix")
     data = A.data[0, 0]
     dev = data.device
     er, ec = masks.elem_index(A.mtl, A.ntl, A.nb, dev)
@@ -185,6 +188,26 @@ def _mirror_full(A, conj: bool) -> Matrix:
     return Matrix(data=full[None, None], m=A.m, n=A.n, nb=A.nb, grid=A.grid)
 
 
+def _mirror_full_pq(A, conj: bool) -> Matrix:
+    """:func:`_mirror_full` on a p×q grid (``blas.py:434-476``): the
+    rank-stacked strict half and diagonal, and the half's transpose
+    moved to its owners."""
+    g = A.grid
+    data = A.data
+    dev = data.device
+    er, ec = masks.grid_elem_index(g.p, g.q, A.mtl, A.ntl, A.nb, dev)
+    strict = masks.uplo_mask(A.mtl, A.ntl, A.nb, A.uplo == Uplo.Lower,
+                             strict=True, device=dev, p=g.p, q=g.q)
+    half = torch.where(strict, data, 0)
+    cplx = conj and data.is_complex()
+    mirrored = comm.transpose_tiles(half, A.mt, A.nt, conj=cplx)
+    diag = torch.where(er == ec, data, 0)
+    if cplx:
+        diag = diag.real.to(data.dtype)
+    return Matrix(data=half + mirrored + diag, m=A.m, n=A.n, nb=A.nb,
+                  grid=g)
+
+
 # ---------------------------------------------------------------------------
 # trmm — triangular matrix-matrix multiply
 # ---------------------------------------------------------------------------
@@ -192,8 +215,8 @@ def _mirror_full(A, conj: bool) -> Matrix:
 def trmm(side: Side, alpha, A, B: Matrix, opts=None) -> Matrix:
     """B = alpha·op(A)·B (Left) or alpha·B·op(A) (Right), A triangular
     (reference src/trmm.cc): A's triangle is extracted into a general
-    matrix, then one :func:`gemm`; a new matrix comes back."""
-    require_one_rank(A.grid, "trmm")
+    matrix, then one :func:`gemm` (SUMMA on a p×q grid); a new matrix
+    comes back."""
     Atri = _extract_triangle(A)
     C = Matrix.zeros(B.m, B.n, B.nb, B.grid, dtype=B.dtype)
     if side == Side.Left:
@@ -204,13 +227,15 @@ def trmm(side: Side, alpha, A, B: Matrix, opts=None) -> Matrix:
 def _extract_triangle(A) -> Matrix:
     """op(A)'s triangle as a general matrix, the rest zero, a unit
     diagonal written as ones: the view is resolved first, which flips
-    ``uplo`` (``blas.py:483-520``)."""
+    ``uplo`` (``blas.py:483-520``); the masks are rank-stacked on a p×q
+    grid."""
     A = A.materialize()
+    g, dev = A.grid, A.data.device
     tri = masks.uplo_mask(A.mtl, A.ntl, A.nb, A.uplo == Uplo.Lower,
-                          device=A.data.device)
+                          device=dev, p=g.p, q=g.q)
     out = torch.where(tri, A.data, 0)
     if A.diag == Diag.Unit:
-        er, ec = masks.elem_index(A.mtl, A.ntl, A.nb, A.data.device)
+        er, ec = masks.grid_elem_index(g.p, g.q, A.mtl, A.ntl, A.nb, dev)
         out = torch.where((er == ec) & (er < A.m), 1, out).to(A.dtype)
     return Matrix(data=out, m=A.m, n=A.n, nb=A.nb, grid=A.grid)
 

@@ -1548,3 +1548,90 @@ def test_pq_depths_bitwise_on_card(cuda, kind):
     for other in outs[1:]:
         for u, v in zip(outs[0], other):
             assert torch.equal(u, v)
+
+
+def _normal_residual(a, x, b):
+    """‖Aᴴ(A·X − B)‖_F / (‖A‖_F·(‖A‖_F·‖X‖_F + ‖B‖_F)) in f64."""
+    a, x, b = a.double().cpu(), x.double().cpu(), b.double().cpu()
+    an = torch.linalg.norm(a)
+    return float(torch.linalg.norm(a.mT @ (a @ x - b))
+                 / (an * (an * torch.linalg.norm(x) + torch.linalg.norm(b))))
+
+
+def test_pq_gels_heev_gesvd_on_card_match_cpu(cuda):
+    """gels by each branch, heev with vectors and gesvd with U and Vᴴ on
+    a 2×4 grid at n = 512, nb = 64 on the card and on the CPU: the normal
+    residuals, λ and σ within 10·m·2⁻²⁴ of each other relative to the
+    largest, the vectors by their residuals on the card."""
+    m, n, nb = 1024, 512, 64
+    gen = torch.Generator().manual_seed(24)
+    a = torch.randn(m, n, generator=gen)
+    b = torch.randn(m, 3, generator=gen)
+    s = torch.randn(n, n, generator=gen)
+    s = (s + s.T) / 2
+    bound = 10 * m * 2.0 ** -24
+    Gels = st.MethodGels
+    out = {}
+    for dev in ("cuda", "cpu"):
+        g = st.Grid(2, 4, device=dev)
+        mk = lambda x: st.Matrix.from_dense(x, nb=nb, grid=g)  # noqa: E731
+        xs = [st.gels(mk(a), mk(b), {st.Option.MethodGels: r}).to_dense()
+              for r in (Gels.Geqrf, Gels.Cholqr)]
+        xs.append(st.gels(mk(a.T.contiguous()), mk(b[:n])).to_dense())
+        opts = {st.Option.EigBand: nb}
+        lam, Z = st.heev(st.HermitianMatrix.from_dense(s, nb=nb, grid=g),
+                         opts)
+        sv, U, VT = st.gesvd(mk(a), opts, True, True)
+        out[dev] = (xs, lam.double().cpu(), Z.to_dense().double().cpu(),
+                    sv.double().cpu(), U.to_dense().double().cpu(),
+                    VT.to_dense().double().cpu())
+    c, h = out["cuda"], out["cpu"]
+    for i in range(2):
+        assert _normal_residual(a, c[0][i], b) <= bound, i
+        assert rel(c[0][i], h[0][i]) <= 1e-3, i
+    at, x = a.T.double(), c[0][2].double().cpu()
+    r = torch.linalg.norm(at @ x - b[:n].double()) / (
+        torch.linalg.norm(at) * torch.linalg.norm(x)
+        + torch.linalg.norm(b[:n].double()))
+    assert float(r) <= bound
+    lam, z, sv, u, vt = c[1:]
+    assert (lam - h[1]).abs().max() <= bound * h[1].abs().max()
+    assert (sv - h[3]).abs().max() <= bound * h[3][0]
+    s64, a64 = s.double(), a.double()
+    assert torch.linalg.norm(s64 @ z - z * lam) <= bound * torch.linalg.norm(
+        s64)
+    assert torch.linalg.norm(a64 - (u * sv) @ vt) <= bound * \
+        torch.linalg.norm(a64)
+
+
+def test_pq_chase_launches_per_call(cuda):
+    """One K8 launch per p×q heev (values, vectors) and hegv, one K9 per
+    p×q gesvd, on 2×4 at n = 512, nb = 64; hegv itype 1 also runs K1 and
+    K2 once a step (B's factor) and K3 once a step in each grid column
+    (hegst's left solve of A's columns)."""
+    n, nb, q = 512, 64, 4
+    nt = n // nb
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    s = torch.randn(n, n, generator=gen, device=cuda)
+    s = (s + s.T) / 2
+    w = torch.randn(n, n, generator=gen, device=cuda)
+    spd = w @ w.T / n + torch.eye(n, device=cuda)
+    g = st.Grid(2, q)
+    H = st.HermitianMatrix.from_dense(s, nb=nb, grid=g)
+    opts = {st.Option.EigBand: nb}
+    one = {"hb2st_vmem": 1}
+    for label, fn, want in (
+            ("values", lambda: st.eig_vals(H, opts), one),
+            ("vectors", lambda: st.heev(H, opts), one),
+            ("hegv", lambda: st.hegv(1, H, st.HermitianMatrix.from_dense(
+                spd, nb=nb, grid=g), opts),
+             {"hb2st_vmem": 1, "potrf_tile": nt,
+              "trsm_right_lower_t": nt - 1, "trsm_left_lower": nt * q}),
+            ("gesvd", lambda: st.svd_vals(st.Matrix.from_dense(
+                w, nb=nb, grid=g), opts), {"tb2bd_vmem": 1})):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        expect = {**dict.fromkeys(K.LAUNCHES, 0), **want}
+        assert dict(K.LAUNCHES) == expect, (label, dict(K.LAUNCHES))

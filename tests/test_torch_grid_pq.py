@@ -5,7 +5,8 @@ whose p×q form is not ported, on the CPU.
 Storage after ``from_dense``, ``redistribute``, ``from_tile_map`` and a
 resolved transpose is held bit for bit to the JAX package's
 ``[p, q, mtl, ntl, nb, nb]`` stack on the grids of the JAX fixtures (2×4
-and 2×2) and on 1×4 and 4×1, with ragged sizes.
+and 2×2) and on 1×4 and 4×1, with ragged sizes. Every entry point of
+the p×q slices runs on a 2×2 grid, and every other one refuses it.
 """
 
 import numpy as np
@@ -156,7 +157,7 @@ def test_masks_match_jax(p, q):
 
 
 def _refusals():
-    """Every entry point outside the p×q slice, each on a 2×2 grid."""
+    """Every entry point outside the p×q slices, each on a 2×2 grid."""
     g = pgrid(2, 2)
     n = 16
     a, s = rand(n, n, seed=1), spd(n, seed=2)
@@ -170,25 +171,8 @@ def _refusals():
                                             grid=g, kl=2, ku=2)
     TB = pst.TriangularBandMatrix.from_dense(np.tril(np.triu(s, -2)), nb=4,
                                              grid=g, kl=2, ku=0)
-    L, R, N_, O = pst.Side.Left, pst.Side.Right, pst.Norm.One, \
-        pst.Op.NoTrans
-    from slate_tpu_torch.linalg import ge2tb as ge2tb_mod
-    from slate_tpu_torch.linalg import he2hb as he2hb_mod
+    L, N_ = pst.Side.Left, pst.Norm.One
     return {
-        "geqrf": lambda: pst.geqrf(A), "gelqf": lambda: pst.gelqf(A),
-        "unmqr": lambda: pst.unmqr(L, O, A, None, B),
-        "unmlq": lambda: pst.unmlq(L, O, A, None, B),
-        "cholqr": lambda: pst.cholqr(A), "gels": lambda: pst.gels(A, B),
-        "least_squares_solve": lambda: pst.least_squares_solve(A, B),
-        "heev": lambda: pst.heev(H), "eig_vals": lambda: pst.eig_vals(H),
-        "hegst": lambda: pst.hegst(1, H, T),
-        "hegv": lambda: pst.hegv(1, H, H), "gesvd": lambda: pst.gesvd(A),
-        "svd_vals": lambda: pst.svd_vals(A), "he2hb": lambda: pst.he2hb(H),
-        "heev_two_stage": lambda: he2hb_mod.heev_two_stage(H),
-        "unmtr_he2hb": lambda: he2hb_mod.unmtr_he2hb(O, H, None, B),
-        "ge2tb": lambda: pst.ge2tb(A),
-        "unmbr_ge2tb_u": lambda: ge2tb_mod.unmbr_ge2tb_u(O, A, None, B),
-        "unmbr_ge2tb_v": lambda: ge2tb_mod.unmbr_ge2tb_v(O, A, None, B),
         "hetrf": lambda: pst.hetrf(H), "hesv": lambda: pst.hesv(H, B),
         "hetrs": lambda: pst.hetrs(None, B),
         "gbtrf": lambda: pst.gbtrf(BA), "gbsv": lambda: pst.gbsv(BA, B),
@@ -198,12 +182,6 @@ def _refusals():
         "gbmm": lambda: pst.gbmm(1.0, BA, B, 0.0, B),
         "hbmm": lambda: pst.hbmm(L, 1.0, HB, B, 0.0, B),
         "tbsm": lambda: pst.tbsm(L, 1.0, TB, B),
-        "hemm": lambda: pst.hemm(L, 1.0, H, B, 0.0, B),
-        "symm": lambda: pst.symm(R, 1.0, H, A, 0.0, A),
-        "her2k": lambda: pst.her2k(1.0, A, A, 0.0, H),
-        "syr2k": lambda: pst.syr2k(1.0, A, A, 0.0, H),
-        "trmm": lambda: pst.trmm(L, 1.0, T, B),
-        "multiply_hermitian": lambda: pst.multiply(1.0, H, B, 0.0, B),
         "gesv_mixed": lambda: pst.gesv_mixed(A, B),
         "posv_mixed": lambda: pst.posv_mixed(H, B),
         "gesv_mixed_gmres": lambda: pst.gesv_mixed_gmres(A, B),
@@ -224,10 +202,98 @@ def _refusals():
     }
 
 
+def _now_run():
+    """The entry points that once refused a p×q grid and now run on it
+    (the least-squares, two-stage and Level-3 BLAS slice), each on 2×2
+    with the expected shape of its first output."""
+    g = pgrid(2, 2)
+    n = 16
+    a, s = rand(n, n, seed=1), spd(n, seed=2)
+    A = pst.Matrix.from_dense(a, nb=4, grid=g)
+    H = pst.HermitianMatrix.from_dense(s, nb=4, grid=g)
+    T = pst.TriangularMatrix.from_dense(np.tril(s), nb=4, grid=g)
+    B = pst.Matrix.from_dense(rand(n, 2, seed=3), nb=4, grid=g)
+    C = pst.Matrix.zeros(n, 2, 4, g, dtype=torch.float64)
+    L, R, O = pst.Side.Left, pst.Side.Right, pst.Op.NoTrans
+    from slate_tpu_torch.linalg import ge2tb as ge2tb_mod
+    from slate_tpu_torch.linalg import he2hb as he2hb_mod
+
+    def qr():
+        return pst.geqrf(A)
+
+    def lq():
+        return pst.gelqf(A)
+
+    def band():
+        return pst.he2hb(H)
+
+    def bidiag():
+        return pst.ge2tb(A)
+
+    Lf = pst.potrf(H)[0]
+    return {
+        "geqrf": (qr, (n, n)), "gelqf": (lq, (n, n)),
+        "unmqr": (lambda: pst.unmqr(L, O, *qr(), B), (n, 2)),
+        "unmlq": (lambda: pst.unmlq(L, O, *lq(), B), (n, 2)),
+        "cholqr": (lambda: pst.cholqr(A), (n, n)),
+        "gels": (lambda: pst.gels(A, B), (n, 2)),
+        "least_squares_solve": (lambda: pst.least_squares_solve(A, B),
+                                (n, 2)),
+        "heev": (lambda: pst.heev(H), (n,)),
+        "eig_vals": (lambda: pst.eig_vals(H), (n,)),
+        "hegst": (lambda: pst.hegst(1, H, Lf), (n, n)),
+        "hegv": (lambda: pst.hegv(1, H, H), (n,)),
+        "gesvd": (lambda: pst.gesvd(A, None, True, True), (n,)),
+        "svd_vals": (lambda: pst.svd_vals(A), (n,)),
+        "he2hb": (band, (n, n)),
+        "heev_two_stage": (lambda: he2hb_mod.heev_two_stage(H), (n,)),
+        "unmtr_he2hb": (lambda: he2hb_mod.unmtr_he2hb(O, *band(), B),
+                        (n, 2)),
+        "ge2tb": (bidiag, (n, n)),
+        "unmbr_ge2tb_u": (lambda: ge2tb_mod.unmbr_ge2tb_u(
+            O, bidiag()[0], bidiag()[1], B), (n, 2)),
+        "unmbr_ge2tb_v": (lambda: ge2tb_mod.unmbr_ge2tb_v(
+            O, bidiag()[0], bidiag()[2], B), (n, 2)),
+        "hemm": (lambda: pst.hemm(L, 1.0, H, B, 0.0, C), (n, 2)),
+        "symm": (lambda: pst.symm(R, 1.0, H, A, 0.0, A), (n, n)),
+        "her2k": (lambda: pst.her2k(1.0, A, A, 0.0, H), (n, n)),
+        "syr2k": (lambda: pst.syr2k(1.0, A, A, 0.0, H), (n, n)),
+        "trmm": (lambda: pst.trmm(L, 1.0, T, B), (n, 2)),
+        "multiply_hermitian": (lambda: pst.multiply(1.0, H, B, 0.0, C),
+                               (n, 2)),
+    }
+
+
 REFUSED = sorted(_refusals())
+NOW_RUN = sorted(_now_run())
 
 
 @pytest.mark.parametrize("name", REFUSED)
 def test_entry_points_outside_the_slice_refuse_pq(name):
     with pytest.raises(pst.SlateError, match="multi-device"):
         _refusals()[name]()
+
+
+@pytest.mark.parametrize("name", NOW_RUN)
+def test_entry_points_of_the_slice_run_pq(name):
+    """Each entry point ported to p×q grids runs on 2×2 and gives finite
+    outputs, its first of the expected shape and on the grid."""
+    fn, shape = _now_run()[name]
+    out = fn()
+    outs = out if isinstance(out, tuple) else (out,)
+    first = outs[0]
+    assert tuple(first.shape) == shape
+    for x in outs:
+        if x is None:
+            continue
+        if hasattr(x, "grid"):
+            assert x.grid == pgrid(2, 2)
+            x = x.to_dense()
+        assert bool(torch.isfinite(torch.as_tensor(x)).all()), name
+
+
+def test_the_two_lists_cover_every_former_refusal():
+    """The 56 entry points of the two lists: 25 that run on a p×q grid,
+    31 that refuse it, none in both."""
+    assert len(NOW_RUN) == 25 and len(REFUSED) == 31
+    assert not set(NOW_RUN) & set(REFUSED)

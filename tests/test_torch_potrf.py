@@ -203,7 +203,7 @@ def test_unported_options_raise(grid11):
     # refuses it, and so does a grid over distinct devices
     g22 = pst.Grid(2, 2, device="cpu")
     with pytest.raises(pst.SlateError, match="multi-device"):
-        pst.geqrf(pst.Matrix.from_dense(spd(8), nb=4, grid=g22))
+        pst.hetrf(pst.HermitianMatrix.from_dense(spd(8), nb=4, grid=g22))
     with pytest.raises(pst.SlateError, match="multi-device"):
         pst.Grid(1, 2, devices=["cpu", "meta"])
     # complex runs, through torch.linalg, and gives the JAX package's
