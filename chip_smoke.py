@@ -350,8 +350,22 @@ The p×q slice (virtual ranks on the one card, ``Grid(p, q)``):
    bounds. The T of one panel by the Gram recurrence beside larft's,
    both against the f64 larft; ``geqrf`` on 2×4 and ``heev`` values on
    2×2 under ``torch.profiler``.
+3x. p×q inverses, condest, mixed solves and Aasen, each p×q path with
+   exact launch counts: ``hesv`` (and ``hetrf``) f32 at 16384/256,
+   nrhs 8, on 2×4 beside Grid(1, 1) with the aasen/gbtrf_T/hetrs split
+   (``info`` 0, residual and ‖P·A·Pᵀ − L·T·Lᵀ‖_F/‖A‖_F within
+   10·n·2⁻²⁴); 3n's mixed solves at 16384 (``posv_mixed`` f32 and f64
+   and ``posv_mixed_gmres`` f64 on 2×2 at nb 1024, ``gesv_mixed`` f32
+   and ``gesv_mixed_gmres`` f64 on 2×4 at nb 256) held to 3n's limits
+   beside the same call on Grid(1, 1); ``getri`` and ``potri`` at 16384
+   on 2×2 (3p's ratio ≤ 30); ``potrf``/``getrf(health=True)`` at 16384
+   on 2×2, growth / true rcond in [1 − 1e-4, 10]; every generator kind
+   at 4096/256 on 2×4 bit for bit the Grid(1, 1) matrix (structured
+   kinds at 2048) and ``add``/``scale``/``scale_row_col``/``set_matrix``
+   on 2×4 equal to 1×1; complex64 ``hesv`` 8192/256, ``posv`` 8192/1024
+   and ``gesv`` 8192/256 on 2×2 (``info`` 0, 10·n·2⁻²⁴, no launch).
 
-Each path of 3–3w runs with the launch counts set to 0 just before it
+Each path of 3–3x runs with the launch counts set to 0 just before it
 and read just after. Any failure raises and the script exits non-zero.
 Without a CUDA card it exits with code 2 before doing anything. The last
 line is ``{"ok": true, "device": {...}}``.
@@ -2624,9 +2638,7 @@ def phase_norms_health():
         (st.potrf(S) if label == "potrf" else st.getrf(A))
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        inv = torch.linalg.inv(dense)
-        rcond = 1.0 / float(dense.abs().sum(0).max() * inv.abs().sum(0).max())
-        del inv
+        rcond = RCOND[label] = true_rcond(dense)
         say(f"  {label}(health=True): info {rep.info}, growth (rcond "
             f"estimate) {rep.growth:.6e}, true rcond {rcond:.6e} "
             f"(ratio {rep.growth / rcond:.4f}, bounds [1 - 1e-4, 10]); "
@@ -2645,6 +2657,15 @@ def phase_norms_health():
     say(f"  hetrf(health=True) n={n} nb={nb}: info {rep.info}, ms {ms:.1f}")
     assert isinstance(rep, st.HealthReport) and rep.info == 0 and rep.ok
     return launches
+
+
+RCOND = {}          # 3o's true rcond of its potrf and getrf matrices, for 3x
+
+
+def true_rcond(dense) -> float:
+    """1/(‖A‖₁·‖A⁻¹‖₁) of a float64 matrix on the card."""
+    inv = torch.linalg.inv(dense)
+    return 1.0 / float(dense.abs().sum(0).max() * inv.abs().sum(0).max())
 
 
 def inverse_ratio(a, x) -> float:
@@ -4997,6 +5018,332 @@ def phase_pq_two_stage():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 3x: p×q inverses, condest, mixed solves and Aasen
+# ---------------------------------------------------------------------------
+
+PQ_CPLX_N = 8192     # 3x: the complex64 p×q cases
+
+
+def pq_aasen_stage1_check(a, A, piv, n, nb):
+    """‖P·A·Pᵀ − L·T·Lᵀ‖_F/‖A‖_F from stage 1 run again on A's grid
+    (its L, T blocks and pivots), and whether its pivots repeat."""
+    from slate_tpu_torch import runtime
+    from slate_tpu_torch.linalg import hetrf as H
+    L, Td, Ts, piv2, _ = H._stage1(A)
+    ld = L.to_dense()[:n, :n]
+    del L
+    t = torch.block_diag(*Td)
+    for k in range(n // nb - 1):
+        t[(k + 1) * nb:(k + 2) * nb, k * nb:(k + 1) * nb] = Ts[k]
+        t[k * nb:(k + 1) * nb, (k + 1) * nb:(k + 2) * nb] = Ts[k].mH
+    perm = torch.from_numpy(runtime.resolve_pivots(piv.cpu().numpy(), n)
+                            ).cuda()
+    with _f32():
+        f = float(torch.linalg.norm(a[perm][:, perm] - ld @ t @ ld.mH)
+                  / torch.linalg.norm(a))
+    return f, torch.equal(piv, piv2)
+
+
+def phase_pq_aasen():
+    """3x (Aasen): hesv f32 at 16384/256, nrhs 8 (3l's matrix) on 2×4
+    beside Grid(1, 1), each with its exact launches (K10 once a live
+    panel, K3 once a block row of hetrs's L solve), the stage split and
+    hetrf alone; info 0, the residual and P·A·Pᵀ = L·T·Lᵀ within
+    10·n·2⁻²⁴; the 2×4 call under ``torch.profiler``."""
+    import slate_tpu_torch as st
+    n, nb = N, AASEN_NB
+    nt = n // nb
+    a = sym_matrix(n, 19)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    b = torch.randn(n, NRHS, generator=gen, device="cuda")
+    limit = 10 * n * 2.0 ** -24
+    launches = {}
+    for p, q in ((2, 4), (1, 1)):
+        g = st.Grid(p, q)
+        st.hesv(st.HermitianMatrix.from_dense(a[:2048, :2048], nb=nb,
+                                              grid=g),
+                st.Matrix.from_dense(b[:2048], nb=nb, grid=g))  # warm-up
+        A = st.HermitianMatrix.from_dense(a, nb=nb, grid=g)
+        B = st.Matrix.from_dense(b, nb=nb, grid=g)
+        times = {}
+        base, t0 = start_path()
+        X, (L, FT, piv), info = st.hesv(A, B, times=times)
+        ms, launches[(p, q)], peak = end_path(
+            base, t0, {"panel_plu_pallas": nt - 1, "trsm_left_lower": nt})
+        del L, FT
+        t1 = time.perf_counter()
+        st.hetrf(A)
+        torch.cuda.synchronize()
+        hetrf_ms = (time.perf_counter() - t1) * 1e3
+        x = X.to_dense()
+        with _f32():
+            r = float(torch.linalg.norm(a @ x - b)
+                      / (torch.linalg.norm(a) * torch.linalg.norm(x)))
+        f, same = pq_aasen_stage1_check(a, A, piv, n, nb)
+        split = ", ".join(f"{k} {v * 1e3:.3f}" for k, v in times.items())
+        say(f"  hesv f32 n={n} nb={nb} nrhs={NRHS} Grid({p},{q}): info "
+            f"{int(info)}, residual {r:.3e}, |PAP^T - LTL^T|/|A| {f:.3e} "
+            f"(bound {limit:.3e} each), pivots repeat {same}; hetrf_ms "
+            f"{hetrf_ms:.3f}, hesv_ms {ms:.3f} (split ms: {split}), peak "
+            f"device memory above its inputs {peak:.3f} GiB")
+        assert int(info) == 0 and bool(torch.isfinite(x).all())
+        assert r <= limit and f <= limit and same, (p, q, r, f, same)
+        if g.size > 1:
+            # the device alone: 3l traces the host of the same loop
+            phase_breakdown("hesv Grid(2,4)", lambda: st.hesv(A, B),
+                            cpu=False)
+        del A, B, X, x
+    return {"hesv_2x4": launches[(2, 4)]}
+
+
+def mixed_pq_case(label, solver, M, B, grid, chol, nb):
+    """One mixed solve on ``grid`` (M and B re-tiled to ``nb`` and laid
+    out there) with the launches set to 0 just before it and read just
+    after, exactly: the p×q factorization's (``pq_counts``: K1 and K2 a
+    step, or K10 a step and K3 a block row of U) and K3 once a step for
+    each low-precision solve (its right-hand sides in one tile column),
+    the solves counted by wrapping getrs and potrs; 3n's limits; its time
+    beside the same call on Grid(1, 1) at the same nb (one run)."""
+    import slate_tpu_torch as st
+    from slate_tpu_torch.linalg import getrf as getrf_mod
+    from slate_tpu_torch.linalg import mixed
+    from slate_tpu_torch.linalg import potrf as potrf_mod
+    M1, B1 = M.retile(nb), B.retile(nb)
+    Mp, Bp = M1.redistribute(grid), B1.redistribute(grid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver(M1, B1)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    calls = [0]
+    real = getrf_mod.getrs, potrf_mod.potrs
+
+    def counted(fn):
+        def run(*a, **kw):
+            calls[0] += 1
+            return fn(*a, **kw)
+        return run
+
+    getrf_mod.getrs, potrf_mod.potrs = (counted(f) for f in real)
+    nt = N // nb
+    try:
+        base, t0 = start_path()
+        X, iters, info = solver(Mp, Bp)
+        torch.cuda.synchronize()
+        expect = ({"potrf_tile": nt, "trsm_right_lower_t": nt - 1,
+                   "trsm_left_lower": nt * calls[0]} if chol else
+                  {"panel_plu_pallas": nt,
+                   "trsm_left_lower": nt - 1 + nt * calls[0]})
+        ms, launches, _ = end_path(base, t0, expect)
+    finally:
+        getrf_mod.getrs, potrf_mod.potrs = real
+    fell_back = mixed.used_fallback()
+    err = backward_error(Mp, X, Bp)
+    limit = 10 * N * torch.finfo(B.dtype).eps / 2
+    say(f"  {label} {str(B.dtype)[6:]} nrhs={B.n} nb={nb} Grid({grid.p},"
+        f"{grid.q}): iters {iters}, info {int(info)}, fallback {fell_back}, "
+        f"{calls[0]} solves, ms {ms:.3f} (Grid(1,1) ms {one_ms:.3f}), "
+        f"backward error {err:.3e} (bound 10*n*eps/2 = {limit:.3e})")
+    assert int(info) == 0 and not fell_back and iters < IR_ITERMAX, (
+        label, int(info), fell_back, iters)
+    assert X.grid == grid and bool(torch.isfinite(X.data).all())
+    assert err <= limit, (label, err)
+    return launches
+
+
+def phase_pq_mixed():
+    """3x (mixed): 3n's solves at n = 16384 on p×q grids: posv_mixed f32
+    and f64 (nrhs 8) and posv_mixed_gmres f64 (nrhs 1) on 2×2 at nb 1024;
+    gesv_mixed f32 (nrhs 8) and gesv_mixed_gmres f64 (nrhs 1) on 2×4 at
+    nb 256, the p×q LU's nb."""
+    import slate_tpu_torch as st
+    A, S = mixed_matrices()
+    gen = torch.Generator(device="cuda").manual_seed(45)
+
+    def rhs(k, dt):
+        return st.Matrix.from_dense(torch.randn(N, k, generator=gen,
+                                                device="cuda").to(dt),
+                                    nb=NB, grid=A.grid)
+
+    f64 = torch.float64
+    B8, B1 = rhs(NRHS, torch.float32), rhs(1, f64)
+    g22, g24 = st.Grid(2, 2), st.Grid(2, 4)
+    say(f"p×q mixed solves n={N} (3n's A and S):")
+    counts = {}
+    counts["posv_mixed_2x2"] = mixed_pq_case(
+        "posv_mixed", st.posv_mixed, S, B8, g22, True, NB)
+    counts["gesv_mixed_2x4"] = mixed_pq_case(
+        "gesv_mixed", st.gesv_mixed, A, B8, g24, False, PQ_LU_NB)
+    A64, S64 = A.astype(f64), S.astype(f64)
+    del A, S
+    mixed_pq_case("posv_mixed", st.posv_mixed, S64, B8.astype(f64), g22,
+                  True, NB)
+    mixed_pq_case("posv_mixed_gmres", st.posv_mixed_gmres, S64, B1, g22,
+                  True, NB)
+    mixed_pq_case("gesv_mixed_gmres", st.gesv_mixed_gmres, A64, B1, g24,
+                  False, PQ_LU_NB)
+    return counts
+
+
+def phase_pq_inverses_health():
+    """3x (inverses, health): getri and potri at 16384/1024 on 2×2 (3p's
+    ratio; getri launches nothing, its solves being upper and right-side,
+    potri's trtri K3 once a step in each grid column), each beside
+    Grid(1, 1); potrf and getrf with ``health=True`` on 2×2, growth
+    against 3o's true rcond, K3 16 for each condest solve."""
+    import slate_tpu_torch as st
+    from slate_tpu_torch.linalg import getrf as getrf_mod
+    from slate_tpu_torch.linalg import potrf as potrf_mod
+    A1, S1 = mixed_matrices()
+    g = st.Grid(2, 2)
+    A, S = A1.redistribute(g), S1.redistribute(g)
+    nt = N // NB
+    counts = {}
+    for label in ("getri", "potri"):
+        if label == "getri":
+            F1, F = st.getrf(A1)[:2], st.getrf(A)[:2]
+            fn, M, expect = st.getri, A1, {}
+        else:
+            F1, F = st.potrf(S1)[:1], st.potrf(S)[:1]
+            fn, M, expect = st.potri, S1, {"trsm_left_lower": 2 * nt}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*F1)
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        base, t0 = start_path()
+        X = fn(*F)
+        ms, counts[f"{label}_2x2"], _ = end_path(base, t0, expect)
+        ratio = inverse_ratio(M.to_dense(), X.to_dense())
+        say(f"  {label} n={N} nb={NB} Grid(2,2): ms {ms:.3f} (Grid(1,1) ms "
+            f"{one_ms:.3f}), ratio |I - A*X|_1/(n*|A|_1*|X|_1*eps) "
+            f"{ratio:.3e} (bound 30)")
+        assert X.grid == g and ratio <= 30, (label, ratio)
+        del X, F, F1
+    for label, fn, mod, name, expect in (
+            ("potrf", lambda: st.potrf(S, health=True), potrf_mod, "potrs",
+             {"potrf_tile": nt, "trsm_right_lower_t": nt - 1}),
+            ("getrf", lambda: st.getrf(A, health=True), getrf_mod, "getrs",
+             {"trsm_left_lower": nt - 1})):
+        calls = [0]
+        real = getattr(mod, name)
+
+        def run(*a, real=real, **kw):
+            calls[0] += 1
+            return real(*a, **kw)
+
+        setattr(mod, name, run)
+        try:
+            base, t0 = start_path()
+            rep = fn()[-1]
+            torch.cuda.synchronize()
+            want = dict(expect)
+            want["trsm_left_lower"] = want.get("trsm_left_lower", 0) + \
+                nt * calls[0]
+            ms, counts[f"{label}_health_2x2"], _ = end_path(base, t0, want)
+        finally:
+            setattr(mod, name, real)
+        if label not in RCOND:                       # 3x run alone
+            RCOND[label] = true_rcond(
+                (S1 if label == "potrf" else A1).to_dense().double())
+        rcond = RCOND[label]
+        say(f"  {label}(health=True) Grid(2,2): info {rep.info}, growth "
+            f"{rep.growth:.6e}, true rcond {rcond:.6e} (ratio "
+            f"{rep.growth / rcond:.4f}, bounds [1 - 1e-4, 10]), "
+            f"{calls[0]} condest solves, ms {ms:.1f}")
+        assert rep.info == 0 and rep.growth is not None
+        assert rcond * (1 - 1e-4) <= rep.growth <= 10 * rcond
+    return counts
+
+
+def phase_pq_utils():
+    """3x (utils): every generator kind at 4096/256 (structured 2048) on
+    2×4 bit for bit the Grid(1, 1) matrix; add, scale, scale_row_col and
+    set_matrix on 2×4 equal to 1×1 bit for bit."""
+    import slate_tpu_torch as st
+    from slate_tpu_torch.utils import generator as gen_mod
+    g1, g24 = st.Grid(1, 1), st.Grid(2, 4)
+    kinds = gen_mod.FORMULA_KINDS + gen_mod._RANDOM_KINDS + \
+        gen_mod._STRUCTURED_KINDS
+    for kind in kinds:
+        n = GEN_STRUCT_N if kind in gen_mod._STRUCTURED_KINDS else GEN_N
+        x, y = (st.generate_matrix(kind, n, nb=GEN_NB, grid=g, seed=5,
+                                   dist="geo") for g in (g24, g1))
+        assert x.grid == g24 and torch.equal(x.to_dense(), y.to_dense()), \
+            kind
+    x, y = (st.random_spd(GEN_N, GEN_NB, g, seed=5) for g in (g24, g1))
+    spd_err = rel_err(x.to_dense(), y.to_dense())
+    assert spd_err <= 10 * GEN_N * 2.0 ** -24, spd_err
+    gen = torch.Generator(device="cuda").manual_seed(46)
+    a = torch.randn(GEN_N, GEN_N, generator=gen, device="cuda")
+    r, c = (torch.randn(GEN_N, generator=gen, device="cuda")
+            for _ in range(2))
+    ops = {"add": lambda A: st.add(2.0, A, -0.5, A),
+           "scale": lambda A: st.scale(3.0, 7.0, A),
+           "scale_row_col": lambda A: st.scale_row_col(r, c, A),
+           "set_matrix": lambda A: st.set_matrix(0.25, 2.0, A)}
+    for name, op in ops.items():
+        x, y = (op(st.Matrix.from_dense(a, nb=GEN_NB, grid=g))
+                for g in (g24, g1))
+        assert torch.equal(x.to_dense(), y.to_dense()), name
+    say(f"  generator on Grid(2,4) {GEN_N}/{GEN_NB} (structured "
+        f"{GEN_STRUCT_N}): all {len(kinds)} kinds bit for bit the Grid(1,1)"
+        f" matrix; random_spd rel_err {spd_err:.3e}; {', '.join(ops)} on "
+        f"Grid(2,4) equal to Grid(1,1) bit for bit")
+
+
+def phase_pq_complex():
+    """3x (complex64): hesv 8192/256, posv 8192/1024 and gesv 8192/256 on
+    2×2: info 0, ‖A·X − B‖/(‖A‖·‖X‖) ≤ 10·n·2⁻²⁴, no kernel launched."""
+    import slate_tpu_torch as st
+    c64 = torch.complex64
+    n = PQ_CPLX_N
+    g = st.Grid(2, 2)
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    gc = crandn(gen, n, n)
+    h = (gc + gc.mH) / 2
+    b = crandn(gen, n, NRHS)
+    hpd = h + 4 * n ** 0.5 * torch.eye(n, device="cuda")
+    M = lambda t, cls=st.Matrix, nb=AASEN_NB: cls.from_dense(  # noqa: E731
+        t, nb=nb, grid=g)
+    say(f"  complex64 on Grid(2,2), n={n} nrhs={NRHS}:")
+    complex_path(f"hesv nb={AASEN_NB} Grid(2,2)",
+                 lambda: solution_info(st.hesv(M(h.tril(),
+                                                 st.HermitianMatrix),
+                                               M(b))),
+                 c64, n, lambda X: (cresidual(h, X.to_dense(), b), ""))
+    complex_path(f"posv nb={NB} Grid(2,2)",
+                 lambda: solution_info(st.posv(
+                     M(hpd, st.HermitianMatrix, NB), M(b, nb=NB))),
+                 c64, n, lambda X: (cresidual(hpd, X.to_dense(), b), ""))
+    complex_path(f"gesv nb={PQ_LU_NB} Grid(2,2)",
+                 lambda: solution_info(st.gesv(M(gc, nb=PQ_LU_NB),
+                                               M(b, nb=PQ_LU_NB))),
+                 c64, n, lambda X: (cresidual(gc, X.to_dense(), b), ""))
+
+
+def phase_pq_solvers():
+    """3x: p×q inverses, condest, mixed solves and Aasen. Returns the
+    launches by path."""
+    t = {}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        t[name] = time.perf_counter() - t0
+        return out
+
+    say("p×q inverses, condest, mixed solves and Aasen:")
+    counts = part("aasen", phase_pq_aasen)
+    counts.update(part("mixed", phase_pq_mixed))
+    counts.update(part("inverses and health", phase_pq_inverses_health))
+    part("utils", phase_pq_utils)
+    part("complex64", phase_pq_complex)
+    say("  3x parts (s): " + ", ".join(f"{k} {v:.1f}" for k, v in t.items()))
+    return counts
+
+
 def timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -5055,6 +5402,8 @@ def main() -> int:
     counts.update(timed("3v p×q grids on one card", phase_pq))
     counts.update(timed("3w p×q least squares and two-stage",
                         phase_pq_two_stage))
+    counts.update(timed("3x p×q inverses, condest, mixed and hesv",
+                        phase_pq_solvers))
     timed("4 failure report", phase_failure_report)
     timed("4b LU failure report", phase_lu_failure_report)
     timed("4c QR and unpivoted-LU failure report",

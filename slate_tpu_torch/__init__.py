@@ -22,21 +22,27 @@ panel and bulge-chase ops run hand-written CUDA kernels for Hopper
 (sm_90a) on the card, built with ``nvcc`` at first use (``csrc/``), and
 their plain PyTorch versions on the CPU.
 
-The solvers take float32, float64, complex64 and complex128. No kernel
-takes complex, as no Pallas kernel of the JAX package does: the
-capability table sends complex to the ``torch.linalg``, cuBLAS and
-cuSOLVER ops, as the JAX package sends it to XLA. The two-stage
-eigensolver and SVD (``he2hb``, ``ge2tb`` and so ``heev`` two-stage,
-``gesvd`` and ``hegv``) take real dtypes only so far.
+The solvers, the two-stage eigensolver and SVD included, take float32,
+float64, complex64 and complex128. The tile and panel kernels take real
+dtypes, as the Pallas kernels of the JAX package do: the capability
+table sends complex to the ``torch.linalg``, cuBLAS and cuSOLVER ops,
+as the JAX package sends it to XLA; the bulge chases K8/K9 take all
+four types.
 
 Entry points run on the CUDA card unless the caller asks for the CPU:
 ``Grid(1, 1)`` means ``torch.device("cuda")`` and raises without one;
 ``Grid(1, 1, device="cpu")`` runs on the CPU. ``Grid(p, q)`` holds p·q
 virtual ranks on that one device, the tiles rank-stacked in the JAX
-package's block-cyclic layout: the Cholesky and LU solves (with and
-without pivoting, in lookahead super-step chunks), ``gemm``, ``herk``,
-``syrk``, ``trsm`` and the norms run on it through the collectives of
-``internal/comm.py``; every other entry point refuses a p×q grid.
+package's block-cyclic layout, every cross-rank read through the
+collectives of ``internal/comm.py``. On it run the Cholesky and LU
+solves (with and without pivoting, in super-step chunks), QR/LQ and
+least squares, the two-stage eigensolver and SVD with ``hegst``/
+``hegv``, the dense Level-3 BLAS, the norms, the elementwise ops and
+the generator, the inverses, condition estimates and ``health=True``
+reports, the mixed-precision solves, Aasen's ``hetrf``/``hetrs``/
+``hesv`` and ``gbtrs`` with a p×q right-hand side; the band
+factorizations and the band BLAS (``gbtrf``, ``gbsv``, ``pbtrf``,
+``pbtrs``, ``pbsv``, ``gbmm``, ``hbmm``, ``tbsm``) refuse a p×q grid.
 
 The test-matrix generator, printing and debug aids are in ``utils/``
 and the version stamp in ``version.py``, as in the JAX package.

@@ -191,6 +191,38 @@ def gather_rows(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return _expand(got.transpose(0, 1).unsqueeze(0), p, q)
 
 
+def gather_cols(x: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Element columns of a rank-stacked tile array to every rank of each
+    grid row, the column analog of :func:`gather_rows`: ``cols`` a 1-D
+    tensor of global element columns; returns ``[p, q, len(cols), mtl,
+    nb]``, column t's local-row data of grid row r on every rank of that
+    row (the JAX package's masked ``psum_cols`` of candidate columns,
+    getrf.py:1590-1640)."""
+    p, q, mtl, ntl, nb, _ = x.shape
+    cols = cols.to(device=x.device, dtype=torch.long)
+    tile = cols // nb
+    got = x[:, tile % q, :, tile // q, :, cols % nb]   # [C, p, mtl, nb]
+    return _expand(got.transpose(0, 1).unsqueeze(1), p, q)
+
+
+def shift_tile_cols(x: torch.Tensor) -> torch.Tensor:
+    """The tile columns of a rank-stacked tile array moved right by one
+    global tile column: tile (i, j) of the result is tile (i, j − 1) of
+    ``x``, tile column 0 is zero and the last is dropped. Each tile moves
+    from grid column (j − 1) % q to j % q (a ring shift of the tile
+    columns; the JAX package's eager ``concatenate`` of the global tile
+    array, hetrf.py:282-306)."""
+    p, q, mtl, ntl, nb, _ = x.shape
+    dev = x.device
+    j = (torch.arange(ntl, device=dev).view(1, ntl) * q
+         + torch.arange(q, device=dev).view(q, 1))      # [q, ntl] global
+    src = (j - 1).clamp(min=0)
+    out = x[:, src % q, :, src // q]                    # [q, ntl, p, mtl, ..]
+    out = out.permute(2, 0, 3, 1, 4, 5)
+    keep = (j >= 1).view(1, q, 1, ntl, 1, 1)
+    return torch.where(keep, out, torch.zeros_like(out))
+
+
 def gather_tiles(x: torch.Tensor, rows: torch.Tensor,
                  cols: torch.Tensor) -> torch.Tensor:
     """Global tiles (rows[t], cols[t]) of a rank-stacked tile array from

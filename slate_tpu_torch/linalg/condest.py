@@ -5,7 +5,9 @@
 LAPACK ?gecon semantics: rcond = 1 / (‖A‖₁ · est(‖A⁻¹‖₁)). The
 Hager/Higham estimator runs on the host in f64 numpy and drives the
 port's solves on [n, 1] matrices, as the reference's norm1est loop sits
-above its solvers.
+above its solvers. Each vector is laid out on the factor's grid and tile
+size, so on a p×q grid the solves are the p×q ``getrs``/``potrs``/
+``trsm``.
 """
 
 from __future__ import annotations
@@ -13,7 +15,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..grid import require_one_rank
 from ..matrix import Matrix, conj_transpose, transpose
 from ..ops.blas import trsm
 from ..ops.norms import norm
@@ -67,7 +68,6 @@ def _rcond(Anorm: float, inv_est: float) -> float:
 
 def gecondest(norm_kind: Norm, LU: Matrix, piv, Anorm: float, opts=None):
     """rcond estimate from getrf factors (reference src/gecondest.cc)."""
-    require_one_rank(LU.grid, "gecondest")
     from .getrf import getrs
     cplx = LU.dtype.is_complex
     opT = Op.ConjTrans if cplx else Op.Trans
@@ -82,7 +82,6 @@ def gecondest(norm_kind: Norm, LU: Matrix, piv, Anorm: float, opts=None):
 def pocondest(norm_kind: Norm, L, Anorm: float, opts=None):
     """rcond estimate from the Cholesky factor (LAPACK pocon
     semantics)."""
-    require_one_rank(L.grid, "pocondest")
     from .potrf import potrs
     inv_est = _onenormest(
         lambda v: _vec_solve(lambda V: potrs(L, V, opts), L, v),
@@ -94,7 +93,6 @@ def pocondest(norm_kind: Norm, L, Anorm: float, opts=None):
 def trcondest(norm_kind: Norm, A, opts=None):
     """rcond estimate of a triangular matrix (reference
     src/trcondest.cc)."""
-    require_one_rank(A.grid, "trcondest")
     cplx = A.dtype.is_complex
     opT = conj_transpose if cplx else transpose
     Anorm = float(norm(Norm.One, A))

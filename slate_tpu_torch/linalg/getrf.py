@@ -38,7 +38,9 @@ swaps to the other columns (the rows move between ranks through
 ``internal/comm.py``), solves block row k's U tiles in one K3 launch and
 updates the trailing matrix by one product. ``Option.PipelineDepth`` is
 accepted and changes nothing (one schedule: the ranks share one
-stream).
+stream). The row swaps' column analog, ``_swap_cols_local``, serves the
+p×q Aasen loop (``linalg/hetrf.py``); ``gbtrs`` solves a p×q right-hand
+side on one rank against the replicated band factor.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ import torch
 
 from .. import runtime
 from ..errors import slate_error_if
-from ..grid import require_one_rank
+from ..grid import Grid, require_one_rank
 from . import band as _band
 from ..internal import band_packed as _bp
 from ..internal import comm, masks, panel_plu
@@ -111,10 +113,7 @@ def _getrf_health(LU, piv, info, Anorm, opts):
     nonsingular and ‖A‖₁ is nonzero."""
     i = int(info)
     growth = None
-    # the condition estimate runs on one rank only (condest has no p×q
-    # form yet): a p×q report carries info and no growth, as the JAX
-    # package's does when its estimate fails
-    if i == 0 and Anorm and LU.grid.size == 1:
+    if i == 0 and Anorm:
         growth = float(gecondest(Norm.One, LU, piv, Anorm, opts))
     return health_report("getrf", i, convention="count", growth=growth)
 
@@ -784,6 +783,17 @@ class _GetrfSteps:
             0, 3, 1, 4, 2, 5)
 
 
+def _swap_moves(pivs, start: int):
+    """The swaps (start + j) ↔ ``pivs[j]`` in order, composed on the host
+    into the moves ``(destination, source)`` of the lines they change."""
+    content = {}
+    for j, b in enumerate(pivs):
+        a = start + j
+        ca, cb = content.get(a, a), content.get(b, b)
+        content[a], content[b] = cb, ca
+    return [(t, s) for t, s in sorted(content.items()) if s != t]
+
+
 def _swap_rows_local(d, pivs, start: int, keep):
     """One panel's row swaps on the rank-stacked tiles ``d``
     (``getrf.py:1515-1588``): global rows (start + j) ↔ ``pivs[j]`` in
@@ -792,12 +802,7 @@ def _swap_rows_local(d, pivs, start: int, keep):
     through :func:`~..internal.comm.gather_rows`; each rank writes its
     own."""
     p, q, _, _, nb, _ = d.shape
-    content = {}
-    for j, b in enumerate(pivs):
-        a = start + j
-        ca, cb = content.get(a, a), content.get(b, b)
-        content[a], content[b] = cb, ca
-    moves = [(t, s) for t, s in sorted(content.items()) if s != t]
+    moves = _swap_moves(pivs, start)
     if not moves:
         return
     dev = d.device
@@ -810,6 +815,30 @@ def _swap_rows_local(d, pivs, start: int, keep):
     old = d[dr, :, ds, :, di, :]                     # [M, q, ntl, nb]
     d[dr, :, ds, :, di, :] = torch.where(keep[None, :, :, None],
                                          got[dr, :, sel], old)
+
+
+def _swap_cols_local(d, pivs, start: int, min_col: int = 0):
+    """The column analog of :func:`_swap_rows_local` (``getrf.py:
+    1590-1640``): global columns (start + j) ↔ ``pivs[j]`` in order over
+    every row, on the tile columns from ``min_col``; the symmetric
+    (Aasen) factorization permutes rows and columns. The changed columns
+    come from their owners through :func:`~..internal.comm.gather_cols`;
+    each rank writes its own."""
+    nb = d.shape[4]
+    moves = [(t, s) for t, s in _swap_moves(pivs, start)
+             if t // nb >= min_col]
+    if not moves:
+        return
+    dev = d.device
+    dst = torch.tensor([t for t, _ in moves], device=dev)
+    src = torch.tensor([s for _, s in moves], device=dev)
+    q = d.shape[1]
+    dt = dst // nb
+    sel = torch.arange(len(moves), device=dev)
+    got = comm.gather_cols(d, src)                   # [p, q, M, mtl, nb]
+    # [M, p, mtl, nb]: move m's column on every rank row of its owner
+    d[:, dt % q, :, dt // q, :, dst % nb] = got.permute(2, 0, 1, 3, 4)[
+        sel, :, dt % q]
 
 
 def _getrf_chunk_core(A, data, piv, info, k0, klen, tier=None,
@@ -856,9 +885,15 @@ def gbtrs(F, piv=None, B: Matrix = None, trans: Op = Op.NoTrans,
           opts=None) -> Matrix:
     """Solve op(A)·X = B from gbtrf factors (reference src/gbtrs.cc,
     row swaps at panel-block granularity). ``piv`` defaults to the
-    factor's own pivots."""
-    require_one_rank(B.grid, "gbtrs")
+    factor's own pivots. The band factor is replicated; a p×q B is
+    gathered to one rank, solved there and scattered back over the
+    block-cyclic map (``band.py:487-502``), so it gets the bits of the
+    Grid(1, 1) solve."""
     slate_error_if(F.n != B.m, "gbtrs dims")
+    if B.grid.size > 1:
+        one = Grid(1, 1, device=B.grid.device)
+        X = gbtrs(F, piv, B.redistribute(one), trans, opts)
+        return X.redistribute(B.grid)
     B = check_rhs_dtype(B.materialize(), F.ab.dtype)
     pv = F.piv if piv is None else piv
     pad = cdiv(min(F.m, F.n), F.nb) * F.nb + F.kl + F.kl + F.ku

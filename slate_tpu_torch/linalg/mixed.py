@@ -17,6 +17,11 @@ drives the device's factorization and solves, as the reference's
 driver loop does; the GMRES Hessenberg least-squares problem is solved
 on the host in numpy.
 
+On a p×q grid the legs are the p×q ``getrf``/``potrf`` (at the low
+leg's tier), ``getrs``/``potrs``, ``gemm``, ``norm`` and ``add``, and the
+GMRES inner products sum every rank's slots (the padding is zero on
+every rank), as the JAX package's ``mixed.py:59-266`` does on a mesh.
+
 Whether the last solve on this thread took the full-precision fallback
 is read with :func:`used_fallback`.
 """
@@ -28,7 +33,7 @@ import threading
 import numpy as np
 import torch
 
-from ..grid import require_one_rank
+from ..internal import comm
 from ..matrix import HermitianMatrix, Matrix
 from ..ops.blas import gemm
 from ..ops.elementwise import add
@@ -137,7 +142,6 @@ def _chol_legs(A, opts, info_box, set_info_hi: bool):
 def gesv_mixed(A: Matrix, B: Matrix, opts=None):
     """LU in low precision and IR in working precision (reference
     src/gesv_mixed.cc). Returns ``(X, iters, info)``."""
-    require_one_rank(A.grid, "gesv_mixed")
     info_box = {}
     X, iters, _ = _ir_loop(A, B, *_lu_legs(A, opts, info_box, True), opts)
     return X, iters, info_box.get("info")
@@ -146,7 +150,6 @@ def gesv_mixed(A: Matrix, B: Matrix, opts=None):
 def posv_mixed(A: HermitianMatrix, B: Matrix, opts=None):
     """Cholesky in low precision and IR (reference src/posv_mixed.cc).
     Returns ``(X, iters, info)``."""
-    require_one_rank(A.grid, "posv_mixed")
     info_box = {}
     X, iters, _ = _ir_loop(A, B, *_chol_legs(A, opts, info_box, True),
                            opts)
@@ -164,8 +167,13 @@ def _scaled(V, s):
 
 
 def _dot(U, V) -> torch.Tensor:
-    """⟨U, V⟩, the Frobenius inner product of two same-shape matrices."""
-    return (U.data.conj() * V.data).sum()
+    """⟨U, V⟩, the Frobenius inner product of two same-shape matrices on
+    one grid: each rank's sum over its slots, then the sum over the ranks
+    (the padding is zero on every rank)."""
+    prod = U.data.conj() * V.data
+    if U.grid.size == 1:
+        return prod.sum()
+    return comm.psum_all(prod.sum(dim=(2, 3, 4, 5)))[0, 0]
 
 
 def _gmres_ir(A, B, factor_lo, solve_lo, solve_hi, opts,
@@ -226,7 +234,6 @@ def _gmres_ir(A, B, factor_lo, solve_lo, solve_hi, opts,
 def gesv_mixed_gmres(A: Matrix, B: Matrix, opts=None):
     """GMRES-IR LU solver (reference src/gesv_mixed_gmres.cc). Returns
     ``(X, iters, info)``."""
-    require_one_rank(A.grid, "gesv_mixed_gmres")
     info_box = {}
     X, iters, _ = _gmres_ir(A, B, *_lu_legs(A, opts, info_box, False),
                             opts)
@@ -236,7 +243,6 @@ def gesv_mixed_gmres(A: Matrix, B: Matrix, opts=None):
 def posv_mixed_gmres(A: HermitianMatrix, B: Matrix, opts=None):
     """GMRES-IR Cholesky solver (reference src/posv_mixed_gmres.cc).
     Returns ``(X, iters, info)``."""
-    require_one_rank(A.grid, "posv_mixed_gmres")
     info_box = {}
     X, iters, _ = _gmres_ir(A, B, *_chol_legs(A, opts, info_box, False),
                             opts)

@@ -94,10 +94,7 @@ def _potrf_health(L, info, Anorm, opts):
     succeeded and ‖A‖₁ is nonzero."""
     i = int(info)
     growth = None
-    # the condition estimate runs on one rank only (condest has no p×q
-    # form yet): a p×q report carries info and no growth, as the JAX
-    # package's does when its estimate fails
-    if i == 0 and Anorm and L.grid.size == 1:
+    if i == 0 and Anorm:
         growth = float(pocondest(Norm.One, L, Anorm, opts))
     return health_report("potrf", i, convention="first_block", growth=growth)
 

@@ -8,11 +8,16 @@ right-hand side as wide as the matrix. getri follows the reference's
 algorithm: U⁻¹ by trtri, then X·L = U⁻¹ (a right unit-lower solve) and
 the column swaps in reverse order (A⁻¹ = U⁻¹·L⁻¹·P), 4n³/3 flops. potri
 forms L⁻ᴴ·L⁻¹ with one product, the reference's trtrm step.
+
+On a p×q grid each is the same composition of p×q routines, as in the
+JAX package: the identity by ``set_matrix``, ``trsm`` on either side
+(the SPMD block substitutions), the product by SUMMA ``gemm`` and
+getri's column swaps as row swaps of the block-cyclic transpose of X
+(``_apply_pivots_matrix``, the rows fetched from their owners).
 """
 
 from __future__ import annotations
 
-from ..grid import require_one_rank
 from ..matrix import (HermitianMatrix, Matrix, TriangularMatrix,
                       conj_transpose, transpose)
 from ..ops.blas import _extract_triangle, gemm, trsm
@@ -27,7 +32,6 @@ def _identity_like(A) -> Matrix:
 
 def trtri(A: TriangularMatrix, opts=None) -> TriangularMatrix:
     """A⁻¹ of a triangular matrix (reference src/trtri.cc)."""
-    require_one_rank(A.grid, "trtri")
     X = trsm(Side.Left, 1.0, A, _identity_like(A), opts)
     return TriangularMatrix(data=X.data, m=A.m, n=A.n, nb=A.nb,
                             grid=A.grid, uplo=A.uplo, diag=A.diag)
@@ -38,7 +42,6 @@ def trtrm(A: TriangularMatrix, opts=None) -> HermitianMatrix:
     src/trtrm.cc, LAPACK lauum; the second half of potri), both triangles
     stored. The JAX package forms Aᴴ·A for either, which for an upper
     factor is not the inverse potri needs."""
-    require_one_rank(A.grid, "trtrm")
     At = _extract_triangle(A)
     C = Matrix.zeros(A.n, A.n, A.nb, A.grid, dtype=A.dtype)
     if A.uplo == Uplo.Upper:
@@ -52,14 +55,12 @@ def trtrm(A: TriangularMatrix, opts=None) -> HermitianMatrix:
 def potri(L: TriangularMatrix, opts=None) -> HermitianMatrix:
     """A⁻¹ from the Cholesky factor: A⁻¹ = L⁻ᴴ·L⁻¹, or U⁻¹·U⁻ᴴ for an
     upper factor (src/potri.cc)."""
-    require_one_rank(L.grid, "potri")
     return trtrm(trtri(L, opts), opts)
 
 
 def getri(LU: Matrix, piv, opts=None) -> Matrix:
     """A⁻¹ from getrf factors (reference src/getri.cc): U⁻¹ by trtri,
     then X·L = U⁻¹ and the column permutation (A⁻¹ = U⁻¹·L⁻¹·P)."""
-    require_one_rank(LU.grid, "getri")
     from .getrf import _apply_pivots_matrix
     n = LU.n
     U = TriangularMatrix(data=LU.data, m=n, n=n, nb=LU.nb, grid=LU.grid,

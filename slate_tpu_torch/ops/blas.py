@@ -15,7 +15,9 @@ bodies over the rank-stacked tiles (``blas.py:131-352``, ``:560-660``),
 with the collectives of ``internal/comm.py``; ``hemm``/``symm``,
 ``her2k``/``syr2k`` and ``trmm`` normalise their shaped operand on the
 grid (the mirror through the block-cyclic transpose) and multiply by
-those. The band routines run on one rank only and refuse a p×q grid.
+those. The band BLAS (``gbmm``, ``hbmm``, ``tbsm``) runs on one rank
+only and refuses a p×q grid, as do the band factorizations (``gbtrs``
+alone takes a p×q right-hand side, ``linalg/getrf.py``).
 """
 
 from __future__ import annotations

@@ -6,18 +6,19 @@ distributions with a counter-based RNG, so that an entry depends on
 (seed, i, j) only and not on the process grid (CHANGELOG.md:8-9).
 
 * **Formula kinds** (:data:`FORMULA_KINDS`) are evaluated on the
-  matrix's device from global (i, j), straight into the tile stack; no
-  host matrix is formed. The arithmetic runs in the JAX package's
-  precision (f32 for f32/c64 storage, f64 for f64/c128); the
+  matrix's device from global (i, j), straight into the rank-stacked
+  tile array; no host matrix is formed. The arithmetic runs in the JAX
+  package's precision (f32 for f32/c64 storage, f64 for f64/c128); the
   transcendental terms (sin, cos, powers of ½) are evaluated in f64 and
   rounded to it, so the card and the CPU agree to rounding.
 * **Random kinds** (rand/randu, rands, randn, randb, randr) draw from a
   counter-based hash in torch integer ops, keyed by (seed, global tile
   index) as the JAX package folds the tile index into its key: each
-  entry is a function of (seed, i, j) alone, and the card and the CPU
-  give the same bits for the uniform and binary kinds (randn's
-  Box–Muller transform runs in f64 and is rounded to f32, so it agrees
-  to rounding). ``torch.Generator`` streams differ between the CPU and
+  entry is a function of (seed, i, j) alone, so a p×q grid gives the
+  bits of Grid(1, 1) (each slot draws the tile at its global index), and
+  the card and the CPU give the same bits for the uniform and binary
+  kinds (randn's Box–Muller transform runs in f64 and is rounded to f32,
+  so it agrees to rounding). ``torch.Generator`` streams differ between the CPU and
   CUDA and cannot give that. The hash is not JAX's threefry, so the
   values differ from the JAX package's; their distributions are the
   same. As in the JAX package, entries are drawn as f32 and cast, so a
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 
 from ..errors import SlateError
-from ..grid import Grid, default_grid, require_one_rank
+from ..grid import Grid, default_grid
 from ..internal import masks
 from ..matrix import HermitianMatrix, Matrix, cdiv
 
@@ -59,8 +60,21 @@ def _real_dtype(dtype: torch.dtype) -> torch.dtype:
         else torch.float32
 
 
-def _default_nb(m: int) -> int:
-    return min(256, max(8, m))
+def _default_nb(m: int, grid: Grid) -> int:
+    """The JAX package's default tile size (``generator.py:42-43``): the
+    rows a rank holds along the longer grid axis, within [8, 256]."""
+    return min(256, max(8, m // max(grid.p, grid.q)))
+
+
+def _grid_geometry(m: int, n: int, nb: int, grid: Grid):
+    """``(mtl, ntl, er, ec)``: the local tile counts of an m×n matrix on
+    ``grid`` and the global row and column of every element of its
+    rank-stacked tile array (broadcastable to ``[p, q, mtl, ntl, nb,
+    nb]``)."""
+    mtl, ntl = cdiv(cdiv(m, nb), grid.p), cdiv(cdiv(n, nb), grid.q)
+    er, ec = masks.grid_elem_index(grid.p, grid.q, mtl, ntl, nb,
+                                   grid.device)
+    return mtl, ntl, er, ec
 
 
 def _mix32(x: torch.Tensor) -> torch.Tensor:
@@ -89,10 +103,10 @@ def _uniform24(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * 2.0 ** -24
 
 
-def _random_tiles(kind: str, seed: int, mtl: int, ntl: int, nb: int,
-                  nt: int, device) -> torch.Tensor:
-    """f32 tile stack [mtl, ntl, nb, nb] of a random kind."""
-    er, ec = masks.elem_index(mtl, ntl, nb, device)
+def _random_tiles(kind: str, seed: int, er: torch.Tensor, ec: torch.Tensor,
+                  nb: int, nt: int) -> torch.Tensor:
+    """f32 tiles of a random kind at the global element rows ``er`` and
+    columns ``ec``, keyed by each element's global tile."""
     tile = (er // nb) * nt + ec // nb
     elem = (er % nb) * nb + ec % nb
     bits = _draw_bits(seed, tile, elem, 0)
@@ -119,13 +133,11 @@ def random_matrix(m: int, n: int, nb: int | None = None,
     """Random matrix on the grid's device; entries depend only on (seed,
     i, j). Drawn as f32 and cast to ``dtype``, as in the JAX package."""
     grid = grid or default_grid()
-    require_one_rank(grid, "random_matrix")
-    nb = nb or _default_nb(m)
-    mtl, ntl = cdiv(m, nb), cdiv(n, nb)
-    t = _random_tiles(kind, seed, mtl, ntl, nb, cdiv(n, nb), grid.device)
-    valid = masks.valid_mask(mtl, ntl, nb, m, n, grid.device)
-    data = torch.where(valid, t, 0.0).to(_torch_dtype(dtype))
-    return Matrix(data=data[None, None], m=m, n=n, nb=nb, grid=grid)
+    nb = nb or _default_nb(m, grid)
+    mtl, ntl, er, ec = _grid_geometry(m, n, nb, grid)
+    t = _random_tiles(kind, seed, er, ec, nb, cdiv(n, nb))
+    data = torch.where((er < m) & (ec < n), t, 0.0).to(_torch_dtype(dtype))
+    return Matrix(data=data, m=m, n=n, nb=nb, grid=grid)
 
 
 # Gallery kinds as elementwise (i, j) formulas (the JAX package's
@@ -238,14 +250,12 @@ def _dist_values(dist: str, n: int, cond: float) -> np.ndarray:
 
 
 def _formula_matrix(kind, m, n, nb, grid, dtype, sigma):
-    dev = grid.device
-    mtl, ntl = cdiv(m, nb), cdiv(n, nb)
-    er, ec = masks.elem_index(mtl, ntl, nb, dev)
-    i, j = er.expand(mtl, ntl, nb, nb), ec.expand(mtl, ntl, nb, nb)
+    mtl, ntl, er, ec = _grid_geometry(m, n, nb, grid)
+    shape = (grid.p, grid.q, mtl, ntl, nb, nb)
+    i, j = er.expand(shape), ec.expand(shape)
     fd = _real_dtype(dtype)
-    t = _formula(kind, i, j, m, n, sigma.to(dev), fd)
-    valid = masks.valid_mask(mtl, ntl, nb, m, n, dev)
-    data = torch.where(valid, t, 0.0).to(dtype)[None, None]
+    t = _formula(kind, i, j, m, n, sigma.to(grid.device), fd)
+    data = torch.where((er < m) & (ec < n), t, 0.0).to(dtype)
     if kind in _HERMITIAN_FORMULAS and m == n:
         return HermitianMatrix(data=data, m=m, n=n, nb=nb, grid=grid)
     return Matrix(data=data, m=m, n=n, nb=nb, grid=grid)
@@ -260,7 +270,6 @@ def generate_matrix(kind: str, m: int, n: int | None = None,
     kinds (the reference's ``_dominant`` modifier)."""
     n = n if n is not None else m
     grid = grid or default_grid()
-    require_one_rank(grid, "generate_matrix")
     dtype = _torch_dtype(dtype)
     if kind in ("geev", "geevx"):
         raise NotImplementedError(f"matrix kind '{kind}' — not "
@@ -276,8 +285,8 @@ def generate_matrix(kind: str, m: int, n: int | None = None,
         sigma = (torch.as_tensor(_dist_values(dist, min(m, n), cond),
                                  dtype=sd)
                  if kind == "diag" else torch.zeros(1, dtype=sd))
-        return _formula_matrix(kind, m, n, nb or _default_nb(m), grid,
-                               dtype, sigma)
+        return _formula_matrix(kind, m, n, nb or _default_nb(m, grid),
+                               grid, dtype, sigma)
     if kind in _STRUCTURED_KINDS:
         rng = np.random.default_rng(seed)
         if kind == "svd":
@@ -301,11 +310,10 @@ def generate_matrix(kind: str, m: int, n: int | None = None,
 def random_spd(n: int, nb: int | None = None, grid: Grid | None = None,
                dtype=torch.float32, seed: int = 0) -> HermitianMatrix:
     """SPD matrix A = G·Gᵀ/n + I on the grid's device from a randn G, by
-    ``syrk``; no host matrix."""
+    ``syrk`` (the p×q SPMD form on a p×q grid); no host matrix."""
     from ..ops.blas import syrk
     from ..ops.elementwise import _add_scaled_identity
     grid = grid or default_grid()
-    require_one_rank(grid, "random_spd")
     G = random_matrix(n, n, nb, grid, dtype, seed, "randn")
     C = HermitianMatrix.zeros(n, n, G.nb, grid, dtype=_torch_dtype(dtype))
     C = syrk(1.0 / n, G, 0.0, C)

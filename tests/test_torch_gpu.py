@@ -1635,3 +1635,63 @@ def test_pq_chase_launches_per_call(cuda):
         torch.cuda.synchronize()
         expect = {**dict.fromkeys(K.LAUNCHES, 0), **want}
         assert dict(K.LAUNCHES) == expect, (label, dict(K.LAUNCHES))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.complex64],
+                         ids=["f32", "c64"])
+def test_pq_hesv_getri_mixed_on_card_match_cpu(cuda, dt):
+    """hesv, getri and gesv_mixed on a 2×4 grid at n = 512, nb = 128 on
+    the card (K10, K3 in float32) and on the CPU (their plain versions;
+    complex64 runs the torch ops on both): pivots and ``info`` equal, no
+    fallback; A⁻¹ and gesv_mixed's X within 10·n·2⁻²⁴ of each other
+    (A = G + 2√n·I, κ ≈ 3); hesv of a random Hermitian H, both
+    residuals within 10·n·2⁻²⁴ and X within n·2⁻²⁴·κ(H), the bound of
+    ``test_hesv_on_card_matches_cpu`` (Aasen's L and T are far worse
+    conditioned than H, in the JAX package as here)."""
+    from slate_tpu_torch.linalg import mixed
+    n, nb = 512, 128
+    gen = torch.Generator().manual_seed(26)
+
+    def rnd(*shape):
+        x = torch.randn(*shape, generator=gen, dtype=torch.float64)
+        if dt.is_complex:
+            x = x + 1j * torch.randn(*shape, generator=gen,
+                                     dtype=torch.float64)
+        return x
+
+    g0 = rnd(n, n)
+    h = ((g0 + g0.mH) / 2).to(dt)
+    a = (rnd(n, n) + 2 * n ** 0.5 * torch.eye(n)).to(dt)
+    b = rnd(n, 3).to(dt)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        g = st.Grid(2, 4, device=dev)
+        mk = lambda x: st.Matrix.from_dense(x, nb=nb, grid=g)  # noqa: E731
+        X, (_, _, piv), info = st.hesv(
+            st.HermitianMatrix.from_dense(torch.tril(h), nb=nb, grid=g),
+            mk(b))
+        LU, lpiv, linfo = st.getrf(mk(a))
+        inv = st.getri(LU, lpiv)
+        Y, iters, minfo = st.gesv_mixed(mk(a), mk(b))
+        out[dev] = (X.to_dense(), piv.cpu(), int(info), inv.to_dense(),
+                    lpiv.cpu(), int(linfo), Y.to_dense(), int(minfo), iters,
+                    mixed.used_fallback())
+    c, h_ = out["cuda"], out["cpu"]
+    bound = 10 * n * 2.0 ** -24
+    assert c[2] == h_[2] == 0 and c[5] == h_[5] == 0 and c[7] == h_[7] == 0
+    assert torch.equal(c[1], h_[1]) and torch.equal(c[4], h_[4])
+    assert not c[9] and not h_[9] and c[8] < 30 and h_[8] < 30
+    z = torch.complex128
+    hz, bz = h.to(z), b.to(z)
+
+    def crel(x, ref):
+        x, ref = x.cpu().to(z), ref.cpu().to(z)
+        return float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref))
+
+    for x in (c[0], h_[0]):
+        x = x.cpu().to(z)
+        assert float(torch.linalg.norm(hz @ x - bz) / (
+            torch.linalg.norm(hz) * torch.linalg.norm(x))) <= bound
+    kappa = float(torch.linalg.cond(hz))
+    assert crel(c[0], h_[0]) <= n * 2.0 ** -24 * kappa
+    assert crel(c[3], h_[3]) <= bound and crel(c[6], h_[6]) <= bound

@@ -1,6 +1,6 @@
 """The port's p×q grid of virtual ranks, its block-cyclic storage and its
 masks against the JAX package's, and the refusal of every entry point
-whose p×q form is not ported, on the CPU.
+whose p×q form is not ported (the band routines), on the CPU.
 
 Storage after ``from_dense``, ``redistribute``, ``from_tile_map`` and a
 resolved transpose is held bit for bit to the JAX package's
@@ -157,13 +157,11 @@ def test_masks_match_jax(p, q):
 
 
 def _refusals():
-    """Every entry point outside the p×q slices, each on a 2×2 grid."""
+    """Every entry point outside the p×q slices (the band routines and the
+    band BLAS), each on a 2×2 grid."""
     g = pgrid(2, 2)
     n = 16
     a, s = rand(n, n, seed=1), spd(n, seed=2)
-    A = pst.Matrix.from_dense(a, nb=4, grid=g)
-    H = pst.HermitianMatrix.from_dense(s, nb=4, grid=g)
-    T = pst.TriangularMatrix.from_dense(np.tril(s), nb=4, grid=g)
     B = pst.Matrix.from_dense(rand(n, 2, seed=3), nb=4, grid=g)
     BA = pst.BandMatrix.from_dense(np.triu(np.tril(a, 2), -2), nb=4, grid=g,
                                    kl=2, ku=2)
@@ -171,41 +169,23 @@ def _refusals():
                                             grid=g, kl=2, ku=2)
     TB = pst.TriangularBandMatrix.from_dense(np.tril(np.triu(s, -2)), nb=4,
                                              grid=g, kl=2, ku=0)
-    L, N_ = pst.Side.Left, pst.Norm.One
+    L = pst.Side.Left
     return {
-        "hetrf": lambda: pst.hetrf(H), "hesv": lambda: pst.hesv(H, B),
-        "hetrs": lambda: pst.hetrs(None, B),
         "gbtrf": lambda: pst.gbtrf(BA), "gbsv": lambda: pst.gbsv(BA, B),
-        "gbtrs": lambda: pst.gbtrs(None, None, B),
         "pbtrf": lambda: pst.pbtrf(HB), "pbsv": lambda: pst.pbsv(HB, B),
         "pbtrs": lambda: pst.pbtrs(None, B),
         "gbmm": lambda: pst.gbmm(1.0, BA, B, 0.0, B),
         "hbmm": lambda: pst.hbmm(L, 1.0, HB, B, 0.0, B),
         "tbsm": lambda: pst.tbsm(L, 1.0, TB, B),
-        "gesv_mixed": lambda: pst.gesv_mixed(A, B),
-        "posv_mixed": lambda: pst.posv_mixed(H, B),
-        "gesv_mixed_gmres": lambda: pst.gesv_mixed_gmres(A, B),
-        "posv_mixed_gmres": lambda: pst.posv_mixed_gmres(H, B),
-        "gecondest": lambda: pst.gecondest(N_, A, None, 1.0),
-        "pocondest": lambda: pst.pocondest(N_, T, 1.0),
-        "trcondest": lambda: pst.trcondest(N_, T),
-        "trtri": lambda: pst.trtri(T), "trtrm": lambda: pst.trtrm(T),
-        "potri": lambda: pst.potri(T), "getri": lambda: pst.getri(A, None),
-        "add": lambda: pst.add(1.0, A, 1.0, A),
-        "copy": lambda: pst.copy(A, A),
-        "scale": lambda: pst.scale(1.0, 2.0, A),
-        "scale_row_col": lambda: pst.scale_row_col(None, None, A),
-        "set_matrix": lambda: pst.set_matrix(0.0, 1.0, A),
-        "generate_matrix": lambda: pst.generate_matrix("identity", 8, grid=g),
-        "random_matrix": lambda: pst.random_matrix(8, 8, 4, g),
-        "random_spd": lambda: pst.random_spd(8, 4, g),
     }
 
 
 def _now_run():
     """The entry points that once refused a p×q grid and now run on it
-    (the least-squares, two-stage and Level-3 BLAS slice), each on 2×2
-    with the expected shape of its first output."""
+    (the least-squares, two-stage and Level-3 BLAS slice; the elementwise
+    ops, the generator, the inverses, condition estimates, mixed solves,
+    Aasen and ``gbtrs`` with a p×q B), each on 2×2 with the expected
+    shape of its first output (() for a condition estimate)."""
     g = pgrid(2, 2)
     n = 16
     a, s = rand(n, n, seed=1), spd(n, seed=2)
@@ -231,7 +211,45 @@ def _now_run():
         return pst.ge2tb(A)
 
     Lf = pst.potrf(H)[0]
+    N_ = pst.Norm.One
+
+    def lu():
+        return pst.getrf(A)[:2]
+
+    def aasen():
+        return pst.hetrf(H)[0]
+
+    def band_lu():
+        one = pst.Grid(1, 1, device="cpu")
+        return pst.gbtrf(pst.BandMatrix.from_dense(
+            np.triu(np.tril(a, 2), -2), nb=4, grid=one, kl=2, ku=2))[:2]
+
     return {
+        "add": (lambda: pst.add(1.0, A, 1.0, A), (n, n)),
+        "copy": (lambda: pst.copy(A, A), (n, n)),
+        "scale": (lambda: pst.scale(1.0, 2.0, A), (n, n)),
+        "scale_row_col": (lambda: pst.scale_row_col(
+            np.ones(n), np.full(n, 2.0), A), (n, n)),
+        "set_matrix": (lambda: pst.set_matrix(0.0, 1.0, A), (n, n)),
+        "generate_matrix": (lambda: pst.generate_matrix("identity", 8,
+                                                         grid=g), (8, 8)),
+        "random_matrix": (lambda: pst.random_matrix(8, 8, 4, g), (8, 8)),
+        "random_spd": (lambda: pst.random_spd(8, 4, g), (8, 8)),
+        "trtri": (lambda: pst.trtri(T), (n, n)),
+        "trtrm": (lambda: pst.trtrm(T), (n, n)),
+        "potri": (lambda: pst.potri(T), (n, n)),
+        "getri": (lambda: pst.getri(*lu()), (n, n)),
+        "gecondest": (lambda: pst.gecondest(N_, *lu(), 1.0), ()),
+        "pocondest": (lambda: pst.pocondest(N_, T, 1.0), ()),
+        "trcondest": (lambda: pst.trcondest(N_, T), ()),
+        "gesv_mixed": (lambda: pst.gesv_mixed(A, B), (n, 2)),
+        "posv_mixed": (lambda: pst.posv_mixed(H, B), (n, 2)),
+        "gesv_mixed_gmres": (lambda: pst.gesv_mixed_gmres(A, B), (n, 2)),
+        "posv_mixed_gmres": (lambda: pst.posv_mixed_gmres(H, B), (n, 2)),
+        "hetrf": (lambda: aasen()[::2], (n, n)),
+        "hesv": (lambda: pst.hesv(H, B)[0], (n, 2)),
+        "hetrs": (lambda: pst.hetrs(aasen(), B), (n, 2)),
+        "gbtrs": (lambda: pst.gbtrs(*band_lu(), B), (n, 2)),
         "geqrf": (qr, (n, n)), "gelqf": (lq, (n, n)),
         "unmqr": (lambda: pst.unmqr(L, O, *qr(), B), (n, 2)),
         "unmlq": (lambda: pst.unmlq(L, O, *lq(), B), (n, 2)),
@@ -282,6 +300,8 @@ def test_entry_points_of_the_slice_run_pq(name):
     out = fn()
     outs = out if isinstance(out, tuple) else (out,)
     first = outs[0]
+    if isinstance(first, float):                     # a condition estimate
+        first = torch.tensor(first)
     assert tuple(first.shape) == shape
     for x in outs:
         if x is None:
@@ -293,7 +313,9 @@ def test_entry_points_of_the_slice_run_pq(name):
 
 
 def test_the_two_lists_cover_every_former_refusal():
-    """The 56 entry points of the two lists: 25 that run on a p×q grid,
-    31 that refuse it, none in both."""
-    assert len(NOW_RUN) == 25 and len(REFUSED) == 31
+    """The 56 entry points of the two lists: 48 that run on a p×q grid,
+    the 8 band entry points that refuse it, none in both."""
+    assert len(NOW_RUN) == 48 and len(REFUSED) == 8
+    assert set(REFUSED) == {"gbtrf", "gbsv", "pbtrf", "pbtrs", "pbsv",
+                            "gbmm", "hbmm", "tbsm"}
     assert not set(NOW_RUN) & set(REFUSED)

@@ -203,7 +203,8 @@ def test_unported_options_raise(grid11):
     # refuses it, and so does a grid over distinct devices
     g22 = pst.Grid(2, 2, device="cpu")
     with pytest.raises(pst.SlateError, match="multi-device"):
-        pst.hetrf(pst.HermitianMatrix.from_dense(spd(8), nb=4, grid=g22))
+        pst.pbtrf(pst.HermitianBandMatrix.from_dense(
+            np.tril(np.triu(spd(8), -2)), nb=4, grid=g22, kl=2, ku=2))
     with pytest.raises(pst.SlateError, match="multi-device"):
         pst.Grid(1, 2, devices=["cpu", "meta"])
     # complex runs, through torch.linalg, and gives the JAX package's
