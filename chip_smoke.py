@@ -21,7 +21,12 @@
    real columns: posv, gesv, gesv_nopiv, gels LQ; hesv), [1024, 1024]
    and [200, 37], unit and not, timed at the first three beside
    ``solve_triangular``, and at 3r's shapes, [32, 8] (pbtrs, tbsm) and
-   [512, 4096] (hegst's block rows), unit and not.
+   [512, 4096] (hegst's block rows), unit and not. K1 over stacks
+   (the batched drivers' diagonal blocks in one launch): [5, nb, nb] at
+   nb = 1024, 256, 200, 65 and 1, and [64, 256, 256] and [1024, 128,
+   128] (3y's stacks), each member bit for bit its single-tile launch,
+   the last two timed beside its plain version over the stack and
+   ``cholesky_ex`` over the stack.
 2b. The LU panel kernels (K4 ``panel_plu``, K5 ``panel_fold`` /
    ``panel_unfold``) against their plain versions on the card: K4 on a
    folded [8, 1024, 2048] panel at blocks 0 and 7 with 3000 rows already
@@ -291,16 +296,16 @@ The complex and float64 two-stage slice (``Grid(1, 1)``):
    K9's column-0 phase) within 10·n·u; d and |e| within CHASE_DE_TOL·‖A‖₂
    and sweep 0's V, τ within CHASE_SWEEP0_TOL, both scaled by u/2⁻²⁴;
    phase0 equal to the plain version's; d and e real; two runs bit for
-   bit equal. Then at the main paths' shape, n = 8192 (complex128 4096)
-   and band 64, all of these but the plain version's, and each alone
-   timed there and at band 128, with the bound for its type (a complex
-   multiply-add four real ones, FP64 at 34 TFLOP/s).
+   bit equal. Then at n = 2048 and band 64 all of these but the plain
+   version's, and each alone timed at the main paths' shape, n = 8192
+   (complex128 4096) and band 64, and at band 128, with the bound for its
+   type (a complex multiply-add four real ones, FP64 at 34 TFLOP/s).
 3u. The two-stage paths with the caller's TF32 on, complex64 unless
-   marked: ``heev`` values at 8192/128 (with its breakdown under
-   ``torch.profiler``), ``gesvd`` values at 8192², ``heev`` with vectors
+   marked: ``heev`` values at 4096/128 (with its breakdown under
+   ``torch.profiler``), ``gesvd`` values at 4096², ``heev`` with vectors
    (DC) at 4096/512, ``gesvd`` with U, Vᴴ at 6144×4096, ``hegv`` itype 1–3
    at 4096/512 (3r's bounds, against complex128 references); float64
-   ``heev`` and ``gesvd`` values at 8192 by TwoStage (they raised on the
+   ``heev`` and ``gesvd`` values at 4096 by TwoStage (they raised on the
    card before); complex128 ``heev`` with vectors at 2048; ``slate_cheev``,
    ``slate_zheev``, ``slate_cgesvd`` and ``slate_zgesvd`` ('N') at 4096 on
    their default grid (Auto: the library's dense eigensolver and SVD).
@@ -365,7 +370,35 @@ The p×q slice (virtual ranks on the one card, ``Grid(p, q)``):
    on 2×4 equal to 1×1; complex64 ``hesv`` 8192/256, ``posv`` 8192/1024
    and ``gesv`` 8192/256 on 2×2 (``info`` 0, 10·n·2⁻²⁴, no launch).
 
-Each path of 3–3x runs with the launch counts set to 0 just before it
+3y. The band routines and the band BLAS on p×q grids and serving, each
+   p×q call beside the same call on Grid(1, 1), bit for bit (X, the
+   factors, pivots, ``info``) and with 1×1's exact launch counts: f32
+   ``gbsv`` at 3m's shape on 2×4 (K11 171), ``pbsv`` at 3r's on 2×2 (K1,
+   K2, K3 512), ``gbmm``, ``hbmm`` Left and Right, ``tbsm`` Left Lower
+   with pivots (K3 512) and Right Upper at 3r's shapes on 2×4 (3r's
+   bounds), complex64 ``gbsv`` and ``pbsv`` at 8192 on 2×2 (no kernel,
+   10·n·2⁻²⁴). Then the batched drivers in f32: ``posv_batched`` and
+   ``gesv_batched`` on [64, 1024, 1024] with 8 right-hand sides (nb 256)
+   and on [1024, 256, 256] with one (nb 128), ``batched_potrf`` on the
+   first and ``batched_trsm`` on the second: ms and solves/s beside
+   ``cholesky_ex`` + ``cholesky_solve``, ``lu_factor_ex`` + ``lu_solve``,
+   ``cholesky_ex`` and ``solve_triangular`` on the same stack, and on the
+   first stack a loop of Grid(1, 1) ``posv``/``gesv`` at nb 256; every
+   ``info`` 0, every member's ‖A·X − B‖/(‖A‖·‖X‖) within 10·n·2⁻²⁴, four
+   members within 50·n·2⁻²⁴ of their batch-of-1 calls with equal
+   ``perm``, K1 exactly n/nb launches a call whatever the batch. A stack
+   of 16 at n = 1024 with a NaN tile, a non-SPD and a singular member:
+   their ``info`` the CPU's, every X finite, the others within the
+   bound. ``solve_ragged`` on 256 requests of seeded odd orders 97–2039,
+   ``posv`` and ``gesv`` alternating, 1–8 right-hand sides (one as a 1-D
+   b), on the default bucket table: order kept, buckets as
+   ``bucket_for``, x shaped as b, each backward error within
+   10·bucket·2⁻²⁴; groups × rungs, wall, requests/s and
+   ``serve.padded_waste_frac``; the largest ``posv`` group once more
+   under ``nan_tile:seed=5``: exactly one request unhealthy, its
+   batchmates within the bound.
+
+Each path of 3–3y runs with the launch counts set to 0 just before it
 and read just after. Any failure raises and the script exits non-zero.
 Without a CUDA card it exits with code 2 before doing anything. The last
 line is ``{"ok": true, "device": {...}}``.
@@ -589,6 +622,25 @@ def phase_toolchain():
     return smi
 
 
+def spd_stack(batch, n, gen):
+    """A stack of SPD tiles G·Gᵀ/n + I on the card."""
+    g = torch.randn(batch, n, n, generator=gen, device="cuda")
+    with _f32():
+        return g @ g.mT / n + torch.eye(n, device="cuda")
+
+
+def potrf_stack_row(a):
+    """K1's times on the stack ``a`` [batch, nb, nb] beside its plain
+    version and ``cholesky_ex`` over the stack; bound: batch·nb³/3 FLOP,
+    or the stack read and written."""
+    from slate_tpu_torch.internal import kernels as K
+    batch, nb = a.shape[0], a.shape[-1]
+    return dict(ms=time_ms(lambda: K.potrf_tile(a)),
+                plain_ms=time_ms(lambda: K.potrf_tile_plain(a), reps=3),
+                library_ms=time_ms(lambda: torch.linalg.cholesky_ex(a)),
+                bound=bound(batch * nb ** 3 / 3, 2 * batch * nb * nb * 4))
+
+
 def potrf_tile_row(a, plain_reps=REPS):
     """K1's times on the tile ``a`` [nb, nb] beside its plain version and
     ``cholesky``; bound: nb³/3 FLOP, or the tile read and written."""
@@ -683,6 +735,27 @@ def phase_kernels():
         if nb == NB:
             rows["potrf_tile"] = dict(max_abs_err=mx, **potrf_tile_row(a))
 
+    # K1 over a stack, one launch for the batched drivers' diagonal
+    # blocks: against its plain version over the same stack, each member
+    # bit for bit its own single-tile launch; timed at the diagonal blocks
+    # of 3y's two stacks beside cholesky_ex over the stack
+    for batch, nb in ((5, NB), (5, 256), (5, 200), (5, 65), (5, 1),
+                      (64, 256), (1024, 128)):
+        a = spd_stack(batch, nb, gen)
+        l = K.potrf_tile(a)
+        mx = check("potrf_tile", lambda: l, lambda: K.potrf_tile_plain(a),
+                   f"stack [{batch},{nb},{nb}]")
+        for i in (0, batch // 2, batch - 1):
+            assert torch.equal(l[i], K.potrf_tile(a[i])), (batch, nb, i)
+        if batch > 5:
+            r = potrf_stack_row(a)
+            rows.setdefault("potrf_tile_stacks", {})[(batch, nb)] = r
+            say(f"  potrf_tile stack [{batch},{nb},{nb}]: kernel_ms "
+                f"{r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, library_ms "
+                f"{r['library_ms']:.4f} (cholesky_ex over the stack), "
+                f"bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}), "
+                f"max_abs_err {mx:.3e}")
+
     for (m, n) in ((N - NB, NB), (300, 200), (PB_KD, PB_KD),
                    (HEGV_N - HEGV_NB, HEGV_NB)):
         for unit in (False, True):
@@ -729,10 +802,15 @@ def phase_kernels():
             f" (solve_triangular), bound_ms {r['bound'][0]:.6f} "
             f"({r['bound'][1]})")
     rows["trsm_left_lower"] = thin[(NB, NRHS)]
+    stacks = rows.pop("potrf_tile_stacks")
     for name, r in rows.items():
         say(f"  {name}: kernel_ms {r['ms']:.4f}, plain_ms "
             f"{r['plain_ms']:.4f}, library_ms {r['library_ms']:.4f}, "
             f"bound_ms {r['bound'][0]:.4f} ({r['bound'][1]})")
+    rows["potrf_tile"]["stacks"] = {
+        f"[{b},{n},{n}]": {k: (r[k] if k != "bound" else r[k][0])
+                           for k in ("ms", "plain_ms", "library_ms", "bound")}
+        for (b, n), r in stacks.items()}
     return rows
 
 
@@ -1733,14 +1811,14 @@ def de_gap(x, y) -> float:
                for i in (0, 1))
 
 
-def check_chase(which, n, b, gen, dtype=torch.float32):
+def check_chase(which, n, b, gen, dtype=torch.float32, with_plain=True):
     """K8 or K9 on one random band of ``dtype`` (complex: O(1) real and
     imaginary parts, a complex a₀₀): the kernel's spectrum against the
     dense f64 (complex128) band's, and its reflectors (and K9's column-0
     phase) rebuilding the band in their packed order (which a task run
     out of order, or two tasks of a wave that collide, would break), both
-    within 10·n·u; up to n = CHASE_PLAIN_MAX_N also against its plain
-    version on the card: sweep 0's reflectors, d and |e| (their
+    within 10·n·u; up to n = CHASE_PLAIN_MAX_N, unless ``with_plain``
+    is False, also against its plain version on the card: sweep 0's reflectors, d and |e| (their
     tolerances scaled by u/2⁻²⁴), the plain version's spectrum, and
     phase0 equal. Outside float32, d and e of the real dtype and two runs
     bit for bit equal too (2d checks float32's bits at 8192), and the
@@ -1803,7 +1881,7 @@ def check_chase(which, n, b, gen, dtype=torch.float32):
         ok = ok and same and real
         line += f"; two runs bit for bit equal {same}; d, e real {real}"
     mx = plain_ms = note = None
-    if n <= CHASE_PLAIN_MAX_N:
+    if with_plain and n <= CHASE_PLAIN_MAX_N:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ref = plain(ab)
@@ -4090,9 +4168,12 @@ def phase_complex_utils():
 # were cut to (512, 64) and (300, 32) to keep the script within its
 # limit; the card tests hold (600, 32) to the plain version)
 CHASE_TYPE_SHAPES = ((512, None), (300, 32), (512, 128))
-# ... then at (n, the main paths' band) without the plain version
-# (spectrum, rebuilt band, bits) and timed there, and timed alone at
-# CHASE_WIDE_BAND
+# ... then at (CHASE_TYPED_CHECK_N, the main paths' band) without the
+# plain version (spectrum, rebuilt band, bits), and timed at (n, that
+# band) and at CHASE_WIDE_BAND; the checks ran at the timed n until the
+# script neared its limit (their dense f64 and complex128 spectra and
+# rebuilt bands grow as n³)
+CHASE_TYPED_CHECK_N = 2048
 CHASE_TIME_N = {torch.float64: EIG_N, torch.complex64: EIG_N,
                 torch.complex128: 4096}
 CHASE_WIDE_BAND = 128
@@ -4112,10 +4193,10 @@ def chase_work_typed(n, b, which, dtype):
 def phase_chase_types():
     """2i: K8 and K9 in float64, complex64 and complex128 against their
     plain versions on the card at bands 64, 32 and 128; then at
-    (8192, 64) (complex128 at 4096), the main paths' shape, held to the
-    dense band's spectrum, the band rebuilt from the reflectors and their
-    own bits, and timed there and at band 128, with the bound for its
-    type."""
+    (2048, 64) held to the dense band's spectrum, the band rebuilt from
+    the reflectors and their own bits without the plain version, and
+    timed at (8192, 64) (complex128 at 4096), the main paths' shape, and
+    at band 128, with the bound for its type."""
     from slate_tpu_torch.internal import _build
     from slate_tpu_torch.internal import kernels as K
     from slate_tpu_torch.internal.band_wave import preferred_eig_band
@@ -4132,15 +4213,14 @@ def phase_chase_types():
         for which in ("hb2st", "tb2bd"):
             for n, b in CHASE_TYPE_SHAPES:
                 check_chase(which, n, b or main[dtype], gen, dtype)
+            check_chase(which, CHASE_TYPED_CHECK_N, main[dtype], gen, dtype,
+                        with_plain=False)
     times = {}
     for dtype, n in CHASE_TIME_N.items():
         for which, fn in (("hb2st", K.hb2st_chase), ("tb2bd", K.tb2bd_chase)):
             for b in (CHASE_WIDE_BAND, main[dtype]):
-                if b == main[dtype]:
-                    ab = check_chase(which, n, b, gen, dtype)[0]
-                else:
-                    ab = torch.randn(b + 1, n, generator=gen, device="cuda",
-                                     dtype=dtype)
+                ab = torch.randn(b + 1, n, generator=gen, device="cuda",
+                                 dtype=dtype)
                 ms = time_ms(lambda: fn(ab), reps=3)
                 flops, nbytes, peak = chase_work_typed(n, b, which, dtype)
                 bms, by = bound(flops, nbytes, peak)
@@ -4157,6 +4237,10 @@ TWO_STAGE_VEC_N, TWO_STAGE_VEC_NB = 4096, 512   # 3u: 3i's shape
 TWO_STAGE_SVD_M, TWO_STAGE_SVD_N = 6144, 4096   # 3u: 3k's shape
 TWO_STAGE_VEC_C128_N = 2048    # 3u: complex128 heev with vectors
 SHIM_EIG_N = 4096              # 3u: the c/z heev and gesvd shims
+# 3u: the complex64 and float64 values paths (heev, gesvd); they ran at
+# EIG_N until the script neared its limit: their host stages (sterf,
+# bdsqr) and the f64 references grow as n² to n³
+TWO_STAGE_VALS_N = 4096
 
 
 def herm_card(n, seed, dtype=torch.complex64):
@@ -4240,11 +4324,11 @@ def sv_values_check(ref, rdt, n):
 
 
 def phase_two_stage_types():
-    """3u: the two-stage paths in complex64 (unless marked) at full width
-    on the card, with the caller's TF32 on: heev values at 8192/128 and
-    with vectors (DC) at 4096/512, gesvd values at 8192² and with U, Vᴴ
-    at 6144×4096, hegv itype 1–3 at 4096/512; float64 heev and gesvd
-    values at 8192 by TwoStage (the repair: they raised on the card);
+    """3u: the two-stage paths in complex64 (unless marked) on the card,
+    with the caller's TF32 on: heev values at 4096/128 and with vectors
+    (DC) at 4096/512, gesvd values at 4096² and with U, Vᴴ at 6144×4096,
+    hegv itype 1–3 at 4096/512; float64 heev and gesvd values at 4096 by
+    TwoStage (the repair: they raised on the card);
     complex128 heev with vectors at 2048; slate_cheev, slate_zheev,
     slate_cgesvd, slate_zgesvd at 4096 on their default grid (Auto: the
     library's dense eigensolver and SVD, no kernel). Each complex64
@@ -4266,7 +4350,7 @@ def phase_two_stage_types():
     with tf32_matmul():
         st.heev(H(herm_card(512, 1), EIG_NB), eo, want_vectors=False)
         st.svd_vals(G(herm_card(512, 2), EIG_NB), so)     # warm-up
-        n = EIG_N
+        n = TWO_STAGE_VALS_N
         a = herm_card(n, 130)
         A = H(a, EIG_NB)
         ref = torch.linalg.eigvalsh(a.to(c128))
@@ -4320,7 +4404,7 @@ def phase_two_stage_types():
         del Ag, g, g64
         counts.update(hegv_complex(grid, dc))
         # float64 by TwoStage: raised on the card before the kernels took it
-        n = EIG_N
+        n = TWO_STAGE_VALS_N
         a = herm_card(n, 134, f64)
         ref = torch.linalg.eigvalsh(a)
         A = H(a, EIG_NB)
@@ -5344,6 +5428,451 @@ def phase_pq_solvers():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 3y: the band routines and band BLAS on p×q grids; batched and ragged
+# serving
+# ---------------------------------------------------------------------------
+
+BAND_PQ_CPLX_N = 8192     # 3y: complex64 gbsv and pbsv on 2×2
+# 3y: the batched stacks (batch, n, nrhs, nb): the default nb of each order
+BATCH_STACKS = ((64, 1024, NRHS, 256), (1024, 256, 1, 128))
+BATCH_FAIL = 16           # 3y: the stack with failing members, at n = 1024
+RAGGED_COUNT = 256        # 3y: the ragged requests
+RAGGED_N = (97, 2039)     # 3y: their odd orders
+
+
+def band_outputs(out):
+    """The tensors of a band routine's outputs, matrices as dense."""
+    flat = []
+    for x in (out if isinstance(out, tuple) else (out,)):
+        if hasattr(x, "ab"):                      # a band factor
+            flat += [t for t in x if isinstance(t, torch.Tensor)]
+        elif hasattr(x, "to_dense"):
+            flat.append(x.to_dense())
+        else:
+            flat.append(torch.as_tensor(x))
+    return flat
+
+
+def band_pq_case(label, make, fn, expect, grids, check):
+    """One band routine on Grid(1, 1) and on each p×q grid of ``grids``
+    (a warm-up call on 1×1 first), each with its launch counts exactly
+    ``expect`` (1×1's); every p×q output bit for bit the 1×1 output;
+    ``check(out)`` within its bound. Returns the launches by grid."""
+    import slate_tpu_torch as st
+    fn(*make(st.Grid(1, 1)))                     # warm-up
+    outs, launches = pq_beside_one(label, make, fn,
+                                   {g: expect for g in ((1, 1),) + grids},
+                                   grids)
+    one = band_outputs(outs[(1, 1)])
+    for g in grids:
+        assert same_outputs(band_outputs(outs[g]), one), (label, g)
+    check(outs[grids[-1]])
+    return launches[grids[-1]]
+
+
+def phase_pq_band():
+    """3y (band): gbsv at 3m's shape on 2×4, pbsv at 3r's on 2×2, gbmm,
+    hbmm both sides and tbsm (Left Lower with pivots, Right Upper) at
+    3r's on 2×4, complex64 gbsv and pbsv at 8192 on 2×2; each beside
+    Grid(1, 1), bit for bit, with 1×1's launches and 3m's or 3r's
+    bounds."""
+    import slate_tpu_torch as st
+    n, kd, nb = N, BAND_KL, AASEN_NB
+    gen = torch.Generator(device="cuda").manual_seed(150)
+    a = band_matrix(n, kd, kd, 151)
+    s = spd_band(n, kd, 152)
+    h = (a + a.T) / 2
+    t = a.tril()
+    t.diagonal().copy_(t.abs().sum(1) + 1.0)
+    b = torch.randn(n, NRHS, generator=gen, device="cuda")
+    bt = b.T.contiguous()
+    limit = 10 * n * 2.0 ** -24
+    counts = {}
+    say(f"p×q band routines f32 n={n} kl=ku=kd={kd} nb={nb} nrhs={NRHS}, "
+        f"each beside Grid(1,1):")
+
+    def mk(*parts):
+        return lambda g: tuple(p(g) for p in parts)
+
+    A = lambda g: st.BandMatrix.from_dense(a, nb=nb, grid=g, kl=kd, ku=kd)  # noqa: E731
+    S = lambda g: st.HermitianBandMatrix.from_dense(  # noqa: E731
+        s.tril(), nb=nb, grid=g, kl=kd, ku=kd)
+    H = lambda g: st.HermitianBandMatrix.from_dense(  # noqa: E731
+        h.tril(), nb=nb, grid=g, kl=kd, ku=kd)
+    T = lambda g: st.TriangularBandMatrix.from_dense(t, nb=nb, grid=g,  # noqa: E731
+                                                     kl=kd, ku=0)
+    U = lambda g: st.TriangularBandMatrix.from_dense(  # noqa: E731
+        t.T.contiguous(), nb=nb, grid=g, kl=0, ku=kd, uplo=st.Uplo.Upper)
+    Bm = lambda g: st.Matrix.from_dense(b, nb=nb, grid=g)  # noqa: E731
+    Bt = lambda g: st.Matrix.from_dense(bt, nb=nb, grid=g)  # noqa: E731
+
+    def solve_check(mat, rhs, right=False, tight=False):
+        def check(out):
+            x = (out[0] if isinstance(out, tuple) else out).to_dense()
+            r = band_solve_residual(mat.double(), x, rhs, right)
+            say(f"    residual {r:.3e} (bound {limit:.3e})")
+            assert r <= (min(limit, 2.0 ** -24) if tight else limit), r
+        return check
+
+    def prod_check(ref):
+        def check(out):
+            err = rel_err(out.to_dense(), ref)
+            bnd = 10 * (2 * kd + 1) * 2.0 ** -24
+            say(f"    rel_err {err:.3e} (bound {bnd:.3e})")
+            assert err <= bnd, err
+        return check
+
+    panels = -(-n // 96)
+    counts["gbsv_pq"] = band_pq_case(
+        "gbsv Grid(2,4)", mk(A, Bm), st.gbsv,
+        {"rank_k_tail_pallas": panels}, ((2, 4),), solve_check(a, b))
+    blocks = n // 32
+    counts["pbsv_pq"] = band_pq_case(
+        "pbsv Grid(2,2)", mk(S, Bm), st.pbsv,
+        {"potrf_tile": blocks, "trsm_right_lower_t": blocks,
+         "trsm_left_lower": blocks}, ((2, 2),), solve_check(s, b, tight=True))
+    zero = lambda g: st.Matrix.zeros(n, NRHS, nb, g)  # noqa: E731
+    zero_t = lambda g: st.Matrix.zeros(NRHS, n, nb, g)  # noqa: E731
+    a64, h64 = a.double(), h.double()
+    band_pq_case("gbmm Grid(2,4)", mk(A, Bm, zero),
+                 lambda A_, B_, C_: st.gbmm(1.0, A_, B_, 0.0, C_), {},
+                 ((2, 4),), prod_check(a64 @ b.double()))
+    band_pq_case("hbmm Left Grid(2,4)", mk(H, Bm, zero),
+                 lambda H_, B_, C_: st.hbmm(st.Side.Left, 1.0, H_, B_, 0.0,
+                                            C_), {},
+                 ((2, 4),), prod_check(h64 @ b.double()))
+    band_pq_case("hbmm Right Grid(2,4)", mk(H, Bt, zero_t),
+                 lambda H_, B_, C_: st.hbmm(st.Side.Right, 1.0, H_, B_, 0.0,
+                                            C_), {},
+                 ((2, 4),), prod_check(bt.double() @ h64))
+    piv = torch.clamp(torch.arange(n, device="cuda") + torch.randint(
+        0, kd + 1, (n,), generator=gen, device="cuda"), max=n - 1)
+    piv = piv.int().reshape(n // nb, nb)
+    counts["tbsm_piv_pq"] = band_pq_case(
+        "tbsm Left Lower pivots Grid(2,4)", mk(T, Bm),
+        lambda T_, B_: st.tbsm(st.Side.Left, 1.0, T_, B_, pivots=piv),
+        {"trsm_left_lower": n // 32}, ((2, 4),),
+        solve_check(t, b[_sim_perm_host(piv, n)], tight=True))
+    band_pq_case("tbsm Right Upper Grid(2,4)", mk(U, Bt),
+                 lambda U_, B_: st.tbsm(st.Side.Right, 1.0, U_, B_), {},
+                 ((2, 4),), solve_check(t.T, bt, right=True, tight=True))
+    # complex64 on 2×2: torch.linalg panels, no kernel
+    nc = BAND_PQ_CPLX_N
+    gc = torch.Generator(device="cuda").manual_seed(153)
+    i = torch.arange(nc, device="cuda")
+    inband = (i[None, :] - i[:, None]).abs() <= kd
+    ac = torch.where(inband, crandn(gc, nc, nc), 0)
+    hc = (ac + ac.mH) / 2
+    hc.diagonal().copy_(hc.abs().sum(1) + 1.0)
+    bc = crandn(gc, nc, NRHS)
+    say(f"  complex64 n={nc} kl=ku=kd={kd} on Grid(2,2):")
+
+    def cres(mat):
+        def check(out):
+            r = cresidual(mat, out[0].to_dense(), bc)
+            say(f"    residual {r:.3e} (bound {10 * nc * 2.0 ** -24:.3e})")
+            assert r <= 10 * nc * 2.0 ** -24, r
+        return check
+    band_pq_case(
+        "complex64 gbsv Grid(2,2)",
+        lambda g: (st.BandMatrix.from_dense(ac, nb=nb, grid=g, kl=kd, ku=kd),
+                   st.Matrix.from_dense(bc, nb=nb, grid=g)),
+        st.gbsv, {}, ((2, 2),), cres(ac))
+    band_pq_case(
+        "complex64 pbsv Grid(2,2)",
+        lambda g: (st.HermitianBandMatrix.from_dense(hc.tril(), nb=nb,
+                                                     grid=g, kl=kd, ku=kd),
+                   st.Matrix.from_dense(bc, nb=nb, grid=g)),
+        st.pbsv, {}, ((2, 2),), cres(hc))
+    return counts
+
+
+def batched_backward_error(a, x, b):
+    """Each member's ‖A·X − B‖_F/(‖A‖_F·‖X‖_F) in f64 on the card."""
+    a, x, b = a.double(), x.double(), b.double()
+    r = torch.linalg.norm(a @ x - b, dim=(1, 2))
+    return r / (torch.linalg.norm(a, dim=(1, 2))
+                * torch.linalg.norm(x, dim=(1, 2)))
+
+
+def batched_stack(batch, n, nrhs, seed):
+    """An SPD stack G·Gᵀ/n + I, a general stack whose pivots are set by a
+    row permutation of a dominant diagonal (each member its own, so the
+    pivot order is the same in every run), and right-hand sides."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn(batch, n, n, generator=gen, device="cuda")
+    with _f32():
+        spd = g @ g.mT / n + torch.eye(n, device="cuda")
+    rows = torch.argsort(torch.rand(batch, n, generator=gen, device="cuda"),
+                         dim=1)
+    gen_a = torch.take_along_dim(
+        torch.randn(batch, n, n, generator=gen, device="cuda")
+        + 4 * n ** 0.5 * torch.eye(n, device="cuda"), rows[:, :, None], 1)
+    b = torch.randn(batch, n, nrhs, generator=gen, device="cuda")
+    return spd, gen_a, b
+
+
+def phase_batched():
+    """3y (batched): posv_batched, gesv_batched, batched_potrf and
+    batched_trsm on the two stacks of BATCH_STACKS beside the library's
+    batched calls (and, for the first stack, a loop of Grid(1, 1)
+    posv/gesv), with exact launch counts, every member's backward error
+    and 4 members against their batch-of-1 calls."""
+    import slate_tpu_torch as st
+    from slate_tpu_torch.serve import batched
+    counts = {}
+    for si, (batch, n, nrhs, nb) in enumerate(BATCH_STACKS):
+        spd, gen_a, b = batched_stack(batch, n, nrhs, 160 + si)
+        limit = 10 * n * 2.0 ** -24
+        say(f"batched f32 [{batch}, {n}, {n}] nrhs={nrhs} nb={nb}:")
+        kt = n // nb
+        for label, fn, expect in (
+                ("posv_batched", lambda: st.posv_batched(spd, b),
+                 {"potrf_tile": kt}),
+                ("gesv_batched", lambda: st.gesv_batched(gen_a, b), {}),
+                ("batched_potrf", lambda: batched.batched_potrf(spd),
+                 {"potrf_tile": kt}),
+                ("batched_trsm", lambda: batched.batched_trsm(spd.tril(), b),
+                 {})):
+            if (label == "batched_potrf" and si) or \
+                    (label == "batched_trsm" and not si):
+                continue
+            fn()                                 # warm-up
+            base, t0 = start_path()
+            out = fn()
+            _, launches, peak = end_path(base, t0, expect)
+            counts[f"{label}_{n}"] = launches
+            ms = time_ms(fn, reps=3)
+            say(f"  {label}: ms {ms:.3f}, {batch / ms * 1e3:.0f} solves/s, "
+                f"peak device memory above its inputs {peak:.3f} GiB")
+            if label in ("posv_batched", "gesv_batched"):
+                x, info = out[0], out[-1]
+                a = spd if label == "posv_batched" else gen_a
+                err = batched_backward_error(a, x, b)
+                say(f"    info all 0 {not bool(info.any())}, backward error "
+                    f"max {float(err.max()):.3e} (bound {limit:.3e})")
+                assert not info.any() and float(err.max()) <= limit
+                assert bool(torch.isfinite(x).all())
+                single = (st.posv_batched if label == "posv_batched"
+                          else st.gesv_batched)
+                for i in (0, batch // 3, batch // 2, batch - 1):
+                    one = single(a[i:i + 1], b[i:i + 1])
+                    d = float((one[0][0] - x[i]).abs().max()
+                              / x[i].abs().max())
+                    assert d <= 5 * limit, (label, i, d)
+                    if label == "gesv_batched":
+                        assert torch.equal(one[2][0], out[2][i]), i
+                say(f"    members 0, {batch // 3}, {batch // 2}, {batch - 1}"
+                    f" within {5 * limit:.3e} of their batch-of-1 calls"
+                    + (", perm equal" if label == "gesv_batched" else ""))
+            elif label == "batched_potrf":
+                l, info = out
+                with _f32():
+                    rec = float((torch.linalg.norm(l @ l.mT - spd, dim=(1, 2))
+                                 / torch.linalg.norm(spd, dim=(1, 2))).max())
+                say(f"    |L L^T - A|/|A| max {rec:.3e} (bound {limit:.3e})")
+                assert not info.any() and rec <= limit
+            else:
+                with _f32():
+                    r = float((torch.linalg.norm(spd.tril() @ out - b,
+                                                 dim=(1, 2))
+                               / (torch.linalg.norm(spd.tril(), dim=(1, 2))
+                                  * torch.linalg.norm(out, dim=(1, 2)))).max())
+                say(f"    backward error max {r:.3e} (bound {limit:.3e})")
+                assert r <= limit
+        with _f32():
+            lib = {
+                "cholesky_ex + cholesky_solve": lambda: torch.cholesky_solve(
+                    b, torch.linalg.cholesky_ex(spd)[0]),
+                "lu_factor_ex + lu_solve": lambda: torch.linalg.lu_solve(
+                    *torch.linalg.lu_factor_ex(gen_a)[:2], b),
+                "cholesky_ex": lambda: torch.linalg.cholesky_ex(spd),
+                "solve_triangular": lambda: torch.linalg.solve_triangular(
+                    spd.tril(), b, upper=False)}
+            for name, f in lib.items():
+                ms = time_ms(f, reps=3)
+                say(f"  library {name}: ms {ms:.3f}, "
+                    f"{batch / ms * 1e3:.0f} solves/s")
+        if si == 0:
+            g = st.Grid(1, 1)
+            mats = [(st.HermitianMatrix.from_dense(spd[i], nb=nb, grid=g),
+                     st.Matrix.from_dense(gen_a[i], nb=nb, grid=g),
+                     st.Matrix.from_dense(b[i], nb=nb, grid=g))
+                    for i in range(batch)]
+            for name, f in (("posv", lambda H_, A_, B_: st.posv(H_, B_)),
+                            ("gesv", lambda H_, A_, B_: st.gesv(A_, B_))):
+                f(*mats[0])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for m in mats:
+                    f(*m)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                say(f"  loop of {batch} Grid(1,1) {name} at nb={nb}: ms "
+                    f"{ms:.3f}, {batch / ms * 1e3:.0f} solves/s")
+            del mats
+        del spd, gen_a, b
+    return counts
+
+
+def phase_batched_failure():
+    """3y (failure in a stack): BATCH_FAIL members at n = 1024, one with a
+    NaN tile, one not positive definite, one singular: posv_batched and
+    gesv_batched give those members the CPU's info, every X finite, the
+    other members within the bound."""
+    import slate_tpu_torch as st
+    n, nb = 1024, 256
+    spd, _, b = batched_stack(BATCH_FAIL, n, NRHS, 170)
+    a = spd.clone()
+    a[3, :2, :2] = float("nan")                # a NaN tile
+    a[7, 600, 600] = -1e3                      # not positive definite
+    a[11, :, 300] = 0.0                        # singular
+    a[11, 300, :] = 0.0
+    limit = 10 * n * 2.0 ** -24
+    bad = (3, 7, 11)
+    for label, fn in (("posv_batched", st.posv_batched),
+                      ("gesv_batched", st.gesv_batched)):
+        out = fn(a, b)
+        ref = fn(a.cpu(), b.cpu())
+        x, info, info_cpu = out[0], out[-1].cpu(), ref[-1]
+        err = batched_backward_error(a, x, b)
+        ok_rows = [i for i in range(BATCH_FAIL)
+                   if i not in bad and int(info[i]) == 0]
+        say(f"  failure stack {label} [{BATCH_FAIL}, {n}, {n}]: info "
+            f"{info.tolist()} (CPU {info_cpu.tolist()}), X finite "
+            f"{bool(torch.isfinite(x).all())}, others' backward error max "
+            f"{float(err[ok_rows].max()):.3e} (bound {limit:.3e})")
+        assert torch.equal(info, info_cpu)
+        assert all(int(info[i]) == 0 for i in range(BATCH_FAIL)
+                   if i not in bad)
+        assert int(info[3]) > 0 and int(info[11]) > 0
+        assert (int(info[7]) > 0) == (label == "posv_batched")
+        assert bool(torch.isfinite(x).all())
+        assert float(err[ok_rows].max()) <= limit
+
+
+def ragged_requests(seed):
+    """RAGGED_COUNT requests of seeded odd orders in RAGGED_N, posv and
+    gesv alternating, 1–8 right-hand sides (one as a 1-D b), made on the
+    card; the host copies for the requests and the card copies for the
+    checks."""
+    from slate_tpu_torch.serve import SolveRequest
+    rng = np.random.default_rng(seed)
+    ns = 2 * rng.integers(RAGGED_N[0] // 2, RAGGED_N[1] // 2 + 1,
+                          size=RAGGED_COUNT) + 1
+    ks = rng.integers(1, 9, size=RAGGED_COUNT)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    reqs, cards = [], []
+    for i, (n, k) in enumerate(zip(ns.tolist(), ks.tolist())):
+        g = torch.randn(n, n, generator=gen, device="cuda")
+        if i % 2 == 0:
+            with _f32():
+                a = g @ g.T / n + torch.eye(n, device="cuda")
+        else:
+            a = g
+        b = torch.randn(n, k, generator=gen, device="cuda")
+        if k == 1:
+            b = b[:, 0]
+        cards.append((a, b))
+        reqs.append(SolveRequest(a=a.cpu().numpy(), b=b.cpu().numpy(),
+                                 routine="posv" if i % 2 == 0 else "gesv",
+                                 tag=i))
+    return reqs, cards
+
+
+def ragged_errors(res, cards, idx):
+    """Each result's backward error on the card, in f64."""
+    out = []
+    for r, i in zip(res, idx):
+        a, b = (t.double() for t in cards[i])
+        x = torch.from_numpy(r.x).to("cuda").double()
+        x2, b2 = x.reshape(a.shape[0], -1), b.reshape(a.shape[0], -1)
+        out.append(float(torch.linalg.norm(a @ x2 - b2)
+                         / (torch.linalg.norm(a) * torch.linalg.norm(x2))))
+    return out
+
+
+def phase_ragged():
+    """3y (ragged): solve_ragged on RAGGED_COUNT requests over the default
+    bucket table: order kept, each bucket bucket_for's, x shaped as b,
+    each backward error within 10·bucket·2⁻²⁴; groups × rungs, the wall
+    time, requests/s and the padded-waste share. Then one group again
+    under ``nan_tile:seed=5``: exactly one request unhealthy, its
+    batchmates within the bound."""
+    from slate_tpu_torch import obs
+    from slate_tpu_torch.cache import buckets
+    from slate_tpu_torch.robust import faults
+    from slate_tpu_torch.serve import solve_ragged
+    reqs, cards = ragged_requests(180)
+    obs.reset()
+    obs.metrics_on()
+    try:
+        with faults.inject():
+            solve_ragged(reqs[:2])               # warm-up
+            t0 = time.perf_counter()
+            res = solve_ragged(reqs)
+            wall = time.perf_counter() - t0
+        waste = {(e["labels"]["routine"], int(e["labels"]["bucket"])):
+                 e["value"] for e in obs.dump()["gauges"]
+                 if e["name"] == "serve.padded_waste_frac"}
+    finally:
+        obs.metrics_off()
+    assert [r.tag for r in res] == [q.tag for q in reqs]
+    errs = ragged_errors(res, cards, range(len(reqs)))
+    rungs = {}
+    for q, r, e in zip(reqs, res, errs):
+        assert r.health.ok and r.bucket == buckets.bucket_for(q.a.shape[0])
+        assert r.x.shape == q.b.shape
+        assert e <= 10 * r.bucket * 2.0 ** -24, (q.tag, r.bucket, e)
+        rungs.setdefault((q.routine, r.bucket), []).append(r.rung)
+    plan = {k: sorted(set(v), reverse=True) for k, v in sorted(rungs.items())}
+    say(f"ragged: {len(reqs)} requests, orders {RAGGED_N[0]}–{RAGGED_N[1]}, "
+        f"{len(plan)} groups: " + "; ".join(
+            f"{r} {bk}: {len(rungs[(r, bk)])} as rungs {v}"
+            for (r, bk), v in plan.items()))
+    say(f"  wall {wall * 1e3:.1f} ms, {len(reqs) / wall:.1f} requests/s, "
+        f"backward error max {max(errs):.3e}; serve.padded_waste_frac "
+        + ", ".join(f"{r} {bk}: {w:.3f}" for (r, bk), w in
+                    sorted(waste.items())))
+    # the fault corrupts one member a group: run the largest posv group
+    bucket = max((bk for r, bk in rungs if r == "posv"),
+                 key=lambda bk: len(rungs[("posv", bk)]))
+    sub = [q for q, r in zip(reqs, res)
+           if q.routine == "posv" and r.bucket == bucket]
+    with faults.inject("nan_tile:seed=5"):
+        fres = solve_ragged(sub)
+    unhealthy = [r.tag for r in fres if not r.health.ok]
+    ferr = ragged_errors([r for r in fres if r.health.ok], cards,
+                         [r.tag for r in fres if r.health.ok])
+    say(f"  nan_tile:seed=5 on the {len(sub)} posv requests of bucket "
+        f"{bucket}: unhealthy {unhealthy} (member {5 % len(sub)}), "
+        f"batchmates' backward error max {max(ferr):.3e}")
+    assert unhealthy == [sub[5 % len(sub)].tag]
+    assert all(np.isfinite(r.x).all() for r in fres)
+    assert max(ferr) <= 10 * bucket * 2.0 ** -24
+
+
+def phase_pq_band_serving():
+    """3y: the band routines and band BLAS on p×q grids, and batched and
+    ragged serving. Returns the launches by path."""
+    t = {}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        t[name] = time.perf_counter() - t0
+        return out
+
+    say("p×q band routines and serving:")
+    counts = part("band", phase_pq_band)
+    counts.update(part("batched", phase_batched))
+    part("failure", phase_batched_failure)
+    part("ragged", phase_ragged)
+    say("  3y parts (s): " + ", ".join(f"{k} {v:.1f}" for k, v in t.items()))
+    return counts
+
+
 def timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -5404,6 +5933,8 @@ def main() -> int:
                         phase_pq_two_stage))
     counts.update(timed("3x p×q inverses, condest, mixed and hesv",
                         phase_pq_solvers))
+    counts.update(timed("3y p×q band and batched serving",
+                        phase_pq_band_serving))
     timed("4 failure report", phase_failure_report)
     timed("4b LU failure report", phase_lu_failure_report)
     timed("4c QR and unpivoted-LU failure report",
@@ -5426,6 +5957,12 @@ def main() -> int:
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                     "bound_by": r["bound"][1],
                     "library_ms": r["library_ms"]})
+    # K1 over a stack: its launches on 3y's batched paths and its times
+    k1 = next(o for o in out if o["name"] == "potrf_tile")
+    k1["batched_launches"] = {
+        k: v["potrf_tile"] for k, v in counts.items()
+        if k.startswith(("posv_batched", "batched_potrf"))}
+    k1["stacks"] = rows["potrf_tile"]["stacks"]
     say(json.dumps({"kernels": out}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

@@ -40,9 +40,22 @@ least squares, the two-stage eigensolver and SVD with ``hegst``/
 ``hegv``, the dense Level-3 BLAS, the norms, the elementwise ops and
 the generator, the inverses, condition estimates and ``health=True``
 reports, the mixed-precision solves, Aasen's ``hetrf``/``hetrs``/
-``hesv`` and ``gbtrs`` with a p×q right-hand side; the band
-factorizations and the band BLAS (``gbtrf``, ``gbsv``, ``pbtrf``,
-``pbtrs``, ``pbsv``, ``gbmm``, ``hbmm``, ``tbsm``) refuse a p×q grid.
+``hesv``, and the band factorizations and band BLAS (``gbtrf``/
+``gbtrs``/``gbsv``, ``pbtrf``/``pbtrs``/``pbsv``, ``gbmm``, ``hbmm``,
+``tbsm``: the band packed from every rank, the one-rank packed loop run
+once, B, C and X put back over their grid's block-cyclic map, so their
+outputs are those of Grid(1, 1) bit for bit). No entry point refuses a
+p×q grid.
+
+Serving (``serve/``): the batched drivers ``batched_potrf``,
+``batched_posv``, ``batched_getrf``, ``batched_gesv``, ``batched_trsm``
+(with ``posv_batched``/``gesv_batched``) run a ``[batch, n, n]`` stack
+on one device, K1 factoring each diagonal block of the whole stack in
+one launch, with per-member pivots and ``info``; ``solve_ragged`` packs
+mixed-order requests into the bucket table of ``cache/buckets.py`` and
+runs them as power-of-two batches, with per-request health reports, the
+serving metrics of ``obs/`` and the fault injection of
+``robust/faults.py``.
 
 The test-matrix generator, printing and debug aids are in ``utils/``
 and the version stamp in ``version.py``, as in the JAX package.
@@ -57,7 +70,7 @@ from .types import (Op, Uplo, Diag, Side, Norm, NormScope, Option,
                     GridOrder, MethodGemm, MethodLU, MethodGels, MethodEig,
                     MethodSVD, get_option, superstep_chunk)
 from .errors import SlateError, InfoError, slate_error_if, raise_if_info
-from .grid import Grid, default_grid, require_one_rank
+from .grid import Grid, default_grid
 from .matrix import (
     BaseTiledMatrix, Matrix, HermitianMatrix, TriangularMatrix, BandMatrix,
     TrapezoidMatrix, SymmetricMatrix, TriangularBandMatrix,
@@ -72,11 +85,11 @@ from .ops.blas import (gemm, herk, syrk, trsm, her2k, syr2k, hemm, symm,
 from .ops.norms import norm, col_norms
 from .ops.elementwise import add, copy, scale, scale_row_col, set_matrix
 from .linalg.potrf import (potrf, potrs, posv, pbtrf, pbtrs, pbsv,
-                           potrf_dense_inplace)
+                           potrf_dense_inplace, posv_batched)
 from .linalg.getrf import (getrf, getrs, gesv, PivotOrder,
                            pivot_order_to_ipiv, getrf_nopiv, getrs_nopiv,
                            gesv_nopiv, gbtrf, gbtrs, gbsv, getrf_tntpiv,
-                           getrf_dense_inplace)
+                           getrf_dense_inplace, gesv_batched)
 from .linalg.band import BandLUFactor, BandCholFactor
 from .linalg.hetrf import hetrf, hetrs, hesv
 from .linalg.geqrf import geqrf, unmqr, gelqf, unmlq, cholqr, gels
@@ -109,5 +122,6 @@ from .interop import (from_reference, to_reference, pivots_from_reference,
                       band_chol_to_reference, phase_from_reference,
                       phase_to_reference)
 from . import lapack_api
+from . import cache, obs, robust, serve
 from .utils.generator import generate_matrix, random_matrix, random_spd
 from .utils.printing import print_matrix

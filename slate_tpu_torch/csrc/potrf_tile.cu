@@ -1,5 +1,5 @@
-// K1: lower Cholesky of one [nb, nb] FP32 tile (nb <= 1024), in place,
-// upper triangle zeroed.
+// K1: lower Cholesky of one [nb, nb] FP32 tile (nb <= 1024), or of each
+// tile of a [batch, nb, nb] stack, in place, upper triangles zeroed.
 //
 // Replaces potrf_tile_pallas (slate_tpu/internal/pallas_kernels.py), which
 // keeps the whole tile in VMEM and walks it in 64-column blocks. On the
@@ -27,6 +27,15 @@
 // policy pins tile factors to full FP32, so no TF32 tensor-core path). A
 // non-positive pivot d gives d * rsqrt(d) = NaN (0 * inf for d = 0), which
 // reaches the diagonal so the caller's finite guard reports the block.
+//
+// A stack (the batched drivers' diagonal blocks, which the JAX package
+// factors with one vmapped Pallas call) is one launch as well: the
+// persistent loop runs over batch * ntask tasks, instance-major, each
+// member with its own ready flags and inverse slots. Every wait is then on
+// a lower-numbered task of the same member, so the deadlock-freedom
+// argument of dataflow.cuh holds unchanged, the members' chains overlap
+// on the card, and a member's arithmetic (and a NaN from its pivots) is
+// that of its own single-tile launch.
 
 #include "dataflow.cuh"
 
@@ -96,7 +105,8 @@ __device__ void chol_block(float* s, int w) {
 }
 
 __global__ void __launch_bounds__(NTH)
-dataflow_potrf_tile(float* a, int nb, float* inv, unsigned* flags, unsigned epoch) {
+dataflow_potrf_tile(float* a0, int nb, int batch, float* inv0, unsigned* flags0,
+                    unsigned epoch) {
   extern __shared__ float4 smem4[];
   float* pa = reinterpret_cast<float*>(smem4);  // 64 x PL
   float* pb = pa + BT * PL;                      // 64 x PL
@@ -108,7 +118,12 @@ dataflow_potrf_tile(float* a, int nb, float* inv, unsigned* flags, unsigned epoc
   // task (i, k), i >= k, in block-column order
   auto task = [nt](int i, int k) { return k * nt - k * (k - 1) / 2 + (i - k); };
 
-  for (int t = blockIdx.x; t < ntask; t += gridDim.x) {
+  const long long total = static_cast<long long>(batch) * ntask;
+  for (long long g = blockIdx.x; g < total; g += gridDim.x) {
+    const int member = static_cast<int>(g / ntask), t = static_cast<int>(g % ntask);
+    float* a = a0 + static_cast<size_t>(member) * nb * nb;
+    float* inv = inv0 + static_cast<size_t>(member) * nt * BT * BT;
+    unsigned* flags = flags0 + static_cast<size_t>(member) * ntask;
     int k = 0, i = t;
     while (i >= nt - k) {
       i -= nt - k;
@@ -210,21 +225,23 @@ dataflow_potrf_tile(float* a, int nb, float* inv, unsigned* flags, unsigned epoc
 
 }  // namespace
 
-// a: [nb, nb] row-major FP32 on the device, factored in place.
-// inv: ceil(nb / 64) * 64 * 64 floats of scratch (the diagonal blocks'
-// inverses). flags: ceil(nb / 64) * (ceil(nb / 64) + 1) / 2 ready flags
-// whose values are all behind `epoch`. Launches on `stream`; returns the
-// CUDA error of the launch (0 on success).
-extern "C" int slate_potrf_tile_f32(float* a, int nb, float* inv, unsigned* flags,
-                                    unsigned epoch, void* stream) {
-  if (nb <= 0) return 0;
+// a: batch [nb, nb] row-major FP32 tiles on the device, one after the
+// other, each factored in place. inv: batch * ceil(nb / 64) * 64 * 64
+// floats of scratch (each member's diagonal blocks' inverses). flags:
+// batch * ceil(nb / 64) * (ceil(nb / 64) + 1) / 2 ready flags whose values
+// are all behind `epoch`. Launches on `stream`; returns the CUDA error of
+// the launch (0 on success).
+extern "C" int slate_potrf_tile_f32(float* a, int nb, int batch, float* inv,
+                                    unsigned* flags, unsigned epoch, void* stream) {
+  if (nb <= 0 || batch <= 0) return 0;
   const size_t smem = (2 * BT * PL + BT * PS + WSCR) * sizeof(float);
   int cap = 0;
   cudaError_t e = coresident(dataflow_potrf_tile, smem, &cap);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int nt = (nb + BT - 1) / BT, tasks = nt * (nt + 1) / 2;
-  const int G = tasks < cap ? tasks : cap;
-  void* args[] = {&a, &nb, &inv, &flags, &epoch};
+  const int nt = (nb + BT - 1) / BT;
+  const long long tasks = static_cast<long long>(batch) * (nt * (nt + 1) / 2);
+  const int G = tasks < cap ? static_cast<int>(tasks) : cap;
+  void* args[] = {&a, &nb, &batch, &inv, &flags, &epoch};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(dataflow_potrf_tile), dim3(G),
                                   dim3(NTH), args, smem, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);

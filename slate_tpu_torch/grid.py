@@ -134,17 +134,6 @@ def _default_pq(nd: int) -> tuple[int, int]:
     return p, nd // p
 
 
-def require_one_rank(grid: Grid, routine: str) -> None:
-    """Raise :class:`SlateError` naming multi-device for a routine whose
-    p×q form is not ported: it would read a p×q layout as if it were one
-    rank's."""
-    slate_error_if(
-        grid.size != 1,
-        f"{routine}: multi-device (p×q) grids are not ported for this "
-        f"routine yet; run it on Grid(1, 1) (this grid is "
-        f"{grid.p}x{grid.q})")
-
-
 def default_grid() -> Grid:
     """The grid an entry point uses when its caller names none (the
     counterpart of ``slate_tpu/grid.py:198``): ``Grid(1, 1)`` on the CUDA

@@ -152,13 +152,28 @@ def pack_tiled(A: BaseTiledMatrix, kl: int, ku: int, ncols: int,
 
 
 def _b_to_dense(B: BaseTiledMatrix, pad_rows: int) -> torch.Tensor:
+    """B's tiles from every rank as one dense [≥ mt·nb, nt·nb] tensor,
+    zero rows appended up to ``pad_rows``: the tiles a p×q grid adds to
+    make whole rank rows and columns are cut off, so the packed loops
+    see the shapes, and give the bits, of the Grid(1, 1) call."""
     tiles = bc_to_tiles(B.data)
-    mt_p, nt_p, nb, _ = tiles.shape
-    dense = tiles_to_dense(tiles, mt_p * nb, nt_p * nb)
+    nb = tiles.shape[-1]
+    dense = tiles_to_dense(tiles, cdiv(B.m, nb) * nb,
+                           cdiv(B.n, nb) * nb).contiguous()
     if pad_rows > dense.shape[0]:
         dense = torch.cat([dense, dense.new_zeros(
             (pad_rows - dense.shape[0], dense.shape[1]))])
     return dense
+
+
+def check_same_device(ab: torch.Tensor, B: BaseTiledMatrix,
+                      routine: str) -> None:
+    """Refuse a band factor and a right-hand side on two devices: the
+    port moves neither quietly."""
+    slate_error_if(ab.device != B.data.device,
+                   f"{routine}: the band factor lies on {ab.device} and B "
+                   f"on {B.data.device}; put B on a grid of the factor's "
+                   f"device")
 
 
 def _dense_to_b(dense: torch.Tensor, B: BaseTiledMatrix) -> BaseTiledMatrix:

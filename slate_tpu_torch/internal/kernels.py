@@ -163,7 +163,7 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _U = ctypes.c_uint
 _SIGNATURES = {
-    "slate_potrf_tile_f32": ("potrf_tile", (_P, _I, _P, _P, _U, _P)),
+    "slate_potrf_tile_f32": ("potrf_tile", (_P, _I, _I, _P, _P, _U, _P)),
     "slate_trsm_right_lower_t_f32": ("trsm_lower", (_P, _P, _P, _I, _I, _I, _P,
                                                     _U, _P)),
     "slate_trsm_left_lower_f32": ("trsm_left", (_P, _P, _I, _I, _I, _P, _U,
@@ -252,11 +252,11 @@ def _ready_flags(device: torch.device, count: int) -> tuple[torch.Tensor, int]:
     return ent[0], ent[1]
 
 
-def _check(kernel: str, nb: int, *ts: torch.Tensor) -> None:
+def _check(kernel: str, nb: int, *ts: torch.Tensor, dims: int = 2) -> None:
     for t in ts:
         slate_error_if(t.device.type != "cuda" or t.dtype != torch.float32
-                       or t.dim() != 2,
-                       f"{kernel}: the kernel takes 2-D float32 CUDA "
+                       or t.dim() != dims,
+                       f"{kernel}: the kernel takes {dims}-D float32 CUDA "
                        f"tensors, got {t.dtype} {tuple(t.shape)} on "
                        f"{t.device}")
     slate_error_if(not supported(kernel, ts[0].dtype, nb, ts[0].device),
@@ -277,111 +277,135 @@ def _route(kernel: str, t: torch.Tensor) -> bool:
 # ---------------------------------------------------------------------------
 
 def potrf_tile(a: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of one [nb, nb] tile; the upper triangle
-    comes out zeroed. The lower triangle of ``a`` is read.
+    """Lower Cholesky factor of one [nb, nb] tile, or of each tile of a
+    [batch, nb, nb] stack; the upper triangles come out zeroed. The lower
+    triangle of ``a`` is read.
 
     Replaces ``potrf_tile_pallas`` (pallas_kernels.py:428), which keeps
-    the tile in VMEM. Bound on an H100: the flops (nb³/3, 5 µs of the
-    FP32 rate at nb = 1024) are not; the chain of nb/64 dependent
-    diagonal blocks is. Design (csrc/potrf_tile.cu): one cooperative
-    launch of a left-looking tile algorithm driven by ready flags. The
-    tile stays in global memory (4 MB at nb = 1024, resident in L2); each
-    lower 64×64 tile (i, k) is a task that sums L[i, j]·L[k, j]ᵀ over
-    j < k as its operands are published, then either factors the
-    diagonal block in shared memory (16-column panels, each by one warp
-    in registers) and inverts it by recursive doubling, or, below the
-    diagonal, multiplies by that inverse's transpose. No host loop,
-    launch or grid barrier sits on the chain. Any nb from 1 to 1024; the
-    ragged last block is masked. A non-positive pivot d comes out as NaN
-    on the diagonal (d·rsqrt(d)), for the caller's finite guard.
+    the tile in VMEM and, under the JAX package's ``vmap`` of the batched
+    drivers, runs once over the whole stack. Bound on an H100: the flops
+    (nb³/3, 5 µs of the FP32 rate at nb = 1024) are not; the chain of
+    nb/64 dependent diagonal blocks is. Design (csrc/potrf_tile.cu): one
+    cooperative launch of a left-looking tile algorithm driven by ready
+    flags. The tile stays in global memory (4 MB at nb = 1024, resident
+    in L2); each lower 64×64 tile (i, k) is a task that sums
+    L[i, j]·L[k, j]ᵀ over j < k as its operands are published, then
+    either factors the diagonal block in shared memory (16-column panels,
+    each by one warp in registers) and inverts it by recursive doubling,
+    or, below the diagonal, multiplies by that inverse's transpose. No
+    host loop, launch or grid barrier sits on the chain. A stack is one
+    launch too: its batch · ntask tasks run instance-major, each member
+    with its own flags and inverse scratch, so the chains of the members
+    overlap and a member's bits are those of its own single-tile launch.
+    Any nb from 1 to 1024; the ragged last block is masked. A
+    non-positive pivot d comes out as NaN on the diagonal (d·rsqrt(d)),
+    for the caller's finite guard, in that member only.
     """
     if not _route("potrf_tile", a):
         return potrf_tile_plain(a)
     nb = a.shape[-1]
-    _check("potrf_tile", nb, a)
-    slate_error_if(a.shape[0] != nb, "potrf_tile: square tile expected")
+    slate_error_if(a.dim() not in (2, 3) or a.shape[-2] != nb,
+                   "potrf_tile: a square [nb, nb] tile or a [batch, nb, nb] "
+                   "stack expected")
+    _check("potrf_tile", nb, a, dims=a.dim())
+    batch = a.shape[0] if a.dim() == 3 else 1
     out = a.clone(memory_format=torch.contiguous_format)
+    if batch == 0:
+        return out
     nt = -(-nb // BT)
-    inv = torch.empty(nt * BT * BT, dtype=torch.float32, device=a.device)
-    flags, epoch = _ready_flags(a.device, nt * (nt + 1) // 2)
-    _launch("slate_potrf_tile_f32", a.device, _P(out.data_ptr()), nb,
+    inv = torch.empty(batch * nt * BT * BT, dtype=torch.float32,
+                      device=a.device)
+    flags, epoch = _ready_flags(a.device, batch * nt * (nt + 1) // 2)
+    _launch("slate_potrf_tile_f32", a.device, _P(out.data_ptr()), nb, batch,
             _P(inv.data_ptr()), _P(flags.data_ptr()), epoch)
     LAUNCHES["potrf_tile"] += 1
     return out
 
 
 def _chol_block(d: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky of a diagonal block (width ≤ :data:`BT`), in place,
-    as the kernel's ``chol_block``: 16-column panels factored column by
-    column (with r = rsqrt(d) the pivot d·r and the column scaled by r,
-    the update kept inside the panel), then the trailing block minus the
-    panel's product."""
-    w = d.shape[0]
+    """Lower Cholesky of a diagonal block (width ≤ :data:`BT`) or of each
+    block of a stack, in place, as the kernel's ``chol_block``: 16-column
+    panels factored column by column (with r = rsqrt(d) the pivot d·r and
+    the column scaled by r, the update kept inside the panel), then the
+    trailing block minus the panel's product."""
+    w = d.shape[-1]
     for p in range(0, w, _CHOL_PANEL):
         e = min(w, p + _CHOL_PANEL)
         for j in range(p, e):
-            r = torch.rsqrt(d[j, j])
-            col = d[j + 1:, j] * r
-            d[j + 1:, j + 1:e] -= torch.outer(col, col[:e - j - 1])
-            d[j + 1:, j] = col
-            d[j, j] = d[j, j] * r
+            r = torch.rsqrt(d[..., j, j])[..., None]
+            col = d[..., j + 1:, j] * r
+            d[..., j + 1:, j + 1:e] -= (col[..., :, None]
+                                        * col[..., None, :e - j - 1])
+            d[..., j + 1:, j] = col
+            d[..., j, j] = d[..., j, j] * r[..., 0]
         if e < w:
-            d[e:, e:] -= d[e:, p:e] @ d[e:, p:e].mT
+            d[..., e:, e:] -= d[..., e:, p:e] @ d[..., e:, p:e].mT
     return d.tril_()
+
+
+def _diag_blocks(t: torch.Tensor, q: int) -> torch.Tensor:
+    """The q × q diagonal blocks of [..., BT, BT] as a view
+    [..., BT/q, q, q]."""
+    n = t.shape[-1] // q
+    return (t.unflatten(-1, (n, q)).unflatten(-3, (n, q))
+             .diagonal(dim1=-4, dim2=-2).movedim(-1, -3))
 
 
 def _inv_lower_doubling(l: torch.Tensor, unit: bool = False,
                         base: int = 1) -> torch.Tensor:
-    """Inverse of a lower-triangular block of width w ≤ :data:`BT` by
-    recursive doubling, as the kernels' ``inv_lower`` (csrc/dataflow.cuh):
-    padded to BT with the identity, the inverted diagonal first, then at
-    block size s = 1, 2, …, BT/2 every 2s-block [[A, 0], [C, D]] gets
-    −D⁻¹·(C·A⁻¹) from its two inverted s-blocks. ``unit`` takes the
-    diagonal as ones. With ``base`` > 1 the doubling starts from the
-    inverted base × base diagonal blocks (K7's ``inv_lu``)."""
-    w = l.shape[0]
-    t = torch.eye(BT, dtype=l.dtype, device=l.device)
-    t[:w, :w] = l.tril()
-    v = torch.eye(BT, dtype=l.dtype, device=l.device)
+    """Inverse of a lower-triangular block of width w ≤ :data:`BT` (or of
+    each block of a stack) by recursive doubling, as the kernels'
+    ``inv_lower`` (csrc/dataflow.cuh): padded to BT with the identity,
+    the inverted diagonal first, then at block size s = 1, 2, …, BT/2
+    every 2s-block [[A, 0], [C, D]] gets −D⁻¹·(C·A⁻¹) from its two
+    inverted s-blocks. ``unit`` takes the diagonal as ones. With ``base``
+    > 1 the doubling starts from the inverted base × base diagonal blocks
+    (K7's ``inv_lu``)."""
+    w = l.shape[-1]
+    eye = torch.eye(BT, dtype=l.dtype, device=l.device)
+    t = eye.repeat(*l.shape[:-2], 1, 1)
+    t[..., :w, :w] = l.tril()
+    v = eye.repeat(*l.shape[:-2], 1, 1)
     if base > 1:
-        eye = torch.eye(base, dtype=l.dtype, device=l.device)
+        eb = torch.eye(base, dtype=l.dtype, device=l.device)
         for b in range(0, BT, base):
-            v[b:b + base, b:b + base] = torch.linalg.solve_triangular(
-                t[b:b + base, b:b + base], eye, upper=False,
+            v[..., b:b + base, b:b + base] = torch.linalg.solve_triangular(
+                t[..., b:b + base, b:b + base], eb, upper=False,
                 unitriangular=unit)
     elif not unit:
-        v[:w, :w] = torch.diag(1 / torch.diagonal(t)[:w])
+        v[..., :w, :w] = torch.diag_embed(
+            1 / torch.diagonal(t, dim1=-2, dim2=-1)[..., :w])
     s = base
     while s < BT:
         q = 2 * s
-        nblk = BT // q
-        blk = torch.arange(nblk, device=l.device)
-        tb = t.view(nblk, q, nblk, q)[blk, :, blk, :]      # [nblk, 2s, 2s]
-        vv = v.view(nblk, q, nblk, q)
-        vb = vv[blk, :, blk, :]
-        ca = tb[:, s:, :s] @ vb[:, :s, :s]                 # C·A⁻¹
-        vv[blk, s:, blk, :s] = -(vb[:, s:, s:] @ ca)
+        tb = _diag_blocks(t, q).contiguous()               # [..., BT/q, 2s, 2s]
+        vd = _diag_blocks(v, q)                            # a view of v
+        vb = vd.contiguous()
+        ca = tb[..., s:, :s] @ vb[..., :s, :s]             # C·A⁻¹
+        vd[..., s:, :s] = -(vb[..., s:, s:] @ ca)
         s = q
-    return v[:w, :w].clone()
+    return v[..., :w, :w].clone()
 
 
 def potrf_tile_plain(a: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`potrf_tile`: the same left-looking
-    algorithm over 64-column blocks — per block column the sum of the
-    earlier columns' products, the diagonal block's factor, its inverse
-    by recursive doubling, and the panel times that inverse's
-    transpose."""
+    """Plain PyTorch version of :func:`potrf_tile`, on a tile or on a
+    stack: the same left-looking algorithm over 64-column blocks — per
+    block column the sum of the earlier columns' products, the diagonal
+    block's factor, its inverse by recursive doubling, and the panel
+    times that inverse's transpose — with the stack on the leading
+    axis of every step."""
     a = a.clone()
-    nb = a.shape[0]
+    nb = a.shape[-1]
     with full_f32_matmul():
         for k0 in range(0, nb, BT):
             e = min(nb, k0 + BT)
             if k0:
-                a[k0:, k0:e] -= a[k0:, :k0] @ a[k0:e, :k0].mT
-            d = _chol_block(a[k0:e, k0:e].clone())
-            a[k0:e, k0:e] = d
+                a[..., k0:, k0:e] -= a[..., k0:, :k0] @ a[..., k0:e, :k0].mT
+            d = _chol_block(a[..., k0:e, k0:e].clone())
+            a[..., k0:e, k0:e] = d
             if e < nb:
-                a[e:, k0:e] = a[e:, k0:e] @ _inv_lower_doubling(d).mT
+                a[..., e:, k0:e] = (a[..., e:, k0:e]
+                                    @ _inv_lower_doubling(d).mT)
     return a.tril()
 
 

@@ -60,6 +60,11 @@ TIER_EPS = {
 F32_EPS = 2.0 ** -24
 
 
+def tier_eps(tier: str) -> float:
+    """The documented unit roundoff a product carries at ``tier``."""
+    return TIER_EPS[tier]
+
+
 def resolve_tier(opts=None) -> str:
     """Read ``Option.TrailingPrecision`` from an opts mapping; returns a
     validated tier name (default :data:`DEFAULT_TIER`)."""

@@ -47,20 +47,22 @@ def hermitian_tile(akk: torch.Tensor) -> torch.Tensor:
     real tile this is tril + tril(-1)ᵀ, bit for bit."""
     low = akk.tril(-1)
     return low + low.mH + torch.diag_embed(
-        torch.diagonal(akk).real.to(akk.dtype))
+        torch.diagonal(akk, dim1=-2, dim2=-1).real.to(akk.dtype))
 
 
 def tile_potrf(a: torch.Tensor) -> torch.Tensor:
-    """Cholesky of one [nb, nb] tile → lower factor, upper zeroed. A
-    failed factorization yields non-finite entries on the diagonal, as
-    XLA's ``cholesky`` does, never an exception."""
+    """Cholesky of one [nb, nb] tile, or of each tile of a [batch, nb, nb]
+    stack in one call → lower factor, upper zeroed. A failed
+    factorization yields non-finite entries on the diagonal, as XLA's
+    ``cholesky`` does, never an exception; in a stack only the failed
+    member's."""
     fd = _factor_dtype(a.dtype)
     a32 = a.to(fd)
     if kernels.supported("potrf_tile", fd, a.shape[-1], a.device):
         return kernels.potrf_tile(a32).to(a.dtype)
     l, info = torch.linalg.cholesky_ex(a32)
-    return torch.where(info == 0, l, torch.full_like(l, float("nan"))
-                       ).to(a.dtype)
+    return torch.where((info == 0)[..., None, None], l,
+                       torch.full_like(l, float("nan"))).to(a.dtype)
 
 
 def tile_trsm_left_lower(l: torch.Tensor, b: torch.Tensor,

@@ -52,7 +52,7 @@ import torch
 
 from .. import runtime
 from ..errors import slate_error_if
-from ..grid import Grid, require_one_rank
+from ..grid import Grid
 from . import band as _band
 from ..internal import band_packed as _bp
 from ..internal import comm, masks, panel_plu
@@ -857,6 +857,16 @@ def _getrf_chunk_core(A, data, piv, info, k0, klen, tier=None,
     return info
 
 
+def gesv_batched(a, b, opts=None, *, nb: int | None = None, device=None):
+    """General solve of a dense ``[batch, n, n]`` stack and ``[batch, n,
+    nrhs]`` right-hand sides, the serving-path sibling of :func:`gesv`
+    (``serve.batched.batched_gesv``): partial pivoting per member.
+    Returns ``(x, lu, perm, info)``, ``perm[i]`` member i's row
+    permutation and ``info[i]`` its zero-pivot count."""
+    from ..serve.batched import batched_gesv
+    return batched_gesv(a, b, opts, nb=nb, device=device)
+
+
 # ---------------------------------------------------------------------------
 # band LU (reference src/gbtrf.cc, gbtrs.cc, gbsv.cc; getrf.py:1873-1911):
 # the packed-band loop of linalg/band.py on dgbtrf working storage
@@ -867,7 +877,6 @@ def gbtrf(A, opts=None):
     ``(BandLUFactor, piv, info)``: the packed dgbtrf-layout factor,
     ``piv [kt, nb]`` (row k·nb + j swapped with ``piv[k, j]``, nb the
     band block) and the number of zero pivots. A is not modified."""
-    require_one_rank(A.grid, "gbtrf")
     Am = A.materialize()          # resolves op views; flips kl/ku
     kl, ku = Am.kl, Am.ku
     kuf = kl + ku
@@ -890,6 +899,7 @@ def gbtrs(F, piv=None, B: Matrix = None, trans: Op = Op.NoTrans,
     block-cyclic map (``band.py:487-502``), so it gets the bits of the
     Grid(1, 1) solve."""
     slate_error_if(F.n != B.m, "gbtrs dims")
+    _bp.check_same_device(F.ab, B, "gbtrs")
     if B.grid.size > 1:
         one = Grid(1, 1, device=B.grid.device)
         X = gbtrs(F, piv, B.redistribute(one), trans, opts)
@@ -905,6 +915,5 @@ def gbtrs(F, piv=None, B: Matrix = None, trans: Op = Op.NoTrans,
 
 def gbsv(A, B: Matrix, opts=None):
     """Solve A·X = B by band LU. Returns ``(X, LU, piv, info)``."""
-    require_one_rank(A.grid, "gbsv")
     LU, piv, info = gbtrf(A, opts)
     return gbtrs(LU, piv, B, Op.NoTrans, opts), LU, piv, info

@@ -30,7 +30,6 @@ from __future__ import annotations
 import torch
 
 from ..errors import slate_error_if
-from ..grid import require_one_rank
 from ..internal import band_packed as _bp
 from ..internal import comm, masks
 from ..internal.precision import (full_f32_matmul, resolve_tier,
@@ -114,14 +113,18 @@ def _syrk_update_inplace(a, r0, nsub, vl, vr, cutoff=2048):
     (junk-by-contract) upper half. ``vl`` and ``vr`` are v and vᵀ as the
     tier multiplies them (:func:`~..internal.precision.tier_lhs`,
     ``tier_rhs``), split once for the whole recursion; the caller holds
-    the tier's matmul setting."""
+    the tier's matmul setting. ``a`` may be a stack [batch, ·, ·], with
+    ``vl`` and ``vr`` stacks of the same batch (the batched drivers)."""
+    sub = torch.Tensor.addmm_ if a.dim() == 2 else torch.Tensor.baddbmm_
     if nsub <= cutoff:
-        a[r0:r0 + nsub, r0:r0 + nsub].addmm_(vl, vr, alpha=-1)
+        sub(a[..., r0:r0 + nsub, r0:r0 + nsub], vl, vr, alpha=-1)
         return
     h = nsub // 2
-    _syrk_update_inplace(a, r0, h, vl[:h], vr[:, :h], cutoff)
-    a[r0 + h:r0 + nsub, r0:r0 + h].addmm_(vl[h:], vr[:, :h], alpha=-1)
-    _syrk_update_inplace(a, r0 + h, nsub - h, vl[h:], vr[:, h:], cutoff)
+    _syrk_update_inplace(a, r0, h, vl[..., :h, :], vr[..., :h], cutoff)
+    sub(a[..., r0 + h:r0 + nsub, r0:r0 + h], vl[..., h:, :], vr[..., :h],
+        alpha=-1)
+    _syrk_update_inplace(a, r0 + h, nsub - h, vl[..., h:, :], vr[..., h:],
+                         cutoff)
 
 
 def _potrf_dense_loop(a, nb, n, Mp, tier):
@@ -340,6 +343,15 @@ def posv(A: HermitianMatrix, B: Matrix, opts=None):
     return X, L, info
 
 
+def posv_batched(a, b, opts=None, *, nb: int | None = None, device=None):
+    """SPD solve of a dense ``[batch, n, n]`` stack and ``[batch, n,
+    nrhs]`` right-hand sides, the serving-path sibling of :func:`posv`
+    (``serve.batched.batched_posv``). Returns ``(x, l, info)`` with one
+    info a member."""
+    from ..serve.batched import batched_posv
+    return batched_posv(a, b, opts, nb=nb, device=device)
+
+
 # ---------------------------------------------------------------------------
 # band Cholesky (``potrf.py:877-926``): packed lower band storage, a
 # sliding dense window per block column (``linalg/band.py``)
@@ -352,7 +364,6 @@ def pbtrf(A, opts=None, health: bool = False):
     first non-SPD block column of the band block. ``health=True`` returns
     a :class:`~..robust.guards.HealthReport` in the info slot, with the
     same first-block convention."""
-    require_one_rank(A.grid, "pbtrf")
     Am = A.materialize()          # resolves op views; flips uplo, kl, ku
     slate_error_if(Am.m != Am.n, "pbtrf needs a square matrix")
     upper = Am.uplo == Uplo.Upper
@@ -371,8 +382,8 @@ def pbtrf(A, opts=None, health: bool = False):
 def pbtrs(L, B: Matrix, opts=None) -> Matrix:
     """Solve A·X = B from :func:`pbtrf`'s factor (reference
     src/pbtrs.cc)."""
-    require_one_rank(B.grid, "pbtrs")
     slate_error_if(L.n != B.m, "pbtrs dims")
+    _bp.check_same_device(L.ab, B, "pbtrs")
     Bm = check_rhs_dtype(B.materialize(), L.ab.dtype)
     nbw = _bp._band_block(L.n, L.kd)
     b = _bp._b_to_dense(Bm, cdiv(L.n, nbw) * nbw + L.kd)
@@ -383,7 +394,6 @@ def pbtrs(L, B: Matrix, opts=None) -> Matrix:
 def pbsv(A, B: Matrix, opts=None):
     """Solve A·X = B by band Cholesky (reference src/pbsv.cc). Returns
     ``(X, L, info)``."""
-    require_one_rank(A.grid, "pbsv")
     L, info = pbtrf(A, opts)
     X = pbtrs(L, B, opts)
     return X, L, info

@@ -25,7 +25,6 @@ from __future__ import annotations
 import torch
 
 from ..errors import slate_error_if
-from ..grid import require_one_rank
 from ..internal import band_packed as _bp
 from ..internal import comm, masks
 from ..internal.masks import tile_diag_pad_identity
@@ -613,7 +612,6 @@ def gbmm(alpha, A, B: Matrix, beta, C: Matrix, opts=None) -> Matrix:
     of B, which its mesh would replicate on every device; on one card
     nothing is replicated, and that route would cost an n² copy of A
     and O(m·n·n_B) flops."""
-    require_one_rank(A.grid, "gbmm")
     Am = A.materialize()
     Bm = B.materialize()
     kl, ku = Am.kl, Am.ku
@@ -639,7 +637,6 @@ def hbmm(side: Side, alpha, A, B: Matrix, beta, C: Matrix,
     into a full band of half-width kd, then the packed band product; the
     right side multiplies B's columns directly
     (:func:`~..internal.band_packed.bandmm_packed_right`), without a transpose."""
-    require_one_rank(A.grid, "hbmm")
     kd = A.kl if A.uplo != Uplo.Upper else A.ku
     Af = _mirror_full(A, conj=A.dtype.is_complex)
     Ab = BandMatrix(data=Af.data, m=A.m, n=A.n, nb=A.nb, grid=A.grid,
@@ -671,7 +668,6 @@ def tbsm(side: Side, alpha, A, B: Matrix, pivots=None,
     (reference src/tbsm.cc, tbsmPivots.cc). Both sides run the packed
     band solves (:func:`~..internal.band_packed.tbsm_packed`,
     :func:`~..internal.band_packed.tbsm_packed_right`), O(n·kd·nrhs)."""
-    require_one_rank(A.grid, "tbsm")
     if pivots is not None:
         from ..linalg.getrf import _apply_pivots_matrix
         B = _apply_pivots_matrix(B, pivots, forward=True)

@@ -1,1 +1,2 @@
-"""Numerical-health guards."""
+"""Numerical-health guards, fault injection and the serving layer's
+residual check."""

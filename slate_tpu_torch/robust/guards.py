@@ -41,14 +41,17 @@ def finite_guard(x: torch.Tensor, info: torch.Tensor, code: int, *,
     to the diagonal, its real part for complex) and no earlier failure
     was recorded, ``info`` becomes ``code``. Non-finite entries are
     zero-filled either way, so the factorization runs to its end with a
-    truthful report.
+    truthful report. A stack ``x [batch, …]`` with ``info [batch]`` is
+    guarded member by member (the JAX package's guard under ``vmap``):
+    each member's report comes from its own entries.
     """
     if diag:
-        d = torch.diagonal(x)
+        d = torch.diagonal(x, dim1=-2, dim2=-1)
         probe = d.real if cplx else d
     else:
         probe = x
-    bad = ~torch.isfinite(probe).all()
+    fin = torch.isfinite(probe)
+    bad = ~(fin.flatten(1).all(dim=1) if info.dim() else fin.all())
     new = torch.where(bad, torch.full_like(info, code),
                       torch.zeros_like(info))
     return zero_nonfinite(x), info_merge(info, new)
@@ -81,10 +84,10 @@ class HealthReport:
     locates the failure in block coordinates when the convention names
     one; ``growth`` is the reciprocal-condition estimate from
     ``condest`` (None when the factorization failed); ``demotions`` and
-    ``notes`` carry backend demotions and free text. ``request_id`` (a
-    serving layer's correlation stamp) stays "" and ``verified`` and
-    ``checksum_resid`` (checksum verification) stay None in the port,
-    which has neither layer yet.
+    ``notes`` carry backend demotions and free text. ``request_id`` is
+    the serving layer's correlation stamp; ``verified`` and
+    ``checksum_resid`` carry a served request's residual check
+    (``robust/abft.verify_solve``) and stay None elsewhere.
     """
 
     routine: str
@@ -120,7 +123,9 @@ class HealthReport:
 
 def health_report(routine: str, info, *, convention: str = "first_block",
                   growth: float | None = None, demotions=(),
-                  notes: str = "") -> HealthReport:
+                  notes: str = "", request_id: str = "",
+                  verified: bool | None = None,
+                  checksum_resid: float | None = None) -> HealthReport:
     """Build a :class:`HealthReport` from a driver's ``info`` and record
     it in the report log. ``convention`` decodes ``info``:
 
@@ -129,12 +134,21 @@ def health_report(routine: str, info, *, convention: str = "first_block",
       block ``(info-1, info-1)``;
     * ``"count"`` (getrf, hetrf): info counts zero pivots, and no single
       coordinate exists.
+
+    ``request_id`` defaults to the correlation IDs bound where the report
+    is built (:mod:`..obs.correlation`), so a report made inside a
+    serving dispatch names its request.
     """
+    from ..obs import correlation
     i = int(info)
     first_bad = (i - 1, i - 1) if i > 0 and convention == "first_block" \
         else None
     r = HealthReport(routine=routine, info=i, first_bad_tile=first_bad,
-                     growth=growth, demotions=tuple(demotions), notes=notes)
+                     growth=growth, demotions=tuple(demotions), notes=notes,
+                     request_id=request_id or correlation.current(),
+                     verified=None if verified is None else bool(verified),
+                     checksum_resid=(None if checksum_resid is None
+                                     else float(checksum_resid)))
     _record_report(r)
     return r
 

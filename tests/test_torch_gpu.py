@@ -1695,3 +1695,137 @@ def test_pq_hesv_getri_mixed_on_card_match_cpu(cuda, dt):
     kappa = float(torch.linalg.cond(hz))
     assert crel(c[0], h_[0]) <= n * 2.0 ** -24 * kappa
     assert crel(c[3], h_[3]) <= bound and crel(c[6], h_[6]) <= bound
+
+
+@pytest.mark.parametrize("nb", [1024, 256, 200, 65, 1])
+def test_potrf_tile_stack_matches_plain(cuda, nb):
+    """K1 over a [5, nb, nb] stack in one launch against its plain version
+    over the same stack; each member's bits equal its own single-tile
+    launch."""
+    gen = torch.Generator(device=cuda).manual_seed(nb + 5)
+    g = torch.randn(5, nb, nb, generator=gen, device=cuda)
+    a = g @ g.mT / nb + torch.eye(nb, device=cuda)
+    before = K.LAUNCHES["potrf_tile"]
+    l = K.potrf_tile(a)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["potrf_tile"] == before + 1
+    assert rel(l, K.potrf_tile_plain(a)) < TOL
+    assert float(torch.triu(l, 1).abs().max()) == 0.0
+    for i in range(5):
+        assert torch.equal(l[i], K.potrf_tile(a[i]))
+
+
+def test_potrf_tile_stack_failed_members_leave_batchmates(cuda):
+    """A member with a NaN and a member that is not positive definite come
+    out with NaN on their own diagonals only; the other members' bits
+    equal their single-tile launches; a batch of one equals the 2-D
+    call bit for bit."""
+    nb = 256
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    g = torch.randn(6, nb, nb, generator=gen, device=cuda)
+    a = g @ g.mT / nb + torch.eye(nb, device=cuda)
+    a[1, 100, 100] = float("nan")
+    a[4] = -torch.eye(nb, device=cuda)
+    l = K.potrf_tile(a)
+    d = torch.diagonal(l, dim1=-2, dim2=-1)
+    assert not torch.isfinite(d[1]).all() and not torch.isfinite(d[4]).all()
+    for i in (0, 2, 3, 5):
+        assert torch.equal(l[i], K.potrf_tile(a[i]))
+    assert torch.equal(K.potrf_tile(a[2:3])[0], K.potrf_tile(a[2]))
+
+
+def zrel(x, ref):
+    """rel in complex128, for real and complex tensors alike."""
+    z = torch.complex128
+    x, ref = x.cpu().to(z), ref.cpu().to(z)
+    return float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.complex64],
+                         ids=["f32", "c64"])
+def test_batched_drivers_on_card_match_cpu(cuda, dt):
+    """posv_batched, gesv_batched, batched_potrf/getrf/trsm on a
+    [6, 256, 256] stack (nb 128) on the card (K1 over the stack in
+    float32, one launch a block column) and on the CPU: ``info`` and
+    ``perm`` equal, X and the factors within 10·n·2⁻²⁴ of each other,
+    the backward error within 10·n·2⁻²⁴."""
+    from slate_tpu_torch.serve import batched
+    B, n, nb = 6, 256, 128
+    gen = torch.Generator().manual_seed(41)
+
+    def rnd(*shape):
+        x = torch.randn(*shape, generator=gen, dtype=torch.float64)
+        if dt.is_complex:
+            x = x + 1j * torch.randn(*shape, generator=gen,
+                                     dtype=torch.float64)
+        return x
+
+    g = rnd(B, n, n)
+    spd = (g @ g.mH / n + torch.eye(n)).to(dt)
+    gen_a = (rnd(B, n, n) + 2 * n ** 0.5 * torch.eye(n)).to(dt)
+    b = rnd(B, n, 3).to(dt)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        before = K.LAUNCHES["potrf_tile"]
+        x, l, info = st.posv_batched(spd.to(dev), b.to(dev), nb=nb)
+        launches = K.LAUNCHES["potrf_tile"] - before
+        y, lu, perm, linfo = st.gesv_batched(gen_a.to(dev), b.to(dev), nb=nb)
+        t = batched.batched_trsm(l, b.to(dev))
+        out[dev] = (x, l, info, y, lu, perm, linfo, t, launches)
+    c, h = out["cuda"], out["cpu"]
+    assert c[8] == (n // nb if dt == torch.float32 else 0) and h[8] == 0
+    assert torch.equal(c[2].cpu(), h[2]) and not h[2].any()
+    assert torch.equal(c[5].cpu(), h[5]) and torch.equal(c[6].cpu(), h[6])
+    bound = 10 * n * 2.0 ** -24
+    for k in (0, 1, 3, 4, 7):
+        assert zrel(c[k], h[k]) <= bound, k
+    for a, x in ((spd, c[0]), (gen_a, c[3])):
+        a, x = a.to(torch.complex128), x.cpu().to(torch.complex128)
+        r = a @ x - b.to(torch.complex128)
+        err = torch.linalg.norm(r, dim=(1, 2)) / (
+            torch.linalg.norm(a, dim=(1, 2)) * torch.linalg.norm(x, dim=(1, 2)))
+        assert float(err.max()) <= bound
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.complex64],
+                         ids=["f32", "c64"])
+def test_pq_band_on_card_match_cpu(cuda, dt):
+    """gbsv (kl = ku = 32) and pbsv (kd = 32) at n = 1024, storage nb 256,
+    on 2×4 on the card: bit for bit the 1×1 card call, and within the
+    CPU's: pivots and ``info`` equal, X within n·2⁻²⁴·κ(A)."""
+    n, nb, kd = 1024, 256, 32
+    gen = torch.Generator().manual_seed(43)
+
+    def rnd(*shape):
+        x = torch.randn(*shape, generator=gen, dtype=torch.float64)
+        if dt.is_complex:
+            x = x + 1j * torch.randn(*shape, generator=gen,
+                                     dtype=torch.float64)
+        return x
+
+    i, j = torch.meshgrid(torch.arange(n), torch.arange(n), indexing="ij")
+    inband = (i - j).abs() <= kd
+    a = torch.where(inband, rnd(n, n), 0).to(dt)
+    h = torch.where(inband, rnd(n, n), 0)
+    h = ((h + h.mH) / 2 + 2 * kd * torch.eye(n)).to(dt)
+    b = rnd(n, 8).to(dt)
+    out = {}
+    for dev, (p, q) in (("cuda", (2, 4)), ("cuda", (1, 1)), ("cpu", (2, 4))):
+        g = st.Grid(p, q, device=dev)
+        B = st.Matrix.from_dense(b, nb=nb, grid=g)
+        X, _, piv, info = st.gbsv(st.BandMatrix.from_dense(
+            a, nb=nb, grid=g, kl=kd, ku=kd), B)
+        Y, _, pinfo = st.pbsv(st.HermitianBandMatrix.from_dense(
+            torch.tril(h), nb=nb, grid=g, kl=kd, ku=kd), B)
+        out[(dev, p)] = (X.to_dense(), piv.cpu(), int(info), Y.to_dense(),
+                         int(pinfo))
+    c, one, h_ = out[("cuda", 2)], out[("cuda", 1)], out[("cpu", 2)]
+    for k in range(5):
+        assert torch.equal(torch.as_tensor(c[k]).cpu(),
+                           torch.as_tensor(one[k]).cpu()), k
+    assert torch.equal(c[1], h_[1]) and c[2] == h_[2] == 0 \
+        and c[4] == h_[4] == 0
+    z = torch.complex128
+    for mat, k in ((a, 0), (h, 3)):
+        kappa = float(torch.linalg.cond(mat.to(z)))
+        assert zrel(c[k], h_[k]) <= n * 2.0 ** -24 * kappa

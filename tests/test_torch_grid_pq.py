@@ -1,12 +1,12 @@
 """The port's p×q grid of virtual ranks, its block-cyclic storage and its
-masks against the JAX package's, and the refusal of every entry point
-whose p×q form is not ported (the band routines), on the CPU.
+masks against the JAX package's, and every entry point that once refused
+a p×q grid running on one, on the CPU.
 
 Storage after ``from_dense``, ``redistribute``, ``from_tile_map`` and a
 resolved transpose is held bit for bit to the JAX package's
 ``[p, q, mtl, ntl, nb, nb]`` stack on the grids of the JAX fixtures (2×4
 and 2×2) and on 1×4 and 4×1, with ragged sizes. Every entry point of
-the p×q slices runs on a 2×2 grid, and every other one refuses it.
+the p×q slices runs on a 2×2 grid.
 """
 
 import numpy as np
@@ -156,36 +156,13 @@ def test_masks_match_jax(p, q):
                        masks.valid_mask(mtl, ntl, nb, m, n))
 
 
-def _refusals():
-    """Every entry point outside the p×q slices (the band routines and the
-    band BLAS), each on a 2×2 grid."""
-    g = pgrid(2, 2)
-    n = 16
-    a, s = rand(n, n, seed=1), spd(n, seed=2)
-    B = pst.Matrix.from_dense(rand(n, 2, seed=3), nb=4, grid=g)
-    BA = pst.BandMatrix.from_dense(np.triu(np.tril(a, 2), -2), nb=4, grid=g,
-                                   kl=2, ku=2)
-    HB = pst.HermitianBandMatrix.from_dense(np.tril(np.triu(s, -2)), nb=4,
-                                            grid=g, kl=2, ku=2)
-    TB = pst.TriangularBandMatrix.from_dense(np.tril(np.triu(s, -2)), nb=4,
-                                             grid=g, kl=2, ku=0)
-    L = pst.Side.Left
-    return {
-        "gbtrf": lambda: pst.gbtrf(BA), "gbsv": lambda: pst.gbsv(BA, B),
-        "pbtrf": lambda: pst.pbtrf(HB), "pbsv": lambda: pst.pbsv(HB, B),
-        "pbtrs": lambda: pst.pbtrs(None, B),
-        "gbmm": lambda: pst.gbmm(1.0, BA, B, 0.0, B),
-        "hbmm": lambda: pst.hbmm(L, 1.0, HB, B, 0.0, B),
-        "tbsm": lambda: pst.tbsm(L, 1.0, TB, B),
-    }
-
-
 def _now_run():
     """The entry points that once refused a p×q grid and now run on it
     (the least-squares, two-stage and Level-3 BLAS slice; the elementwise
     ops, the generator, the inverses, condition estimates, mixed solves,
-    Aasen and ``gbtrs`` with a p×q B), each on 2×2 with the expected
-    shape of its first output (() for a condition estimate)."""
+    Aasen and ``gbtrs`` with a p×q B; the band factorizations and the
+    band BLAS), each on 2×2 with the expected shape of its first output
+    (() for a condition estimate, ``piv`` [kt, band block] for gbtrf)."""
     g = pgrid(2, 2)
     n = 16
     a, s = rand(n, n, seed=1), spd(n, seed=2)
@@ -223,6 +200,13 @@ def _now_run():
         one = pst.Grid(1, 1, device="cpu")
         return pst.gbtrf(pst.BandMatrix.from_dense(
             np.triu(np.tril(a, 2), -2), nb=4, grid=one, kl=2, ku=2))[:2]
+
+    BA = pst.BandMatrix.from_dense(np.triu(np.tril(a, 2), -2), nb=4, grid=g,
+                                   kl=2, ku=2)
+    HB = pst.HermitianBandMatrix.from_dense(np.tril(np.triu(s, -2)), nb=4,
+                                            grid=g, kl=2, ku=2)
+    TB = pst.TriangularBandMatrix.from_dense(np.tril(np.triu(s, -2)), nb=4,
+                                             grid=g, kl=2, ku=0)
 
     return {
         "add": (lambda: pst.add(1.0, A, 1.0, A), (n, n)),
@@ -279,17 +263,18 @@ def _now_run():
         "trmm": (lambda: pst.trmm(L, 1.0, T, B), (n, 2)),
         "multiply_hermitian": (lambda: pst.multiply(1.0, H, B, 0.0, C),
                                (n, 2)),
+        "gbtrf": (lambda: pst.gbtrf(BA)[1:], (2, 8)),
+        "gbsv": (lambda: pst.gbsv(BA, B)[0], (n, 2)),
+        "pbtrf": (lambda: (pst.pbtrf(HB)[0].to_dense(),), (n, n)),
+        "pbsv": (lambda: pst.pbsv(HB, B)[0], (n, 2)),
+        "pbtrs": (lambda: pst.pbtrs(pst.pbtrf(HB)[0], B), (n, 2)),
+        "gbmm": (lambda: pst.gbmm(1.0, BA, B, 0.0, C), (n, 2)),
+        "hbmm": (lambda: pst.hbmm(L, 1.0, HB, B, 0.0, C), (n, 2)),
+        "tbsm": (lambda: pst.tbsm(L, 1.0, TB, B), (n, 2)),
     }
 
 
-REFUSED = sorted(_refusals())
 NOW_RUN = sorted(_now_run())
-
-
-@pytest.mark.parametrize("name", REFUSED)
-def test_entry_points_outside_the_slice_refuse_pq(name):
-    with pytest.raises(pst.SlateError, match="multi-device"):
-        _refusals()[name]()
 
 
 @pytest.mark.parametrize("name", NOW_RUN)
@@ -313,9 +298,8 @@ def test_entry_points_of_the_slice_run_pq(name):
 
 
 def test_the_two_lists_cover_every_former_refusal():
-    """The 56 entry points of the two lists: 48 that run on a p×q grid,
-    the 8 band entry points that refuse it, none in both."""
-    assert len(NOW_RUN) == 48 and len(REFUSED) == 8
-    assert set(REFUSED) == {"gbtrf", "gbsv", "pbtrf", "pbtrs", "pbsv",
-                            "gbmm", "hbmm", "tbsm"}
-    assert not set(NOW_RUN) & set(REFUSED)
+    """The 56 entry points that once refused a p×q grid all run on it:
+    the 8 band entry points of the last slice among them."""
+    assert len(NOW_RUN) == 56
+    assert {"gbtrf", "gbsv", "pbtrf", "pbtrs", "pbsv", "gbmm", "hbmm",
+            "tbsm"} <= set(NOW_RUN)

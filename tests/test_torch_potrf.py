@@ -199,12 +199,15 @@ def test_unported_options_raise(grid11):
         assert int(info) == 0
     with pytest.raises(pst.SlateError):
         pst.potrf(A, {pst.Option.TrailingPrecision: "nonsense"})
-    # a p×q grid constructs; a driver whose p×q form is not ported
-    # refuses it, and so does a grid over distinct devices
+    # every driver runs on a p×q grid (the band Cholesky gives the
+    # Grid(1, 1) factor bit for bit); a grid over distinct devices raises
     g22 = pst.Grid(2, 2, device="cpu")
-    with pytest.raises(pst.SlateError, match="multi-device"):
-        pst.pbtrf(pst.HermitianBandMatrix.from_dense(
-            np.tril(np.triu(spd(8), -2)), nb=4, grid=g22, kl=2, ku=2))
+    band = np.tril(np.triu(spd(8), -2))
+    F22, info22 = pst.pbtrf(pst.HermitianBandMatrix.from_dense(
+        band, nb=4, grid=g22, kl=2, ku=2))
+    F11, info11 = pst.pbtrf(pst.HermitianBandMatrix.from_dense(
+        band, nb=4, grid=CPU, kl=2, ku=2))
+    assert torch.equal(F22.ab, F11.ab) and int(info22) == int(info11) == 0
     with pytest.raises(pst.SlateError, match="multi-device"):
         pst.Grid(1, 2, devices=["cpu", "meta"])
     # complex runs, through torch.linalg, and gives the JAX package's
