@@ -393,8 +393,8 @@ The p×q slice (virtual ranks on the one card, ``Grid(p, q)``):
    ``posv`` and ``gesv`` alternating, 1–8 right-hand sides (one as a 1-D
    b), on the default bucket table: order kept, buckets as
    ``bucket_for``, x shaped as b, each backward error within
-   10·bucket·2⁻²⁴; groups × rungs, wall, requests/s and
-   ``serve.padded_waste_frac``; the largest ``posv`` group once more
+   10·bucket·2⁻²⁴; groups × rungs, wall, requests/s, the wall's share in
+   the ``serve.dispatch`` spans and ``serve.padded_waste_frac``; the largest ``posv`` group once more
    under ``nan_tile:seed=5``: exactly one request unhealthy, its
    batchmates within the bound.
 
@@ -632,25 +632,28 @@ def spd_stack(batch, n, gen):
 def potrf_stack_row(a):
     """K1's times on the stack ``a`` [batch, nb, nb] beside its plain
     version and ``cholesky_ex`` over the stack; bound: batch·nb³/3 FLOP,
-    or the stack read and written."""
+    or each member's lower triangle read and its factor written (the
+    upper triangle zeroed)."""
     from slate_tpu_torch.internal import kernels as K
     batch, nb = a.shape[0], a.shape[-1]
     return dict(ms=time_ms(lambda: K.potrf_tile(a)),
                 plain_ms=time_ms(lambda: K.potrf_tile_plain(a), reps=3),
                 library_ms=time_ms(lambda: torch.linalg.cholesky_ex(a)),
-                bound=bound(batch * nb ** 3 / 3, 2 * batch * nb * nb * 4))
+                bound=bound(batch * nb ** 3 / 3,
+                            batch * (nb * (nb + 1) / 2 + nb * nb) * 4))
 
 
 def potrf_tile_row(a, plain_reps=REPS):
     """K1's times on the tile ``a`` [nb, nb] beside its plain version and
-    ``cholesky``; bound: nb³/3 FLOP, or the tile read and written."""
+    ``cholesky``; bound: nb³/3 FLOP, or the lower triangle read and the
+    factor written (the upper triangle zeroed)."""
     from slate_tpu_torch.internal import kernels as K
     nb = a.shape[0]
     return dict(ms=time_ms(lambda: K.potrf_tile(a)),
                 plain_ms=time_ms(lambda: K.potrf_tile_plain(a),
                                  reps=plain_reps),
                 library_ms=time_ms(lambda: torch.linalg.cholesky(a)),
-                bound=bound(nb ** 3 / 3, 2 * nb * nb * 4))
+                bound=bound(nb ** 3 / 3, (nb * (nb + 1) / 2 + nb * nb) * 4))
 
 
 def trsm_left_row(l, b, plain_reps=REPS):
@@ -5805,17 +5808,18 @@ def phase_ragged():
     from slate_tpu_torch.robust import faults
     from slate_tpu_torch.serve import solve_ragged
     reqs, cards = ragged_requests(180)
-    obs.reset()
     obs.metrics_on()
     try:
         with faults.inject():
             solve_ragged(reqs[:2])               # warm-up
+            obs.reset()
             t0 = time.perf_counter()
             res = solve_ragged(reqs)
             wall = time.perf_counter() - t0
         waste = {(e["labels"]["routine"], int(e["labels"]["bucket"])):
                  e["value"] for e in obs.dump()["gauges"]
                  if e["name"] == "serve.padded_waste_frac"}
+        dispatch = obs.metrics.span_seconds_total("serve.dispatch")
     finally:
         obs.metrics_off()
     assert [r.tag for r in res] == [q.tag for q in reqs]
@@ -5832,6 +5836,10 @@ def phase_ragged():
             f"{r} {bk}: {len(rungs[(r, bk)])} as rungs {v}"
             for (r, bk), v in plan.items()))
     say(f"  wall {wall * 1e3:.1f} ms, {len(reqs) / wall:.1f} requests/s, "
+        f"of it in serve.dispatch spans (the batched solves and their "
+        f"copies to the host) {dispatch * 1e3:.1f} ms "
+        f"({dispatch / wall:.3f}), the rest grouping, padding and "
+        f"cropping on the host; "
         f"backward error max {max(errs):.3e}; serve.padded_waste_frac "
         + ", ".join(f"{r} {bk}: {w:.3f}" for (r, bk), w in
                     sorted(waste.items())))

@@ -83,9 +83,8 @@ def dump() -> dict:
 
 
 def reset() -> None:
-    """Clear every aggregate and the in-flight request set."""
+    """Clear every aggregate."""
     metrics.reset()
-    correlation.reset()
 
 
 __all__ = ["correlation", "flops", "metrics", "count", "gauge", "observe",

@@ -3,9 +3,10 @@
 
 A context variable carries the IDs of the requests in flight for the
 extent of a dispatch (comma-joined: a batched dispatch serves many
-requests at once), and a set holds the requests admitted and not yet
-resolved. An ID never becomes a metrics label: the serving series
-label on the low-cardinality ``tenant`` and ``slo_class``.
+requests at once). An ID never becomes a metrics label: the serving
+series label on the low-cardinality ``tenant`` and ``slo_class``. The
+JAX package's set of admitted, unresolved requests waits for the
+scheduler that reads it.
 """
 
 from __future__ import annotations
@@ -17,7 +18,6 @@ import threading
 _RIDS: contextvars.ContextVar[str] = contextvars.ContextVar(
     "slate_tpu_torch_rids", default="")
 
-_inflight: set[str] = set()
 _lock = threading.Lock()
 _counter = 0
 
@@ -56,27 +56,3 @@ class bind:
             _RIDS.reset(self._token)
             self._token = None
         return False
-
-
-def mark_inflight(rid: str) -> None:
-    """Register ``rid`` as admitted and not yet resolved."""
-    if rid:
-        with _lock:
-            _inflight.add(rid)
-
-
-def mark_done(rid: str) -> None:
-    if rid:
-        with _lock:
-            _inflight.discard(rid)
-
-
-def inflight() -> tuple[str, ...]:
-    """The admitted, unresolved request IDs, sorted."""
-    with _lock:
-        return tuple(sorted(_inflight))
-
-
-def reset() -> None:
-    with _lock:
-        _inflight.clear()

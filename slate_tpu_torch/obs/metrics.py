@@ -3,14 +3,15 @@ copy of ``slate_tpu/obs/metrics.py``, host Python only).
 
 The registry is process-global: a metric is a ``(name, sorted label
 items)`` key mapping to a float (counter, gauge), a ``[count, sum, min,
-max, samples]`` summary (histogram) or a ``[count, total_seconds]`` pair
-(span aggregate, fed by :func:`~slate_tpu_torch.obs.span` on exit).
+max, {bucket: count}]`` summary (histogram) or a ``[count,
+total_seconds]`` pair (span aggregate, fed by
+:func:`~slate_tpu_torch.obs.span` on exit).
 
-Two histogram kinds, by series name, as in the JAX package:
-``reservoir`` (the default: count and sum cumulative, percentiles from
-the last :data:`HIST_SAMPLE_CAP` samples) and ``log`` (exact over every
-observation, within a bucket's geometric width of ~4.9%), which the
-serving latency series ``serve.latency_s`` and ``serve.stage_s`` use.
+Histograms are the JAX package's ``log`` kind, exact over every
+observation within a bucket's geometric width of ~4.9%, which its
+serving series ``serve.latency_s`` and ``serve.stage_s`` use; the port
+records no other series, so the JAX package's percentile reservoir is
+not ported.
 
 While metrics are off every entry point is one boolean test and a
 return. A ``threading.Lock`` guards the registry (the JAX package's
@@ -27,11 +28,8 @@ _lock = threading.Lock()
 
 _counters: dict[tuple, float] = {}
 _gauges: dict[tuple, float] = {}
-_hists: dict[tuple, list] = {}       # [count, sum, min, max, samples]
 _loghists: dict[tuple, list] = {}    # [count, sum, min, max, {idx: n}]
 _spans: dict[tuple, list] = {}       # [count, total_seconds]
-
-HIST_SAMPLE_CAP = 512
 
 # exact log-bucket histograms: bucket i covers
 # (FLOOR * RATIO**(i-1), FLOOR * RATIO**i], bucket 0 holds v <= FLOOR
@@ -39,9 +37,6 @@ LOG_BUCKET_RATIO = 1.1
 LOG_BUCKET_FLOOR = 1e-6
 _LOG_IDX_CAP = 2048
 _LOG_LN_RATIO = math.log(LOG_BUCKET_RATIO)
-
-# series recorded into exact log buckets instead of the reservoir
-_EXACT_SERIES = frozenset({"serve.latency_s", "serve.stage_s"})
 
 
 def _log_index(v: float) -> int:
@@ -124,33 +119,21 @@ def set_gauge(name: str, value: float, **labels) -> None:
         _gauges[k] = float(value)
 
 
-def _summary_add(h: list, v: float) -> None:
-    h[0] += 1
-    h[1] += v
-    h[2] = min(h[2], v)
-    h[3] = max(h[3], v)
-
-
 def observe(name: str, value: float, **labels) -> None:
-    """Histogram: count, sum, min and max over every observation, with
-    exact log buckets or the percentile reservoir by the series' kind."""
+    """Histogram: count, sum, min and max over every observation, and
+    its exact log buckets."""
     if not _enabled:
         return
     k = _key(name, labels)
     v = float(value)
     with _lock:
-        if name in _EXACT_SERIES:
-            h = _loghists.setdefault(k, [0, 0.0, v, v, {}])
-            _summary_add(h, v)
-            i = _log_index(v)
-            h[4][i] = h[4].get(i, 0) + 1
-            return
-        h = _hists.setdefault(k, [0, 0.0, v, v, []])
-        _summary_add(h, v)
-        if len(h[4]) < HIST_SAMPLE_CAP:
-            h[4].append(v)
-        else:
-            h[4][(h[0] - 1) % HIST_SAMPLE_CAP] = v
+        h = _loghists.setdefault(k, [0, 0.0, v, v, {}])
+        h[0] += 1
+        h[1] += v
+        h[2] = min(h[2], v)
+        h[3] = max(h[3], v)
+        i = _log_index(v)
+        h[4][i] = h[4].get(i, 0) + 1
 
 
 def record_span_stat(name: str, seconds: float, labels: dict) -> None:
@@ -176,27 +159,6 @@ def span_seconds_total(name: str) -> float:
         return sum(s[1] for (n, _), s in _spans.items() if n == name)
 
 
-def percentile(sorted_samples: list, q: float) -> float:
-    """Linear-interpolation percentile of a sorted sample list (numpy's
-    'linear' method)."""
-    n = len(sorted_samples)
-    if n == 1:
-        return sorted_samples[0]
-    pos = q * (n - 1)
-    lo = int(pos)
-    hi = min(lo + 1, n - 1)
-    frac = pos - lo
-    return sorted_samples[lo] * (1.0 - frac) + sorted_samples[hi] * frac
-
-
-def _hist_entry(n: str, lk: tuple, h: list) -> dict:
-    s = sorted(h[4])
-    return {"name": n, "labels": dict(lk), "count": h[0], "sum": h[1],
-            "min": h[2], "max": h[3], "p50": percentile(s, 0.50),
-            "p90": percentile(s, 0.90), "p99": percentile(s, 0.99),
-            "kind": "reservoir"}
-
-
 def _log_entry(n: str, lk: tuple, h: list) -> dict:
     buckets = [[log_bucket_le(i), h[4][i]] for i in sorted(h[4])]
     return {"name": n, "labels": dict(lk), "count": h[0], "sum": h[1],
@@ -210,9 +172,7 @@ def _log_entry(n: str, lk: tuple, h: list) -> dict:
 def snapshot() -> dict:
     """The registry's contents, JSON-ready."""
     with _lock:
-        hists = ([_hist_entry(n, lk, h) for (n, lk), h in _hists.items()]
-                 + [_log_entry(n, lk, h)
-                    for (n, lk), h in _loghists.items()])
+        hists = [_log_entry(n, lk, h) for (n, lk), h in _loghists.items()]
         hists.sort(key=lambda e: (e["name"],
                                   str(sorted(e["labels"].items()))))
         return {
@@ -231,6 +191,5 @@ def reset() -> None:
     with _lock:
         _counters.clear()
         _gauges.clear()
-        _hists.clear()
         _loghists.clear()
         _spans.clear()

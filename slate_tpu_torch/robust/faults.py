@@ -2,17 +2,18 @@
 of ``slate_tpu/robust/faults.py`` that serving reads).
 
 A fault is armed by the ``SLATE_TPU_FAULTS`` environment variable, a
-comma-separated list of ``kind[:seed=N][:target=name][:fires=N]``, the
-JAX package's syntax, or by the :func:`inject` context manager, which
+comma-separated list of ``kind[:seed=N][:target=name]``, the JAX
+package's syntax, or by the :func:`inject` context manager, which
 replaces the env-derived set for its extent (``with faults.inject():``
 arms nothing). Every fired injection is appended to
 :func:`injection_log` and counted as ``faults.injected``.
 
-The serving layer reads ``nan_tile`` and ``singular_pivot``
-(``serve/ragged.py`` corrupts one member of a group with each). The
-other kinds parse as they do in the JAX package; their hooks (the
-driver operands, preemption, checkpoints, bit flips) wait for the rest
-of ``robust/``.
+The port arms the two kinds that serving reads, ``nan_tile`` and
+``singular_pivot`` (``serve/ragged.py`` corrupts one member of a group
+with each). The JAX package's other kinds, and its ``fires=N`` (how
+often a per-step fault lands), have no hook here yet: a spec naming
+one raises rather than arming nothing. A kind neither package knows is
+ignored, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,22 +21,26 @@ from __future__ import annotations
 import dataclasses
 import os
 
+from ..errors import SlateError
+
 ENV = "SLATE_TPU_FAULTS"
 
-KINDS = ("nan_tile", "inf_tile", "singular_pivot", "native_missing",
-         "compile_timeout", "preempt", "ckpt_corrupt", "bit_flip_tile")
+KINDS = ("nan_tile", "singular_pivot")
+
+# the JAX package's kinds whose hooks (the routines' operands, the native
+# toolchain, preemption, checkpoints, bit flips) are not ported
+NOT_PORTED = ("inf_tile", "native_missing", "compile_timeout", "preempt",
+              "ckpt_corrupt", "bit_flip_tile")
 
 
 @dataclasses.dataclass(frozen=True)
 class FaultSpec:
-    """One armed fault: ``kind`` with a ``seed``, an optional ``target``
-    (a routine name; empty matches every target) and ``fires``, how
-    many times a per-step fault lands."""
+    """One armed fault: ``kind`` with a ``seed`` and an optional
+    ``target`` (a routine name; empty matches every target)."""
 
     kind: str
     seed: int = 0
     target: str = ""
-    fires: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +64,10 @@ def _parse(spec: str) -> tuple[FaultSpec, ...]:
         if not item:
             continue
         parts = item.split(":")
-        kind, seed, target, fires = parts[0], 0, "", 1
+        kind, seed, target = parts[0], 0, ""
+        if kind in NOT_PORTED:
+            raise SlateError(f"fault kind {kind!r} is not ported: the port "
+                             f"arms {', '.join(KINDS)}")
         if kind not in KINDS:
             continue                      # unknown kinds are ignored
         for p in parts[1:]:
@@ -68,9 +76,9 @@ def _parse(spec: str) -> tuple[FaultSpec, ...]:
             elif p.startswith("target="):
                 target = p[7:]
             elif p.startswith("fires="):
-                fires = int(p[6:])
-        out.append(FaultSpec(kind=kind, seed=seed, target=target,
-                             fires=fires))
+                raise SlateError(f"{item!r}: fires= is not ported (no "
+                                 f"armed kind lands per step)")
+        out.append(FaultSpec(kind=kind, seed=seed, target=target))
     return tuple(out)
 
 

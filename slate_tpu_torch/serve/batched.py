@@ -142,13 +142,14 @@ def _potrs_stack(l, b):
     return zero_nonfinite(x.to(b.dtype))
 
 
-def _perms_from_ipiv(ipiv: torch.Tensor, rows: int) -> torch.Tensor:
-    """Each member's row permutation ``perm [batch, rows]`` (row i of the
-    pivoted panel is row ``perm[i]`` of the panel) from LAPACK's 1-based
-    ``ipiv [batch, r]``, the ``permutation`` output of XLA's ``lu``. The
-    swaps are composed on the host, one vectorised pass a column, as the
-    port composes the other pivot lists (``runtime.resolve_pivots``)."""
-    piv = np.clip(ipiv.cpu().numpy().astype(np.int64) - 1, 0, rows - 1)
+def _perms_from_ipiv(piv: np.ndarray, rows: int, device) -> torch.Tensor:
+    """Each member's row permutation ``perm [batch, rows]`` on ``device``
+    (row i of the pivoted panel is row ``perm[i]`` of the panel) from
+    LAPACK's 1-based ``piv [batch, r]`` on the host, the ``permutation``
+    output of XLA's ``lu``. The swaps are composed on the host, one
+    vectorised pass a column, as the port composes the other pivot lists
+    (``runtime.resolve_pivots``)."""
+    piv = np.clip(piv.astype(np.int64) - 1, 0, rows - 1)
     batch = piv.shape[0]
     perm = np.tile(np.arange(rows, dtype=np.int64), (batch, 1))
     members = np.arange(batch)
@@ -157,7 +158,7 @@ def _perms_from_ipiv(ipiv: torch.Tensor, rows: int) -> torch.Tensor:
         pj = perm[:, j].copy()
         perm[:, j] = perm[members, p]
         perm[members, p] = pj
-    return torch.from_numpy(perm).to(ipiv.device)
+    return torch.from_numpy(perm).to(device)
 
 
 def _rows(x, perm):
@@ -186,10 +187,14 @@ def _getrf_stack(a, nb, tier):
         # so its factor, and the info counted from it, would differ
         # between the card and the CPU
         redo = (zero > 0) | ~torch.isfinite(pan).flatten(1).all(dim=1)
-        for i in redo.nonzero().flatten().tolist():
+        # the pivots and the redo flags reach the host in one copy: the
+        # panel's only wait for the card
+        host = torch.cat([ipiv, redo[:, None].to(ipiv.dtype)], 1).cpu()
+        piv = host[:, :-1].numpy()
+        for i in np.flatnonzero(host[:, -1].numpy()).tolist():
             lu[i], p0 = _panel_getf2(pan[i].clone())
-            ipiv[i] = (p0 + 1).to(ipiv.dtype)
-        perm = _perms_from_ipiv(ipiv, n - r0)
+            piv[i] = (p0 + 1).cpu().numpy()
+        perm = _perms_from_ipiv(piv, n - r0, dev)
         # a NaN/Inf panel is zero-filled (its poison reaches no batchmate
         # and no later panel) and counts into info beside the zero pivots
         lu, pbad = finite_guard(lu.to(a.dtype),

@@ -82,8 +82,8 @@ class SolveResult:
     """Outcome of one request, in submission order: ``x`` with ``b``'s
     ndim, the request's :class:`HealthReport` (``health.ok`` means served
     and numerically clean), its order, bucket and rung, the chunk's wall
-    seconds, the stage seconds (queue, pack, dispatch, compile, solve,
-    crop: they sum to ``t_done − t_submit``) and ``rid``."""
+    seconds, the stage seconds (queue, pack, solve, crop: they sum to
+    ``t_done − t_submit``) and ``rid``."""
 
     tag: object
     x: np.ndarray | None
@@ -170,7 +170,6 @@ def solve_ragged(requests, *, nb: int | None = None, table=None,
             raise ValueError(
                 f"solve_ragged: unknown routine {r.routine!r} "
                 f"(expected one of {sorted(_CONVENTION)})")
-        correlation.mark_inflight(r.rid)
 
     groups: dict[tuple, list[int]] = {}
     for i, req in enumerate(requests):
@@ -235,7 +234,6 @@ def _dispatch_chunk(routine, bucket, tier, nb, nrhs, chunk, chunk_idx,
     chunk_flops = sum(flop_count(routine, n=np.asarray(m.a).shape[0],
                                  nrhs=nrhs) for m in chunk)
     t_pack = time.time()
-    t0 = time.time()
     with correlation.bind(*(m.rid for m in chunk)):
         with obs.span("serve.dispatch", routine=routine,
                       bucket=str(bucket), b=len(chunk), n=bucket,
@@ -249,7 +247,7 @@ def _dispatch_chunk(routine, bucket, tier, nb, nrhs, chunk, chunk_idx,
             x = x.cpu().numpy()
             info = info.cpu().numpy()
     t_call = time.time()
-    wall = t_call - t0
+    wall = t_call - t_pack
 
     for j, (req, ridx) in enumerate(zip(chunk, chunk_idx)):
         n = np.asarray(req.a).shape[0]
@@ -273,17 +271,17 @@ def _dispatch_chunk(routine, bucket, tier, nb, nrhs, chunk, chunk_idx,
         obs.count("serve.requests", routine=routine, bucket=str(bucket),
                   ok=("yes" if health.ok else "no"), tenant=req.tenant,
                   slo_class=req.slo_class, sched=sched)
-        correlation.mark_done(req.rid)
         results[ridx] = SolveResult(
             tag=req.tag, x=xi, health=health, n=n, bucket=bucket,
             rung=len(chunk), wall_s=wall, rid=req.rid)
 
     # the stages: the chunk's phases are shared by its members, the queue
-    # is each member's own (chunk start − submit − stages already paid);
-    # no executable is compiled here, so "compile" is 0
+    # is each member's own (chunk start − submit − stages already paid).
+    # The JAX package's "dispatch" (a scheduler's hand-off) and "compile"
+    # stages wait for the scheduler and the executable cache
     t_end = time.time()
-    here_shared = dict(pack=t_pack - t_start, dispatch=max(t0 - t_pack, 0.0),
-                       compile=0.0, solve=wall, crop=t_end - t_call)
+    here_shared = dict(pack=t_pack - t_start, solve=wall,
+                       crop=t_end - t_call)
     for req, ridx in zip(chunk, chunk_idx):
         res = results[ridx]
         paid = dict(req.stages)

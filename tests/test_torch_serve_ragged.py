@@ -89,8 +89,7 @@ def test_solve_ragged_matches_jax():
         assert np.abs(r.x - j.x).max() < 1e-9
         ref = np.linalg.solve(q.a, q.b.reshape(n, -1))
         assert np.abs(r.x.reshape(ref.shape) - ref).max() < 1e-9
-        assert set(r.stages) == {"queue", "pack", "dispatch", "compile",
-                                 "solve", "crop"}
+        assert set(r.stages) == {"queue", "pack", "solve", "crop"}
         assert abs(sum(r.stages.values()) - (r.t_done - q.t_submit)) < 1e-3
 
 
@@ -183,7 +182,7 @@ def test_serving_metrics_match_jax():
                              ok="yes", tenant="default",
                              slo_class="standard", sched="direct") == 3
     for name, count in (("serve.latency_s", len(reqs)),
-                        ("serve.stage_s", 6 * len(reqs))):
+                        ("serve.stage_s", 4 * len(reqs))):
         assert sum(e["count"] for e in snap["histograms"]
                    if e["name"] == name) == count
         assert all(e["kind"] == "log" for e in snap["histograms"]
@@ -201,33 +200,43 @@ def test_metrics_off_records_nothing():
     snap = obs.dump()
     assert not snap["counters"] and not snap["histograms"]
     assert not snap["spans"] and not snap["metrics_enabled"]
-    assert obs.correlation.inflight() == ()
 
 
 def test_env_fault_spec_parses_as_in_jax(monkeypatch):
-    spec = "nan_tile:seed=3:target=posv, bogus, singular_pivot:fires=2"
+    spec = "nan_tile:seed=3:target=posv, bogus, singular_pivot:seed=2"
     monkeypatch.setenv(faults.ENV, spec)
     with faults.inject("nan_tile"):
         assert [s.kind for s in faults.active()] == ["nan_tile"]
     faults._override = None
     jfaults._override = None
     assert faults.active() == tuple(
-        faults.FaultSpec(s.kind, s.seed, s.target, s.fires)
+        faults.FaultSpec(s.kind, s.seed, s.target)
         for s in jfaults.active())
     assert faults.enabled("nan_tile", "posv").seed == 3
     assert faults.enabled("nan_tile", "gesv") is None
-    assert faults.enabled("singular_pivot", "gesv").fires == 2
+    assert faults.enabled("singular_pivot", "gesv").seed == 2
+
+
+@pytest.mark.parametrize("spec", ["inf_tile", "bit_flip_tile:seed=1",
+                                  "preempt:target=potrf",
+                                  "singular_pivot:fires=2"])
+def test_fault_spec_without_a_port_raises(spec):
+    """A kind the JAX package arms but the port has no hook for, or a
+    ``fires=`` count, raises where the JAX package would arm it."""
+    jfaults.inject(spec)
+    with pytest.raises(pst.SlateError, match="not ported"):
+        faults.inject(spec)
 
 
 def test_metrics_registry_matches_jax():
     """The same observations give the JAX package's snapshot: counters,
-    gauges, the exact log-bucket and the reservoir histograms with their
-    percentiles, and span aggregates."""
+    gauges, the exact log-bucket histograms with their quantiles, and
+    span aggregates."""
     vals = np.random.default_rng(3).lognormal(-6, 2, 700)
     for pkg in (obs, jobs):
         for v in vals:
             pkg.observe("serve.latency_s", v, routine="posv")
-            pkg.observe("other_s", v, routine="posv")
+            pkg.observe("serve.stage_s", v, stage="pack")
         pkg.count("c", 2.5, k="x")
         pkg.gauge("g", 7.0)
         pkg.metrics.record_span_stat("s", 0.25, {"a": 1})
